@@ -1,0 +1,17 @@
+"""morgana_tpu_torch — the PyTorch and CUDA port of morgana_tpu for NVIDIA Hopper.
+
+The JAX package ``morgana_tpu`` is the reference; this package keeps its
+module names and parameter names, so one ``epoch_{N}.npz`` checkpoint drives
+both. Its kernels are written by hand for ``sm_90a`` under ``csrc/`` and
+built at first use (``_build.py``); each has a plain PyTorch version beside
+it, which runs for tensors on the CPU. Entry points run on the GPU unless the
+caller passes ``device='cpu'`` (``device.py``).
+
+This slice serves ``models/rnn_spss.py``'s ``LSTMAcousticModel`` through
+:class:`morgana_tpu_torch.serve.InferenceEngine`.
+"""
+__version__ = '0.1.0'
+
+from morgana_tpu_torch.device import DeviceError, resolve_device
+
+__all__ = ['DeviceError', 'resolve_device', '__version__']

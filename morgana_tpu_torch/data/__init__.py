@@ -1,0 +1,12 @@
+"""Data pipeline of the port: sources, normalisers, dataset, collate and an
+in-order loader."""
+from morgana_tpu_torch.data import file_io
+from morgana_tpu_torch.data import sources as data_sources
+from morgana_tpu_torch.data.dataset import FilesDataset, assemble_item, bucket_size, collate
+from morgana_tpu_torch.data.loader import batch
+from morgana_tpu_torch.data.normalisers import MeanVarianceNormaliser, MinMaxNormaliser
+from morgana_tpu_torch.data.sources import NumpyBinarySource, TextSource, _DataSource
+
+__all__ = ['file_io', 'data_sources', 'FilesDataset', 'assemble_item', 'bucket_size', 'collate',
+           'batch', 'MeanVarianceNormaliser', 'MinMaxNormaliser', 'NumpyBinarySource',
+           'TextSource', '_DataSource']

@@ -1,0 +1,137 @@
+"""Layers of the serving path, with the JAX package's parameter names and
+layouts (counterpart of ``morgana_tpu/nn.py``).
+
+Weights are stored as the JAX package stores them, ``(in, out)`` for
+``Linear`` and ``(in, gates)`` for ``Recurrent``, so that
+:func:`load_jax_params` copies an ``epoch_{N}.npz`` (or
+``morgana_tpu.nn.state_dict``) into these modules by name, unchanged.
+"""
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from morgana_tpu_torch.ops.lstm import lstm_layer
+
+__all__ = ['Linear', 'Sigmoid', 'Dropout', 'Recurrent', 'SequentialWithRecurrent',
+           'load_jax_params']
+
+Sigmoid = nn.Sigmoid
+Dropout = nn.Dropout  # identity in eval mode
+
+
+def _uniform(shape, bound, generator):
+    return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
+
+
+class Linear(nn.Module):
+    """Dense layer with the kernel stored ``(in, out)`` (``nn.py:354``).
+    Init U(-1/sqrt(in), 1/sqrt(in)), as ``torch.nn.Linear``."""
+
+    def __init__(self, in_features, out_features, generator=None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = _uniform((in_features, out_features), bound, generator)
+        self.bias = _uniform((out_features,), bound, generator)
+
+    def forward(self, x):
+        return torch.matmul(x, self.weight) + self.bias
+
+
+class Recurrent(nn.Module):
+    """Unidirectional LSTM stack (``nn.py:570``): parameters ``w_ih_l{i}``
+    (in, 4H), ``w_hh_l{i}`` (H, 4H), ``b_ih_l{i}``, ``b_hh_l{i}`` (4H,), gate
+    order i, f, g, o.
+
+    ``backend`` 'scan' and 'pallas' name the JAX package's two layer
+    implementations, which compute the same function; here both run
+    :func:`morgana_tpu_torch.ops.lstm.lstm_layer` (kernel K1 on the GPU).
+    """
+
+    def __init__(self, mode, input_size, hidden_size, num_layers=1, dropout=0.0,
+                 backend='scan', generator=None):
+        super().__init__()
+        if mode.lower() != 'lstm':
+            raise NotImplementedError(f'Recurrent mode {mode!r}: this port has LSTM only')
+        if backend == 'wavefront':
+            raise NotImplementedError("backend 'wavefront' is not ported yet")
+        if backend not in ('scan', 'pallas'):
+            raise ValueError(f'Unsupported backend {backend!r}')
+        self.num_layers = num_layers
+        self.dropout = Dropout(dropout) if dropout else None
+        bound = 1.0 / math.sqrt(hidden_size)
+        for i in range(num_layers):
+            in_dim = input_size if i == 0 else hidden_size
+            self.register_parameter(f'w_ih_l{i}', _uniform((in_dim, 4 * hidden_size), bound, generator))
+            self.register_parameter(f'w_hh_l{i}', _uniform((hidden_size, 4 * hidden_size), bound, generator))
+            self.register_parameter(f'b_ih_l{i}', _uniform((4 * hidden_size,), bound, generator))
+            self.register_parameter(f'b_hh_l{i}', _uniform((4 * hidden_size,), bound, generator))
+
+    def forward(self, inputs, hidden=None, seq_len=None):
+        squeeze_time = inputs.ndim == 2
+        if squeeze_time:
+            inputs = inputs[:, None, :]
+        if hidden is None:
+            hidden = [None] * self.num_layers
+        elif self.num_layers == 1 and not isinstance(hidden, list):
+            hidden = [hidden]
+
+        x = inputs
+        new_hidden = []
+        for i in range(self.num_layers):
+            h0, c0 = (None, None) if hidden[i] is None else hidden[i]
+            x, hc = lstm_layer(x, getattr(self, f'w_ih_l{i}'), getattr(self, f'w_hh_l{i}'),
+                               getattr(self, f'b_ih_l{i}'), getattr(self, f'b_hh_l{i}'),
+                               seq_len=seq_len, h0=h0, c0=c0)
+            new_hidden.append(hc)
+            if self.dropout is not None and i < self.num_layers - 1:
+                x = self.dropout(x)
+        if squeeze_time:
+            x = x[:, 0, :]
+        if self.num_layers == 1:
+            new_hidden = new_hidden[0]
+        return x, new_hidden
+
+
+class SequentialWithRecurrent(nn.Module):
+    """Sequential container passing ``seq_len`` to its recurrent members
+    (``nn.py:1424``, without the streaming states); members are named ``0``,
+    ``1``, ..."""
+
+    def __init__(self, *modules):
+        super().__init__()
+        for i, module in enumerate(modules):
+            self.add_module(str(i), module)
+
+    def forward(self, input, seq_len=None):
+        for module in self.children():
+            if isinstance(module, Recurrent):
+                input, _ = module(input, seq_len=seq_len)
+            else:
+                input = module(input)
+        return input
+
+
+def load_jax_params(module, params):
+    """Copies a ``{name: array}`` dict, as ``morgana_tpu.nn.state_dict``
+    returns or an ``epoch_{N}.npz`` holds, into ``module``'s parameters.
+
+    Strict: a missing or unexpected name raises ``KeyError`` (as
+    ``morgana_tpu.nn.load_state_dict`` does) and a shape that differs raises
+    ``ValueError``, before any parameter is written.
+    """
+    own = dict(module.named_parameters())
+    missing = set(own) - set(params)
+    unexpected = set(params) - set(own)
+    if missing or unexpected:
+        raise KeyError(f'state_dict mismatch: missing={sorted(missing)}, '
+                       f'unexpected={sorted(unexpected)}')
+    values = {name: np.asarray(value) for name, value in params.items()}
+    for name, value in values.items():
+        if tuple(value.shape) != tuple(own[name].shape):
+            raise ValueError(f'{name}: checkpoint shape {tuple(value.shape)}, '
+                             f'module shape {tuple(own[name].shape)}')
+    with torch.no_grad():
+        for name, value in values.items():
+            own[name].copy_(torch.tensor(value))

@@ -1,0 +1,131 @@
+"""The port's LSTM layer (the counterpart of ops/pallas_rnn.py, kernel K1 on
+the GPU) and its nn modules against the JAX package on the CPU, at the bar of
+tests/test_pallas_rnn.py: 1e-5 abs in f32. The kernel itself is held against
+the plain version on the GPU by tests/test_torch_kernels.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from morgana_tpu import nn as jnn
+from morgana_tpu.ops import rnn as rnn_ops
+from morgana_tpu.ops.pallas_rnn import lstm_layer as pallas_lstm_layer
+
+from morgana_tpu_torch import nn as tnn
+from morgana_tpu_torch.ops import lstm as lstm_ops
+
+B, T, I, H = 4, 24, 8, 64
+ATOL = 1e-5
+
+
+def _inputs(seed, batch=B, steps=T):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch, steps, I)).astype(np.float32)
+    weights = [(0.3 * rng.normal(size=shape)).astype(np.float32)
+               for shape in ((I, 4 * H), (H, 4 * H), (4 * H,), (4 * H,))]
+    h0 = rng.normal(size=(batch, H)).astype(np.float32)
+    c0 = rng.normal(size=(batch, H)).astype(np.float32)
+    return x, weights, h0, c0
+
+
+@pytest.mark.parametrize('seq_len', [None, [T, 13, 1, 0], [1, 1, 1, 1]],
+                         ids=['no_seq_len', 'ragged_with_0_and_1', 'all_1'])
+@pytest.mark.parametrize('with_state', [False, True], ids=['zero_state', 'h0_c0'])
+def test_lstm_layer_matches_pallas_interpret_and_scan(seq_len, with_state):
+    """Outputs (zero past seq_len) and the final (h, c) at seq_len, h0/c0 for
+    an empty row."""
+    x, weights, h0, c0 = _inputs(0)
+    state = (h0, c0) if with_state else (None, None)
+    jargs = dict(seq_len=None if seq_len is None else jnp.asarray(seq_len),
+                 h0=None if state[0] is None else jnp.asarray(h0),
+                 c0=None if state[1] is None else jnp.asarray(c0))
+    want_pl = pallas_lstm_layer(jnp.asarray(x), *map(jnp.asarray, weights), interpret=True, **jargs)
+    want_scan = rnn_ops.lstm(jnp.asarray(x), *map(jnp.asarray, weights), **jargs)
+    got = lstm_ops.lstm_layer(
+        torch.from_numpy(x), *map(torch.from_numpy, weights),
+        seq_len=None if seq_len is None else torch.tensor(seq_len),
+        h0=None if state[0] is None else torch.from_numpy(h0),
+        c0=None if state[1] is None else torch.from_numpy(c0))
+    (y, (hn, cn)) = got
+    for want in (want_pl, want_scan):
+        wy, (wh, wc) = want
+        np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=ATOL)
+        np.testing.assert_allclose(hn.numpy(), np.asarray(wh), atol=ATOL)
+        np.testing.assert_allclose(cn.numpy(), np.asarray(wc), atol=ATOL)
+    if seq_len is not None:
+        for b, n in enumerate(seq_len):
+            assert (y[b, n:] == 0).all()
+        if with_state and 0 in seq_len:
+            empty = seq_len.index(0)
+            np.testing.assert_array_equal(hn[empty].numpy(), h0[empty])
+            np.testing.assert_array_equal(cn[empty].numpy(), c0[empty])
+
+
+def test_recurrence_reference_is_the_cpu_path():
+    """On CPU tensors lstm_layer runs the plain version and launches nothing."""
+    x, weights, h0, c0 = _inputs(1)
+    before = lstm_ops.launches
+    got = lstm_ops.lstm_layer(torch.from_numpy(x), *map(torch.from_numpy, weights))
+    want = lstm_ops.lstm_layer_reference(torch.from_numpy(x), *map(torch.from_numpy, weights))
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    assert lstm_ops.launches == before
+
+
+def _jax_recurrent(num_layers, seed):
+    jnn.manual_seed(seed)
+    return jnn.Recurrent('lstm', I, H, num_layers=num_layers)
+
+
+@pytest.mark.parametrize('streaming', [False, True], ids=['sequence', 'one_frame_2d'])
+def test_recurrent_stack_matches_jax(streaming):
+    """Two stacked layers with the JAX names (w_ih_l0, ..., b_hh_l1) carried
+    across by load_jax_params; a 2-d input is one frame (the streaming
+    call) and threads given states through."""
+    jmod = _jax_recurrent(2, 5)
+    tmod = tnn.Recurrent('lstm', I, H, num_layers=2)
+    tnn.load_jax_params(tmod, jnn.state_dict(jmod))
+    rng = np.random.default_rng(6)
+    if streaming:
+        x = rng.normal(size=(B, I)).astype(np.float32)
+        states = [tuple(rng.normal(size=(B, H)).astype(np.float32) for _ in range(2))
+                  for _ in range(2)]
+        jy, jh = jmod(jnp.asarray(x), [tuple(map(jnp.asarray, s)) for s in states])
+        ty, th = tmod(torch.from_numpy(x), [tuple(map(torch.from_numpy, s)) for s in states])
+    else:
+        x = rng.normal(size=(B, T, I)).astype(np.float32)
+        seq_len = np.array([T, 9, 1, 0])
+        jy, jh = jmod(jnp.asarray(x), seq_len=jnp.asarray(seq_len))
+        ty, th = tmod(torch.from_numpy(x), seq_len=torch.from_numpy(seq_len))
+    assert ty.shape == tuple(jy.shape)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), atol=ATOL)
+    for (th_i, tc_i), (jh_i, jc_i) in zip(th, jh):
+        np.testing.assert_allclose(th_i.detach().numpy(), np.asarray(jh_i), atol=ATOL)
+        np.testing.assert_allclose(tc_i.detach().numpy(), np.asarray(jc_i), atol=ATOL)
+
+
+def test_load_jax_params_is_strict():
+    """A missing, unexpected or misshapen entry raises before anything is
+    written."""
+    params = jnn.state_dict(_jax_recurrent(1, 7))
+    tmod = tnn.Recurrent('lstm', I, H)
+    before = {k: v.detach().clone() for k, v in tmod.named_parameters()}
+
+    missing = dict(params)
+    del missing['b_hh_l0']
+    with pytest.raises(KeyError, match='b_hh_l0'):
+        tnn.load_jax_params(tmod, missing)
+    with pytest.raises(KeyError, match='w_ih_l1'):
+        tnn.load_jax_params(tmod, dict(params, w_ih_l1=params['w_ih_l0']))
+    bad = dict(params, w_hh_l0=params['w_hh_l0'].T[:, :H])
+    with pytest.raises(ValueError, match='w_hh_l0'):
+        tnn.load_jax_params(tmod, bad)
+    for name, value in tmod.named_parameters():
+        torch.testing.assert_close(value, before[name], rtol=0, atol=0)
+
+    tnn.load_jax_params(tmod, params)
+    np.testing.assert_array_equal(tmod.w_hh_l0.detach().numpy(), params['w_hh_l0'])
+
+
+def test_wavefront_backend_is_not_ported():
+    with pytest.raises(NotImplementedError):
+        tnn.Recurrent('lstm', I, H, backend='wavefront')
