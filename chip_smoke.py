@@ -15,16 +15,32 @@ code and without the final line:
 3. kernel K1 (the LSTM layer recurrence) against its plain PyTorch version
    and against torch.nn.LSTM (cuDNN, a yardstick the port never calls), at
    H=512, ragged seq_len, with and without an initial state; times.
-4. serving: LSTMAcousticModel at full width (609 inputs, 8 x LSTM(512),
+4. k2: the gradient path of the LSTM layer, K1 writing its gate trace and
+   K2 (the backward), against autograd through the plain recurrence, for a
+   loss on y, hn and cn under ragged seq_len; the gate trace against the
+   plain gates; times of K2, of K1 with and without the gate trace, and of
+   one torch.nn.LSTM forward+backward (cuDNN) beside the port's layer.
+5. serving: LSTMAcousticModel at full width (609 inputs, 8 x LSTM(512),
    199 outputs) with seeded weights and normaliser statistics, served by
    InferenceEngine.predict_items on 32 utterances of 200-1000 frames; checks
    shapes, finiteness, K1's launch count and agreement with the same engine
    on the CPU; throughput, peak memory and where a batch's time goes.
+6. train: the same model trained at full width by the port's
+   ExperimentBuilder with the JAX package's defaults (B=32, Adam, lr 0.01,
+   constant schedule) for 2 epochs with validation, on a synthetic corpus of
+   64 + 16 utterances of about 200-1000 frames, from a seeded epoch_0.npz;
+   checks finite losses and metrics, 8 launches each of K1-with-gates and
+   K2 per train step, K1 without gates in validation, the outputs and the
+   checkpoint's strict reload; ms per step, frames/s, peak memory and where
+   a step's time goes.
+7. train_parity: the same trainer on the GPU and on the CPU (plain
+   versions) from the same init and data, 3 steps of B=4 at full width:
+   per-step losses and the first step's gradients.
 
-Then a line {"kernels": [...]} with each kernel's numbers at the serving
+Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 Needs no network and writes only to a temporary directory. The profiler's
-device-time table of one batch goes to stderr.
+device-time tables go to stderr.
 """
 import json
 import math
@@ -39,11 +55,20 @@ import numpy as np
 H = 512
 F32_PEAK_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
-KERNEL_TOL = 1e-4           # K1 vs plain and vs cuDNN, f32, abs
+KERNEL_TOL = 1e-4           # K1 vs plain and vs cuDNN, f32, abs; also the gate trace
 NET_TOL = 1e-4              # network outputs, GPU engine vs CPU engine, abs
 TRAJ_RTOL = 1e-3            # MLPG trajectories, GPU vs CPU, relative to max |value|
+# Gradients of the kernel path vs autograd through the plain loop, each
+# relative to its tensor's max |value|: f32 sums in other orders, over up to
+# 1024 steps, and dW_hh sums T * B terms.
+GRAD_RTOL = 1e-3
+# GPU trainer vs CPU trainer: per-step losses (relative) and the first
+# step's gradients (relative to each parameter's max |grad|).
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_RTOL = 1e-3
 SERVE_BATCH = 16
 N_UTTS = 32
+TRAIN_BATCH = 32
 
 
 def emit(obj):
@@ -70,20 +95,33 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def k1_bound(batch, time_steps, hidden):
+def k1_bound(batch, time_steps, hidden, gates=False):
     """Least time for the recurrence: 2*B*H*4H flops per step against the
     float32 peak, and xg read plus y and c_all written (with w_hh, h0, c0
-    read and hn, cn written) against the memory rate."""
+    read and hn, cn written; with `gates`, g_all (T, B, 4H) written too)
+    against the memory rate."""
     flops = 2.0 * batch * hidden * 4 * hidden * time_steps
-    nbytes = 4.0 * (time_steps * batch * 4 * hidden + 2 * time_steps * batch * hidden
-                    + hidden * 4 * hidden + 4 * batch * hidden)
+    nbytes = 4.0 * ((2 if gates else 1) * time_steps * batch * 4 * hidden
+                    + 2 * time_steps * batch * hidden + hidden * 4 * hidden + 4 * batch * hidden)
     ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
-def k1_case(torch, dev, batch, time_steps, with_state, seed, timed):
-    from morgana_tpu_torch.ops import lstm as lstm_ops
+def k2_bound(batch, time_steps, hidden):
+    """Least time for the backward recurrence: 2*B*4H*H flops per step
+    (dh = dxg @ w_hh^T) against the float32 peak, and g_all read plus dxg
+    written, c_all, dy and dc_all read (with w_hh, c0, dhn, dcn read and
+    dh0, dc0 written) against the memory rate."""
+    flops = 2.0 * batch * 4 * hidden * hidden * time_steps
+    nbytes = 4.0 * (2 * time_steps * batch * 4 * hidden + 3 * time_steps * batch * hidden
+                    + hidden * 4 * hidden + 5 * batch * hidden)
+    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
+
+def layer_inputs(torch, dev, batch, time_steps, with_state, seed):
+    """Seeded inputs of one LSTM(512) layer: x, the four weights, a ragged
+    seq_len (one row of T, one of 1) and an optional initial state."""
     rng = np.random.default_rng(seed)
     bound = 1.0 / math.sqrt(H)
 
@@ -91,7 +129,7 @@ def k1_case(torch, dev, batch, time_steps, with_state, seed, timed):
         return torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32)).to(dev)
 
     x = torch.from_numpy(rng.normal(size=(batch, time_steps, H)).astype(np.float32)).to(dev)
-    w_ih, w_hh, b_ih, b_hh = uniform(H, 4 * H), uniform(H, 4 * H), uniform(4 * H), uniform(4 * H)
+    weights = [uniform(H, 4 * H), uniform(H, 4 * H), uniform(4 * H), uniform(4 * H)]
     seq_len = rng.integers(1, time_steps + 1, batch)
     seq_len[0] = time_steps
     seq_len[-1] = 1
@@ -100,13 +138,15 @@ def k1_case(torch, dev, batch, time_steps, with_state, seed, timed):
     if with_state:
         h0 = torch.from_numpy(0.5 * rng.normal(size=(batch, H)).astype(np.float32)).to(dev)
         c0 = torch.from_numpy(0.5 * rng.normal(size=(batch, H)).astype(np.float32)).to(dev)
+    return x, weights, seq_len, h0, c0
 
-    cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
-    with torch.no_grad():
-        cudnn.weight_ih_l0.copy_(w_ih.t())
-        cudnn.weight_hh_l0.copy_(w_hh.t())
-        cudnn.bias_ih_l0.copy_(b_ih)
-        cudnn.bias_hh_l0.copy_(b_hh)
+
+def k1_case(torch, dev, batch, time_steps, with_state, seed, timed):
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    x, (w_ih, w_hh, b_ih, b_hh), seq_len, h0, c0 = layer_inputs(
+        torch, dev, batch, time_steps, with_state, seed)
+    cudnn = cudnn_layer(torch, dev, w_ih, w_hh, b_ih, b_hh)
 
     with torch.inference_mode():
         y_k, (hn_k, cn_k) = lstm_ops.lstm_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0)
@@ -140,6 +180,100 @@ def k1_case(torch, dev, batch, time_steps, with_state, seed, timed):
     emit(out)
     if not (err_plain <= KERNEL_TOL and err_cudnn <= KERNEL_TOL):
         raise AssertionError(f'K1 disagrees at B={batch} T={time_steps}: {out}')
+    return out
+
+
+def cudnn_layer(torch, dev, w_ih, w_hh, b_ih, b_hh):
+    """torch.nn.LSTM (cuDNN) holding the same weights: the yardstick."""
+    cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(w_ih.t())
+        cudnn.weight_hh_l0.copy_(w_hh.t())
+        cudnn.bias_ih_l0.copy_(b_ih)
+        cudnn.bias_hh_l0.copy_(b_hh)
+    return cudnn
+
+
+def layer_grads(torch, layer, x, weights, seq_len, h0, c0, loss_weights):
+    """Gradients of sum(y*wy) + sum(hn*wh) + sum(cn*wc) with respect to x,
+    the four weights, h0 and c0 (zeros given when there is no state)."""
+    batch = x.shape[0]
+    h0 = torch.zeros((batch, H), device=x.device) if h0 is None else h0
+    c0 = torch.zeros((batch, H), device=x.device) if c0 is None else c0
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, *weights, h0, c0)]
+    y, (hn, cn) = layer(*leaves[:5], seq_len=seq_len, h0=leaves[5], c0=leaves[6])
+    loss = sum((out * w).sum() for out, w in zip((y, hn, cn), loss_weights))
+    return torch.autograd.grad(loss, leaves)
+
+
+def k2_case(torch, dev, batch, time_steps, with_state, seed, timed):
+    """The gradient path (K1 with gates, then K2) against autograd through
+    the plain recurrence; the gate trace against the plain gates; with
+    `timed`, the times of K2, of K1 with and without gates, and of a layer
+    forward+backward beside cuDNN's."""
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    x, weights, seq_len, h0, c0 = layer_inputs(torch, dev, batch, time_steps, with_state, seed)
+    rng = np.random.default_rng(seed + 100)
+    loss_weights = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+                    for shape in ((batch, time_steps, H), (batch, H), (batch, H))]
+    names = ('dx', 'dw_ih', 'dw_hh', 'db_ih', 'db_hh', 'dh0', 'dc0')
+
+    before = (lstm_ops.gate_launches, lstm_ops.bwd_launches)
+    got = layer_grads(torch, lstm_ops.lstm_layer, x, weights, seq_len, h0, c0, loss_weights)
+    torch.cuda.synchronize()
+    launched = (lstm_ops.gate_launches - before[0], lstm_ops.bwd_launches - before[1])
+    want = layer_grads(torch, lstm_ops.lstm_layer_reference, x, weights, seq_len, h0, c0,
+                       loss_weights)
+    grad_rel = {n: float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for n, g, w in zip(names, got, want)}
+
+    w_ih, w_hh, b_ih, b_hh = weights
+    zeros = torch.zeros((batch, H), device=dev)
+    hs, cs = (zeros, zeros) if h0 is None else (h0, c0)
+    xg = (torch.matmul(x, w_ih) + (b_ih + b_hh)).transpose(0, 1).contiguous()
+    _, c_all, g_kernel, _, _ = lstm_ops.lstm_recurrence(xg, w_hh, hs, cs, with_gates=True)
+    _, _, g_plain, _, _ = lstm_ops.lstm_recurrence_reference(xg, w_hh, hs, cs)
+    gate_err = float((g_kernel - g_plain).abs().max())
+
+    # K2 alone against its plain version on the same saved tensors.
+    cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+           for shape in ((time_steps, batch, H), (time_steps, batch, H), (batch, H), (batch, H))]
+    bwd_args = (g_kernel, w_hh, cs, c_all, *cot)
+    dxg_k = lstm_ops.lstm_backward(*bwd_args)
+    dxg_p = lstm_ops.lstm_backward_reference(*bwd_args)
+    k2_err = max(float((a - b).abs().max()) for a, b in zip(dxg_k, dxg_p))
+    k2_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                 for a, b in zip(dxg_k, dxg_p))
+
+    out = {'phase': 'k2', 'B': batch, 'T': time_steps, 'H': H, 'initial_state': with_state,
+           'grad_rel_err_vs_plain': grad_rel, 'grad_rtol': GRAD_RTOL,
+           'gate_trace_max_abs_err': gate_err, 'gate_tol': KERNEL_TOL,
+           'k2_max_abs_err': k2_err, 'k2_rel_err': k2_rel,
+           'k1_gate_launches': launched[0], 'k2_launches': launched[1]}
+    if timed:
+        out['kernel_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_backward(*bwd_args), 10)
+        out['plain_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_backward_reference(*bwd_args), 2)
+        out['bound_ms'], out['bound_by'] = k2_bound(batch, time_steps, H)
+        out['k1_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence(xg, w_hh, hs, cs), 10)
+        out['k1_gates_ms'] = cuda_ms(
+            torch, lambda: lstm_ops.lstm_recurrence(xg, w_hh, hs, cs, with_gates=True), 10)
+        out['k1_gates_bound_ms'], out['k1_gates_bound_by'] = k1_bound(batch, time_steps, H, True)
+        out['layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: layer_grads(
+            torch, lstm_ops.lstm_layer, x, weights, seq_len, h0, c0, loss_weights), 5)
+        cudnn = cudnn_layer(torch, dev, *weights)
+        hx = None if h0 is None else (h0[None].contiguous(), c0[None].contiguous())
+
+        def cudnn_fwd_bwd():
+            y_c, _ = cudnn(x, hx)
+            (y_c * loss_weights[0]).sum().backward()
+
+        # cuDNN's backward cannot be timed alone: this includes its forward.
+        out['library_ms'] = cuda_ms(torch, cudnn_fwd_bwd, 5)
+    emit(out)
+    if not (max(grad_rel.values()) <= GRAD_RTOL and gate_err <= KERNEL_TOL
+            and k2_rel <= GRAD_RTOL and launched == (1, 1)):
+        raise AssertionError(f'K1 with gates / K2 disagree at B={batch} T={time_steps}: {out}')
     return out
 
 
@@ -271,7 +405,7 @@ def serving_phase(torch, root):
             streams[name] = (m.normalisers[name].denormalise(pred, deltas=True), std_dev ** 2)
         _, mlpg_ms = timed(lambda: MLPG_streams(streams, padding_size=100,
                                                 seq_len=batch['n_frames']))
-        profile = profile_predict(torch, lambda: m.predict(batch))
+        profile = profile_step(torch, lambda: m.predict(batch))
     emit({'phase': 'serve', 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
           'utterances': N_UTTS, 'frames': frames, 'batch_size': SERVE_BATCH,
           'batches': n_batches, 'seconds': seconds,
@@ -287,10 +421,185 @@ def serving_phase(torch, root):
     return launches
 
 
-def profile_predict(torch, fn):
-    """One profiled call: device time by kernel (K1, GEMMs, the rest), the
-    number of kernels, and the host ops that took the most time. The table
-    by device time goes to stderr."""
+def seeded_checkpoint(torch, path, seed):
+    """A full-width LSTMAcousticModel with weights from `seed`, saved as the
+    JAX package's epoch_0.npz."""
+    from morgana_tpu_torch import checkpointing, nn
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+
+    model = LSTMAcousticModel(generator=torch.Generator().manual_seed(seed))
+    return checkpointing.save_state_dict(nn.state_dict(model), path)
+
+
+def builder_argv(data_root, experiments_base, name, ckpt, *flags):
+    """The training command line of the main path: the JAX package's
+    defaults, with the corpus, the init and the output named."""
+    return ['--experiment_name', name, '--experiments_base', experiments_base,
+            '--data_root', data_root, '--train_id_list', 'train/train_file_id_list.scp',
+            '--valid_id_list', 'valid/valid_file_id_list.scp', '--checkpoint_path', ckpt,
+            *flags]
+
+
+def train_phase(torch, root):
+    """Trains the full-width model for 2 epochs through the ExperimentBuilder
+    on the card and checks what it wrote; then times and profiles steps."""
+    from morgana_tpu_torch import nn
+    from morgana_tpu_torch.data.synthetic import generate_voice_data
+    from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.training import device_features
+    from morgana_tpu_torch.viz.synthesis import MLPG_streams
+
+    data_root = os.path.join(root, 'train_data')
+    start = time.perf_counter()
+    generate_voice_data(data_root, num_train=64, num_valid=16, num_test=0, seed=7,
+                        n_phones_range=(40, 120), dur_range=(5, 10))
+    corpus_s = time.perf_counter() - start
+    ckpt = seeded_checkpoint(torch, os.path.join(root, 'init', 'epoch_0.npz'), 11)
+    exp_base = os.path.join(root, 'experiments')
+    args = ExperimentBuilder.get_experiment_args(
+        builder_argv(data_root, exp_base, 'train', ckpt, '--end_epoch', '2'))
+    exp = ExperimentBuilder(LSTMAcousticModel, **args)
+    steps_per_epoch = len(exp.train_loader)
+    valid_batches = len(exp.valid_loader)
+    layers = sum(isinstance(m, nn.Recurrent) for m in exp.model.modules())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lstm_ops.launches = lstm_ops.gate_launches = lstm_ops.bwd_launches = 0
+    start = time.perf_counter()
+    exp.run_experiment()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    launches = {'k1': lstm_ops.launches, 'k1_gates': lstm_ops.gate_launches,
+                'k2': lstm_ops.bwd_launches}
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    train_steps = 2 * steps_per_epoch
+    expected = {'k1': layers * (train_steps + 2 * valid_batches),
+                'k1_gates': layers * train_steps, 'k2': layers * train_steps}
+    if launches != expected:
+        raise AssertionError(f'launches {launches}, expected {expected}')
+    exp_dir = os.path.join(exp_base, 'train')
+    epoch_metrics = {}
+    for mode in ('train', 'valid'):
+        for epoch in (1, 2):
+            with open(os.path.join(exp_dir, mode, f'epoch_{epoch}', 'metrics.json')) as f:
+                epoch_metrics[f'{mode}_{epoch}'] = json.load(f)
+    step_losses = [x for epoch in (1, 2) for x in exp.train_losses[epoch]]
+    values = step_losses + [v for m in epoch_metrics.values() for v in m.values()]
+    if len(step_losses) != train_steps or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f'non-finite or missing losses/metrics: {step_losses} {epoch_metrics}')
+    reloaded = LSTMAcousticModel()
+    nn.load_jax_params(reloaded, np.load(os.path.join(exp_dir, 'checkpoints', 'epoch_2.npz')))
+    for name in ('config.json', 'checkpoints/epoch_1.npz', 'model_summary.txt'):
+        if not os.path.exists(os.path.join(exp_dir, name)):
+            raise AssertionError(f'{name} was not written')
+
+    # Steady-state steps on one full batch, host clock around synchronised
+    # calls; then one profiled step and the MLPG's share of it.
+    features = next(iter(exp.train_loader))
+    exp.model.mode = 'train'
+    step_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.loop.train_step(features, exp.learning_rate)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    profile = profile_step(torch, lambda: exp.loop.train_step(features, exp.learning_rate))
+    model = exp.model
+    batch = device_features(features, exp.device)
+    with torch.no_grad():
+        heads = model._split_heads(model.layers(model.stream_inputs(batch),
+                                                seq_len=batch['n_frames']))
+        streams = {}
+        for name, pred in (('lf0', heads[0]), ('mcep', heads[2]), ('bap', heads[3])):
+            std_dev = model.normalisers[name].fetch_params(deltas=True, like=pred)['std_dev']
+            streams[name] = (model.normalisers[name].denormalise(pred, deltas=True), std_dev ** 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MLPG_streams(streams, padding_size=100, seq_len=batch['n_frames'])
+        torch.cuda.synchronize()
+        mlpg_ms = (time.perf_counter() - t0) * 1e3
+
+    emit({'phase': 'train', 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
+          'corpus': '64 train + 16 valid, n_phones 40-119, dur 5-9', 'corpus_seconds': corpus_s,
+          'batch_size': TRAIN_BATCH, 'epochs': 2, 'steps_per_epoch': steps_per_epoch,
+          'run_seconds': run_s, 'step_losses': step_losses,
+          'train_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('train')},
+          'valid_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('valid')},
+          'lstm_layers': layers, 'launches': launches, 'launches_expected': expected,
+          'k1_gate_launches_per_step': launches['k1_gates'] / train_steps,
+          'k2_launches_per_step': launches['k2'] / train_steps,
+          'peak_memory_mib': peak_mib})
+    emit(dict({'phase': 'train_step_breakdown', 'B': TRAIN_BATCH,
+               'T': int(features['normalised_counters'].shape[1]),
+               'frames': float(np.sum(features['n_frames'])),
+               'step_ms': step_ms, 'median_step_ms_after_first': float(np.median(step_ms[1:])),
+               'mlpg_host_ms': mlpg_ms}, **profile))
+    return launches
+
+
+def train_parity_phase(torch, root):
+    """The same trainer on the GPU and on the CPU, from one init and one
+    corpus: per-step losses and the first step's gradients."""
+    from morgana_tpu_torch.data.synthetic import generate_voice_data
+    from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+
+    data_root = os.path.join(root, 'parity_data')
+    generate_voice_data(data_root, num_train=4, num_valid=0, num_test=0, seed=8,
+                        n_phones_range=(20, 40), dur_range=(5, 8))
+    ckpt = seeded_checkpoint(torch, os.path.join(root, 'parity_init', 'epoch_0.npz'), 12)
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        args = ExperimentBuilder.get_experiment_args(builder_argv(
+            data_root, os.path.join(root, 'parity_experiments'), device, ckpt,
+            '--device', device, '--batch_size', '4', '--no-valid', '--end_epoch', '3'))
+        exp = ExperimentBuilder(LSTMAcousticModel, **args)
+        exp.model.mode = 'train'
+        losses, grads, frames = [], None, []
+        for _ in range(3):
+            features = next(iter(exp.train_loader))
+            frames.append(int(features['normalised_counters'].shape[1]))
+            loss, _ = exp.loop.train_step(features, exp.learning_rate)
+            losses.append(float(loss))
+            if grads is None:
+                grads = {n: p.grad.detach().cpu() for n, p in exp.model.named_parameters()}
+        runs[device] = (losses, grads, frames)
+    (gpu_losses, gpu_grads, frames), (cpu_losses, cpu_grads, _) = runs['cuda'], runs['cpu']
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses)]
+    grad_rel = {n: float((gpu_grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                for n, g in cpu_grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    emit({'phase': 'train_parity', 'B': 4, 'padded_T': frames, 'gpu_losses': gpu_losses,
+          'cpu_losses': cpu_losses, 'loss_rel_err': loss_rel, 'loss_rtol': TRAIN_LOSS_RTOL,
+          'max_grad_rel_err': grad_rel[worst], 'worst_param': worst,
+          'grad_rtol': TRAIN_GRAD_RTOL})
+    if max(loss_rel) > TRAIN_LOSS_RTOL or grad_rel[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError('GPU trainer disagrees with the CPU trainer')
+
+
+def kernel_kind(name):
+    """The part of a step a device kernel belongs to, by its name."""
+    if 'lstm_fwd_kernel' in name:
+        return 'k1'
+    if 'lstm_bwd_kernel' in name:
+        return 'k2'
+    lower = name.lower()
+    if 'gemm' in lower:
+        return 'gemm'
+    if 'multi_tensor_apply' in lower or 'adam' in lower:
+        return 'adam'
+    return 'other'
+
+
+def profile_step(torch, fn):
+    """One profiled call: device time by kernel (K1, K2, GEMMs, Adam's
+    multi-tensor kernels, the rest), the number of kernels, and the host ops
+    that took the most time. The table by device time goes to stderr."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -301,10 +610,9 @@ def profile_predict(torch, fn):
         wall_ms = (time.perf_counter() - start) * 1e3
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = {'k1': 0.0, 'gemm': 0.0, 'other': 0.0}
+    device_us = {'k1': 0.0, 'k2': 0.0, 'gemm': 0.0, 'adam': 0.0, 'other': 0.0}
     for e in kernels:
-        kind = 'k1' if 'lstm_fwd_kernel' in e.key else 'gemm' if 'gemm' in e.key.lower() else 'other'
-        device_us[kind] += e.self_device_time_total
+        device_us[kernel_kind(e.key)] += e.self_device_time_total
     busy_ms = sum(device_us.values()) / 1e3
     host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:6]
@@ -312,8 +620,7 @@ def profile_predict(torch, fn):
     return {'profiled_wall_ms': wall_ms,
             'device_busy_ms': busy_ms if kernels else 'not measured',
             'device_idle_share': 1 - busy_ms / wall_ms if kernels else 'not measured',
-            'k1_device_ms': device_us['k1'] / 1e3, 'gemm_device_ms': device_us['gemm'] / 1e3,
-            'other_device_ms': device_us['other'] / 1e3,
+            **{f'{kind}_device_ms': us / 1e3 for kind, us in device_us.items()},
             'kernels_launched': sum(e.count for e in kernels),
             'top_host_ops': [[e.key, e.self_cpu_time_total / 1e3, e.count] for e in host]}
 
@@ -353,15 +660,34 @@ def main():
     for batch, steps in ((5, 1), (1, 17), (40, 33)):
         k1_case(torch, dev, batch, steps, True, 4, timed=False)
 
-    with tempfile.TemporaryDirectory() as root:
-        launches = serving_phase(torch, root)
+    # K1 with gates and K2 at the training shape, with and without an
+    # initial state, and at the edge shapes.
+    train_shape = k2_case(torch, dev, TRAIN_BATCH, 1024, False, 5, timed=True)
+    k2_case(torch, dev, TRAIN_BATCH, 1024, True, 6, timed=True)
+    for batch, steps in ((5, 1), (1, 17), (40, 33)):
+        k2_case(torch, dev, batch, steps, True, 7, timed=False)
 
+    with tempfile.TemporaryDirectory() as root:
+        serve_launches = serving_phase(torch, root)
+        train_launches = train_phase(torch, root)
+        train_parity_phase(torch, root)
+    if not (serve_launches and train_launches['k1_gates'] and train_launches['k2']):
+        raise AssertionError('a kernel of the main path was not launched')
+
+    # launches: the main paths' runs (serving, then training), each counted
+    # from 0. K1's numbers are at the serving shape, K2's at the training one.
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
-        'replaces': 'morgana_tpu/ops/pallas_rnn.py:77', 'launches': launches,
+        'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
+        'launches': serve_launches + train_launches['k1'],
         'max_abs_err': main_shape['max_abs_err_vs_plain'], 'ms': main_shape['kernel_ms'],
         'plain_ms': main_shape['plain_ms'], 'bound_ms': main_shape['bound_ms'],
-        'bound_by': main_shape['bound_by'], 'library_ms': main_shape['library_ms']}]})
+        'bound_by': main_shape['bound_by'], 'library_ms': main_shape['library_ms']}, {
+        'name': 'lstm_bwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_bwd.cu',
+        'replaces': 'morgana_tpu/ops/pallas_rnn.py:113', 'launches': train_launches['k2'],
+        'max_abs_err': train_shape['k2_max_abs_err'], 'ms': train_shape['kernel_ms'],
+        'plain_ms': train_shape['plain_ms'], 'bound_ms': train_shape['bound_ms'],
+        'bound_by': train_shape['bound_by'], 'library_ms': train_shape['library_ms']}]})
     print(nvidia_smi(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

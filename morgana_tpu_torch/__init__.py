@@ -7,8 +7,10 @@ built at first use (``_build.py``); each has a plain PyTorch version beside
 it, which runs for tensors on the CPU. Entry points run on the GPU unless the
 caller passes ``device='cpu'`` (``device.py``).
 
-This slice serves ``models/rnn_spss.py``'s ``LSTMAcousticModel`` through
-:class:`morgana_tpu_torch.serve.InferenceEngine`.
+It serves ``models/rnn_spss.py``'s ``LSTMAcousticModel`` through
+:class:`morgana_tpu_torch.serve.InferenceEngine` and trains it through
+:class:`morgana_tpu_torch.experiment_builder.ExperimentBuilder`
+(``python -m morgana_tpu_torch.models.rnn_spss``).
 """
 __version__ = '0.1.0'
 

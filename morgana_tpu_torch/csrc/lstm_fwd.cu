@@ -11,8 +11,11 @@
 // (T, B, 4H), w_hh (H, 4H), h0 and c0 (B, H). Outputs: y = h trace and c_all
 // = c trace (T, B, H), hn and cn (B, H). Masking past seq_len and the
 // final-state gather at seq_len - 1 happen outside (ops/lstm.py), as in
-// pallas_rnn.py. The Pallas kernel also writes the activated gates (g_all),
-// which only its backward (K2) reads; the training slice adds that output.
+// pallas_rnn.py. When g_all is given (training), the kernel also writes the
+// activated gates i, f, g, o of every step, (T, B, 4H), which only its
+// backward K2 (lstm_bwd.cu) reads. That is a template flag, not a runtime
+// branch: serving passes a null g_all and runs the variant without the
+// stores, with the same arithmetic and registers as without the flag.
 //
 // What bounds it. The recurrence needs 2*B*H*4H flops per step and only a
 // (B, H) vector from the previous step, so at serving shapes it is bound by
@@ -57,12 +60,12 @@ size_t smem_floats(int B, int H) {
   return size_t(H) * 4 * U + size_t(kThreads) * 4 * U + size_t(B) * (H + 4) + 2 * size_t(U) * B;
 }
 
-template <int U>
+template <int U, bool kGates>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
                 const float* __restrict__ h0, const float* __restrict__ c0,
-                float* y, float* __restrict__ c_all, float* __restrict__ hn,
-                float* __restrict__ cn, int T, int B, int H) {
+                float* y, float* __restrict__ c_all, float* __restrict__ g_all,
+                float* __restrict__ hn, float* __restrict__ cn, int T, int B, int H) {
   constexpr int G4 = 4 * U;
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);
@@ -164,13 +167,22 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
                                  : __ldg(xg + (size_t(t) * B + b) * 4 * H + size_t(g) * H + unit);
         gate[g] = x + s;
       }
-      const float c = sigmoid_f32(gate[1]) * cs[p] + sigmoid_f32(gate[0]) * tanhf(gate[2]);
-      const float h = sigmoid_f32(gate[3]) * tanhf(c);
+      const float ig = sigmoid_f32(gate[0]), fg = sigmoid_f32(gate[1]);
+      const float gg = tanhf(gate[2]), og = sigmoid_f32(gate[3]);
+      const float c = fg * cs[p] + ig * gg;
+      const float h = og * tanhf(c);
       cs[p] = c;
       hl[p] = h;
       const size_t out = (size_t(t) * B + b) * H + unit;
       y[out] = h;
       c_all[out] = c;
+      if constexpr (kGates) {
+        float* gp = g_all + (size_t(t) * B + b) * 4 * H + unit;
+        gp[0] = ig;
+        gp[size_t(H)] = fg;
+        gp[2 * size_t(H)] = gg;
+        gp[3 * size_t(H)] = og;
+      }
     }
     // Publishes y[t] to every block before any block stages it; also the
     // block-level barrier that lets hs and red be overwritten next step.
@@ -185,23 +197,33 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
   }
 }
 
-template <int U>
-int launch(const float* xg, const float* w_hh, const float* h0, const float* c0, float* y,
-           float* c_all, float* hn, float* cn, int T, int B, int H, int device,
-           cudaStream_t stream) {
+template <int U, bool kGates>
+int launch_variant(const float* xg, const float* w_hh, const float* h0, const float* c0, float* y,
+                   float* c_all, float* g_all, float* hn, float* cn, int T, int B, int H,
+                   int device, cudaStream_t stream) {
   const size_t smem = smem_floats<U>(B, H) * sizeof(float);
   int max_smem = 0;
   cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   if (smem > size_t(max_smem)) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(lstm_fwd_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  auto kernel = lstm_fwd_kernel<U, kGates>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  void* args[] = {&xg, &w_hh, &h0, &c0, &y, &c_all, &hn, &cn, &T, &B, &H};
+  void* args[] = {&xg, &w_hh, &h0, &c0, &y, &c_all, &g_all, &hn, &cn, &T, &B, &H};
   const int blocks = (H + U - 1) / U;
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(lstm_fwd_kernel<U>), dim3(blocks),
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
                                     dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <int U>
+int launch(const float* xg, const float* w_hh, const float* h0, const float* c0, float* y,
+           float* c_all, float* g_all, float* hn, float* cn, int T, int B, int H, int device,
+           cudaStream_t stream) {
+  if (g_all != nullptr)
+    return launch_variant<U, true>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, stream);
+  return launch_variant<U, false>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, stream);
 }
 
 }  // namespace
@@ -210,10 +232,11 @@ extern "C" {
 
 // Launches K1 on `stream` (a cudaStream_t) of `device`; returns a cudaError_t
 // (0 on success). All pointers are device pointers to contiguous f32 arrays,
-// h0 16-byte aligned; H must be a multiple of 4.
+// h0 16-byte aligned; H must be a multiple of 4. g_all, (T, B, 4H), may be
+// null: then the gate trace is not written.
 int morgana_lstm_fwd(const float* xg, const float* w_hh, const float* h0, const float* c0,
-                     float* y, float* c_all, float* hn, float* cn, int T, int B, int H,
-                     int device, void* stream) {
+                     float* y, float* c_all, float* g_all, float* hn, float* cn, int T, int B,
+                     int H, int device, void* stream) {
   if (T < 0 || B < 1 || B > kMaxBatch || H < 4 || H % 4) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -222,10 +245,10 @@ int morgana_lstm_fwd(const float* xg, const float* w_hh, const float* h0, const 
   if (err != cudaSuccess) return err;
   // The fewest units per block that keep one block per SM.
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H <= sms) return launch<1>(xg, w_hh, h0, c0, y, c_all, hn, cn, T, B, H, device, s);
-  if (H <= 2 * sms) return launch<2>(xg, w_hh, h0, c0, y, c_all, hn, cn, T, B, H, device, s);
-  if (H <= 4 * sms) return launch<4>(xg, w_hh, h0, c0, y, c_all, hn, cn, T, B, H, device, s);
-  if (H <= 8 * sms) return launch<8>(xg, w_hh, h0, c0, y, c_all, hn, cn, T, B, H, device, s);
+  if (H <= sms) return launch<1>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, s);
+  if (H <= 2 * sms) return launch<2>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, s);
+  if (H <= 4 * sms) return launch<4>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, s);
+  if (H <= 8 * sms) return launch<8>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,11 +1,16 @@
 """File I/O helpers (counterpart of ``morgana_tpu/data/file_io.py``): JSON,
-numeric text, binary ``.npy`` features and id-lists."""
+numeric text, binary ``.npy`` features and id-lists, read and written."""
 import json
 import os
 
 import numpy as np
 
-__all__ = ['load_json', 'load_txt', 'load_bin', 'get_file_ids']
+__all__ = ['load_json', 'save_json', 'load_txt', 'save_txt', 'load_bin', 'save_bin',
+           'get_file_ids', 'save_lines']
+
+
+def _make_parent(file_path):
+    os.makedirs(os.path.dirname(os.path.abspath(file_path)), exist_ok=True)
 
 
 def load_json(file_path):
@@ -13,9 +18,27 @@ def load_json(file_path):
         return json.load(f)
 
 
+def save_json(data, file_path):
+    _make_parent(file_path)
+    with open(file_path, 'w') as f:
+        json.dump(data, f, indent=4)
+
+
+def save_lines(lines, file_path):
+    _make_parent(file_path)
+    with open(file_path, 'w') as f:
+        for line in lines:
+            f.write(f'{line}\n')
+
+
 def load_txt(file_path):
     """Loads a whitespace-separated numeric text file as float32 (rows = frames)."""
     return np.loadtxt(file_path, dtype=np.float32, ndmin=2)
+
+
+def save_txt(data, file_path):
+    _make_parent(file_path)
+    np.savetxt(file_path, np.asarray(data), fmt='%s')
 
 
 def load_bin(file_path, feat_dim=None, dtype=np.float32):
@@ -29,6 +52,13 @@ def load_bin(file_path, feat_dim=None, dtype=np.float32):
     if feat_dim is not None:
         data = data.reshape(-1, feat_dim)
     return data
+
+
+def save_bin(data, file_path):
+    _make_parent(file_path)
+    if not file_path.endswith('.npy'):
+        file_path += '.npy'
+    np.save(file_path, np.asarray(data))
 
 
 def get_file_ids(id_list):

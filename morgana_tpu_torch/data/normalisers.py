@@ -14,7 +14,7 @@ import torch
 
 from morgana_tpu_torch.data import file_io
 
-__all__ = ['MeanVarianceNormaliser', 'MinMaxNormaliser']
+__all__ = ['MeanVarianceNormaliser', 'MinMaxNormaliser', 'fit_mvn_params', 'fit_minmax_params']
 
 
 def _align(param, feature):
@@ -32,6 +32,25 @@ def _safe_scale(mmin, mmax):
     scale = scale.copy()
     scale[np.abs(scale) <= 1e-8] = 1.
     return scale
+
+
+def _stack_frames(features):
+    return np.concatenate([np.asarray(f, np.float64).reshape(-1, np.asarray(f).shape[-1])
+                           for f in features], axis=0)
+
+
+def fit_mvn_params(features):
+    """MVN parameters over a list of (seq_len, feat_dim) arrays, in the
+    ``{name}_mvn.json`` layout (``data/normalisers.py:68``)."""
+    stacked = _stack_frames(features)
+    return {'mean': stacked.mean(0).tolist(), 'std_dev': stacked.std(0).tolist()}
+
+
+def fit_minmax_params(features):
+    """Min-max parameters over a list of (seq_len, feat_dim) arrays, in the
+    ``{name}_minmax.json`` layout (``data/normalisers.py:75``)."""
+    stacked = _stack_frames(features)
+    return {'mmin': stacked.min(0).tolist(), 'mmax': stacked.max(0).tolist()}
 
 
 class _FeatureNormaliser(object):

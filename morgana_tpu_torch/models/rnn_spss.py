@@ -1,20 +1,28 @@
 """Acoustic model: LSTM stack predicting all vocoder parameter streams
-(counterpart of the repo's ``models/rnn_spss.py``, serving part).
+(counterpart of the repo's ``models/rnn_spss.py``).
 
 Linear(609->512) + Sigmoid, 8 x LSTM(512), Linear(512->256) + Sigmoid, then
 Linear(256->199) heads (lf0: 3, vuv: 1, mcep: 180, bap: 15) and one fused
-MLPG solve over the lf0, mcep and bap streams.
+MLPG solve over the lf0, mcep and bap streams. It trains on the masked MSE
+of the normalised deltas plus the BCE of vuv. Train it with::
+
+    python -m morgana_tpu_torch.models.rnn_spss --experiment_name NAME \
+        --data_root DATA --train_id_list train/train_file_id_list.scp \
+        --valid_id_list valid/valid_file_id_list.scp [--device cpu]
 """
 import torch
 
 from morgana_tpu_torch import data
+from morgana_tpu_torch import losses
+from morgana_tpu_torch import metrics
 from morgana_tpu_torch import nn
 from morgana_tpu_torch.base_models import BaseSPSS
 from morgana_tpu_torch.data import data_sources
+from morgana_tpu_torch.experiment_builder import ExperimentBuilder
 from morgana_tpu_torch.ops.sequence import upsample_to_repetitions
 from morgana_tpu_torch.viz.synthesis import MLPG_streams
 
-__all__ = ['LSTMAcousticModel']
+__all__ = ['LSTMAcousticModel', 'main']
 
 
 class LSTMAcousticModel(BaseSPSS):
@@ -44,6 +52,12 @@ class LSTMAcousticModel(BaseSPSS):
             nn.Dropout(p=dropout_prob),
             nn.Linear(256, sum(output_dims.values()), generator=generator),
         )
+
+        self.metrics.add_metrics('all',
+                                 LF0_RMSE_Hz=metrics.LF0Distortion(),
+                                 VUV_accuracy=metrics.Mean(),
+                                 MCEP_distortion=metrics.MelCepDistortion(),
+                                 BAP_distortion=metrics.Distortion())
 
     def normaliser_sources(self):
         return {
@@ -75,15 +89,18 @@ class LSTMAcousticModel(BaseSPSS):
         pred_norm_lf0_deltas, pred_vuv, pred_norm_mcep_deltas, pred_norm_bap_deltas = \
             self._split_heads(pred_norm_deltas)
 
-        # The three streams' MLPG solves run as one batched solve.
+        # The three streams' MLPG solves run as one batched solve, cut from
+        # the gradient as the JAX model's stop_gradient (the reference's
+        # .detach()) cuts it: no loss reads the trajectories.
         streams = {}
         for name, pred in (('lf0', pred_norm_lf0_deltas),
                            ('mcep', pred_norm_mcep_deltas),
                            ('bap', pred_norm_bap_deltas)):
             normaliser = self.normalisers[name]
             std_dev = normaliser.fetch_params(deltas=True, like=pred)['std_dev']
-            streams[name] = (normaliser.denormalise(pred, deltas=True), std_dev ** 2)
-        trajs = MLPG_streams(streams, padding_size=100, seq_len=n_frames)
+            streams[name] = (normaliser.denormalise(pred.detach(), deltas=True), std_dev ** 2)
+        with torch.no_grad():
+            trajs = MLPG_streams(streams, padding_size=100, seq_len=n_frames)
 
         return {
             'normalised_lf0_deltas': pred_norm_lf0_deltas,
@@ -107,3 +124,41 @@ class LSTMAcousticModel(BaseSPSS):
         norm_lab_at_frame_rate = upsample_to_repetitions(
             features['normalised_lab'], features['dur'], max_len=max_n_frames)
         return torch.cat((norm_lab_at_frame_rate, features['normalised_counters']), dim=-1)
+
+    def loss(self, features, output_features):
+        n_frames = features['n_frames']
+        vuv = output_features['vuv'] > 0.5
+
+        self.metrics.accumulate(
+            self.mode,
+            LF0_RMSE_Hz=(features['lf0'], output_features['lf0'], vuv, n_frames),
+            VUV_accuracy=((features['vuv'] == vuv).float(), n_frames),
+            MCEP_distortion=(features['mcep'], output_features['mcep'], n_frames),
+            BAP_distortion=(features['bap'], output_features['bap'], n_frames))
+
+        loss = 0.
+        loss += losses.mse(output_features['normalised_lf0_deltas'],
+                           features['normalised_lf0_deltas'], n_frames)
+        loss += losses.mse(output_features['normalised_mcep_deltas'],
+                           features['normalised_mcep_deltas'], n_frames)
+        loss += losses.mse(output_features['normalised_bap_deltas'],
+                           features['normalised_bap_deltas'], n_frames)
+        loss += losses.bce(output_features['vuv'].float(), features['vuv'].float(), n_frames)
+        return loss / 4.
+
+    def analysis_for_valid_batch(self, features, output_features, out_dir, **kwargs):
+        raise NotImplementedError(
+            'LSTMAcousticModel.analysis_for_valid_batch synthesises wavs with the WORLD '
+            'vocoder, which is not ported yet; keep --valid_output_interval above '
+            '--end_epoch')
+
+
+def main(argv=None):
+    """The training CLI (``models/rnn_spss.py:221``)."""
+    args = ExperimentBuilder.get_experiment_args(argv)
+    experiment = ExperimentBuilder(LSTMAcousticModel, **args)
+    experiment.run_experiment()
+
+
+if __name__ == '__main__':
+    main()

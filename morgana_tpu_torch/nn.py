@@ -1,10 +1,11 @@
-"""Layers of the serving path, with the JAX package's parameter names and
+"""Layers of the acoustic model, with the JAX package's parameter names and
 layouts (counterpart of ``morgana_tpu/nn.py``).
 
 Weights are stored as the JAX package stores them, ``(in, out)`` for
 ``Linear`` and ``(in, gates)`` for ``Recurrent``, so that
 :func:`load_jax_params` copies an ``epoch_{N}.npz`` (or
-``morgana_tpu.nn.state_dict``) into these modules by name, unchanged.
+``morgana_tpu.nn.state_dict``) into these modules by name, unchanged, and
+:func:`state_dict` writes one back.
 """
 import math
 
@@ -15,10 +16,36 @@ from torch import nn
 from morgana_tpu_torch.ops.lstm import lstm_layer
 
 __all__ = ['Linear', 'Sigmoid', 'Dropout', 'Recurrent', 'SequentialWithRecurrent',
-           'load_jax_params']
+           'load_jax_params', 'state_dict', 'ema_update']
 
 Sigmoid = nn.Sigmoid
-Dropout = nn.Dropout  # identity in eval mode
+
+
+class Dropout(nn.Module):
+    """Inverted dropout that follows ``module.train()`` (``nn.py:386``).
+
+    The noise is drawn from ``self.generator`` (the default generator when it
+    is None); the trainer sets it every train step, seeded from the run's
+    seed and the step count, so a step's noise does not depend on what ran
+    before it. It does not give the JAX package's bits.
+    """
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f'dropout probability must be in [0, 1], got {p}')
+        self.p = float(p)
+        self.generator = None
+
+    def forward(self, x):
+        if self.p == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.p
+        noise = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(noise < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self):
+        return f'p={self.p}'
 
 
 def _uniform(shape, bound, generator):
@@ -59,7 +86,7 @@ class Recurrent(nn.Module):
         if backend not in ('scan', 'pallas'):
             raise ValueError(f'Unsupported backend {backend!r}')
         self.num_layers = num_layers
-        self.dropout = Dropout(dropout) if dropout else None
+        self.dropout = Dropout(dropout) if dropout else None  # between layers
         bound = 1.0 / math.sqrt(hidden_size)
         for i in range(num_layers):
             in_dim = input_size if i == 0 else hidden_size
@@ -135,3 +162,17 @@ def load_jax_params(module, params):
     with torch.no_grad():
         for name, value in values.items():
             own[name].copy_(torch.tensor(value))
+
+
+def state_dict(module):
+    """``{name: np.ndarray}`` of ``module``'s parameters, by the JAX
+    package's names: what an ``epoch_{N}.npz`` holds, and the inverse of
+    :func:`load_jax_params`."""
+    return {name: value.detach().cpu().numpy() for name, value in module.named_parameters()}
+
+
+def ema_update(ema_params, params, decay):
+    """One EMA step over dicts of tensors, ``shadow - (1 - decay) * (shadow -
+    x)`` (``nn.py:1487``); returns the new dict."""
+    return {name: shadow - (1.0 - decay) * (shadow - params[name])
+            for name, shadow in ema_params.items()}

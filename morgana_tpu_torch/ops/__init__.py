@@ -1,2 +1,2 @@
 """Tensor ops of the port: masks, duration upsampling, deltas, the LSTM layer
-(kernel K1 on the GPU) and MLPG."""
+(kernels K1 and K2 on the GPU), MLPG and the masked sequence losses."""

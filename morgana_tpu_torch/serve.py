@@ -17,6 +17,7 @@ import torch
 
 from morgana_tpu_torch import data
 from morgana_tpu_torch.device import resolve_device
+from morgana_tpu_torch.training import device_features
 
 __all__ = ['InferenceEngine']
 
@@ -75,11 +76,8 @@ class InferenceEngine(object):
     def predict_batch(self, features):
         """Runs ``predict`` on one collated (padded) batch: its numeric arrays
         go to the engine's device. Returns the output tensors, on device."""
-        batch = {key: torch.from_numpy(value).to(self.device)
-                 for key, value in features.items()
-                 if isinstance(value, np.ndarray) and value.dtype.kind in 'fiub'}
         with torch.inference_mode():
-            return self.model.predict(batch)
+            return self.model.predict(device_features(features, self.device))
 
     def _unpad(self, features, outputs):
         """Every (B, T_pad, D) output becomes a list of (t_i, D) numpy arrays

@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels against their plain PyTorch versions,
-on the GPU only (a CUDA kernel has no CPU mode): every test here is marked
+"""The port's hand-written CUDA kernels (K1, the LSTM layer forward with and
+without its gate trace, and K2, its backward) against their plain PyTorch
+versions, on the GPU only (a CUDA kernel has no CPU mode): every test here is marked
 ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed::
 
@@ -36,6 +37,8 @@ def _layer_inputs(device, batch, steps, seed=8):
                for shape in ((HIDDEN, 4 * HIDDEN), (HIDDEN, 4 * HIDDEN), (4 * HIDDEN,), (4 * HIDDEN,))]
     seq_len = rng.integers(1, steps + 1, batch) if steps else np.zeros(batch, np.int64)
     seq_len[0] = min(steps, 1)
+    if batch > 2:
+        seq_len[-1] = 0  # an empty row: its state is h0/c0, its gradient goes there
     state = [tensor(0.5 * rng.normal(size=(batch, HIDDEN))) for _ in range(2)]
     return x, weights, torch.from_numpy(seq_len).to(device), state
 
@@ -43,7 +46,7 @@ def _layer_inputs(device, batch, steps, seed=8):
 @pytest.mark.parametrize('batch,steps', [(32, 64), (5, 1), (40, 33), (16, 0)])
 def test_k1_matches_plain_version(cuda_device, batch, steps):
     """K1 through lstm_layer against lstm_layer_reference on the same GPU
-    tensors: ragged seq_len with a row of length 1, a given initial state,
+    tensors: ragged seq_len with rows of length 1 and 0, a given initial state,
     B not a multiple of 32, T = 1 and T = 0; f32 with TF32 off, 1e-4 abs."""
     x, weights, seq_len, (h0, c0) = _layer_inputs(cuda_device, batch, steps)
     if steps == 0:
@@ -55,6 +58,69 @@ def test_k1_matches_plain_version(cuda_device, batch, steps):
     wy, (wh, wc) = lstm_ops.lstm_layer_reference(x, *weights, seq_len=seq_len, h0=h0, c0=c0)
     for got, want in ((y, wy), (hn, wh), (cn, wc)):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def _loss_grads(layer, x, weights, seq_len, state, seed=9):
+    """Gradients of a loss that reads y, hn and cn, with respect to x, the
+    four weights and (h0, c0)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, *weights, *state)]
+    y, (hn, cn) = layer(*leaves[:5], seq_len=seq_len, h0=leaves[5], c0=leaves[6])
+    rng = np.random.default_rng(seed)
+    loss = sum((out * torch.from_numpy(rng.normal(size=out.shape).astype(np.float32)).to(out.device)).sum()
+               for out in (y, hn, cn))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # At T = 0 the plain loop never reads xg, so x has no path to the loss.
+    return [torch.zeros_like(leaf) if g is None else g for g, leaf in zip(grads, leaves)]
+
+
+@pytest.mark.parametrize('batch,steps', [(32, 64), (5, 1), (40, 33), (16, 0)])
+def test_k1_gates_and_k2_match_plain_versions(cuda_device, batch, steps):
+    """The gradient-enabled path (K1 writing the gate trace, then K2) against
+    autograd through the plain recurrence, for dx, dw_ih, dw_hh, db_ih,
+    db_hh, dh0 and dc0: each within 1e-4 of its own max |value| (f32, TF32
+    off; dW_hh sums T * B terms). The gate trace itself within 1e-4 abs."""
+    x, weights, seq_len, state = _layer_inputs(cuda_device, batch, steps)
+    if steps == 0:
+        seq_len = None
+    before = (lstm_ops.launches, lstm_ops.gate_launches, lstm_ops.bwd_launches)
+    got = _loss_grads(lstm_ops.lstm_layer, x, weights, seq_len, state)
+    torch.cuda.synchronize()
+    assert (lstm_ops.launches, lstm_ops.gate_launches, lstm_ops.bwd_launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    want = _loss_grads(lstm_ops.lstm_layer_reference, x, weights, seq_len, state)
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30) if w.numel() else 1.0
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)
+
+    xg = (x @ weights[0] + weights[2] + weights[3]).transpose(0, 1).contiguous()
+    _, _, g_kernel, _, _ = lstm_ops.lstm_recurrence(xg, weights[1], *state, with_gates=True)
+    _, _, g_plain, _, _ = lstm_ops.lstm_recurrence_reference(xg, weights[1], *state)
+    torch.testing.assert_close(g_kernel, g_plain, rtol=0, atol=1e-4)
+
+
+def test_k2_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    """float64, a non-contiguous input and an H that is not a multiple of 4
+    raise before any launch; the K2 counter does not move."""
+    batch, steps, hidden = 4, 3, 8
+    rng = np.random.default_rng(3)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+
+    args = [t(steps, batch, 4 * hidden), t(hidden, 4 * hidden), t(batch, hidden),
+            t(steps, batch, hidden), t(steps, batch, hidden), t(steps, batch, hidden),
+            t(batch, hidden), t(batch, hidden)]
+    before = lstm_ops.bwd_launches
+    with pytest.raises(TypeError):
+        lstm_ops.lstm_backward(*[a.double() for a in args])
+    with pytest.raises(ValueError, match='contiguous'):
+        lstm_ops.lstm_backward(*args[:3], args[3].transpose(0, 1).contiguous().transpose(0, 1),
+                               *args[4:])
+    bad = [t(steps, batch, 24), t(6, 24), t(batch, 6), t(steps, batch, 6), t(steps, batch, 6),
+           t(steps, batch, 6), t(batch, 6), t(batch, 6)]
+    with pytest.raises(ValueError, match='multiple of 4'):
+        lstm_ops.lstm_backward(*bad)
+    assert lstm_ops.bwd_launches == before
 
 
 def test_k1_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):

@@ -1,7 +1,9 @@
-"""The port's LSTM layer (the counterpart of ops/pallas_rnn.py, kernel K1 on
-the GPU) and its nn modules against the JAX package on the CPU, at the bar of
-tests/test_pallas_rnn.py: 1e-5 abs in f32. The kernel itself is held against
-the plain version on the GPU by tests/test_torch_kernels.py."""
+"""The port's LSTM layer (the counterpart of ops/pallas_rnn.py, kernels K1
+and K2 on the GPU) and its nn modules against the JAX package on the CPU, at
+the bar of tests/test_pallas_rnn.py: 1e-5 abs in f32, for the outputs and for
+the gradients. The kernels themselves are held against the plain versions on
+the GPU by tests/test_torch_kernels.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -61,14 +63,98 @@ def test_lstm_layer_matches_pallas_interpret_and_scan(seq_len, with_state):
             np.testing.assert_array_equal(cn[empty].numpy(), c0[empty])
 
 
+def _loss_weights(seed, batch=B, steps=T):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32)
+            for shape in ((batch, steps, H), (batch, H), (batch, H))]
+
+
+@pytest.mark.parametrize('seq_len', [None, [T, 13, 1, 0]], ids=['no_seq_len', 'ragged_with_0_and_1'])
+@pytest.mark.parametrize('with_state', [False, True], ids=['zero_state', 'h0_c0'])
+def test_lstm_layer_gradients_match_pallas_interpret_and_scan(seq_len, with_state):
+    """Gradients of a loss on y, hn and cn with respect to all seven inputs:
+    the port's autograd Function (plain K1 with gates, plain K2) against
+    jax.grad through the Pallas kernels in interpret mode and through the
+    scan; 1e-5 abs."""
+    x, weights, h0, c0 = _inputs(2)
+    wy, wh, wc = _loss_weights(3)
+    h0 = h0 if with_state else np.zeros_like(h0)
+    c0 = c0 if with_state else np.zeros_like(c0)
+    jseq = None if seq_len is None else jnp.asarray(seq_len)
+
+    def jax_loss(layer):
+        def loss(x, w_ih, w_hh, b_ih, b_hh, h0, c0):
+            y, (hn, cn) = layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=jseq, h0=h0, c0=c0)
+            return jnp.sum(y * wy) + jnp.sum(hn * wh) + jnp.sum(cn * wc)
+        return jax.grad(loss, argnums=tuple(range(7)))
+
+    jargs = [jnp.asarray(a) for a in (x, *weights, h0, c0)]
+    want_pl = jax_loss(lambda *a, **k: pallas_lstm_layer(*a, interpret=True, **k))(*jargs)
+    want_scan = jax_loss(rnn_ops.lstm)(*jargs)
+
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, *weights, h0, c0)]
+    y, (hn, cn) = lstm_ops.lstm_layer(*leaves[:5], seq_len=None if seq_len is None else
+                                      torch.tensor(seq_len), h0=leaves[5], c0=leaves[6])
+    loss = (y * torch.from_numpy(wy)).sum() + (hn * torch.from_numpy(wh)).sum() \
+        + (cn * torch.from_numpy(wc)).sum()
+    got = torch.autograd.grad(loss, leaves)
+    for want in (want_pl, want_scan):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
+def test_backward_reference_matches_autograd_through_the_plain_loop():
+    """lstm_backward_reference (the plain K2) against torch autograd through
+    lstm_recurrence_reference, with cotangents on every output, 1e-5 abs."""
+    rng = np.random.default_rng(4)
+    xg = torch.from_numpy(rng.normal(size=(T, B, 4 * H)).astype(np.float32)).requires_grad_(True)
+    w_hh = torch.from_numpy((0.3 * rng.normal(size=(H, 4 * H))).astype(np.float32)).requires_grad_(True)
+    h0, c0 = (torch.from_numpy(rng.normal(size=(B, H)).astype(np.float32)).requires_grad_(True)
+              for _ in range(2))
+    y, c_all, g_all, hn, cn = lstm_ops.lstm_recurrence_reference(xg, w_hh, h0, c0)
+    cot = [torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)) for t in (y, c_all, hn, cn)]
+    want = torch.autograd.grad(sum((t * c).sum() for t, c in zip((y, c_all, hn, cn), cot)),
+                               (xg, w_hh, h0, c0))
+    dy, dc_all, dhn, dcn = cot
+    dxg, dh0, dc0 = lstm_ops.lstm_backward_reference(g_all.detach(), w_hh.detach(), c0.detach(),
+                                                     c_all.detach(), dy, dc_all, dhn, dcn)
+    h_prev = torch.cat([h0[None], y]).detach()[:T]
+    dw_hh = h_prev.reshape(T * B, H).t() @ dxg.reshape(T * B, 4 * H)
+    for g, w in zip((dxg, dw_hh, dh0, dc0), want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=ATOL)
+
+
+def test_gate_trace_only_when_a_gradient_is_needed():
+    """The autograd Function (gate-writing K1, then K2) runs only when an
+    input requires grad and grad mode is on; inference runs the recurrence
+    alone."""
+    x, weights, _, _ = _inputs(5)
+    calls = []
+    apply = lstm_ops._Recurrence.apply
+    try:
+        lstm_ops._Recurrence.apply = lambda *a: calls.append(1) or apply(*a)
+        w = [torch.from_numpy(a).requires_grad_(True) for a in weights]
+        with torch.inference_mode():
+            lstm_ops.lstm_layer(torch.from_numpy(x), *w)
+        with torch.no_grad():
+            lstm_ops.lstm_layer(torch.from_numpy(x), *w)
+        assert not calls
+        lstm_ops.lstm_layer(torch.from_numpy(x), *w)
+        assert calls == [1]
+    finally:
+        lstm_ops._Recurrence.apply = apply
+
+
 def test_recurrence_reference_is_the_cpu_path():
     """On CPU tensors lstm_layer runs the plain version and launches nothing."""
     x, weights, h0, c0 = _inputs(1)
-    before = lstm_ops.launches
-    got = lstm_ops.lstm_layer(torch.from_numpy(x), *map(torch.from_numpy, weights))
-    want = lstm_ops.lstm_layer_reference(torch.from_numpy(x), *map(torch.from_numpy, weights))
+    before = (lstm_ops.launches, lstm_ops.gate_launches, lstm_ops.bwd_launches)
+    w = [torch.from_numpy(a).requires_grad_(True) for a in weights]
+    got = lstm_ops.lstm_layer(torch.from_numpy(x), *w)
+    got[0].sum().backward()
+    want = lstm_ops.lstm_layer_reference(torch.from_numpy(x), *w)
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
-    assert lstm_ops.launches == before
+    assert (lstm_ops.launches, lstm_ops.gate_launches, lstm_ops.bwd_launches) == before
 
 
 def _jax_recurrent(num_layers, seed):
