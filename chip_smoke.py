@@ -448,7 +448,7 @@ def train_phase(torch, root):
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
     from morgana_tpu_torch.ops import lstm as lstm_ops
-    from morgana_tpu_torch.training import device_features
+    from morgana_tpu_torch.data import device_features
     from morgana_tpu_torch.viz.synthesis import MLPG_streams
 
     data_root = os.path.join(root, 'train_data')

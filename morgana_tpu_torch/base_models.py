@@ -25,7 +25,13 @@ class BaseModel(nn.Module):
     metrics : morgana_tpu_torch.metrics.Handler
     step : int
         Global step kept by the experiment builder.
+    unported_valid_analysis : str or None
+        Why :meth:`analysis_for_valid_batch` cannot run yet, or ``None``
+        when it can. The experiment builder refuses the settings that would
+        reach it.
     """
+
+    unported_valid_analysis = None
 
     def __init__(self):
         super().__init__()

@@ -8,10 +8,11 @@ padded shape as there.
 import os
 
 import numpy as np
+import torch
 
 from morgana_tpu_torch.data import file_io
 
-__all__ = ['FilesDataset', 'assemble_item', 'bucket_size', 'collate']
+__all__ = ['FilesDataset', 'assemble_item', 'bucket_size', 'collate', 'device_features']
 
 
 def bucket_size(n, minimum=16):
@@ -98,3 +99,11 @@ def collate(batch):
         else:
             batched[key] = values
     return batched
+
+
+def device_features(features, device):
+    """The numeric arrays of a collated batch as tensors on ``device``; names
+    and other host values are left out."""
+    return {key: torch.from_numpy(value).to(device)
+            for key, value in features.items()
+            if isinstance(value, np.ndarray) and value.dtype.kind in 'fiub'}

@@ -150,7 +150,8 @@ class ExperimentBuilder(object):
                             default=10, help='Run the train-set analysis hooks every N epochs.')
         parser.add_argument('--valid_output_interval', dest='valid_output_interval', type=int,
                             default=10, help='Run the validation-set analysis hooks every N '
-                                             'epochs.')
+                                             'epochs; refused while the model\'s hooks are '
+                                             'unported.')
         parser.add_argument('--test_output_interval', dest='test_output_interval', type=int,
                             default=10, help='Run the test-set analysis hooks every N epochs.')
 
@@ -283,6 +284,21 @@ class ExperimentBuilder(object):
             if not self.checkpoint_path:
                 raise ValueError('Validation without training needs --checkpoint_path.')
             self.epoch = utils.get_epoch_from_checkpoint_path(self.checkpoint_path)
+
+        # Refuse now what would otherwise fail after epochs of training.
+        unported = self.model_class.unported_valid_analysis
+        if self.valid and unported:
+            name = self.model_class.__name__
+            if not self.train:
+                raise ValueError(f'Validation without training runs the validation analysis of '
+                                 f'{name}, and {unported}.')
+            epochs = [epoch for epoch in range(self.start_epoch, self.end_epoch + 1)
+                      if epoch % self.valid_output_interval == 0]
+            if epochs:
+                raise ValueError(
+                    f'--valid_output_interval {self.valid_output_interval} runs the validation '
+                    f'analysis of {name} at epoch {epochs[0]}, and {unported}. Set '
+                    f'--valid_output_interval above --end_epoch {self.end_epoch}, or --no-valid.')
 
     def build_model(self, model_class, model_kwargs, checkpoint_path=None):
         r"""The model on the builder's device, with the checkpoint's parameters

@@ -8,6 +8,9 @@ gradient, and keeps them as device tensors; they are merged lazily, with one
 host transfer for all that are pending, the next time a result is read. So a
 train step causes no host round trip, as the JAX package's staging does
 (``metrics.py:133-250``).
+
+The classes are those that the port's models register and their bases; the
+JAX package's other metrics come with the model that first registers them.
 """
 from collections.abc import Iterable
 
@@ -18,9 +21,8 @@ from morgana_tpu_torch import utils
 from morgana_tpu_torch.ops.masking import sequence_mask
 
 __all__ = [
-    'StatefulMetric', 'Handler', 'Print', 'History', 'TensorHistory', 'Mean',
-    'Variance', 'StandardDeviation', 'RMSE', 'Accuracy', 'Error', 'MAE',
-    'F0Distortion', 'LF0Distortion', 'Distortion', 'MelCepDistortion',
+    'StatefulMetric', 'Handler', 'Mean', 'RMSE', 'F0Distortion', 'LF0Distortion', 'Distortion',
+    'MelCepDistortion',
 ]
 
 
@@ -205,121 +207,6 @@ class Handler(StatefulMetric):
         return ' | '.join(f'{name} = {value}' for name, value in d.items())
 
 
-class Print(StatefulMetric):
-    r"""Reports the most recent accumulated value."""
-
-    def __init__(self, hidden=False):
-        super().__init__(hidden=hidden)
-        self.reset_state()
-
-    def reset_state(self, *args):
-        StatefulMetric.reset_state(self)
-        self.value = None
-
-    def partials(self, tensor):
-        return tensor
-
-    def merge(self, partials):
-        self.value = partials
-
-    def result(self, *args):
-        return self.value
-
-
-class History(StatefulMetric):
-    r"""Stores the history of any object (list semantics)."""
-
-    def __init__(self, max_len=None, hidden=False):
-        super().__init__(hidden=hidden)
-        self.max_len = max_len
-        self.reset_state()
-
-    def reset_state(self, *args):
-        StatefulMetric.reset_state(self)
-        self.history = []
-
-    def partials(self, obj):
-        return obj
-
-    def merge(self, obj):
-        if isinstance(obj, np.ndarray):
-            obj = list(np.atleast_1d(obj))
-        elif not isinstance(obj, (list, tuple)):
-            obj = [obj]
-        self.history.extend(obj)
-        if self.max_len is not None:
-            self.history = self.history[-self.max_len:]
-
-    def result(self):
-        return self.history
-
-    def str_summary(self, result):
-        return str(result[-1])
-
-    def result_as_json(self):
-        return str(self)
-
-    def __str__(self):
-        return self.str_summary(self.result())
-
-
-class TensorHistory(StatefulMetric):
-    r"""Stores the history of a tensor; padded frames removed with ``seq_len``."""
-
-    def __init__(self, feat_dim, max_len=None, dtype=np.float32, hidden=False):
-        super().__init__(hidden=hidden)
-        self.feat_dim = feat_dim
-        self.max_len = max_len
-        self.dtype = dtype
-        self.reset_state()
-
-    def reset_state(self, *args):
-        StatefulMetric.reset_state(self)
-        shape = (0,) if self.feat_dim == 0 else (0, self.feat_dim)
-        self.history = np.empty(shape, dtype=self.dtype)
-
-    def partials(self, tensor, seq_len=None):
-        return {'tensor': tensor, 'seq_len': seq_len}
-
-    def merge(self, partials):
-        tensor = np.asarray(partials['tensor'])
-        seq_len = partials.get('seq_len')
-        if seq_len is None:
-            tensor = tensor.reshape(-1, self.feat_dim) if self.feat_dim else tensor.reshape(-1)
-        else:
-            lengths = np.asarray(seq_len).reshape(-1).astype(np.int64)
-            tensor = np.concatenate([tensor[b, :n] for b, n in enumerate(lengths)])
-            if self.feat_dim == 0:
-                tensor = tensor.reshape(-1)
-        self.history = np.concatenate([self.history, tensor.astype(self.dtype)])
-        if self.max_len is not None:
-            self.history = self.history[-self.max_len:]
-
-    def result(self):
-        return self.history
-
-    def str_summary(self, result):
-        mean, std = float(np.mean(result)), float(np.std(result))
-        if np.isnan(std):
-            std = 0.0
-        return 'N({mean}, {std}) in range [{min}, {max}]'.format(
-            mean=utils.format_float_tensor(mean), std=utils.format_float_tensor(std),
-            min=utils.format_float_tensor(np.min(result)),
-            max=utils.format_float_tensor(np.max(result)))
-
-    def result_as_json(self):
-        result = self.result()
-        if result.size == 1:
-            return float(result.reshape(-1)[0])
-        return self.str_summary(result)
-
-    def __str__(self):
-        result = self.result()
-        if result.size == 1:
-            return utils.format_float_tensor(float(result.reshape(-1)[0]))
-        return self.str_summary(result)
-
-
 class Mean(StatefulMetric):
     r"""Online mean of (optionally masked) values; the masked count is in
     frames."""
@@ -350,45 +237,6 @@ class Mean(StatefulMetric):
         return float(self.sum) / (float(self.count) + 1e-8)
 
 
-class Variance(StatefulMetric):
-    r"""Online variance of (optionally masked) values."""
-
-    def __init__(self, hidden=False):
-        super().__init__(hidden=hidden)
-        self.reset_state()
-
-    def reset_state(self, *args):
-        StatefulMetric.reset_state(self)
-        self.sum = 0.
-        self.sum_square = 0.
-        self.count = 0.
-
-    def partials(self, tensor, seq_len=None):
-        tensor = _tensor(tensor)
-        if seq_len is None:
-            return {'sum': torch.sum(tensor), 'sum_square': torch.sum(tensor ** 2),
-                    'count': torch.tensor(float(tensor.numel()), device=tensor.device)}
-        mask = sequence_mask(seq_len, max_len=tensor.shape[1], dtype=tensor.dtype)
-        masked = tensor * mask
-        return {'sum': torch.sum(masked), 'sum_square': torch.sum(masked ** 2),
-                'count': torch.sum(mask)}
-
-    def merge(self, partials):
-        self.sum = self.sum + float(np.asarray(partials['sum'], np.float64))
-        self.sum_square = self.sum_square + float(np.asarray(partials['sum_square'], np.float64))
-        self.count = self.count + float(np.asarray(partials['count'], np.float64))
-
-    def result(self, *args):
-        count = float(self.count) + 1e-8
-        return (float(self.sum_square) - (float(self.sum) ** 2) / count) / count
-
-
-class StandardDeviation(Variance):
-    def result(self, *args):
-        # fp cancellation can drive the online variance a hair negative.
-        return max(0.0, super().result(*args)) ** 0.5
-
-
 class RMSE(Mean):
     r"""Online root-mean-squared-error between targets and predictions."""
 
@@ -397,35 +245,6 @@ class RMSE(Mean):
 
     def result(self, *args):
         return (float(self.sum) / (float(self.count) + 1e-8)) ** 0.5
-
-
-class Accuracy(Mean):
-    r"""Online accuracy (%) of boolean targets/predictions."""
-
-    def partials(self, target, pred, seq_len=None):
-        acc = torch.logical_and(_tensor(target).bool(), _tensor(pred).bool()).float()
-        return Mean.partials(self, acc, seq_len)
-
-    def result(self, *args):
-        return Mean.result(self, *args) * 100.
-
-
-class Error(Mean):
-    r"""Online error rate (%) of boolean targets/predictions."""
-
-    def partials(self, target, pred, seq_len=None):
-        err = torch.logical_xor(_tensor(target).bool(), _tensor(pred).bool()).float()
-        return Mean.partials(self, err, seq_len)
-
-    def result(self, *args):
-        return Mean.result(self, *args) * 100.
-
-
-class MAE(Mean):
-    r"""Online mean-absolute-error."""
-
-    def partials(self, target, pred, seq_len=None):
-        return Mean.partials(self, torch.abs(_tensor(target) - _tensor(pred)), seq_len)
 
 
 class F0Distortion(RMSE):

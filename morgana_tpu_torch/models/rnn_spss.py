@@ -8,7 +8,12 @@ of the normalised deltas plus the BCE of vuv. Train it with::
 
     python -m morgana_tpu_torch.models.rnn_spss --experiment_name NAME \
         --data_root DATA --train_id_list train/train_file_id_list.scp \
-        --valid_id_list valid/valid_file_id_list.scp [--device cpu]
+        --valid_id_list valid/valid_file_id_list.scp --end_epoch 50 \
+        --valid_output_interval 51 [--device cpu]
+
+The validation analysis synthesises wavs with the vocoder, which is not
+ported yet, so the builder refuses a ``--valid_output_interval`` that a
+trained epoch reaches.
 """
 import torch
 
@@ -31,6 +36,9 @@ class LSTMAcousticModel(BaseSPSS):
     function); 'wavefront' is not ported yet. ``rnn_unroll`` is a knob of the
     JAX scan with no counterpart here; it is accepted so that the JAX
     model's ``model_kwargs`` carry over."""
+
+    unported_valid_analysis = ('it synthesises wavs with the WORLD vocoder, which is not '
+                               'ported yet')
 
     def __init__(self, input_dim=600 + 9, output_dims=None, dropout_prob=0.,
                  num_layers=8, hidden_size=512, rnn_backend='scan', rnn_unroll=8,
@@ -148,9 +156,7 @@ class LSTMAcousticModel(BaseSPSS):
 
     def analysis_for_valid_batch(self, features, output_features, out_dir, **kwargs):
         raise NotImplementedError(
-            'LSTMAcousticModel.analysis_for_valid_batch synthesises wavs with the WORLD '
-            'vocoder, which is not ported yet; keep --valid_output_interval above '
-            '--end_epoch')
+            f'LSTMAcousticModel.analysis_for_valid_batch: {self.unported_valid_analysis}')
 
 
 def main(argv=None):

@@ -17,7 +17,6 @@ import torch
 
 from morgana_tpu_torch import data
 from morgana_tpu_torch.device import resolve_device
-from morgana_tpu_torch.training import device_features
 
 __all__ = ['InferenceEngine']
 
@@ -77,7 +76,7 @@ class InferenceEngine(object):
         """Runs ``predict`` on one collated (padded) batch: its numeric arrays
         go to the engine's device. Returns the output tensors, on device."""
         with torch.inference_mode():
-            return self.model.predict(device_features(features, self.device))
+            return self.model.predict(data.device_features(features, self.device))
 
     def _unpad(self, features, outputs):
         """Every (B, T_pad, D) output becomes a list of (t_i, D) numpy arrays

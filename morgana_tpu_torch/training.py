@@ -16,9 +16,10 @@ import numpy as np
 import torch
 
 from morgana_tpu_torch import nn as mnn
+from morgana_tpu_torch.data import device_features
 
 __all__ = ['SUPPORTED_OPTIMIZERS', 'Optimizer', 'build_optimizer', 'clip_by_global_norm',
-           'apply_updates', 'device_features', 'TrainLoop']
+           'apply_updates', 'TrainLoop']
 
 #: The JAX package's optimiser names (``training.py:112``); the port has 'adam'.
 SUPPORTED_OPTIMIZERS = ('adam', 'adamw', 'sgd', 'lamb')
@@ -39,10 +40,10 @@ class Optimizer(object):
 
 
 def build_optimizer(name='adam', weight_decay=0., b1=0.9, b2=0.999, eps=1e-8,
-                    grad_clip_norm=0., momentum=0., nesterov=False):
+                    grad_clip_norm=0.):
     r"""The optimiser of ``training.py:115``. ``'adam'``: Adam with L2 added
-    to the gradient. ``momentum`` and ``nesterov`` belong to 'sgd' and are
-    ignored, as the JAX package ignores a knob of another optimiser."""
+    to the gradient. Another optimiser's setting (``momentum``, ``nesterov``)
+    is a ``TypeError``, never accepted and ignored."""
     if name not in SUPPORTED_OPTIMIZERS:
         raise ValueError(f'Unknown optimizer {name!r}; supported: {SUPPORTED_OPTIMIZERS}')
     if name != 'adam':
@@ -74,14 +75,6 @@ def apply_updates(optimizer, ema_decay, params, opt_state, ema_params, lr):
         with torch.no_grad():
             for name, value in mnn.ema_update(ema_params, params, ema_decay).items():
                 ema_params[name].copy_(value)
-
-
-def device_features(features, device):
-    """The numeric arrays of a collated batch as tensors on ``device``; names
-    and other host values are left out."""
-    return {key: torch.from_numpy(value).to(device)
-            for key, value in features.items()
-            if isinstance(value, np.ndarray) and value.dtype.kind in 'fiub'}
 
 
 class TrainLoop(object):

@@ -25,7 +25,7 @@ from morgana_tpu_torch.experiment_builder import ExperimentBuilder as TBuilder
 from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel as TModel
 from morgana_tpu_torch.models.rnn_spss import main as tmain
 from morgana_tpu_torch.serve import InferenceEngine as TEngine
-from morgana_tpu_torch.training import device_features
+from morgana_tpu_torch.data import device_features
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 'models'))
@@ -163,6 +163,22 @@ def test_flags_and_settings_the_port_lacks_are_errors(trained):
         TBuilder(TModel, remat=True, **args)
     with pytest.raises(NotImplementedError, match='vocoder'):
         TBuilder(TModel, **dict(args, test=True))
+
+
+@pytest.mark.parametrize('flags', [['--end_epoch', '50'], ['--no-train'],
+                                   ['--start_epoch', '11', '--end_epoch', '12',
+                                    '--valid_output_interval', '11']],
+                         ids=['default_intervals', 'valid_only', 'interval_reached'])
+def test_unported_valid_analysis_is_refused_at_construction(trained, flags):
+    """Settings that would run the vocoder's validation analysis (the
+    default --end_epoch 50 with the default --valid_output_interval 10,
+    validation alone, an interval that a trained epoch reaches) fail when
+    the builder is made, not after the training they follow."""
+    argv = _port_argv(trained['root'], str(trained['base'] / 'refused'), trained['ckpt'],
+                      '--device', 'cpu')
+    args = TBuilder.get_experiment_args(argv + flags)
+    with pytest.raises(ValueError, match='vocoder'):
+        TBuilder(TModel, **args)
 
 
 def _small_builder(trained, name, *flags):
