@@ -36,6 +36,31 @@ code and without the final line:
 7. train_parity: the same trainer on the GPU and on the CPU (plain
    versions) from the same init and data, 3 steps of B=4 at full width:
    per-step losses and the first step's gradients.
+8. k3: kernel K3 (the GRU layer recurrence) against its plain version and
+   against torch.nn.GRU (cuDNN, a yardstick the port never calls), at H=64
+   (B=32 and B=16, T=1024) and H=128 (B=32, T=128), ragged seq_len, with
+   and without an initial state, and at edge shapes (T=0, T=1, B=1, 5, 40,
+   256); times.
+9. k4: the gradient path of the GRU layer (K3, then K4, the backward)
+   against autograd through the plain recurrence, for a loss on y and hn
+   under ragged seq_len; K4 alone against its plain version; times of K4
+   and of one torch.nn.GRU forward+backward (cuDNN).
+10. f0_serving: F0Model at full width (609 inputs, 3 x GRU(64), 3 outputs)
+    with seeded weights and normaliser statistics, served by
+    InferenceEngine.predict_items on 32 utterances of 200-1000 frames at
+    B=16; checks shapes, finiteness, 3 K3 launches per batch and agreement
+    with the same engine on the CPU; throughput and peak memory.
+11. f0_train: F0Model trained by the ExperimentBuilder (B=32, the JAX
+    defaults) for 2 epochs with validation on the train phase's corpus,
+    from a seeded epoch_0.npz; checks finite losses and metrics, 3 launches
+    each of K3 and K4 per train step, K3 alone in validation and the
+    checkpoint's strict reload; ms per step, frames/s, peak memory and
+    where a step's time goes.
+12. f0_train_parity: as train_parity, for F0Model.
+13. duration_train: DurationModel (GRU(128)) trained for 2 epochs with its
+    validation analysis every epoch; checks 1 launch each of K3 and K4 per
+    train step and the feats/dur/*.npy it writes; ms per step and where a
+    step's time goes.
 
 Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -69,10 +94,16 @@ TRAIN_GRAD_RTOL = 1e-3
 SERVE_BATCH = 16
 N_UTTS = 32
 TRAIN_BATCH = 32
+F0_LAYERS = 3       # F0Model: 3 x GRU(64)
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def max_abs(t):
+    """max |t|, 0 for an empty tensor (T = 0)."""
+    return float(t.abs().max()) if t.numel() else 0.0
 
 
 def nvidia_smi():
@@ -115,6 +146,29 @@ def k2_bound(batch, time_steps, hidden):
     flops = 2.0 * batch * 4 * hidden * hidden * time_steps
     nbytes = 4.0 * (2 * time_steps * batch * 4 * hidden + 3 * time_steps * batch * hidden
                     + hidden * 4 * hidden + 5 * batch * hidden)
+    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
+
+
+def k3_bound(batch, time_steps, hidden):
+    """Least time for the GRU recurrence: 2*B*H*3H flops per step against the
+    float32 peak, and xg (T, B, 3H) read plus y written (with w_hh, b_hh and
+    h0 read and hn written) against the memory rate."""
+    flops = 2.0 * batch * hidden * 3 * hidden * time_steps
+    nbytes = 4.0 * (time_steps * batch * 3 * hidden + time_steps * batch * hidden
+                    + hidden * 3 * hidden + 3 * hidden + 2 * batch * hidden)
+    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
+
+
+def k4_bound(batch, time_steps, hidden):
+    """Least time for the GRU backward recurrence: two products of 2*B*H*3H
+    flops per step (the recompute of hg and the carry) against the float32
+    peak, and xg read plus dxg written, y and dy read (with w_hh, b_hh, h0
+    and dhn read and dh0 written) against the memory rate."""
+    flops = 2.0 * (2.0 * batch * hidden * 3 * hidden * time_steps)
+    nbytes = 4.0 * (2 * time_steps * batch * 3 * hidden + 2 * time_steps * batch * hidden
+                    + hidden * 3 * hidden + 3 * hidden + 3 * batch * hidden)
     ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
@@ -277,6 +331,165 @@ def k2_case(torch, dev, batch, time_steps, with_state, seed, timed):
     return out
 
 
+def gru_inputs(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed):
+    """Seeded inputs of one GRU(hidden) layer fed by in_dim features: x, the
+    four weights, a ragged seq_len (one row of T, one of 1, one of 0 when
+    B > 2) and an optional h0."""
+    rng = np.random.default_rng(seed)
+    bound = 1.0 / math.sqrt(hidden)
+
+    def uniform(*shape):
+        return torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32)).to(dev)
+
+    x = torch.from_numpy(rng.normal(size=(batch, time_steps, in_dim)).astype(np.float32)).to(dev)
+    weights = [uniform(in_dim, 3 * hidden), uniform(hidden, 3 * hidden), uniform(3 * hidden),
+               uniform(3 * hidden)]
+    seq_len = rng.integers(1, time_steps + 1, batch) if time_steps else np.zeros(batch, np.int64)
+    seq_len[0] = time_steps
+    seq_len[-1] = min(time_steps, 1)
+    if batch > 2:
+        seq_len[1] = 0
+    seq_len = torch.from_numpy(seq_len).to(dev)
+    h0 = None
+    if with_state:
+        h0 = torch.from_numpy(0.5 * rng.normal(size=(batch, hidden)).astype(np.float32)).to(dev)
+    return x, weights, seq_len, h0
+
+
+def cudnn_gru(torch, dev, w_ih, w_hh, b_ih, b_hh):
+    """torch.nn.GRU (cuDNN, the same r, z, n form) holding the same weights:
+    the yardstick."""
+    in_dim, hidden = w_ih.shape[0], w_hh.shape[0]
+    cudnn = torch.nn.GRU(in_dim, hidden, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(w_ih.t())
+        cudnn.weight_hh_l0.copy_(w_hh.t())
+        cudnn.bias_ih_l0.copy_(b_ih)
+        cudnn.bias_hh_l0.copy_(b_hh)
+    return cudnn
+
+
+def k3_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, timed):
+    """K3 through gru_layer (no gradient) against the plain layer and, for
+    T > 0, cuDNN's GRU; with `timed`, the times of K3 alone, of its plain
+    version, of the layer and of one cuDNN GRU forward."""
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    x, (w_ih, w_hh, b_ih, b_hh), seq_len, h0 = gru_inputs(
+        torch, dev, batch, time_steps, hidden, in_dim, with_state, seed)
+    args = (x, w_ih, w_hh, b_ih, b_hh, seq_len, h0)
+    with torch.inference_mode():
+        before = gru_ops.launches
+        y_k, hn_k = gru_ops.gru_layer(*args)
+        torch.cuda.synchronize()
+        launched = gru_ops.launches - before
+        y_p, hn_p = gru_ops.gru_layer_reference(*args)
+        err_plain = max(max_abs(y_k - y_p), max_abs(hn_k - hn_p))
+        err_cudnn = 0.0
+        cudnn = cudnn_gru(torch, dev, w_ih, w_hh, b_ih, b_hh)
+        hx = None if h0 is None else h0[None].contiguous()
+        if time_steps:
+            y_c, _ = cudnn(x, hx)
+            mask = (torch.arange(time_steps, device=dev)[None, :] < seq_len[:, None])[:, :, None]
+            err_cudnn = float((y_k - y_c * mask).abs().max())
+
+        out = {'phase': 'k3', 'B': batch, 'T': time_steps, 'H': hidden, 'in_dim': in_dim,
+               'initial_state': with_state, 'seq_len_min': int(seq_len.min()),
+               'seq_len_max': int(seq_len.max()), 'max_abs_err_vs_plain': err_plain,
+               'max_abs_err_vs_cudnn': err_cudnn, 'tolerance': KERNEL_TOL, 'k3_launches': launched}
+        if timed:
+            xg = (torch.matmul(x, w_ih) + b_ih).transpose(0, 1).contiguous()
+            hs = torch.zeros((batch, hidden), device=dev) if h0 is None else h0
+            out['kernel_ms'] = cuda_ms(torch, lambda: gru_ops.gru_recurrence(xg, w_hh, b_hh, hs), 50)
+            out['plain_ms'] = cuda_ms(
+                torch, lambda: gru_ops.gru_recurrence_reference(xg, w_hh, b_hh, hs), 2)
+            out['layer_ms'] = cuda_ms(torch, lambda: gru_ops.gru_layer(*args), 50)
+            out['library_ms'] = cuda_ms(torch, lambda: cudnn(x, hx), 50)
+            out['bound_ms'], out['bound_by'] = k3_bound(batch, time_steps, hidden)
+            out['us_per_step'] = out['kernel_ms'] * 1e3 / time_steps
+    emit(out)
+    if not (err_plain <= KERNEL_TOL and err_cudnn <= KERNEL_TOL and launched == 1):
+        raise AssertionError(f'K3 disagrees at B={batch} T={time_steps} H={hidden}: {out}')
+    return out
+
+
+def gru_layer_grads(torch, layer, x, weights, seq_len, h0, loss_weights):
+    """Gradients of sum(y*wy) + sum(hn*wh) with respect to x, the four weights
+    and h0 (zeros given when there is no state); zeros where the loss does
+    not reach an input (x at T = 0)."""
+    batch, hidden = x.shape[0], weights[1].shape[0]
+    h0 = torch.zeros((batch, hidden), device=x.device) if h0 is None else h0
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, *weights, h0)]
+    y, hn = layer(*leaves[:5], seq_len=seq_len, h0=leaves[5])
+    loss = sum((out * w).sum() for out, w in zip((y, hn), loss_weights))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(leaf) if g is None else g for g, leaf in zip(grads, leaves)]
+
+
+def k4_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, timed):
+    """The gradient path (K3, then K4) against autograd through the plain
+    recurrence, each gradient relative to its max |value|; K4 alone against
+    its plain version; with `timed`, the times of K4, of its plain version,
+    of the layer forward+backward and of cuDNN's GRU forward+backward."""
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    x, weights, seq_len, h0 = gru_inputs(torch, dev, batch, time_steps, hidden, in_dim,
+                                         with_state, seed)
+    rng = np.random.default_rng(seed + 100)
+    loss_weights = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+                    for shape in ((batch, time_steps, hidden), (batch, hidden))]
+    names = ('dx', 'dw_ih', 'dw_hh', 'db_ih', 'db_hh', 'dh0')
+
+    before = (gru_ops.launches, gru_ops.bwd_launches)
+    got = gru_layer_grads(torch, gru_ops.gru_layer, x, weights, seq_len, h0, loss_weights)
+    torch.cuda.synchronize()
+    launched = (gru_ops.launches - before[0], gru_ops.bwd_launches - before[1])
+    want = gru_layer_grads(torch, gru_ops.gru_layer_reference, x, weights, seq_len, h0,
+                           loss_weights)
+    grad_rel = {n: max_abs(g - w) / max(max_abs(w), 1e-30) for n, g, w in zip(names, got, want)}
+
+    # K4 alone against its plain version on the same saved tensors.
+    w_ih, w_hh, b_ih, b_hh = weights
+    hs = torch.zeros((batch, hidden), device=dev) if h0 is None else h0
+    xg = (torch.matmul(x, w_ih) + b_ih).transpose(0, 1).contiguous()
+    y, _ = gru_ops.gru_recurrence(xg, w_hh, b_hh, hs)
+    cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+           for shape in ((time_steps, batch, hidden), (batch, hidden))]
+    bwd_args = (xg, w_hh, b_hh, hs, y, *cot)
+    k4_out = gru_ops.gru_backward(*bwd_args)
+    plain_out = gru_ops.gru_backward_reference(*bwd_args)
+    k4_err = max(max_abs(a - b) for a, b in zip(k4_out, plain_out))
+    k4_rel = max(max_abs(a - b) / max(max_abs(b), 1e-30) for a, b in zip(k4_out, plain_out))
+
+    out = {'phase': 'k4', 'B': batch, 'T': time_steps, 'H': hidden, 'in_dim': in_dim,
+           'initial_state': with_state, 'grad_rel_err_vs_plain': grad_rel,
+           'grad_rtol': GRAD_RTOL, 'k4_max_abs_err': k4_err, 'k4_rel_err': k4_rel,
+           'k3_launches': launched[0], 'k4_launches': launched[1]}
+    if timed:
+        out['kernel_ms'] = cuda_ms(torch, lambda: gru_ops.gru_backward(*bwd_args), 20)
+        out['plain_ms'] = cuda_ms(torch, lambda: gru_ops.gru_backward_reference(*bwd_args), 2)
+        out['bound_ms'], out['bound_by'] = k4_bound(batch, time_steps, hidden)
+        out['us_per_step'] = out['kernel_ms'] * 1e3 / time_steps
+        out['k3_ms'] = cuda_ms(torch, lambda: gru_ops.gru_recurrence(xg, w_hh, b_hh, hs), 20)
+        out['layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: gru_layer_grads(
+            torch, gru_ops.gru_layer, x, weights, seq_len, h0, loss_weights), 10)
+        cudnn = cudnn_gru(torch, dev, *weights)
+        hx = None if h0 is None else h0[None].contiguous()
+
+        def cudnn_fwd_bwd():
+            y_c, _ = cudnn(x, hx)
+            (y_c * loss_weights[0]).sum().backward()
+
+        # cuDNN's backward cannot be timed alone: this includes its forward.
+        out['library_ms'] = cuda_ms(torch, cudnn_fwd_bwd, 10)
+    emit(out)
+    if not (max(grad_rel.values()) <= GRAD_RTOL and k4_err <= KERNEL_TOL
+            and k4_rel <= GRAD_RTOL and launched == (1, 1)):
+        raise AssertionError(f'K3 / K4 gradients disagree at B={batch} T={time_steps} '
+                             f'H={hidden}: {out}')
+    return out
+
+
 def write_normalisers(root, rng):
     """Seeded statistics in the {name}_mvn.json / {name}_minmax.json layout."""
     norm_dir = os.path.join(root, 'train')
@@ -421,14 +634,29 @@ def serving_phase(torch, root):
     return launches
 
 
-def seeded_checkpoint(torch, path, seed):
-    """A full-width LSTMAcousticModel with weights from `seed`, saved as the
-    JAX package's epoch_0.npz."""
+def seeded_checkpoint(torch, model_class, path, seed):
+    """A full-width model with weights from `seed`, saved as the JAX
+    package's epoch_0.npz."""
     from morgana_tpu_torch import checkpointing, nn
-    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
 
-    model = LSTMAcousticModel(generator=torch.Generator().manual_seed(seed))
+    model = model_class(generator=torch.Generator().manual_seed(seed))
     return checkpointing.save_state_dict(nn.state_dict(model), path)
+
+
+def train_corpus(root):
+    """The training phases' synthetic corpus, written once under `root`: 64
+    train + 16 valid utterances of 40-119 phones of 5-9 frames (about
+    200-1070 frames). Returns its directory and the seconds it took (0 when
+    it was there)."""
+    from morgana_tpu_torch.data.synthetic import generate_voice_data
+
+    data_root = os.path.join(root, 'train_data')
+    if os.path.isdir(data_root):
+        return data_root, 0.0
+    start = time.perf_counter()
+    generate_voice_data(data_root, num_train=64, num_valid=16, num_test=0, seed=7,
+                        n_phones_range=(40, 120), dur_range=(5, 10))
+    return data_root, time.perf_counter() - start
 
 
 def builder_argv(data_root, experiments_base, name, ckpt, *flags):
@@ -444,19 +672,15 @@ def train_phase(torch, root):
     """Trains the full-width model for 2 epochs through the ExperimentBuilder
     on the card and checks what it wrote; then times and profiles steps."""
     from morgana_tpu_torch import nn
-    from morgana_tpu_torch.data.synthetic import generate_voice_data
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
     from morgana_tpu_torch.ops import lstm as lstm_ops
     from morgana_tpu_torch.data import device_features
     from morgana_tpu_torch.viz.synthesis import MLPG_streams
 
-    data_root = os.path.join(root, 'train_data')
-    start = time.perf_counter()
-    generate_voice_data(data_root, num_train=64, num_valid=16, num_test=0, seed=7,
-                        n_phones_range=(40, 120), dur_range=(5, 10))
-    corpus_s = time.perf_counter() - start
-    ckpt = seeded_checkpoint(torch, os.path.join(root, 'init', 'epoch_0.npz'), 11)
+    data_root, corpus_s = train_corpus(root)
+    ckpt = seeded_checkpoint(torch, LSTMAcousticModel, os.path.join(root, 'init', 'epoch_0.npz'),
+                             11)
     exp_base = os.path.join(root, 'experiments')
     args = ExperimentBuilder.get_experiment_args(
         builder_argv(data_root, exp_base, 'train', ckpt, '--end_epoch', '2'))
@@ -497,18 +721,8 @@ def train_phase(torch, root):
         if not os.path.exists(os.path.join(exp_dir, name)):
             raise AssertionError(f'{name} was not written')
 
-    # Steady-state steps on one full batch, host clock around synchronised
-    # calls; then one profiled step and the MLPG's share of it.
-    features = next(iter(exp.train_loader))
-    exp.model.mode = 'train'
-    step_ms = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        exp.loop.train_step(features, exp.learning_rate)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    profile = profile_step(torch, lambda: exp.loop.train_step(features, exp.learning_rate))
+    # Steady-state steps on one full batch, then the MLPG's share of one.
+    features, step_ms, profile = time_train_steps(torch, exp)
     model = exp.model
     batch = device_features(features, exp.device)
     with torch.no_grad():
@@ -542,23 +756,41 @@ def train_phase(torch, root):
     return launches
 
 
-def train_parity_phase(torch, root):
+def time_train_steps(torch, exp):
+    """Five train steps on one full batch of `exp`'s loader, host clock
+    around synchronised calls, then one profiled step. Returns the batch,
+    the step times in ms and the profile."""
+    features = next(iter(exp.train_loader))
+    exp.model.mode = 'train'
+    step_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.loop.train_step(features, exp.learning_rate)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    profile = profile_step(torch, lambda: exp.loop.train_step(features, exp.learning_rate))
+    return features, step_ms, profile
+
+
+def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12):
     """The same trainer on the GPU and on the CPU, from one init and one
     corpus: per-step losses and the first step's gradients."""
     from morgana_tpu_torch.data.synthetic import generate_voice_data
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
-    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
 
     data_root = os.path.join(root, 'parity_data')
-    generate_voice_data(data_root, num_train=4, num_valid=0, num_test=0, seed=8,
-                        n_phones_range=(20, 40), dur_range=(5, 8))
-    ckpt = seeded_checkpoint(torch, os.path.join(root, 'parity_init', 'epoch_0.npz'), 12)
+    if not os.path.isdir(data_root):
+        generate_voice_data(data_root, num_train=4, num_valid=0, num_test=0, seed=8,
+                            n_phones_range=(20, 40), dur_range=(5, 8))
+    ckpt = seeded_checkpoint(torch, model_class, os.path.join(root, f'{phase}_init', 'epoch_0.npz'),
+                             seed)
     runs = {}
     for device in ('cuda', 'cpu'):
         args = ExperimentBuilder.get_experiment_args(builder_argv(
-            data_root, os.path.join(root, 'parity_experiments'), device, ckpt,
+            data_root, os.path.join(root, f'{phase}_experiments'), device, ckpt,
             '--device', device, '--batch_size', '4', '--no-valid', '--end_epoch', '3'))
-        exp = ExperimentBuilder(LSTMAcousticModel, **args)
+        exp = ExperimentBuilder(model_class, **args)
         exp.model.mode = 'train'
         losses, grads, frames = [], None, []
         for _ in range(3):
@@ -574,20 +806,23 @@ def train_parity_phase(torch, root):
     grad_rel = {n: float((gpu_grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
                 for n, g in cpu_grads.items()}
     worst = max(grad_rel, key=grad_rel.get)
-    emit({'phase': 'train_parity', 'B': 4, 'padded_T': frames, 'gpu_losses': gpu_losses,
-          'cpu_losses': cpu_losses, 'loss_rel_err': loss_rel, 'loss_rtol': TRAIN_LOSS_RTOL,
-          'max_grad_rel_err': grad_rel[worst], 'worst_param': worst,
-          'grad_rtol': TRAIN_GRAD_RTOL})
+    emit({'phase': phase, 'model': model_class.__name__, 'B': 4, 'padded_T': frames,
+          'gpu_losses': gpu_losses, 'cpu_losses': cpu_losses, 'loss_rel_err': loss_rel,
+          'loss_rtol': TRAIN_LOSS_RTOL, 'max_grad_rel_err': grad_rel[worst],
+          'worst_param': worst, 'grad_rtol': TRAIN_GRAD_RTOL})
     if max(loss_rel) > TRAIN_LOSS_RTOL or grad_rel[worst] > TRAIN_GRAD_RTOL:
-        raise AssertionError('GPU trainer disagrees with the CPU trainer')
+        raise AssertionError(f'{phase}: GPU trainer disagrees with the CPU trainer')
+
+
+KERNEL_KINDS = (('lstm_fwd_kernel', 'k1'), ('lstm_bwd_kernel', 'k2'), ('gru_fwd_kernel', 'k3'),
+                ('gru_bwd_kernel', 'k4'))
 
 
 def kernel_kind(name):
     """The part of a step a device kernel belongs to, by its name."""
-    if 'lstm_fwd_kernel' in name:
-        return 'k1'
-    if 'lstm_bwd_kernel' in name:
-        return 'k2'
+    for key, kind in KERNEL_KINDS:
+        if key in name:
+            return kind
     lower = name.lower()
     if 'gemm' in lower:
         return 'gemm'
@@ -597,7 +832,7 @@ def kernel_kind(name):
 
 
 def profile_step(torch, fn):
-    """One profiled call: device time by kernel (K1, K2, GEMMs, Adam's
+    """One profiled call: device time by kernel (K1-K4, GEMMs, Adam's
     multi-tensor kernels, the rest), the number of kernels, and the host ops
     that took the most time. The table by device time goes to stderr."""
     from torch.profiler import ProfilerActivity, profile
@@ -610,7 +845,7 @@ def profile_step(torch, fn):
         wall_ms = (time.perf_counter() - start) * 1e3
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = {'k1': 0.0, 'k2': 0.0, 'gemm': 0.0, 'adam': 0.0, 'other': 0.0}
+    device_us = dict.fromkeys([kind for _, kind in KERNEL_KINDS] + ['gemm', 'adam', 'other'], 0.0)
     for e in kernels:
         device_us[kernel_kind(e.key)] += e.self_device_time_total
     busy_ms = sum(device_us.values()) / 1e3
@@ -625,6 +860,217 @@ def profile_step(torch, fn):
             'top_host_ops': [[e.key, e.self_cpu_time_total / 1e3, e.count] for e in host]}
 
 
+def f0_items(rng):
+    """make_items' utterances with what F0Model's test sources also read:
+    n_phones, and the WORLD spectra sp and ap (513 bins) of its valid
+    analysis."""
+    items = make_items(rng)
+    for item in items:
+        n = int(item['n_frames'].reshape(-1)[0])
+        item['n_phones'] = np.array([[item['dur'].shape[0]]], np.float32)
+        item['sp'] = rng.random((n, 513), dtype=np.float32)
+        item['ap'] = rng.random((n, 513), dtype=np.float32)
+    return items
+
+
+def f0_serving_phase(torch, root):
+    """F0Model at full width served by InferenceEngine.predict_items: 32
+    utterances at B=16; shapes, finiteness, K3's launches, agreement with the
+    CPU engine, throughput, peak memory and where a batch's time goes."""
+    from morgana_tpu_torch import data
+    from morgana_tpu_torch.models.f0_test_model import F0Model
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    serve_root = os.path.join(root, 'f0_serving')
+    os.makedirs(serve_root)
+    rng = np.random.default_rng(20)
+    ckpt = seeded_checkpoint(torch, F0Model, os.path.join(serve_root, 'epoch_1.npz'), 20)
+    write_normalisers(serve_root, rng)
+    items = f0_items(rng)
+
+    engine = InferenceEngine(F0Model, ckpt, data_root=serve_root, batch_size=SERVE_BATCH)
+    engine.predict_items(items[:2])   # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    gru_ops.launches = gru_ops.bwd_launches = 0
+    start = time.perf_counter()
+    outputs = engine.predict_items(items)      # returns host arrays: ends synchronised
+    seconds = time.perf_counter() - start
+    launches = gru_ops.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    n_batches = -(-N_UTTS // SERVE_BATCH)
+
+    dims = {'normalised_lf0_deltas': 3, 'lf0': 1}
+    frames = 0
+    for item in items:
+        n = int(item['n_frames'].reshape(-1)[0])
+        frames += n
+        out = outputs[item['name']]
+        for key, dim in dims.items():
+            if out[key].shape != (n, dim) or not np.isfinite(out[key]).all():
+                raise AssertionError(f"{item['name']} {key}: shape {out[key].shape}, "
+                                     f'expected ({n}, {dim}), finite={np.isfinite(out[key]).all()}')
+    expected = F0_LAYERS * n_batches
+    if launches != expected or gru_ops.bwd_launches:
+        raise AssertionError(f'K3 launched {launches} times (K4 {gru_ops.bwd_launches}) for '
+                             f'{n_batches} batches, expected {expected} (K4 0)')
+
+    # The same checkpoint on the CPU (plain versions) for the shortest utterances.
+    few = sorted(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:4]
+    cpu = InferenceEngine(F0Model, ckpt, data_root=serve_root, device='cpu',
+                          batch_size=SERVE_BATCH).predict_items(few)
+    errs = {}
+    for key in dims:
+        worst = 0.0
+        for it in few:
+            a, b = outputs[it['name']][key], cpu[it['name']][key]
+            err = float(np.abs(a - b).max())
+            worst = max(worst, err if key.startswith('normalised') else
+                        err / max(1.0, float(np.abs(b).max())))
+        errs[key] = worst
+        if worst > (NET_TOL if key.startswith('normalised') else TRAJ_RTOL):
+            raise AssertionError(f'F0Model {key}: GPU vs CPU {worst} beyond tolerance')
+
+    features = data.collate([data.assemble_item(
+        engine.model.test_data_sources(), engine.model.normalisers,
+        lambda name, source, item=item: source.package(item[name]), item['name'])
+        for item in items[:SERVE_BATCH]])
+    batch = data.device_features(features, engine.device)
+    with torch.inference_mode():
+        profile = profile_step(torch, lambda: engine.model.predict(batch))
+    emit(dict({'phase': 'f0_serving', 'model': 'F0Model 609-3xGRU(64)-3',
+               'utterances': N_UTTS, 'frames': frames, 'batch_size': SERVE_BATCH,
+               'batches': n_batches, 'seconds': seconds, 'utterances_per_s': N_UTTS / seconds,
+               'frames_per_s': frames / seconds, 'ms_per_batch': seconds / n_batches * 1e3,
+               'peak_memory_mib': peak_mib, 'k3_launches': launches,
+               'k3_launches_expected': expected, 'gpu_vs_cpu_err': errs, 'net_tol': NET_TOL,
+               'traj_rtol': TRAJ_RTOL,
+               'profiled_batch_T': int(features['normalised_counters'].shape[1])},
+              **profile))
+    return launches
+
+
+def gru_train_phase(torch, root, model_class, phase, layers, seed, *flags):
+    """Trains `model_class` for 2 epochs with validation through the
+    ExperimentBuilder on the train corpus, from a seeded epoch_0.npz; checks
+    K3's and K4's launches (`layers` each per train step, K3 alone per valid
+    batch), finite losses and metrics and the checkpoint's strict reload.
+    Returns the launches, the experiment and its directory."""
+    from morgana_tpu_torch import nn
+    from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    data_root, corpus_s = train_corpus(root)
+    ckpt = seeded_checkpoint(torch, model_class, os.path.join(root, f'{phase}_init', 'epoch_0.npz'),
+                             seed)
+    exp_base = os.path.join(root, 'experiments')
+    args = ExperimentBuilder.get_experiment_args(
+        builder_argv(data_root, exp_base, phase, ckpt, '--end_epoch', '2', *flags))
+    exp = ExperimentBuilder(model_class, **args)
+    steps_per_epoch = len(exp.train_loader)
+    valid_batches = len(exp.valid_loader)
+    if sum(isinstance(m, nn.Recurrent) for m in exp.model.modules()) != layers:
+        raise AssertionError(f'{model_class.__name__} does not have {layers} GRU layers')
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gru_ops.launches = gru_ops.bwd_launches = 0
+    start = time.perf_counter()
+    exp.run_experiment()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    launches = {'k3': gru_ops.launches, 'k4': gru_ops.bwd_launches}
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    train_steps = 2 * steps_per_epoch
+    expected = {'k3': layers * (train_steps + 2 * valid_batches), 'k4': layers * train_steps}
+    if launches != expected:
+        raise AssertionError(f'{phase}: launches {launches}, expected {expected}')
+    exp_dir = os.path.join(exp_base, phase)
+    epoch_metrics = {}
+    for mode in ('train', 'valid'):
+        for epoch in (1, 2):
+            with open(os.path.join(exp_dir, mode, f'epoch_{epoch}', 'metrics.json')) as f:
+                epoch_metrics[f'{mode}_{epoch}'] = json.load(f)
+    step_losses = [x for epoch in (1, 2) for x in exp.train_losses[epoch]]
+    values = step_losses + [v for m in epoch_metrics.values() for v in m.values()]
+    if len(step_losses) != train_steps or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f'{phase}: non-finite or missing losses/metrics: {step_losses} '
+                             f'{epoch_metrics}')
+    nn.load_jax_params(model_class(), np.load(os.path.join(exp_dir, 'checkpoints', 'epoch_2.npz')))
+    emit({'phase': phase, 'model': model_class.__name__,
+          'corpus': '64 train + 16 valid, n_phones 40-119, dur 5-9', 'corpus_seconds': corpus_s,
+          'batch_size': TRAIN_BATCH, 'epochs': 2, 'steps_per_epoch': steps_per_epoch,
+          'valid_batches': valid_batches, 'run_seconds': run_s, 'step_losses': step_losses,
+          'train_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('train')},
+          'valid_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('valid')},
+          'gru_layers': layers, 'launches': launches, 'launches_expected': expected,
+          'k3_launches_per_train_step': (launches['k3'] - 2 * layers * valid_batches) / train_steps,
+          'k3_launches_per_valid_batch': layers,
+          'k4_launches_per_train_step': launches['k4'] / train_steps,
+          'peak_memory_mib': peak_mib})
+    return launches, exp, exp_dir
+
+
+def f0_train_phase(torch, root):
+    """F0Model through gru_train_phase with the builder's defaults, then
+    steady-state steps on one full batch, one profiled step and the MLPG's
+    share of it."""
+    from morgana_tpu_torch.data import device_features
+    from morgana_tpu_torch.models.f0_test_model import F0Model
+    from morgana_tpu_torch.viz.synthesis import MLPG
+
+    launches, exp, _ = gru_train_phase(torch, root, F0Model, 'f0_train', F0_LAYERS, 21)
+    features, step_ms, profile = time_train_steps(torch, exp)
+    model = exp.model
+    batch = device_features(features, exp.device)
+    with torch.no_grad():
+        pred = model.layers(model.stream_inputs(batch), seq_len=batch['n_frames'])
+        normaliser = model.normalisers['lf0']
+        variance = normaliser.fetch_params(deltas=True, like=pred)['std_dev'] ** 2
+        deltas = normaliser.denormalise(pred, deltas=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MLPG(deltas, variance, padding_size=100, seq_len=batch['n_frames'])
+        torch.cuda.synchronize()
+        mlpg_ms = (time.perf_counter() - t0) * 1e3
+    emit(dict({'phase': 'f0_train_step_breakdown', 'B': TRAIN_BATCH,
+               'T': int(features['normalised_counters'].shape[1]),
+               'frames': float(np.sum(features['n_frames'])),
+               'step_ms': step_ms, 'median_step_ms_after_first': float(np.median(step_ms[1:])),
+               'mlpg_host_ms': mlpg_ms}, **profile))
+    return launches
+
+
+def duration_train_phase(torch, root):
+    """DurationModel (GRU(128)) through gru_train_phase with its validation
+    analysis every epoch; checks the feats/dur/*.npy it writes."""
+    from morgana_tpu_torch.data import file_io
+    from morgana_tpu_torch.models.duration_model import DurationModel
+
+    launches, exp, exp_dir = gru_train_phase(torch, root, DurationModel, 'duration_train', 1, 22,
+                                             '--valid_output_interval', '1')
+    data_root = os.path.join(root, 'train_data')
+    ids = file_io.get_file_ids(os.path.join(data_root, 'valid', 'valid_file_id_list.scp'))
+    for epoch in (1, 2):
+        feats = os.path.join(exp_dir, 'valid', f'epoch_{epoch}', 'feats', 'dur')
+        for utt in ids:
+            dur = np.load(os.path.join(feats, f'{utt}.npy'))
+            n_phones = int(np.loadtxt(os.path.join(data_root, 'valid', 'n_phones', f'{utt}.txt')))
+            if dur.shape != (n_phones,) or not np.isfinite(dur).all():
+                raise AssertionError(f'{feats}/{utt}.npy: shape {dur.shape}, expected '
+                                     f'({n_phones},), finite={np.isfinite(dur).all()}')
+    features, step_ms, profile = time_train_steps(torch, exp)
+    emit(dict({'phase': 'duration_train_step_breakdown', 'B': TRAIN_BATCH,
+               'T': int(features['normalised_lab'].shape[1]),
+               'phones': float(np.sum(features['n_phones'])), 'step_ms': step_ms,
+               'median_step_ms_after_first': float(np.median(step_ms[1:])),
+               'valid_analysis_files_checked': 2 * len(ids)}, **profile))
+    return launches
+
+
 def main():
     import torch
 
@@ -632,6 +1078,8 @@ def main():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
         return 2
     from morgana_tpu_torch import _build
+    from morgana_tpu_torch.models.f0_test_model import F0Model
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
 
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -667,15 +1115,45 @@ def main():
     for batch, steps in ((5, 1), (1, 17), (40, 33)):
         k2_case(torch, dev, batch, steps, True, 7, timed=False)
 
+    # K3 against its plain version and cuDNN at F0Model's widths (H=64, B=32
+    # the training batch, B=16 the serving one, T=1024) and DurationModel's
+    # (H=128, B=32, T=128), with and without h0; then edge shapes: T=0, T=1,
+    # B=1, 5, 40 and 256, rows of length 0 and 1.
+    k3_case(torch, dev, TRAIN_BATCH, 1024, 64, 256, True, 31, timed=True)
+    k3_case(torch, dev, TRAIN_BATCH, 1024, 64, 256, False, 32, timed=True)
+    gru_fwd_shape = k3_case(torch, dev, SERVE_BATCH, 1024, 64, 256, False, 33, timed=True)
+    for with_state in (True, False):
+        k3_case(torch, dev, TRAIN_BATCH, 128, 128, 128, with_state, 34, timed=True)
+    edges = ((1, 17), (5, 1), (40, 33), (256, 9), (16, 0))
+    for hidden in (64, 128):
+        for batch, steps in edges:
+            k3_case(torch, dev, batch, steps, hidden, hidden, True, 35, timed=False)
+
+    # K3 then K4 against autograd through the plain loop, at the same shapes.
+    gru_bwd_shape = k4_case(torch, dev, TRAIN_BATCH, 1024, 64, 256, False, 36, timed=True)
+    k4_case(torch, dev, TRAIN_BATCH, 1024, 64, 256, True, 37, timed=True)
+    k4_case(torch, dev, TRAIN_BATCH, 128, 128, 128, True, 38, timed=True)
+    for hidden in (64, 128):
+        for batch, steps in edges:
+            k4_case(torch, dev, batch, steps, hidden, hidden, True, 39, timed=False)
+
     with tempfile.TemporaryDirectory() as root:
         serve_launches = serving_phase(torch, root)
         train_launches = train_phase(torch, root)
-        train_parity_phase(torch, root)
-    if not (serve_launches and train_launches['k1_gates'] and train_launches['k2']):
+        train_parity_phase(torch, root, LSTMAcousticModel)
+        f0_serve_launches = f0_serving_phase(torch, root)
+        f0_train_launches = f0_train_phase(torch, root)
+        train_parity_phase(torch, root, F0Model, 'f0_train_parity', 23)
+        duration_launches = duration_train_phase(torch, root)
+    if not (serve_launches and train_launches['k1_gates'] and train_launches['k2']
+            and f0_serve_launches and f0_train_launches['k3'] and f0_train_launches['k4']
+            and duration_launches['k3'] and duration_launches['k4']):
         raise AssertionError('a kernel of the main path was not launched')
 
-    # launches: the main paths' runs (serving, then training), each counted
-    # from 0. K1's numbers are at the serving shape, K2's at the training one.
+    # launches: the main paths' runs, each counted from 0: serving and
+    # training for the LSTM kernels; F0Model serving and training and
+    # DurationModel training for the GRU kernels. K1's and K3's numbers are
+    # at the serving shape (B=16), K2's and K4's at the training one (B=32).
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
@@ -687,7 +1165,19 @@ def main():
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:113', 'launches': train_launches['k2'],
         'max_abs_err': train_shape['k2_max_abs_err'], 'ms': train_shape['kernel_ms'],
         'plain_ms': train_shape['plain_ms'], 'bound_ms': train_shape['bound_ms'],
-        'bound_by': train_shape['bound_by'], 'library_ms': train_shape['library_ms']}]})
+        'bound_by': train_shape['bound_by'], 'library_ms': train_shape['library_ms']}, {
+        'name': 'gru_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/gru_fwd.cu',
+        'replaces': 'morgana_tpu/ops/pallas_gru.py:35',
+        'launches': f0_serve_launches + f0_train_launches['k3'] + duration_launches['k3'],
+        'max_abs_err': gru_fwd_shape['max_abs_err_vs_plain'], 'ms': gru_fwd_shape['kernel_ms'],
+        'plain_ms': gru_fwd_shape['plain_ms'], 'bound_ms': gru_fwd_shape['bound_ms'],
+        'bound_by': gru_fwd_shape['bound_by'], 'library_ms': gru_fwd_shape['library_ms']}, {
+        'name': 'gru_bwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/gru_bwd.cu',
+        'replaces': 'morgana_tpu/ops/pallas_gru.py:59',
+        'launches': f0_train_launches['k4'] + duration_launches['k4'],
+        'max_abs_err': gru_bwd_shape['k4_max_abs_err'], 'ms': gru_bwd_shape['kernel_ms'],
+        'plain_ms': gru_bwd_shape['plain_ms'], 'bound_ms': gru_bwd_shape['bound_ms'],
+        'bound_by': gru_bwd_shape['bound_by'], 'library_ms': gru_bwd_shape['library_ms']}]})
     print(nvidia_smi(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

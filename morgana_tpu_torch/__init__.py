@@ -7,10 +7,13 @@ built at first use (``_build.py``); each has a plain PyTorch version beside
 it, which runs for tensors on the CPU. Entry points run on the GPU unless the
 caller passes ``device='cpu'`` (``device.py``).
 
-It serves ``models/rnn_spss.py``'s ``LSTMAcousticModel`` through
-:class:`morgana_tpu_torch.serve.InferenceEngine` and trains it through
+It serves ``LSTMAcousticModel`` (``models/rnn_spss.py``), ``F0Model``
+(``models/f0_test_model.py``) and ``DurationModel``
+(``models/duration_model.py``) through
+:class:`morgana_tpu_torch.serve.InferenceEngine` and trains them through
 :class:`morgana_tpu_torch.experiment_builder.ExperimentBuilder`
-(``python -m morgana_tpu_torch.models.rnn_spss``).
+(``python -m morgana_tpu_torch.models.rnn_spss``, ``.f0_test_model``,
+``.duration_model``).
 """
 __version__ = '0.1.0'
 

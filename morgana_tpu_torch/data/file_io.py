@@ -6,7 +6,7 @@ import os
 import numpy as np
 
 __all__ = ['load_json', 'save_json', 'load_txt', 'save_txt', 'load_bin', 'save_bin',
-           'get_file_ids', 'save_lines']
+           'save_dir', 'get_file_ids', 'save_lines']
 
 
 def _make_parent(file_path):
@@ -59,6 +59,14 @@ def save_bin(data, file_path):
     if not file_path.endswith('.npy'):
         file_path += '.npy'
     np.save(file_path, np.asarray(data))
+
+
+def save_dir(save_fn, path, data, file_ids, suffix=''):
+    """Saves each item of ``data`` with ``save_fn`` as
+    ``{path}/{file_id}{suffix}`` (``data/file_io.py:79``)."""
+    os.makedirs(path, exist_ok=True)
+    for datum, file_id in zip(data, file_ids):
+        save_fn(datum, os.path.join(path, f'{file_id}{suffix}'))
 
 
 def get_file_ids(id_list):

@@ -4,8 +4,9 @@ path).
 
 Each batch is one :meth:`~morgana_tpu_torch.training.TrainLoop.train_step`
 on the device: on the GPU every LSTM layer runs kernel K1 forward (writing
-its gate trace) and kernel K2 backward. Outputs keep the JAX package's
-layout under ``{experiments_base}/{experiment_name}``: ``config.json``,
+its gate trace) and kernel K2 backward, every GRU layer kernels K3 and K4.
+Outputs keep the JAX package's layout under
+``{experiments_base}/{experiment_name}``: ``config.json``,
 ``checkpoints/epoch_{N}.npz`` (which the JAX package loads),
 ``train/epoch_{N}/metrics.json`` (with ``epoch_duration_s``, ``ms_per_step``
 and ``frames_per_sec``), ``valid/epoch_{N}/metrics.json`` and ``log/``.

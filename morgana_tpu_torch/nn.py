@@ -13,9 +13,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from morgana_tpu_torch.ops.gru import gru_layer
 from morgana_tpu_torch.ops.lstm import lstm_layer
 
-__all__ = ['Linear', 'Sigmoid', 'Dropout', 'Recurrent', 'SequentialWithRecurrent',
+__all__ = ['Linear', 'Sigmoid', 'Dropout', 'Recurrent', 'GRU', 'SequentialWithRecurrent',
            'load_jax_params', 'state_dict', 'ema_update']
 
 Sigmoid = nn.Sigmoid
@@ -67,35 +68,45 @@ class Linear(nn.Module):
 
 
 class Recurrent(nn.Module):
-    """Unidirectional LSTM stack (``nn.py:570``): parameters ``w_ih_l{i}``
-    (in, 4H), ``w_hh_l{i}`` (H, 4H), ``b_ih_l{i}``, ``b_hh_l{i}`` (4H,), gate
-    order i, f, g, o.
+    """Unidirectional LSTM or GRU stack (``nn.py:570``): parameters
+    ``w_ih_l{i}`` (in, G*H), ``w_hh_l{i}`` (H, G*H), ``b_ih_l{i}``,
+    ``b_hh_l{i}`` (G*H,), with G = 4 gates i, f, g, o for an LSTM and G = 3
+    gates r, z, n for a GRU; dropout between layers.
 
     ``backend`` 'scan' and 'pallas' name the JAX package's two layer
     implementations, which compute the same function; here both run
-    :func:`morgana_tpu_torch.ops.lstm.lstm_layer` (kernel K1 on the GPU).
+    :func:`morgana_tpu_torch.ops.lstm.lstm_layer` (kernels K1 and K2 on the
+    GPU) or :func:`morgana_tpu_torch.ops.gru.gru_layer` (K3 and K4).
     """
 
     def __init__(self, mode, input_size, hidden_size, num_layers=1, dropout=0.0,
-                 backend='scan', generator=None):
+                 backend='scan', bidirectional=False, generator=None):
         super().__init__()
-        if mode.lower() != 'lstm':
-            raise NotImplementedError(f'Recurrent mode {mode!r}: this port has LSTM only')
+        mode = mode.lower()
+        if mode not in ('lstm', 'gru'):
+            raise ValueError(f'Unsupported recurrent mode {mode!r}')
+        if bidirectional:
+            raise NotImplementedError('bidirectional recurrent layers are not ported yet')
         if backend == 'wavefront':
             raise NotImplementedError("backend 'wavefront' is not ported yet")
         if backend not in ('scan', 'pallas'):
             raise ValueError(f'Unsupported backend {backend!r}')
+        self.mode = mode
         self.num_layers = num_layers
         self.dropout = Dropout(dropout) if dropout else None  # between layers
+        gates = (4 if mode == 'lstm' else 3) * hidden_size
         bound = 1.0 / math.sqrt(hidden_size)
         for i in range(num_layers):
             in_dim = input_size if i == 0 else hidden_size
-            self.register_parameter(f'w_ih_l{i}', _uniform((in_dim, 4 * hidden_size), bound, generator))
-            self.register_parameter(f'w_hh_l{i}', _uniform((hidden_size, 4 * hidden_size), bound, generator))
-            self.register_parameter(f'b_ih_l{i}', _uniform((4 * hidden_size,), bound, generator))
-            self.register_parameter(f'b_hh_l{i}', _uniform((4 * hidden_size,), bound, generator))
+            self.register_parameter(f'w_ih_l{i}', _uniform((in_dim, gates), bound, generator))
+            self.register_parameter(f'w_hh_l{i}', _uniform((hidden_size, gates), bound, generator))
+            self.register_parameter(f'b_ih_l{i}', _uniform((gates,), bound, generator))
+            self.register_parameter(f'b_hh_l{i}', _uniform((gates,), bound, generator))
 
     def forward(self, inputs, hidden=None, seq_len=None):
+        """``hidden`` holds each layer's initial state, ``(h0, c0)`` for an
+        LSTM and ``h0`` for a GRU (a bare state for one layer); returns the
+        output and the states at ``seq_len`` in the same form."""
         squeeze_time = inputs.ndim == 2
         if squeeze_time:
             inputs = inputs[:, None, :]
@@ -107,11 +118,13 @@ class Recurrent(nn.Module):
         x = inputs
         new_hidden = []
         for i in range(self.num_layers):
-            h0, c0 = (None, None) if hidden[i] is None else hidden[i]
-            x, hc = lstm_layer(x, getattr(self, f'w_ih_l{i}'), getattr(self, f'w_hh_l{i}'),
-                               getattr(self, f'b_ih_l{i}'), getattr(self, f'b_hh_l{i}'),
-                               seq_len=seq_len, h0=h0, c0=c0)
-            new_hidden.append(hc)
+            weights = [getattr(self, f'{name}_l{i}') for name in ('w_ih', 'w_hh', 'b_ih', 'b_hh')]
+            if self.mode == 'lstm':
+                h0, c0 = (None, None) if hidden[i] is None else hidden[i]
+                x, state = lstm_layer(x, *weights, seq_len=seq_len, h0=h0, c0=c0)
+            else:
+                x, state = gru_layer(x, *weights, seq_len=seq_len, h0=hidden[i])
+            new_hidden.append(state)
             if self.dropout is not None and i < self.num_layers - 1:
                 x = self.dropout(x)
         if squeeze_time:
@@ -119,6 +132,11 @@ class Recurrent(nn.Module):
         if self.num_layers == 1:
             new_hidden = new_hidden[0]
         return x, new_hidden
+
+
+def GRU(input_size, hidden_size, num_layers=1, dropout=0.0):
+    """``Recurrent('gru', ...)`` (``nn.py:814``)."""
+    return Recurrent('gru', input_size, hidden_size, num_layers, dropout)
 
 
 class SequentialWithRecurrent(nn.Module):

@@ -25,7 +25,9 @@ import ctypes
 
 import torch
 
-from morgana_tpu_torch import _build
+from morgana_tpu_torch.ops._kernels import (check_operands, load_library,
+                                            mask_past_seq_len, raise_on_error,
+                                            state_at_seq_len)
 
 __all__ = ['lstm_layer', 'lstm_layer_reference', 'lstm_recurrence',
            'lstm_recurrence_reference', 'lstm_backward', 'lstm_backward_reference',
@@ -41,42 +43,11 @@ bwd_launches = 0
 _MAX_BATCH = 256  # one 32-row slice per warp of the kernels' 256 threads
 
 
-def _check_operands(kernel, operands, device):
-    """Raises, before any launch, on what the kernels do not take: each
-    operand must have its shape, lie on ``device``, be float32 and be
-    contiguous."""
-    for name, (tensor, shape) in operands.items():
-        if tuple(tensor.shape) != shape:
-            raise ValueError(f'{kernel}: {name} must be {shape}, got {tuple(tensor.shape)}')
-        if tensor.device != device:
-            raise ValueError(f'{kernel}: {name} is on {tensor.device}, expected {device}')
-        if tensor.dtype != torch.float32:
-            raise TypeError(f'{kernel}: the LSTM kernels take float32, {name} is {tensor.dtype}')
-        if not tensor.is_contiguous():
-            raise ValueError(f'{kernel}: {name} must be contiguous')
-
-
 def _check_sizes(kernel, batch, hidden):
     if not 1 <= batch <= _MAX_BATCH:
         raise ValueError(f'{kernel}: the LSTM kernels take 1 <= B <= {_MAX_BATCH}, got B={batch}')
     if hidden < 4 or hidden % 4:
         raise ValueError(f'{kernel}: the LSTM kernels take H a multiple of 4, got H={hidden}')
-
-
-def _library(name, entry, argtypes):
-    lib = _build.load(name)
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    lib.morgana_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.morgana_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
-def _raise_on_error(lib, err, what, hint):
-    if err != 0:
-        raise RuntimeError(f'{what} failed: {lib.morgana_cuda_error_string(err).decode()} '
-                           f'(cudaError {err}); {hint}')
 
 
 def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False):
@@ -88,14 +59,14 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False):
         raise ValueError(f'K1: xg must be (T, B, 4H), got {tuple(xg.shape)}')
     time, batch, gates4 = xg.shape
     hidden = gates4 // 4
-    _check_operands('K1', {'xg': (xg, (time, batch, gates4)), 'w_hh': (w_hh, (hidden, gates4)),
-                           'h0': (h0, (batch, hidden)), 'c0': (c0, (batch, hidden))}, xg.device)
+    check_operands('K1', {'xg': (xg, (time, batch, gates4)), 'w_hh': (w_hh, (hidden, gates4)),
+                          'h0': (h0, (batch, hidden)), 'c0': (c0, (batch, hidden))}, xg.device)
     _check_sizes('K1', batch, hidden)
     if h0.data_ptr() % 16:
         h0 = h0.clone()  # read as float4: a fresh allocation is 16-byte aligned
 
-    lib, fn = _library('lstm_fwd', 'morgana_lstm_fwd',
-                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib, fn = load_library('lstm_fwd', 'morgana_lstm_fwd',
+                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     y = torch.empty((time, batch, hidden), dtype=torch.float32, device=xg.device)
     c_all = torch.empty_like(y)
     g_all = torch.empty_like(xg) if with_gates else None
@@ -106,9 +77,9 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False):
         err = fn(xg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
                  y.data_ptr(), c_all.data_ptr(), None if g_all is None else g_all.data_ptr(),
                  hn.data_ptr(), cn.data_ptr(), time, batch, hidden, xg.device.index, stream)
-    _raise_on_error(lib, err, f'LSTM kernel K1 launch at T={time} B={batch} H={hidden}',
-                    'the kernel keeps a (B, H + 4) copy of h in shared memory, which bounds B '
-                    'for a given H')
+    raise_on_error(lib, err, f'LSTM kernel K1 launch at T={time} B={batch} H={hidden}',
+                   'the kernel keeps a (B, H + 4) copy of h in shared memory, which bounds B '
+                   'for a given H')
     launches += 1
     if with_gates:
         gate_launches += 1
@@ -124,14 +95,14 @@ def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
     time, batch, gates4 = g_all.shape
     hidden = gates4 // 4
     trace, state = (time, batch, hidden), (batch, hidden)
-    _check_operands('K2', {'g_all': (g_all, (time, batch, gates4)), 'w_hh': (w_hh, (hidden, gates4)),
-                           'c0': (c0, state), 'c_all': (c_all, trace), 'dy': (dy, trace),
-                           'dc_all': (dc_all, trace), 'dhn': (dhn, state), 'dcn': (dcn, state)},
-                    g_all.device)
+    check_operands('K2', {'g_all': (g_all, (time, batch, gates4)), 'w_hh': (w_hh, (hidden, gates4)),
+                          'c0': (c0, state), 'c_all': (c_all, trace), 'dy': (dy, trace),
+                          'dc_all': (dc_all, trace), 'dhn': (dhn, state), 'dcn': (dcn, state)},
+                   g_all.device)
     _check_sizes('K2', batch, hidden)
 
-    lib, fn = _library('lstm_bwd', 'morgana_lstm_bwd',
-                       [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib, fn = load_library('lstm_bwd', 'morgana_lstm_bwd',
+                           [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     dxg = torch.empty_like(g_all)
     dh0 = torch.empty(state, dtype=torch.float32, device=g_all.device)
     dc0 = torch.empty_like(dh0)
@@ -141,9 +112,9 @@ def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
                  dy.data_ptr(), dc_all.data_ptr(), dhn.data_ptr(), dcn.data_ptr(),
                  dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), time, batch, hidden,
                  g_all.device.index, stream)
-    _raise_on_error(lib, err, f'LSTM kernel K2 launch at T={time} B={batch} H={hidden}',
-                    'the kernel keeps 4H x U of w_hh and a (B, tile) slice of dxg in shared '
-                    'memory, and one block per SM must fit')
+    raise_on_error(lib, err, f'LSTM kernel K2 launch at T={time} B={batch} H={hidden}',
+                   'the kernel keeps 4H x U of w_hh and a (B, tile) slice of dxg in shared '
+                   'memory, and one block per SM must fit')
     bwd_launches += 1
     return dxg, dh0, dc0
 
@@ -259,17 +230,8 @@ def _plain_recurrence(xg, w_hh, h0, c0):
     return y, c_all, hn, cn
 
 
-def _state_at_seq_len(trace, seq_len, state0):
-    """Each row's state at ``seq_len - 1`` of a (B, T, H) trace, ``state0``
-    for empty rows (``pallas_rnn.py:298``)."""
-    batch, time, hidden = trace.shape
-    idx = (seq_len - 1).clamp(0, time - 1).long()
-    picked = torch.gather(trace, 1, idx[:, None, None].expand(batch, 1, hidden))[:, 0]
-    return torch.where((seq_len > 0)[:, None], picked, state0)
-
-
 def _layer(recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0):
-    batch, time, _ = x.shape
+    batch = x.shape[0]
     hidden = w_hh.shape[0]
     dtype = x.dtype
 
@@ -281,12 +243,10 @@ def _layer(recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0):
     y, c_all, hn, cn = recurrence(xg, w_hh, h0.contiguous(), c0.contiguous())
     y = y.transpose(0, 1).to(dtype)                      # (B, T, H)
     if seq_len is not None:
-        seq_len = torch.as_tensor(seq_len, device=x.device).reshape(batch)
-        mask = torch.arange(time, device=x.device)[None, :] < seq_len[:, None]
-        y = y * mask[:, :, None].to(dtype)
+        y, seq_len = mask_past_seq_len(y, seq_len)
         # Position seq_len - 1 is valid, so gathering from the masked y is exact.
-        hn = _state_at_seq_len(y, seq_len, h0)
-        cn = _state_at_seq_len(c_all.transpose(0, 1).to(dtype), seq_len, c0)
+        hn = state_at_seq_len(y, seq_len, h0)
+        cn = state_at_seq_len(c_all.transpose(0, 1).to(dtype), seq_len, c0)
     return y, (hn.to(dtype), cn.to(dtype))
 
 

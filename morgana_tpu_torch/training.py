@@ -1,10 +1,10 @@
 """Train, eval and predict steps (counterpart of ``morgana_tpu/training.py``).
 
 One train step moves a collated batch to the model's device, runs forward
-(the loss and the metrics' partials), backward (kernel K2 under each LSTM
-layer on the GPU) and the optimiser, plus the EMA when it is on. It makes no
-host round trip: the loss comes back as a device scalar and the metrics merge
-lazily.
+(the loss and the metrics' partials), backward (on the GPU, kernel K2 under
+each LSTM layer and K4 under each GRU layer) and the optimiser, plus the EMA
+when it is on. It makes no host round trip: the loss comes back as a device
+scalar and the metrics merge lazily.
 
 The optimiser is Adam with the L2 term added to the gradient (optax's
 ``add_decayed_weights`` then ``scale_by_adam``, torch ``Adam(weight_decay=)``

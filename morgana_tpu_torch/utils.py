@@ -1,12 +1,13 @@
-"""Small helpers shared by the metrics and the experiment builder
-(counterparts of the ones in ``morgana_tpu/utils.py``)."""
+"""Small helpers shared by the metrics, the experiment builder and the
+analysis hooks (counterparts of the ones in ``morgana_tpu/utils.py``)."""
 import re
 from collections.abc import Sized
 
 import numpy as np
 import torch
 
-__all__ = ['listify', 'format_float_tensor', 'get_epoch_from_checkpoint_path']
+__all__ = ['listify', 'format_float_tensor', 'to_numpy', 'detach_batched_seqs',
+           'get_epoch_from_checkpoint_path']
 
 
 def listify(object_or_list):
@@ -39,6 +40,32 @@ def format_float_tensor(value):
     if len(flat) <= 4:
         return '[{}]'.format(', '.join(fmt(v) for v in flat))
     return '[{}, {}, ..., {}]'.format(fmt(flat[0]), fmt(flat[1]), fmt(flat[-1]))
+
+
+def detach_batched_seqs(*sequence_features, seq_len=None, squeeze=True):
+    r"""Batched tensors or arrays -> host numpy, with padding removed per
+    batch item (``utils.py:84``). Returns, per input feature, a list of
+    per-item ``(seq_len_i, feat_dim)`` arrays (squeezed when ``squeeze``), or
+    the whole array without ``seq_len``; one feature is returned bare."""
+    if seq_len is not None:
+        seq_len = to_numpy(seq_len).reshape(-1).astype(np.int64)
+
+    detached = []
+    for batchf in sequence_features:
+        batchf = to_numpy(batchf)
+        if seq_len is not None and batchf.ndim > 2:
+            batchf = [feature[:n].squeeze() if squeeze else feature[:n]
+                      for feature, n in zip(batchf, seq_len)]
+        detached.append(batchf)
+
+    if len(detached) == 1:
+        return detached[0]
+    return detached
+
+
+def to_numpy(value):
+    """A tensor on any device, or an array-like, as a host numpy array."""
+    return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
 
 
 def get_epoch_from_checkpoint_path(checkpoint_path):

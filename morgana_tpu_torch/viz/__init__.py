@@ -1,1 +1,2 @@
-"""Synthesis helpers of the port (MLPG over feature streams)."""
+"""Synthesis and analysis helpers of the port: MLPG (``synthesis``) and the
+per-utterance feature dumps of the analysis hooks (``io``)."""

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (K1, the LSTM layer forward with and
-without its gate trace, and K2, its backward) against their plain PyTorch
-versions, on the GPU only (a CUDA kernel has no CPU mode): every test here is marked
+without its gate trace, K2, its backward, K3, the GRU layer forward, and K4,
+its backward) against their plain PyTorch versions, on the GPU only (a CUDA kernel has no CPU mode): every test here is marked
 ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed::
 
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from morgana_tpu_torch.ops import gru as gru_ops
 from morgana_tpu_torch.ops import lstm as lstm_ops
 
 pytestmark = pytest.mark.cuda
@@ -137,3 +138,119 @@ def test_k1_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         lstm_ops.lstm_recurrence(xg[..., :4 * 6].contiguous(), w_hh[:6, :4 * 6].contiguous(),
                                  h0[:, :6].contiguous(), c0[:, :6].contiguous())
     assert lstm_ops.launches == before
+
+
+GRU_SHAPES = [(32, 64), (5, 1), (40, 33), (16, 0), (1, 17), (256, 9)]
+
+
+def _gru_inputs(device, batch, steps, hidden, seed=10):
+    """Seeded inputs of one GRU(hidden) layer fed by 48 features: x, the four
+    weights, a ragged seq_len with rows of length 1 and 0, and h0."""
+    rng = np.random.default_rng(seed)
+    bound = hidden ** -0.5
+
+    def tensor(array):
+        return torch.from_numpy(array.astype(np.float32)).to(device)
+
+    x = tensor(rng.normal(size=(batch, steps, 48)))
+    weights = [tensor(rng.uniform(-bound, bound, size=shape))
+               for shape in ((48, 3 * hidden), (hidden, 3 * hidden), (3 * hidden,), (3 * hidden,))]
+    seq_len = rng.integers(1, steps + 1, batch) if steps else np.zeros(batch, np.int64)
+    seq_len[0] = min(steps, 1)
+    if batch > 2:
+        seq_len[-1] = 0  # an empty row: its state is h0, its gradient goes there
+    h0 = tensor(0.5 * rng.normal(size=(batch, hidden)))
+    return x, weights, (None if steps == 0 else torch.from_numpy(seq_len).to(device)), h0
+
+
+@pytest.mark.parametrize('hidden', [64, 128])
+@pytest.mark.parametrize('batch,steps', GRU_SHAPES)
+def test_k3_matches_plain_version(cuda_device, batch, steps, hidden):
+    """K3 through gru_layer against gru_layer_reference on the same GPU
+    tensors, under no_grad (K3 alone): ragged seq_len with rows of length 1
+    and 0, a given h0, B = 1, 5, 40 and 256, T = 1 and T = 0; f32 with TF32
+    off, 1e-4 abs."""
+    x, weights, seq_len, h0 = _gru_inputs(cuda_device, batch, steps, hidden)
+    before = gru_ops.launches
+    with torch.no_grad():
+        y, hn = gru_ops.gru_layer(x, *weights, seq_len=seq_len, h0=h0)
+        torch.cuda.synchronize()
+        assert gru_ops.launches == before + 1
+        wy, wh = gru_ops.gru_layer_reference(x, *weights, seq_len=seq_len, h0=h0)
+    torch.testing.assert_close(y, wy, rtol=0, atol=1e-4)
+    torch.testing.assert_close(hn, wh, rtol=0, atol=1e-4)
+
+
+def _gru_loss_grads(layer, x, weights, seq_len, h0, seed=11):
+    """Gradients of a loss that reads y and hn, with respect to x, the four
+    weights and h0."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, *weights, h0)]
+    y, hn = layer(*leaves[:5], seq_len=seq_len, h0=leaves[5])
+    rng = np.random.default_rng(seed)
+    loss = sum((out * torch.from_numpy(rng.normal(size=out.shape).astype(np.float32)).to(out.device)).sum()
+               for out in (y, hn))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # At T = 0 the plain loop never reads xg, so x has no path to the loss.
+    return [torch.zeros_like(leaf) if g is None else g for g, leaf in zip(grads, leaves)]
+
+
+@pytest.mark.parametrize('hidden', [64, 128])
+@pytest.mark.parametrize('batch,steps', GRU_SHAPES)
+def test_k4_gradients_match_plain_versions(cuda_device, batch, steps, hidden):
+    """The gradient-enabled path (K3, then K4) against autograd through the
+    plain recurrence, for dx, dw_ih, dw_hh, db_ih, db_hh and dh0: each within
+    1e-4 of its own max |value| (f32, TF32 off; dW_hh sums T * B terms). K4
+    alone against gru_backward_reference on the same saved tensors: 1e-4 of
+    each output's max |value|."""
+    x, weights, seq_len, h0 = _gru_inputs(cuda_device, batch, steps, hidden)
+    before = (gru_ops.launches, gru_ops.bwd_launches)
+    got = _gru_loss_grads(gru_ops.gru_layer, x, weights, seq_len, h0)
+    torch.cuda.synchronize()
+    assert (gru_ops.launches, gru_ops.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = _gru_loss_grads(gru_ops.gru_layer_reference, x, weights, seq_len, h0)
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30) if w.numel() else 1.0
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)
+
+    w_ih, w_hh, b_ih, b_hh = weights
+    xg = (x @ w_ih + b_ih).transpose(0, 1).contiguous()
+    y, _ = gru_ops.gru_recurrence(xg, w_hh, b_hh, h0)
+    rng = np.random.default_rng(12)
+    dy, dhn = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+               for shape in (tuple(y.shape), tuple(h0.shape)))
+    args = (xg, w_hh, b_hh, h0, y, dy, dhn)
+    for g, w in zip(gru_ops.gru_backward(*args), gru_ops.gru_backward_reference(*args)):
+        scale = max(float(w.abs().max()), 1e-30) if w.numel() else 1.0
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)
+
+
+def test_gru_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """float64, a non-contiguous operand, an operand on another device, an H
+    that is not a multiple of 32 or above 128, and B = 0 raise before any
+    launch; the counters do not move and nothing falls back."""
+    rng = np.random.default_rng(13)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+
+    def fwd_args(batch, steps, hidden):
+        return [t(steps, batch, 3 * hidden), t(hidden, 3 * hidden), t(3 * hidden), t(batch, hidden)]
+
+    def bwd_args(batch, steps, hidden):
+        return fwd_args(batch, steps, hidden) + [t(steps, batch, hidden), t(steps, batch, hidden),
+                                                 t(batch, hidden)]
+
+    before = (gru_ops.launches, gru_ops.bwd_launches)
+    for op, make in ((gru_ops.gru_recurrence, fwd_args), (gru_ops.gru_backward, bwd_args)):
+        args = make(4, 3, 64)
+        with pytest.raises(TypeError, match='float32'):
+            op(*[a.double() for a in args])
+        with pytest.raises(ValueError, match='contiguous'):
+            op(args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:])
+        with pytest.raises(ValueError, match='is on cpu'):
+            op(args[0], args[1].cpu(), *args[2:])
+        for batch, hidden, limit in ((4, 48, 'multiple of 32'), (4, 160, 'up to 128'),
+                                     (0, 64, 'B >= 1')):
+            with pytest.raises(ValueError, match=limit):
+                op(*make(batch, 3, hidden))
+    assert (gru_ops.launches, gru_ops.bwd_launches) == before
