@@ -61,6 +61,24 @@ code and without the final line:
     validation analysis every epoch; checks 1 launch each of K3 and K4 per
     train step and the feats/dur/*.npy it writes; ms per step and where a
     step's time goes.
+14. k5: the attention forward kernel (K5/K6) against its plain version on
+    the rows below seq_len, at H=4, T=1024 and ragged seq_len: dh 96 at B=16
+    and B=32 (full, causal, causal with window 256), dh 64 and 128, and edge
+    shapes (T=1, T=77, B=1, rows of length 0, padded rows past a window);
+    times against the bound and against torch's scaled_dot_product_attention
+    (a yardstick the port never calls). k6: MultiHeadAttention(backend=
+    'flash') at the model's width against the plain attention.
+15. k5_bwd: the attention backward (forward, then backward kernel) against
+    autograd through the plain version, for a loss on the valid rows, at the
+    same shapes; times of the backward, of the plain version's backward and
+    of one SDPA forward+backward.
+16. transformer_serving: TransformerAcousticModel at its defaults (609 ->
+    384, 6 blocks of 4 heads of 96, d_ff 1536, 199 outputs) served as in
+    f0_serving; 6 attention launches per batch.
+17. transformer_train: the same model trained for 2 epochs with validation
+    at lr 0.001 (B=32); 6 forward and 6 backward attention launches per train
+    step, 6 forward per valid batch; ms per step and where it goes.
+18. transformer_train_parity: as train_parity, for the Transformer.
 
 Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -95,6 +113,11 @@ SERVE_BATCH = 16
 N_UTTS = 32
 TRAIN_BATCH = 32
 F0_LAYERS = 3       # F0Model: 3 x GRU(64)
+TRANSFORMER_BLOCKS = 6      # TransformerAcousticModel's defaults
+TRANSFORMER_LR = '0.001'    # the learning rate its JAX docstring recommends
+# The acoustic models' served outputs and their widths.
+ACOUSTIC_DIMS = {'normalised_lf0_deltas': 3, 'normalised_mcep_deltas': 180,
+                 'normalised_bap_deltas': 15, 'lf0': 1, 'vuv': 1, 'mcep': 60, 'bap': 5}
 
 
 def emit(obj):
@@ -490,6 +513,195 @@ def k4_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, tim
     return out
 
 
+def attention_pairs(seq_len, time_steps, heads, causal, window):
+    """P, the (query, key) pairs the kernel computes on valid rows: for each
+    batch row of length n, query i < n sees keys j < n, j <= i when causal,
+    i - j < window with a window."""
+    pairs = 0
+    for n in (int(x) for x in seq_len):
+        n = min(max(n, 0), time_steps)
+        i = np.arange(n)
+        if window:
+            pairs += int(np.minimum(i + 1, window).sum())
+        elif causal:
+            pairs += n * (n + 1) // 2
+        else:
+            pairs += n * n
+    return heads * pairs
+
+
+def attention_bound(batch, heads, time_steps, head_dim, pairs, backward=False):
+    """Least time for attention: 4 * P * dh flops forward (q.k and p.v), 10 *
+    P * dh backward (the logits and do.v again, dv, dq, dk) against the
+    float32 peak; q, k, v read and o, lse written (backward: q, k, v, o, do,
+    lse read and dq, dk, dv written) against the memory rate."""
+    width = heads * head_dim
+    flops = (10.0 if backward else 4.0) * pairs * head_dim
+    nbytes = 4.0 * ((8 if backward else 4) * batch * time_steps * width + batch * heads * time_steps)
+    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
+
+
+def attention_inputs(torch, dev, batch, heads, time_steps, head_dim, seed, empty_row=False):
+    """Seeded q, k, v (B, H, T, dh) and a ragged seq_len (the first row full,
+    with `empty_row` the last of length 0)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(batch, heads, time_steps, head_dim))
+                                .astype(np.float32)).to(dev) for _ in range(3))
+    seq_len = rng.integers(1, time_steps + 1, batch)
+    seq_len[0] = time_steps
+    if empty_row:
+        seq_len[-1] = 0
+    return q, k, v, torch.from_numpy(seq_len).to(dev)
+
+
+def valid_rows(torch, seq_len, time_steps):
+    return (torch.arange(time_steps, device=seq_len.device)[None, :]
+            < seq_len[:, None])[:, None, :, None]
+
+
+def sdpa(torch, q, k, v, seq_len, causal, window):
+    """torch's scaled_dot_product_attention with the same additive mask: the
+    yardstick (the port never calls it)."""
+    from morgana_tpu_torch.ops.flash_attention import attention_bias
+
+    bias = attention_bias(seq_len, q.shape[2], causal, window, device=q.device)
+    if bias is not None:
+        bias = bias.expand(q.shape[0], 1, q.shape[2], q.shape[2]).contiguous()
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
+def k5_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, seed, timed,
+            empty_row=False):
+    """The forward kernel through flash_attention (no gradient) against its
+    plain version on the rows below seq_len; rows that see no key must be 0.
+    With `timed`, the times of the kernel, its plain version and torch's
+    SDPA, and the bound."""
+    from morgana_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seq_len = attention_inputs(torch, dev, batch, heads, time_steps, head_dim, seed,
+                                        empty_row)
+    mask = dict(seq_len=seq_len, causal=causal, window=window)
+    with torch.inference_mode():
+        before = fa.launches
+        got = fa.flash_attention(q, k, v, **mask)
+        torch.cuda.synchronize()
+        launched = fa.launches - before
+        want = fa.flash_attention_reference(q, k, v, **mask)
+        valid = valid_rows(torch, seq_len, time_steps)
+        err = max_abs((got - want) * valid)
+        finite = bool(torch.isfinite(got).all())
+        empty_zero = not empty_row or bool((got[-1] == 0).all())
+        pairs = attention_pairs(seq_len.tolist(), time_steps, heads, causal, window)
+        out = {'phase': 'k5', 'B': batch, 'H': heads, 'T': time_steps, 'dh': head_dim,
+               'causal': causal, 'window': window, 'seq_len_min': int(seq_len.min()),
+               'seq_len_max': int(seq_len.max()), 'visible_pairs': pairs,
+               'max_abs_err_vs_plain': err, 'tolerance': KERNEL_TOL, 'finite': finite,
+               'empty_row_zero': empty_zero, 'launches': launched}
+        if timed:
+            out['max_abs_err_sdpa_vs_plain'] = max_abs((sdpa(torch, q, k, v, **mask) - want) * valid)
+            out['kernel_ms'] = cuda_ms(torch, lambda: fa.attention_forward(q, k, v, **mask), 20)
+            out['plain_ms'] = cuda_ms(torch, lambda: fa.flash_attention_reference(q, k, v, **mask), 5)
+            out['library_ms'] = cuda_ms(torch, lambda: sdpa(torch, q, k, v, **mask), 20)
+            out['bound_ms'], out['bound_by'] = attention_bound(batch, heads, time_steps, head_dim,
+                                                               pairs)
+    emit(out)
+    if not (err <= KERNEL_TOL and finite and empty_zero and launched == 1):
+        raise AssertionError(f'K5/K6 forward disagrees: {out}')
+    return out
+
+
+def k6_case(torch, dev, seed):
+    """K6's entry point, MultiHeadAttention(backend='flash') at the model's
+    width (E 384, 4 heads of 96, B16, T1024, ragged seq_len), against the
+    same projections around the plain attention."""
+    from morgana_tpu_torch import nn
+    from morgana_tpu_torch.ops import flash_attention as fa
+
+    torch.manual_seed(seed)
+    mha = nn.MultiHeadAttention(384, 4, backend='flash').to(dev).eval()
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(SERVE_BATCH, 1024, 384)).astype(np.float32)).to(dev)
+    seq_len = torch.from_numpy(rng.integers(200, 1025, SERVE_BATCH)).to(dev)
+    with torch.inference_mode():
+        before = fa.launches
+        got = mha(x, seq_len=seq_len)
+        torch.cuda.synchronize()
+        launched = fa.launches - before
+        q, k, v = (t.reshape(SERVE_BATCH, 1024, 4, 96).transpose(1, 2)
+                   for t in mha.in_proj(x).split(384, dim=-1))
+        o = fa.flash_attention_reference(q, k, v, seq_len=seq_len)
+        want = mha.out_proj(o.transpose(1, 2).reshape(SERVE_BATCH, 1024, 384))
+        valid = (torch.arange(1024, device=dev)[None, :] < seq_len[:, None])[..., None]
+        err = max_abs((got - want) * valid)
+    out = {'phase': 'k6', 'module': "MultiHeadAttention(384, 4, backend='flash')",
+           'B': SERVE_BATCH, 'T': 1024, 'max_abs_err_vs_plain': err, 'tolerance': KERNEL_TOL,
+           'launches': launched}
+    emit(out)
+    if not (err <= KERNEL_TOL and launched == 1):
+        raise AssertionError(f"MultiHeadAttention(backend='flash') disagrees: {out}")
+    return out
+
+
+def k5_bwd_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, seed, timed,
+                empty_row=False):
+    """dq, dk, dv of a loss on the rows below seq_len: the kernel path
+    (forward, then backward) against autograd through the plain version,
+    each relative to the largest |value| of the three; the backward alone
+    on the kernel's o and lse, likewise. With `timed`, the times of the backward, of the plain
+    version's backward (autograd over its saved graph) and of one SDPA
+    forward+backward, and the bound."""
+    from morgana_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seq_len = attention_inputs(torch, dev, batch, heads, time_steps, head_dim, seed,
+                                        empty_row)
+    mask = dict(seq_len=seq_len, causal=causal, window=window)
+    rng = np.random.default_rng(seed + 100)
+    weight = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(dev)
+    weight = weight * valid_rows(torch, seq_len, time_steps)
+
+    def grads(fn, retain=False):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        loss = (fn(*leaves, **mask) * weight).sum()
+        return leaves, loss, torch.autograd.grad(loss, leaves, retain_graph=retain)
+
+    before = (fa.launches, fa.bwd_launches)
+    _, _, got = grads(fa.flash_attention)
+    torch.cuda.synchronize()
+    launched = (fa.launches - before[0], fa.bwd_launches - before[1])
+    leaves, loss, want = grads(fa.flash_attention_reference, retain=True)
+    names = ('dq', 'dk', 'dv')
+    # Relative to the largest |value| of the three: dq and dk are exactly 0
+    # where every row sees one key (T = 1), and their rounding residue is
+    # held to dv's scale there.
+    scale = max(max(max_abs(w) for w in want), 1e-30)
+    grad_rel = {n: max_abs(g - w) / scale for n, g, w in zip(names, got, want)}
+
+    o, lse = fa.attention_forward(q, k, v, **mask)
+    bwd = fa.attention_backward(q, k, v, o, lse, weight, **mask)
+    bwd_err = max(max_abs(a - b) for a, b in zip(bwd, want))
+    bwd_rel = bwd_err / scale
+    pairs = attention_pairs(seq_len.tolist(), time_steps, heads, causal, window)
+    out = {'phase': 'k5_bwd', 'B': batch, 'H': heads, 'T': time_steps, 'dh': head_dim,
+           'causal': causal, 'window': window, 'visible_pairs': pairs,
+           'grad_rel_err_vs_plain': grad_rel, 'grad_rtol': GRAD_RTOL,
+           'bwd_max_abs_err': bwd_err, 'bwd_rel_err': bwd_rel, 'fwd_launches': launched[0], 'bwd_launches': launched[1]}
+    if timed:
+        out['kernel_ms'] = cuda_ms(torch, lambda: fa.attention_backward(q, k, v, o, lse, weight,
+                                                                        **mask), 10)
+        out['plain_ms'] = cuda_ms(torch, lambda: torch.autograd.grad(loss, leaves,
+                                                                     retain_graph=True), 3)
+        out['fwd_bwd_ms'] = cuda_ms(torch, lambda: grads(fa.flash_attention), 10)
+        out['library_ms'] = cuda_ms(torch, lambda: grads(
+            lambda *a, **m: sdpa(torch, *a, **m)), 10)
+        out['bound_ms'], out['bound_by'] = attention_bound(batch, heads, time_steps, head_dim,
+                                                           pairs, backward=True)
+    emit(out)
+    if not (max(grad_rel.values()) <= GRAD_RTOL and bwd_rel <= GRAD_RTOL and launched == (1, 1)):
+        raise AssertionError(f'K5/K6 gradients disagree: {out}')
+    return out
+
+
 def write_normalisers(root, rng):
     """Seeded statistics in the {name}_mvn.json / {name}_minmax.json layout."""
     norm_dir = os.path.join(root, 'train')
@@ -558,8 +770,7 @@ def serving_phase(torch, root):
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_UTTS // SERVE_BATCH)
 
-    dims = {'normalised_lf0_deltas': 3, 'normalised_mcep_deltas': 180,
-            'normalised_bap_deltas': 15, 'lf0': 1, 'vuv': 1, 'mcep': 60, 'bap': 5}
+    dims = ACOUSTIC_DIMS
     frames = 0
     for item in items:
         n = int(item['n_frames'].reshape(-1)[0])
@@ -675,8 +886,6 @@ def train_phase(torch, root):
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
     from morgana_tpu_torch.ops import lstm as lstm_ops
-    from morgana_tpu_torch.data import device_features
-    from morgana_tpu_torch.viz.synthesis import MLPG_streams
 
     data_root, corpus_s = train_corpus(root)
     ckpt = seeded_checkpoint(torch, LSTMAcousticModel, os.path.join(root, 'init', 'epoch_0.npz'),
@@ -723,20 +932,6 @@ def train_phase(torch, root):
 
     # Steady-state steps on one full batch, then the MLPG's share of one.
     features, step_ms, profile = time_train_steps(torch, exp)
-    model = exp.model
-    batch = device_features(features, exp.device)
-    with torch.no_grad():
-        heads = model._split_heads(model.layers(model.stream_inputs(batch),
-                                                seq_len=batch['n_frames']))
-        streams = {}
-        for name, pred in (('lf0', heads[0]), ('mcep', heads[2]), ('bap', heads[3])):
-            std_dev = model.normalisers[name].fetch_params(deltas=True, like=pred)['std_dev']
-            streams[name] = (model.normalisers[name].denormalise(pred, deltas=True), std_dev ** 2)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        MLPG_streams(streams, padding_size=100, seq_len=batch['n_frames'])
-        torch.cuda.synchronize()
-        mlpg_ms = (time.perf_counter() - t0) * 1e3
 
     emit({'phase': 'train', 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
           'corpus': '64 train + 16 valid, n_phones 40-119, dur 5-9', 'corpus_seconds': corpus_s,
@@ -752,8 +947,29 @@ def train_phase(torch, root):
                'T': int(features['normalised_counters'].shape[1]),
                'frames': float(np.sum(features['n_frames'])),
                'step_ms': step_ms, 'median_step_ms_after_first': float(np.median(step_ms[1:])),
-               'mlpg_host_ms': mlpg_ms}, **profile))
+               'mlpg_host_ms': time_mlpg(torch, exp.model, features, exp.device)}, **profile))
     return launches
+
+
+def time_mlpg(torch, model, features, device):
+    """Host milliseconds of the fused three-stream MLPG of an acoustic
+    model's predict on one collated batch, synchronised around it."""
+    from morgana_tpu_torch.data import device_features
+    from morgana_tpu_torch.viz.synthesis import MLPG_streams
+
+    batch = device_features(features, device)
+    with torch.no_grad():
+        heads = model._split_heads(model.layers(model.stream_inputs(batch),
+                                                seq_len=batch['n_frames']))
+        streams = {}
+        for name, pred in (('lf0', heads[0]), ('mcep', heads[2]), ('bap', heads[3])):
+            std_dev = model.normalisers[name].fetch_params(deltas=True, like=pred)['std_dev']
+            streams[name] = (model.normalisers[name].denormalise(pred, deltas=True), std_dev ** 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        MLPG_streams(streams, padding_size=100, seq_len=batch['n_frames'])
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def time_train_steps(torch, exp):
@@ -773,9 +989,10 @@ def time_train_steps(torch, exp):
     return features, step_ms, profile
 
 
-def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12):
+def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12, *flags):
     """The same trainer on the GPU and on the CPU, from one init and one
-    corpus: per-step losses and the first step's gradients."""
+    corpus: per-step losses and the first step's gradients. `flags` go to
+    both builders."""
     from morgana_tpu_torch.data.synthetic import generate_voice_data
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
 
@@ -789,7 +1006,7 @@ def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12):
     for device in ('cuda', 'cpu'):
         args = ExperimentBuilder.get_experiment_args(builder_argv(
             data_root, os.path.join(root, f'{phase}_experiments'), device, ckpt,
-            '--device', device, '--batch_size', '4', '--no-valid', '--end_epoch', '3'))
+            '--device', device, '--batch_size', '4', '--no-valid', '--end_epoch', '3', *flags))
         exp = ExperimentBuilder(model_class, **args)
         exp.model.mode = 'train'
         losses, grads, frames = [], None, []
@@ -815,7 +1032,7 @@ def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12):
 
 
 KERNEL_KINDS = (('lstm_fwd_kernel', 'k1'), ('lstm_bwd_kernel', 'k2'), ('gru_fwd_kernel', 'k3'),
-                ('gru_bwd_kernel', 'k4'))
+                ('gru_bwd_kernel', 'k4'), ('attn_fwd_kernel', 'attn_fwd'), ('attn_bwd', 'attn_bwd'))
 
 
 def kernel_kind(name):
@@ -832,8 +1049,8 @@ def kernel_kind(name):
 
 
 def profile_step(torch, fn):
-    """One profiled call: device time by kernel (K1-K4, GEMMs, Adam's
-    multi-tensor kernels, the rest), the number of kernels, and the host ops
+    """One profiled call: device time by kernel (K1-K4, the attention forward
+    and backward, GEMMs, Adam's multi-tensor kernels, the rest), the number of kernels, and the host ops
     that took the most time. The table by device time goes to stderr."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -873,36 +1090,37 @@ def f0_items(rng):
     return items
 
 
-def f0_serving_phase(torch, root):
-    """F0Model at full width served by InferenceEngine.predict_items: 32
-    utterances at B=16; shapes, finiteness, K3's launches, agreement with the
-    CPU engine, throughput, peak memory and where a batch's time goes."""
+def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops, name, layers,
+                         seed):
+    """`model_class` at full width, seeded weights and normaliser statistics,
+    served by InferenceEngine.predict_items: the utterances of `make` at
+    B=16; shapes and finiteness of the outputs in `dims`, `layers` forward
+    launches per batch of the kernel counted by `ops` (reported as `name`)
+    and none of its backward, agreement with the CPU engine, throughput,
+    peak memory and where a batch's time goes."""
     from morgana_tpu_torch import data
-    from morgana_tpu_torch.models.f0_test_model import F0Model
-    from morgana_tpu_torch.ops import gru as gru_ops
     from morgana_tpu_torch.serve import InferenceEngine
 
-    serve_root = os.path.join(root, 'f0_serving')
+    serve_root = os.path.join(root, phase)
     os.makedirs(serve_root)
-    rng = np.random.default_rng(20)
-    ckpt = seeded_checkpoint(torch, F0Model, os.path.join(serve_root, 'epoch_1.npz'), 20)
+    rng = np.random.default_rng(seed)
+    ckpt = seeded_checkpoint(torch, model_class, os.path.join(serve_root, 'epoch_1.npz'), seed)
     write_normalisers(serve_root, rng)
-    items = f0_items(rng)
+    items = make(rng)
 
-    engine = InferenceEngine(F0Model, ckpt, data_root=serve_root, batch_size=SERVE_BATCH)
+    engine = InferenceEngine(model_class, ckpt, data_root=serve_root, batch_size=SERVE_BATCH)
     engine.predict_items(items[:2])   # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    gru_ops.launches = gru_ops.bwd_launches = 0
+    ops.launches = ops.bwd_launches = 0
     start = time.perf_counter()
     outputs = engine.predict_items(items)      # returns host arrays: ends synchronised
     seconds = time.perf_counter() - start
-    launches = gru_ops.launches
+    launches = ops.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_UTTS // SERVE_BATCH)
 
-    dims = {'normalised_lf0_deltas': 3, 'lf0': 1}
     frames = 0
     for item in items:
         n = int(item['n_frames'].reshape(-1)[0])
@@ -912,26 +1130,26 @@ def f0_serving_phase(torch, root):
             if out[key].shape != (n, dim) or not np.isfinite(out[key]).all():
                 raise AssertionError(f"{item['name']} {key}: shape {out[key].shape}, "
                                      f'expected ({n}, {dim}), finite={np.isfinite(out[key]).all()}')
-    expected = F0_LAYERS * n_batches
-    if launches != expected or gru_ops.bwd_launches:
-        raise AssertionError(f'K3 launched {launches} times (K4 {gru_ops.bwd_launches}) for '
-                             f'{n_batches} batches, expected {expected} (K4 0)')
+    expected = layers * n_batches
+    if launches != expected or ops.bwd_launches:
+        raise AssertionError(f'{name} launched {launches} times (backward {ops.bwd_launches}) '
+                             f'for {n_batches} batches, expected {expected} (backward 0)')
 
     # The same checkpoint on the CPU (plain versions) for the shortest utterances.
     few = sorted(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:4]
-    cpu = InferenceEngine(F0Model, ckpt, data_root=serve_root, device='cpu',
+    cpu = InferenceEngine(model_class, ckpt, data_root=serve_root, device='cpu',
                           batch_size=SERVE_BATCH).predict_items(few)
     errs = {}
     for key in dims:
+        net = key.startswith('normalised') or key == 'vuv'
         worst = 0.0
         for it in few:
             a, b = outputs[it['name']][key], cpu[it['name']][key]
             err = float(np.abs(a - b).max())
-            worst = max(worst, err if key.startswith('normalised') else
-                        err / max(1.0, float(np.abs(b).max())))
+            worst = max(worst, err if net else err / max(1.0, float(np.abs(b).max())))
         errs[key] = worst
-        if worst > (NET_TOL if key.startswith('normalised') else TRAJ_RTOL):
-            raise AssertionError(f'F0Model {key}: GPU vs CPU {worst} beyond tolerance')
+        if worst > (NET_TOL if net else TRAJ_RTOL):
+            raise AssertionError(f'{model_class.__name__} {key}: GPU vs CPU {worst} beyond tolerance')
 
     features = data.collate([data.assemble_item(
         engine.model.test_data_sources(), engine.model.normalisers,
@@ -940,27 +1158,75 @@ def f0_serving_phase(torch, root):
     batch = data.device_features(features, engine.device)
     with torch.inference_mode():
         profile = profile_step(torch, lambda: engine.model.predict(batch))
-    emit(dict({'phase': 'f0_serving', 'model': 'F0Model 609-3xGRU(64)-3',
+    emit(dict({'phase': phase, 'model': label,
                'utterances': N_UTTS, 'frames': frames, 'batch_size': SERVE_BATCH,
                'batches': n_batches, 'seconds': seconds, 'utterances_per_s': N_UTTS / seconds,
                'frames_per_s': frames / seconds, 'ms_per_batch': seconds / n_batches * 1e3,
-               'peak_memory_mib': peak_mib, 'k3_launches': launches,
-               'k3_launches_expected': expected, 'gpu_vs_cpu_err': errs, 'net_tol': NET_TOL,
+               'peak_memory_mib': peak_mib, f'{name}_launches': launches,
+               f'{name}_launches_expected': expected, 'gpu_vs_cpu_err': errs, 'net_tol': NET_TOL,
                'traj_rtol': TRAJ_RTOL,
                'profiled_batch_T': int(features['normalised_counters'].shape[1])},
               **profile))
     return launches
 
 
-def gru_train_phase(torch, root, model_class, phase, layers, seed, *flags):
+def f0_serving_phase(torch, root):
+    """F0Model (609 inputs, 3 x GRU(64), 3 outputs) through
+    engine_serving_phase: 3 launches of K3 per batch."""
+    from morgana_tpu_torch.models.f0_test_model import F0Model
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    return engine_serving_phase(torch, root, F0Model, 'f0_serving', 'F0Model 609-3xGRU(64)-3',
+                                f0_items, {'normalised_lf0_deltas': 3, 'lf0': 1}, gru_ops, 'k3',
+                                F0_LAYERS, 20)
+
+
+def transformer_serving_phase(torch, root):
+    """TransformerAcousticModel at its defaults (609 -> 384, 6 blocks of 4
+    heads of 96, d_ff 1536, 199 outputs) through engine_serving_phase: 6
+    launches of the attention forward per batch."""
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
+    from morgana_tpu_torch.ops import flash_attention as fa
+
+    return engine_serving_phase(torch, root, TransformerAcousticModel, 'transformer_serving',
+                                'TransformerAcousticModel 609-6x(384, 4 heads, 1536)-199',
+                                make_items, ACOUSTIC_DIMS, fa, 'attn_fwd', TRANSFORMER_BLOCKS, 40)
+
+
+def transformer_train_phase(torch, root):
+    """TransformerAcousticModel through builder_train_phase at lr 0.001 (the
+    rate its JAX docstring recommends), then steady-state steps on one full
+    batch, one profiled step and the MLPG's share of it."""
+    from morgana_tpu_torch import nn
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
+    from morgana_tpu_torch.ops import flash_attention as fa
+
+    launches, exp, exp_dir = builder_train_phase(
+        torch, root, TransformerAcousticModel, 'transformer_train', fa, ('attn_fwd', 'attn_bwd'),
+        nn.MultiHeadAttention, TRANSFORMER_BLOCKS, 41, '--learning_rate', TRANSFORMER_LR)
+    with open(os.path.join(exp_dir, 'train', 'epoch_2', 'metrics.json')) as f:
+        frames_per_s = json.load(f)['frames_per_sec']
+    features, step_ms, profile = time_train_steps(torch, exp)
+    emit(dict({'phase': 'transformer_train_step_breakdown', 'B': TRAIN_BATCH,
+               'T': int(features['normalised_counters'].shape[1]),
+               'frames': float(np.sum(features['n_frames'])), 'step_ms': step_ms,
+               'median_step_ms_after_first': float(np.median(step_ms[1:])),
+               'epoch_2_frames_per_s': frames_per_s,
+               'mlpg_host_ms': time_mlpg(torch, exp.model, features, exp.device)}, **profile))
+    return launches
+
+
+def builder_train_phase(torch, root, model_class, phase, ops, names, layer_class, layers, seed,
+                        *flags):
     """Trains `model_class` for 2 epochs with validation through the
     ExperimentBuilder on the train corpus, from a seeded epoch_0.npz; checks
-    K3's and K4's launches (`layers` each per train step, K3 alone per valid
-    batch), finite losses and metrics and the checkpoint's strict reload.
-    Returns the launches, the experiment and its directory."""
+    the launches of the kernels counted by `ops` (its `launches` and
+    `bwd_launches`, reported under `names`): `layers` (the number of
+    `layer_class` modules) of each per train step and forward ones alone per
+    valid batch; finite losses and metrics and the checkpoint's strict
+    reload. Returns the launches, the experiment and its directory."""
     from morgana_tpu_torch import nn
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
-    from morgana_tpu_torch.ops import gru as gru_ops
 
     data_root, corpus_s = train_corpus(root)
     ckpt = seeded_checkpoint(torch, model_class, os.path.join(root, f'{phase}_init', 'epoch_0.npz'),
@@ -971,21 +1237,23 @@ def gru_train_phase(torch, root, model_class, phase, layers, seed, *flags):
     exp = ExperimentBuilder(model_class, **args)
     steps_per_epoch = len(exp.train_loader)
     valid_batches = len(exp.valid_loader)
-    if sum(isinstance(m, nn.Recurrent) for m in exp.model.modules()) != layers:
-        raise AssertionError(f'{model_class.__name__} does not have {layers} GRU layers')
+    if sum(isinstance(m, layer_class) for m in exp.model.modules()) != layers:
+        raise AssertionError(f'{model_class.__name__} does not have {layers} '
+                             f'{layer_class.__name__} layers')
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gru_ops.launches = gru_ops.bwd_launches = 0
+    ops.launches = ops.bwd_launches = 0
     start = time.perf_counter()
     exp.run_experiment()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - start
-    launches = {'k3': gru_ops.launches, 'k4': gru_ops.bwd_launches}
+    fwd, bwd = names
+    launches = {fwd: ops.launches, bwd: ops.bwd_launches}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
 
     train_steps = 2 * steps_per_epoch
-    expected = {'k3': layers * (train_steps + 2 * valid_batches), 'k4': layers * train_steps}
+    expected = {fwd: layers * (train_steps + 2 * valid_batches), bwd: layers * train_steps}
     if launches != expected:
         raise AssertionError(f'{phase}: launches {launches}, expected {expected}')
     exp_dir = os.path.join(exp_base, phase)
@@ -1006,12 +1274,22 @@ def gru_train_phase(torch, root, model_class, phase, layers, seed, *flags):
           'valid_batches': valid_batches, 'run_seconds': run_s, 'step_losses': step_losses,
           'train_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('train')},
           'valid_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('valid')},
-          'gru_layers': layers, 'launches': launches, 'launches_expected': expected,
-          'k3_launches_per_train_step': (launches['k3'] - 2 * layers * valid_batches) / train_steps,
-          'k3_launches_per_valid_batch': layers,
-          'k4_launches_per_train_step': launches['k4'] / train_steps,
+          'layers': layers, 'launches': launches, 'launches_expected': expected,
+          f'{fwd}_launches_per_train_step': (launches[fwd] - 2 * layers * valid_batches) / train_steps,
+          f'{fwd}_launches_per_valid_batch': layers,
+          f'{bwd}_launches_per_train_step': launches[bwd] / train_steps,
           'peak_memory_mib': peak_mib})
     return launches, exp, exp_dir
+
+
+def gru_train_phase(torch, root, model_class, phase, layers, seed, *flags):
+    """builder_train_phase for a GRU model: K3 and K4, one each per GRU
+    layer."""
+    from morgana_tpu_torch import nn
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    return builder_train_phase(torch, root, model_class, phase, gru_ops, ('k3', 'k4'),
+                               nn.Recurrent, layers, seed, *flags)
 
 
 def f0_train_phase(torch, root):
@@ -1080,6 +1358,7 @@ def main():
     from morgana_tpu_torch import _build
     from morgana_tpu_torch.models.f0_test_model import F0Model
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
 
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1137,6 +1416,36 @@ def main():
         for batch, steps in edges:
             k4_case(torch, dev, batch, steps, hidden, hidden, True, 39, timed=False)
 
+    # The attention forward against its plain version and SDPA at the
+    # Transformer's heads (H4, dh 96; B16 the serving batch, B32 the training
+    # one, T1024, ragged seq_len): full, causal, causal with the default
+    # window 256; the other widths dh 64 and 128; then edge shapes (T = 1,
+    # T = 77, B = 1, a row of length 0, padded rows past a small window), and
+    # K6's entry point, MultiHeadAttention(backend='flash').
+    attn_fwd_shape = k5_case(torch, dev, SERVE_BATCH, 4, 1024, 96, False, None, 51, timed=True)
+    for causal, window in ((False, None), (True, None), (True, 256)):
+        k5_case(torch, dev, TRAIN_BATCH, 4, 1024, 96, causal, window, 52, timed=True)
+    for head_dim in (64, 128):
+        k5_case(torch, dev, TRAIN_BATCH, 4, 1024, head_dim, False, None, 53, timed=True)
+    attn_edges = ((4, 1, 96, False, None, False), (3, 77, 96, False, None, True),
+                  (1, 77, 96, True, None, False), (3, 77, 96, True, 8, True),
+                  (2, 200, 64, True, 16, True), (3, 130, 128, False, None, True))
+    for batch, steps, head_dim, causal, window, empty in attn_edges:
+        k5_case(torch, dev, batch, 4, steps, head_dim, causal, window, 54, timed=False,
+                empty_row=empty)
+    k6_case(torch, dev, 55)
+
+    # The attention backward against autograd through the plain version, at
+    # the same shapes.
+    attn_bwd_shape = k5_bwd_case(torch, dev, TRAIN_BATCH, 4, 1024, 96, False, None, 56, timed=True)
+    k5_bwd_case(torch, dev, TRAIN_BATCH, 4, 1024, 96, True, None, 57, timed=True)
+    k5_bwd_case(torch, dev, TRAIN_BATCH, 4, 1024, 96, True, 256, 58, timed=True)
+    for head_dim in (64, 128):
+        k5_bwd_case(torch, dev, TRAIN_BATCH, 4, 1024, head_dim, False, None, 59, timed=True)
+    for batch, steps, head_dim, causal, window, empty in attn_edges:
+        k5_bwd_case(torch, dev, batch, 4, steps, head_dim, causal, window, 60, timed=False,
+                    empty_row=empty)
+
     with tempfile.TemporaryDirectory() as root:
         serve_launches = serving_phase(torch, root)
         train_launches = train_phase(torch, root)
@@ -1145,15 +1454,23 @@ def main():
         f0_train_launches = f0_train_phase(torch, root)
         train_parity_phase(torch, root, F0Model, 'f0_train_parity', 23)
         duration_launches = duration_train_phase(torch, root)
+        attn_serve_launches = transformer_serving_phase(torch, root)
+        attn_train_launches = transformer_train_phase(torch, root)
+        train_parity_phase(torch, root, TransformerAcousticModel, 'transformer_train_parity', 24,
+                           '--learning_rate', TRANSFORMER_LR)
     if not (serve_launches and train_launches['k1_gates'] and train_launches['k2']
             and f0_serve_launches and f0_train_launches['k3'] and f0_train_launches['k4']
-            and duration_launches['k3'] and duration_launches['k4']):
+            and duration_launches['k3'] and duration_launches['k4']
+            and attn_serve_launches and attn_train_launches['attn_fwd']
+            and attn_train_launches['attn_bwd']):
         raise AssertionError('a kernel of the main path was not launched')
 
     # launches: the main paths' runs, each counted from 0: serving and
     # training for the LSTM kernels; F0Model serving and training and
-    # DurationModel training for the GRU kernels. K1's and K3's numbers are
-    # at the serving shape (B=16), K2's and K4's at the training one (B=32).
+    # DurationModel training for the GRU kernels; TransformerAcousticModel
+    # serving and training for the attention kernels. The forward kernels'
+    # numbers are at the serving shape (B=16), the backward ones' at the
+    # training one (B=32).
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
@@ -1177,7 +1494,19 @@ def main():
         'launches': f0_train_launches['k4'] + duration_launches['k4'],
         'max_abs_err': gru_bwd_shape['k4_max_abs_err'], 'ms': gru_bwd_shape['kernel_ms'],
         'plain_ms': gru_bwd_shape['plain_ms'], 'bound_ms': gru_bwd_shape['bound_ms'],
-        'bound_by': gru_bwd_shape['bound_by'], 'library_ms': gru_bwd_shape['library_ms']}]})
+        'bound_by': gru_bwd_shape['bound_by'], 'library_ms': gru_bwd_shape['library_ms']}, {
+        'name': 'attn_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/attn_fwd.cu',
+        'replaces': 'morgana_tpu/nn.py:1001', 'also_replaces': 'morgana_tpu/nn.py:1055',
+        'launches': attn_serve_launches + attn_train_launches['attn_fwd'],
+        'max_abs_err': attn_fwd_shape['max_abs_err_vs_plain'], 'ms': attn_fwd_shape['kernel_ms'],
+        'plain_ms': attn_fwd_shape['plain_ms'], 'bound_ms': attn_fwd_shape['bound_ms'],
+        'bound_by': attn_fwd_shape['bound_by'], 'library_ms': attn_fwd_shape['library_ms']}, {
+        'name': 'attn_bwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/attn_bwd.cu',
+        'replaces': 'morgana_tpu/nn.py:1001', 'also_replaces': 'morgana_tpu/nn.py:1055',
+        'launches': attn_train_launches['attn_bwd'],
+        'max_abs_err': attn_bwd_shape['bwd_max_abs_err'], 'ms': attn_bwd_shape['kernel_ms'],
+        'plain_ms': attn_bwd_shape['plain_ms'], 'bound_ms': attn_bwd_shape['bound_ms'],
+        'bound_by': attn_bwd_shape['bound_by'], 'library_ms': attn_bwd_shape['library_ms']}]})
     print(nvidia_smi(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/<name>.<hash>.so`` inside this
 package (a directory ``.gitignore`` lists), and loaded with ``ctypes``. The
-hash covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is fetched: the
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edited source is rebuilt and an unchanged one is reused. Nothing is fetched: the
 CUDA toolkit is found through ``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda``.
 The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
 is kept beside each library as ``<name>.<hash>.log``.
@@ -44,8 +44,11 @@ def _nvcc():
 def _target(name):
     source = os.path.join(CSRC_DIR, f'{name}.cu')
     digest = hashlib.sha256()
-    with open(source, 'rb') as f:
-        digest.update(f.read())
+    # The shared headers count too: a source that includes one is rebuilt
+    # when it changes.
+    for path in [source] + sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh'))):
+        with open(path, 'rb') as f:
+            digest.update(f.read())
     digest.update(' '.join(NVCC_FLAGS).encode())
     return source, os.path.join(BUILD_DIR, f'{name}.{digest.hexdigest()[:16]}.so')
 

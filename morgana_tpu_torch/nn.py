@@ -1,8 +1,9 @@
-"""Layers of the acoustic model, with the JAX package's parameter names and
+"""Layers of the acoustic models, with the JAX package's parameter names and
 layouts (counterpart of ``morgana_tpu/nn.py``).
 
 Weights are stored as the JAX package stores them, ``(in, out)`` for
-``Linear`` and ``(in, gates)`` for ``Recurrent``, so that
+``Linear`` (and the attention projections) and ``(in, gates)`` for
+``Recurrent``, so that
 :func:`load_jax_params` copies an ``epoch_{N}.npz`` (or
 ``morgana_tpu.nn.state_dict``) into these modules by name, unchanged, and
 :func:`state_dict` writes one back.
@@ -11,13 +12,19 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from morgana_tpu_torch.ops import attention as attention_ops
+from morgana_tpu_torch.ops.flash_attention import attention_bias, flash_attention
 from morgana_tpu_torch.ops.gru import gru_layer
 from morgana_tpu_torch.ops.lstm import lstm_layer
 
-__all__ = ['Linear', 'Sigmoid', 'Dropout', 'Recurrent', 'GRU', 'SequentialWithRecurrent',
-           'load_jax_params', 'state_dict', 'ema_update']
+__all__ = ['Linear', 'Sigmoid', 'Dropout', 'LayerNorm', 'GELU', 'ModuleList', 'Recurrent', 'GRU',
+           'MultiHeadAttention', 'TransformerEncoderLayer', 'TransformerEncoder',
+           'SequentialWithRecurrent', 'load_jax_params', 'state_dict', 'ema_update']
+
+_NOT_PORTED = 'is not ported yet (ROADMAP.md)'
 
 Sigmoid = nn.Sigmoid
 
@@ -65,6 +72,46 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return torch.matmul(x, self.weight) + self.bias
+
+
+class LayerNorm(nn.Module):
+    """Layer normalisation over the last dim, population variance, eps 1e-5
+    (``nn.py:406``); ``weight`` ones and ``bias`` zeros at init."""
+
+    def __init__(self, features, eps=1e-5):
+        super().__init__()
+        self.eps = float(eps)
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
+
+
+class GELU(nn.Module):
+    """The exact (erf) GELU (``nn.py:559``)."""
+
+    def forward(self, x):
+        return F.gelu(x)
+
+
+class ModuleList(nn.Module):
+    """A list of modules stored under ``items``, as the JAX package's
+    ``ModuleList`` stores them, so that parameter names read
+    ``<name>.items.<i>.…``."""
+
+    def __init__(self, modules=()):
+        super().__init__()
+        self.items = nn.ModuleList(modules)
+
+    def __iter__(self):
+        return iter(self.items)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
 
 
 class Recurrent(nn.Module):
@@ -139,10 +186,142 @@ def GRU(input_size, hidden_size, num_layers=1, dropout=0.0):
     return Recurrent('gru', input_size, hidden_size, num_layers, dropout)
 
 
+class MultiHeadAttention(nn.Module):
+    """Multi-head self-attention over a padded batch (``nn.py:823``): one
+    fused ``in_proj`` (E, 3E), heads split as (B, H, T, E / H), and
+    ``out_proj`` (E, E), both stored ``(in, out)``.
+
+    ``backend`` 'auto', 'xla', 'splash' and 'flash' name the JAX package's
+    implementations, which compute the same function; here all four run
+    :func:`~morgana_tpu_torch.ops.flash_attention.flash_attention`: kernel
+    K5/K6 on the GPU at any length (the TPU kernels' 256-frame floor and
+    pad-to-block layout do not apply), the plain path on the CPU. Probability
+    dropout in training (noise from ``generator``, which the trainer sets
+    every step) runs only on the CPU: the kernel has no dropout yet.
+    Cross-attention (``kv=``) and the streaming :meth:`step` are not ported
+    yet.
+    """
+
+    def __init__(self, embed_dim, num_heads, dropout=0.0, backend='auto', generator=None):
+        super().__init__()
+        if embed_dim % num_heads != 0:
+            raise ValueError(f'embed_dim {embed_dim} not divisible by num_heads {num_heads}')
+        if backend not in ('auto', 'xla', 'flash', 'splash'):
+            raise ValueError(f'Unsupported attention backend {backend!r}')
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.dropout_p = float(dropout)
+        self.backend = backend
+        self.generator = None
+        self.in_proj = Linear(embed_dim, 3 * embed_dim, generator=generator)
+        self.out_proj = Linear(embed_dim, embed_dim, generator=generator)
+
+    def forward(self, x, seq_len=None, causal=False, kv=None, kv_seq_len=None, window=None):
+        if window is not None and not causal:
+            raise ValueError('window (sliding-window attention) requires causal=True')
+        if kv is not None or kv_seq_len is not None:
+            raise NotImplementedError(f'cross-attention (kv=) {_NOT_PORTED}')
+        batch, time, _ = x.shape
+        q, k, v = (t.reshape(batch, time, self.num_heads, self.head_dim).transpose(1, 2).contiguous()
+                   for t in self.in_proj(x).split(self.embed_dim, dim=-1))
+        dropout_p = self.dropout_p if self.training else 0.0
+        if dropout_p > 0.0:
+            if x.device.type != 'cpu':
+                raise NotImplementedError(
+                    f'attention-probability dropout on {x.device.type} {_NOT_PORTED}: the '
+                    'attention kernel has no dropout; train with dropout 0 or on the CPU')
+            out = attention_ops.scaled_dot_product_attention(
+                q, k, v, bias=attention_bias(seq_len, time, causal, window, device=x.device),
+                dropout_p=dropout_p, generator=self.generator)
+        else:
+            out = flash_attention(q, k, v, seq_len=seq_len, causal=causal, window=window)
+        return self.out_proj(out.transpose(1, 2).reshape(batch, time, self.embed_dim))
+
+    def step(self, x, cache_k, cache_v, pos, window):
+        raise NotImplementedError(f'MultiHeadAttention.step (the KV-cache stream) {_NOT_PORTED}')
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Pre-LN block (``nn.py:1247``): ``x + attn(LN(x))`` then ``x +
+    ffn(LN(x))``, the FFN ``Linear -> GELU -> Linear``, dropout on both
+    residual branches. A mixture-of-experts FFN (``moe=``) is not ported
+    yet."""
+
+    accepts_seq_len = True
+
+    def __init__(self, d_model, num_heads, d_ff, dropout=0.0, attention_backend='auto', moe=None,
+                 generator=None):
+        super().__init__()
+        if moe:
+            raise NotImplementedError(f'a mixture-of-experts FFN (moe=) {_NOT_PORTED}')
+        self.attn_norm = LayerNorm(d_model)
+        self.attn = MultiHeadAttention(d_model, num_heads, dropout=dropout,
+                                       backend=attention_backend, generator=generator)
+        self.ffn_norm = LayerNorm(d_model)
+        self.ffn_in = Linear(d_model, d_ff, generator=generator)
+        self.ffn_act = GELU()
+        self.ffn_out = Linear(d_ff, d_model, generator=generator)
+        self.dropout = Dropout(dropout) if dropout else None
+
+    def forward(self, x, seq_len=None, causal=False, window=None):
+        h = self.attn(self.attn_norm(x), seq_len=seq_len, causal=causal, window=window)
+        if self.dropout is not None:
+            h = self.dropout(h)
+        x = x + h
+        h = self.ffn_out(self.ffn_act(self.ffn_in(self.ffn_norm(x))))
+        if self.dropout is not None:
+            h = self.dropout(h)
+        return x + h
+
+
+class TransformerEncoder(nn.Module):
+    """Pre-LN encoder blocks with sinusoidal positions added at entry and a
+    final LayerNorm (``nn.py:1307``), called as ``(x, seq_len=None)`` like a
+    ``Recurrent`` stack. The blocks are ``blocks.items.<i>``, as in the JAX
+    package. ``remat``, ``moe`` and ``activation_sharding`` are not ported
+    yet, nor is the streaming ``step``."""
+
+    accepts_seq_len = True
+
+    def __init__(self, num_layers, d_model, num_heads, d_ff, dropout=0.0, add_positions=True,
+                 causal=False, window=None, remat=None, attention_backend='auto', moe=None,
+                 activation_sharding=None, generator=None):
+        super().__init__()
+        if window is not None and not causal:
+            raise ValueError('window (sliding-window attention) requires causal=True')
+        if remat:
+            raise NotImplementedError(f'remat (rematerialised blocks) {_NOT_PORTED}')
+        if moe:
+            raise NotImplementedError(f'mixture-of-experts blocks (moe=) {_NOT_PORTED}')
+        if activation_sharding is not None:
+            raise NotImplementedError(f'activation_sharding (sequence parallelism) {_NOT_PORTED}')
+        self.d_model = d_model
+        self.add_positions = add_positions
+        self.causal = causal
+        self.window = window
+        self.blocks = ModuleList([
+            TransformerEncoderLayer(d_model, num_heads, d_ff, dropout=dropout,
+                                    attention_backend=attention_backend, generator=generator)
+            for _ in range(num_layers)])
+        self.norm = LayerNorm(d_model)
+
+    def forward(self, x, seq_len=None):
+        if self.add_positions:
+            x = x + attention_ops.sinusoidal_positions(x.shape[1], self.d_model, dtype=x.dtype,
+                                                       device=x.device)
+        for block in self.blocks:
+            x = block(x, seq_len=seq_len, causal=self.causal, window=self.window)
+        return self.norm(x)
+
+    def step(self, x, state):
+        raise NotImplementedError(f'TransformerEncoder.step (the KV-cache stream) {_NOT_PORTED}')
+
+
 class SequentialWithRecurrent(nn.Module):
-    """Sequential container passing ``seq_len`` to its recurrent members
-    (``nn.py:1424``, without the streaming states); members are named ``0``,
-    ``1``, ..."""
+    """Sequential container passing ``seq_len`` to its recurrent members and
+    to the members that set ``accepts_seq_len`` (``nn.py:1424-1463``, without
+    the streaming states); members are named ``0``, ``1``, ..."""
 
     def __init__(self, *modules):
         super().__init__()
@@ -153,6 +332,8 @@ class SequentialWithRecurrent(nn.Module):
         for module in self.children():
             if isinstance(module, Recurrent):
                 input, _ = module(input, seq_len=seq_len)
+            elif getattr(module, 'accepts_seq_len', False):
+                input = module(input, seq_len=seq_len)
             else:
                 input = module(input)
         return input

@@ -1,8 +1,9 @@
-"""What the recurrent layers' kernel wrappers share (``ops/lstm.py``,
-``ops/gru.py``): the operand checks made before any launch, loading a
-kernel's ``ctypes`` library, turning a returned ``cudaError_t`` into an
-exception, and the padding semantics around a recurrence that runs on
-through padded frames (``pallas_rnn.py:298-347``)."""
+"""What the kernel wrappers share (``ops/lstm.py``, ``ops/gru.py``,
+``ops/flash_attention.py``): the operand checks made before any launch,
+loading a kernel's ``ctypes`` library and turning a returned ``cudaError_t``
+into an exception; and, for the recurrent layers, the padding semantics
+around a recurrence that runs on through padded frames
+(``pallas_rnn.py:298-347``)."""
 import ctypes
 
 import torch

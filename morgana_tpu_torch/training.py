@@ -2,7 +2,8 @@
 
 One train step moves a collated batch to the model's device, runs forward
 (the loss and the metrics' partials), backward (on the GPU, kernel K2 under
-each LSTM layer and K4 under each GRU layer) and the optimiser, plus the EMA
+each LSTM layer, K4 under each GRU layer and the attention backward under
+each attention layer) and the optimiser, plus the EMA
 when it is on. It makes no host round trip: the loss comes back as a device
 scalar and the metrics merge lazily.
 
@@ -83,8 +84,9 @@ class TrainLoop(object):
     The model's own parameters are trained in place, so the model is always
     current and there is nothing like the JAX loop's ``sync_model`` to call.
 
-    Dropout noise of step ``n`` comes from a generator seeded with ``(seed,
-    n)``, so it does not depend on what ran before (``training.py:255``).
+    Dropout noise of step ``n`` (``Dropout`` layers and attention
+    probabilities) comes from a generator seeded with ``(seed, n)``, so it
+    does not depend on what ran before (``training.py:255``).
     """
 
     def __init__(self, model, optimizer, ema_decay=0., seed=1234567890, ema_model=None):
@@ -112,7 +114,7 @@ class TrainLoop(object):
         seed = int(np.random.SeedSequence([self.seed, self.step_count]).generate_state(1)[0])
         generator = torch.Generator(device=self.device).manual_seed(seed)
         for module in self.model.modules():
-            if isinstance(module, mnn.Dropout):
+            if isinstance(module, (mnn.Dropout, mnn.MultiHeadAttention)):
                 module.generator = generator
 
     def train_step(self, features, lr):

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (K1, the LSTM layer forward with and
-without its gate trace, K2, its backward, K3, the GRU layer forward, and K4,
-its backward) against their plain PyTorch versions, on the GPU only (a CUDA kernel has no CPU mode): every test here is marked
+without its gate trace, K2, its backward, K3, the GRU layer forward, K4, its
+backward, and K5/K6, attention forward and backward) against their plain
+PyTorch versions, on the GPU only (a CUDA kernel has no CPU mode): every test here is marked
 ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed::
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from morgana_tpu_torch.ops import flash_attention as fa
 from morgana_tpu_torch.ops import gru as gru_ops
 from morgana_tpu_torch.ops import lstm as lstm_ops
 
@@ -254,3 +256,103 @@ def test_gru_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
             with pytest.raises(ValueError, match=limit):
                 op(*make(batch, 3, hidden))
     assert (gru_ops.launches, gru_ops.bwd_launches) == before
+
+
+# (B, H, T, dh, causal, window): the model's heads (dh 96), the other two
+# widths, T not a multiple of the 64-row tile, T = 1, and a small window with
+# padded rows past it that see no key.
+ATTN_SHAPES = [(4, 2, 130, 96, False, None), (3, 4, 77, 64, True, None),
+               (2, 2, 200, 128, True, 16), (1, 1, 1, 96, False, None),
+               (3, 2, 77, 96, True, 8), (2, 4, 300, 96, True, 256)]
+
+
+def _attn_inputs(device, batch, heads, steps, head_dim, seed=14):
+    """Seeded q, k, v (B, H, T, dh) and a ragged seq_len with a full row and,
+    for B > 2, an empty one."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(batch, heads, steps, head_dim)).astype(np.float32))
+               .to(device) for _ in range(3))
+    seq_len = rng.integers(1, steps + 1, batch)
+    seq_len[0] = steps
+    if batch > 2:
+        seq_len[-1] = 0
+    return q, k, v, torch.from_numpy(seq_len).to(device)
+
+
+def _valid_rows(seq_len, steps):
+    return (torch.arange(steps, device=seq_len.device)[None, :] < seq_len[:, None])[:, None, :, None]
+
+
+@pytest.mark.parametrize('batch,heads,steps,head_dim,causal,window', ATTN_SHAPES)
+def test_attention_forward_matches_plain_version(cuda_device, batch, heads, steps, head_dim,
+                                                 causal, window):
+    """The forward kernel through flash_attention against
+    flash_attention_reference on the same GPU tensors, on the rows below
+    seq_len (the others are padding): 1e-4 abs, f32 with TF32 off. Rows that
+    see no key are 0, never NaN."""
+    q, k, v, seq_len = _attn_inputs(cuda_device, batch, heads, steps, head_dim)
+    before = fa.launches
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, seq_len=seq_len, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        want = fa.flash_attention_reference(q, k, v, seq_len=seq_len, causal=causal, window=window)
+    assert torch.isfinite(got).all()
+    valid = _valid_rows(seq_len, steps)
+    torch.testing.assert_close(got * valid, want * valid, rtol=0, atol=1e-4)
+    if batch > 2:
+        assert (got[-1] == 0).all()  # the empty row sees no key
+
+
+@pytest.mark.parametrize('batch,heads,steps,head_dim,causal,window', ATTN_SHAPES)
+def test_attention_backward_matches_autograd_through_the_plain_version(
+        cuda_device, batch, heads, steps, head_dim, causal, window):
+    """dq, dk, dv of a loss on the rows below seq_len: the kernels (forward,
+    then backward) against autograd through the plain version, each within
+    1e-4 of the largest |value| of the three; two runs of the backward are
+    bit-identical (no atomics)."""
+    q, k, v, seq_len = _attn_inputs(cuda_device, batch, heads, steps, head_dim)
+    rng = np.random.default_rng(15)
+    weight = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(cuda_device)
+    weight = weight * _valid_rows(seq_len, steps)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, seq_len=seq_len, causal=causal, window=window)
+        return torch.autograd.grad((out * weight).sum(), leaves)
+
+    before = (fa.launches, fa.bwd_launches)
+    got = grads(fa.flash_attention)
+    again = grads(fa.flash_attention)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 2, before[1] + 2)
+    want = grads(fa.flash_attention_reference)
+    # dq and dk are exactly 0 where every row sees one key (T = 1): each
+    # gradient is held relative to the largest |value| of the three.
+    scale = max(max(float(w.abs().max()) for w in want), 1e-30)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """dh 80, float64, a non-contiguous operand and an operand on the CPU
+    raise before any launch; T = 0 returns an empty output without one; the
+    counters do not move and nothing falls back."""
+    q, k, v, seq_len = _attn_inputs(cuda_device, 2, 2, 9, 64)
+    before = (fa.launches, fa.bwd_launches)
+    with pytest.raises(ValueError, match='dh in'):
+        fa.flash_attention(*(torch.zeros(2, 2, 9, 80, device=cuda_device) for _ in range(3)))
+    with pytest.raises(TypeError, match='float32'):
+        fa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match='contiguous'):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match='is on cpu'):
+        fa.flash_attention(q, k.cpu(), v)
+    o, lse = fa.attention_forward(q, k, v, seq_len=seq_len)
+    with pytest.raises(ValueError, match='contiguous'):
+        fa.attention_backward(q, k, v, o, lse, o.transpose(2, 3).contiguous().transpose(2, 3))
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1])
+    empty = torch.zeros(2, 2, 0, 96, device=cuda_device)
+    assert fa.flash_attention(empty, empty, empty).shape == (2, 2, 0, 96)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1])
