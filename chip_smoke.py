@@ -40,11 +40,14 @@ code and without the final line:
    against torch.nn.GRU (cuDNN, a yardstick the port never calls), at H=64
    (B=32 and B=16, T=1024) and H=128 (B=32, T=128), ragged seq_len, with
    and without an initial state, and at edge shapes (T=0, T=1, B=1, 5, 40,
-   256); times.
+   256); times, per step beside cuDNN's.
 9. k4: the gradient path of the GRU layer (K3, then K4, the backward)
    against autograd through the plain recurrence, for a loss on y and hn
-   under ragged seq_len; K4 alone against its plain version; times of K4
-   and of one torch.nn.GRU forward+backward (cuDNN).
+   under ragged seq_len; K4 alone on the layer's operands, fed hg from its
+   GEMM, against its plain version; times of K4, of the hg GEMM, of the layer forward+backward and
+   of torch.nn.GRU forward+backward (cuDNN: the weights' gradients, and all
+   gradients). Then gru_step_sweep: K3's and K4's us per step at T=1024,
+   H 32/64/128, B 1/16/32.
 10. f0_serving: F0Model at full width (609 inputs, 3 x GRU(64), 3 outputs)
     with seeded weights and normaliser statistics, served by
     InferenceEngine.predict_items on 32 utterances of 200-1000 frames at
@@ -185,13 +188,14 @@ def k3_bound(batch, time_steps, hidden):
 
 
 def k4_bound(batch, time_steps, hidden):
-    """Least time for the GRU backward recurrence: two products of 2*B*H*3H
-    flops per step (the recompute of hg and the carry) against the float32
-    peak, and xg read plus dxg written, y and dy read (with w_hh, b_hh, h0
-    and dhn read and dh0 written) against the memory rate."""
-    flops = 2.0 * (2.0 * batch * hidden * 3 * hidden * time_steps)
-    nbytes = 4.0 * (2 * time_steps * batch * 3 * hidden + 2 * time_steps * batch * hidden
-                    + hidden * 3 * hidden + 3 * hidden + 3 * batch * hidden)
+    """Least time for the GRU backward recurrence given hg: one product of
+    2*B*3H*H flops per step (the carry through w_hh^T) against the float32
+    peak, and xg and hg read plus dxg written, y and dy read plus dnr
+    (da_n * r) written (with w_hh, h0 and dhn read and dh0 written) against
+    the memory rate. The hg GEMM is timed apart (hg_gemm_ms)."""
+    flops = 2.0 * batch * hidden * 3 * hidden * time_steps
+    nbytes = 4.0 * (3 * time_steps * batch * 3 * hidden + 3 * time_steps * batch * hidden
+                    + hidden * 3 * hidden + 3 * batch * hidden)
     ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
@@ -394,8 +398,10 @@ def cudnn_gru(torch, dev, w_ih, w_hh, b_ih, b_hh):
 
 def k3_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, timed):
     """K3 through gru_layer (no gradient) against the plain layer and, for
-    T > 0, cuDNN's GRU; with `timed`, the times of K3 alone, of its plain
-    version, of the layer and of one cuDNN GRU forward."""
+    T > 0, cuDNN's GRU; with `timed`, the times of K3 alone as the layer
+    launches it (batch-major, with seq_len), of its plain version, of the
+    layer (input GEMM and K3) and of one cuDNN GRU forward (input GEMM
+    included: the like-for-like comparison is layer_ms)."""
     from morgana_tpu_torch.ops import gru as gru_ops
 
     x, (w_ih, w_hh, b_ih, b_hh), seq_len, h0 = gru_inputs(
@@ -421,15 +427,20 @@ def k3_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, tim
                'seq_len_max': int(seq_len.max()), 'max_abs_err_vs_plain': err_plain,
                'max_abs_err_vs_cudnn': err_cudnn, 'tolerance': KERNEL_TOL, 'k3_launches': launched}
         if timed:
-            xg = (torch.matmul(x, w_ih) + b_ih).transpose(0, 1).contiguous()
+            xg = torch.matmul(x, w_ih) + b_ih
+            xg_t = xg.transpose(0, 1).contiguous()
             hs = torch.zeros((batch, hidden), device=dev) if h0 is None else h0
-            out['kernel_ms'] = cuda_ms(torch, lambda: gru_ops.gru_recurrence(xg, w_hh, b_hh, hs), 50)
+            out['kernel_ms'] = cuda_ms(
+                torch, lambda: gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, hs, seq_len), 50)
             out['plain_ms'] = cuda_ms(
-                torch, lambda: gru_ops.gru_recurrence_reference(xg, w_hh, b_hh, hs), 2)
+                torch, lambda: gru_ops.gru_recurrence_reference(xg_t, w_hh, b_hh, hs), 2)
             out['layer_ms'] = cuda_ms(torch, lambda: gru_ops.gru_layer(*args), 50)
             out['library_ms'] = cuda_ms(torch, lambda: cudnn(x, hx), 50)
             out['bound_ms'], out['bound_by'] = k3_bound(batch, time_steps, hidden)
             out['us_per_step'] = out['kernel_ms'] * 1e3 / time_steps
+            # cuDNN's layer includes its input GEMM: per step it is an upper
+            # bound on its recurrence's step.
+            out['library_us_per_step'] = out['library_ms'] * 1e3 / time_steps
     emit(out)
     if not (err_plain <= KERNEL_TOL and err_cudnn <= KERNEL_TOL and launched == 1):
         raise AssertionError(f'K3 disagrees at B={batch} T={time_steps} H={hidden}: {out}')
@@ -451,9 +462,10 @@ def gru_layer_grads(torch, layer, x, weights, seq_len, h0, loss_weights):
 
 def k4_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, timed):
     """The gradient path (K3, then K4) against autograd through the plain
-    recurrence, each gradient relative to its max |value|; K4 alone against
-    its plain version; with `timed`, the times of K4, of its plain version,
-    of the layer forward+backward and of cuDNN's GRU forward+backward."""
+    recurrence, each gradient relative to its max |value|; K4 alone, as the
+    layer launches it (batch-major, with seq_len), against its plain
+    version; with `timed`, the times of K4, of its plain version, of the
+    layer forward+backward and of cuDNN's GRU forward+backward."""
     from morgana_tpu_torch.ops import gru as gru_ops
 
     x, weights, seq_len, h0 = gru_inputs(torch, dev, batch, time_steps, hidden, in_dim,
@@ -471,16 +483,18 @@ def k4_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, tim
                            loss_weights)
     grad_rel = {n: max_abs(g - w) / max(max_abs(w), 1e-30) for n, g, w in zip(names, got, want)}
 
-    # K4 alone against its plain version on the same saved tensors.
+    # K4 alone, on the layer's operands (batch-major, seq_len), against its
+    # plain version on the same saved tensors and hg: dxg, dnr and dh0.
     w_ih, w_hh, b_ih, b_hh = weights
     hs = torch.zeros((batch, hidden), device=dev) if h0 is None else h0
-    xg = (torch.matmul(x, w_ih) + b_ih).transpose(0, 1).contiguous()
-    y, _ = gru_ops.gru_recurrence(xg, w_hh, b_hh, hs)
+    xg = torch.matmul(x, w_ih) + b_ih
+    y, _ = gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, hs, seq_len)
     cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
-           for shape in ((time_steps, batch, hidden), (batch, hidden))]
-    bwd_args = (xg, w_hh, b_hh, hs, y, *cot)
-    k4_out = gru_ops.gru_backward(*bwd_args)
-    plain_out = gru_ops.gru_backward_reference(*bwd_args)
+           for shape in ((batch, time_steps, hidden), (batch, hidden))]
+    _, hg = gru_ops.hidden_gates(w_hh, b_hh, hs, y, batch_first=True)
+    bwd_args = (xg, hg, w_hh, hs, y, *cot, seq_len)
+    k4_out = gru_ops._gru_bwd_cuda(*bwd_args)
+    plain_out = gru_ops.layer_backward_reference(*bwd_args)
     k4_err = max(max_abs(a - b) for a, b in zip(k4_out, plain_out))
     k4_rel = max(max_abs(a - b) / max(max_abs(b), 1e-30) for a, b in zip(k4_out, plain_out))
 
@@ -489,11 +503,14 @@ def k4_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, tim
            'grad_rtol': GRAD_RTOL, 'k4_max_abs_err': k4_err, 'k4_rel_err': k4_rel,
            'k3_launches': launched[0], 'k4_launches': launched[1]}
     if timed:
-        out['kernel_ms'] = cuda_ms(torch, lambda: gru_ops.gru_backward(*bwd_args), 20)
-        out['plain_ms'] = cuda_ms(torch, lambda: gru_ops.gru_backward_reference(*bwd_args), 2)
+        out['kernel_ms'] = cuda_ms(torch, lambda: gru_ops._gru_bwd_cuda(*bwd_args), 20)
+        out['plain_ms'] = cuda_ms(torch, lambda: gru_ops.layer_backward_reference(*bwd_args), 2)
         out['bound_ms'], out['bound_by'] = k4_bound(batch, time_steps, hidden)
         out['us_per_step'] = out['kernel_ms'] * 1e3 / time_steps
-        out['k3_ms'] = cuda_ms(torch, lambda: gru_ops.gru_recurrence(xg, w_hh, b_hh, hs), 20)
+        out['hg_gemm_ms'] = cuda_ms(
+            torch, lambda: gru_ops.hidden_gates(w_hh, b_hh, hs, y, batch_first=True), 20)
+        out['k3_ms'] = cuda_ms(
+            torch, lambda: gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, hs, seq_len), 20)
         out['layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: gru_layer_grads(
             torch, gru_ops.gru_layer, x, weights, seq_len, h0, loss_weights), 10)
         cudnn = cudnn_gru(torch, dev, *weights)
@@ -503,14 +520,65 @@ def k4_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, tim
             y_c, _ = cudnn(x, hx)
             (y_c * loss_weights[0]).sum().backward()
 
-        # cuDNN's backward cannot be timed alone: this includes its forward.
+        def cudnn_all_grads():
+            leaves = [x.detach().clone().requires_grad_(True),
+                      hs[None].detach().clone().requires_grad_(True)]
+            y_c, h_c = cudnn(*leaves)
+            loss = (y_c * loss_weights[0]).sum() + (h_c[0] * loss_weights[1]).sum()
+            return torch.autograd.grad(loss, leaves + list(cudnn.parameters()))
+
+        # cuDNN's backward cannot be timed alone: both include its forward.
+        # library_ms (the yardstick of earlier runs) gives the weights'
+        # gradients only; library_all_grads_ms also dx and dh0 and reads hn,
+        # as the port's layer_fwd_bwd_ms does.
         out['library_ms'] = cuda_ms(torch, cudnn_fwd_bwd, 10)
+        out['library_all_grads_ms'] = cuda_ms(torch, cudnn_all_grads, 10)
+        # The event times above include the host's launches; the device's
+        # own busy time of one call of each, and its kernels, from the
+        # profiler:
+        for key, fn in (('layer_fwd_bwd', lambda: gru_layer_grads(
+                torch, gru_ops.gru_layer, x, weights, seq_len, h0, loss_weights)),
+                        ('library', cudnn_fwd_bwd)):
+            profile = profile_step(torch, fn)
+            out[f'{key}_device_ms'] = profile['device_busy_ms']
+            out[f'{key}_kernels'] = profile['kernels_launched']
     emit(out)
     if not (max(grad_rel.values()) <= GRAD_RTOL and k4_err <= KERNEL_TOL
             and k4_rel <= GRAD_RTOL and launched == (1, 1)):
         raise AssertionError(f'K3 / K4 gradients disagree at B={batch} T={time_steps} '
                              f'H={hidden}: {out}')
     return out
+
+
+def gru_step_sweep(torch, dev, seed):
+    """Where K3's and K4's step goes: us per step of each kernel alone at
+    T=1024 for H 32/64/128 and B 1/16/32 (batch-major, no seq_len), beside
+    cuDNN's GRU forward per step (its input GEMM included)."""
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    rng = np.random.default_rng(seed)
+    steps = 1024
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for hidden in (32, 64, 128):
+        for batch in (1, 16, 32):
+            x, (w_ih, w_hh, b_ih, b_hh), _, _ = gru_inputs(torch, dev, batch, steps, hidden,
+                                                           hidden, False, seed)
+            xg = torch.matmul(x, w_ih) + b_ih
+            hs = torch.zeros((batch, hidden), device=dev)
+            y, _ = gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, hs)
+            _, hg = gru_ops.hidden_gates(w_hh, b_hh, hs, y, batch_first=True)
+            dy = torch.from_numpy(rng.normal(size=(batch, steps, hidden)).astype(np.float32)).to(dev)
+            bwd = (xg, hg, w_hh, hs, y, dy, hs)
+            cudnn = cudnn_gru(torch, dev, w_ih, w_hh, b_ih, b_hh)
+            with torch.inference_mode():
+                k3 = cuda_ms(torch, lambda: gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, hs), 20)
+                k4 = cuda_ms(torch, lambda: gru_ops._gru_bwd_cuda(*bwd), 20)
+                lib = cuda_ms(torch, lambda: cudnn(x), 20)
+            rows.append({'H': hidden, 'B': batch,
+                         'k3_us_per_step': k3 * 1e3 / steps, 'k4_us_per_step': k4 * 1e3 / steps,
+                         'library_fwd_us_per_step': lib * 1e3 / steps})
+    emit({'phase': 'gru_step_sweep', 'T': steps, 'sms': sms, 'rows': rows})
 
 
 def attention_pairs(seq_len, time_steps, heads, causal, window):
@@ -1415,6 +1483,7 @@ def main():
     for hidden in (64, 128):
         for batch, steps in edges:
             k4_case(torch, dev, batch, steps, hidden, hidden, True, 39, timed=False)
+    gru_step_sweep(torch, dev, 42)
 
     # The attention forward against its plain version and SDPA at the
     # Transformer's heads (H4, dh 96; B16 the serving batch, B32 the training
@@ -1494,7 +1563,9 @@ def main():
         'launches': f0_train_launches['k4'] + duration_launches['k4'],
         'max_abs_err': gru_bwd_shape['k4_max_abs_err'], 'ms': gru_bwd_shape['kernel_ms'],
         'plain_ms': gru_bwd_shape['plain_ms'], 'bound_ms': gru_bwd_shape['bound_ms'],
-        'bound_by': gru_bwd_shape['bound_by'], 'library_ms': gru_bwd_shape['library_ms']}, {
+        'bound_by': gru_bwd_shape['bound_by'], 'library_ms': gru_bwd_shape['library_ms'],
+        'layer_fwd_bwd_ms': gru_bwd_shape['layer_fwd_bwd_ms'],
+        'hg_gemm_ms': gru_bwd_shape['hg_gemm_ms']}, {
         'name': 'attn_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/attn_fwd.cu',
         'replaces': 'morgana_tpu/nn.py:1001', 'also_replaces': 'morgana_tpu/nn.py:1055',
         'launches': attn_serve_launches + attn_train_launches['attn_fwd'],

@@ -29,16 +29,21 @@ def check_operands(kernel, operands, device):
             raise ValueError(f'{kernel}: {name} must be contiguous')
 
 
+_ENTRIES = {}  # (name, entry) -> (lib, fn), set up once
+
+
 def load_library(name, entry, argtypes):
     """``(lib, fn)``: kernel ``name``'s library, built on first use, and its C
     entry point with ``argtypes`` set; every entry returns a cudaError_t."""
-    lib = _build.load(name)
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    lib.morgana_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.morgana_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
+    if (name, entry) not in _ENTRIES:
+        lib = _build.load(name)
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.morgana_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.morgana_cuda_error_string.restype = ctypes.c_char_p
+        _ENTRIES[name, entry] = lib, fn
+    return _ENTRIES[name, entry]
 
 
 def raise_on_error(lib, err, what, hint):

@@ -4,6 +4,8 @@ package on the CPU. The layer's outputs agree within 1e-5 abs and its
 gradients within 2e-5 of each gradient's max |value|, the bar of
 tests/test_pallas_rnn.py:145. The kernels themselves are held against the
 plain versions on the GPU by tests/test_torch_kernels.py."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -108,9 +110,9 @@ def test_gru_layer_gradients_match_pallas_interpret(seq_len, with_state):
 
 
 def test_backward_reference_matches_autograd_through_the_plain_loop():
-    """gru_backward_reference (the plain K4) and the Function's dW_hh and
-    db_hh against torch autograd through gru_recurrence_reference, with
-    cotangents on y and hn; 1e-5 abs."""
+    """gru_backward_reference (the plain K4, fed hg from hidden_gates) and the
+    Function's dW_hh and db_hh against torch autograd through
+    gru_recurrence_reference, with cotangents on y and hn; 1e-5 abs."""
     rng = np.random.default_rng(4)
 
     def leaf(*shape, scale=1.0):
@@ -122,14 +124,20 @@ def test_backward_reference_matches_autograd_through_the_plain_loop():
     want = torch.autograd.grad((y * dy).sum() + (hn * dhn).sum(), (xg, w_hh, b_hh, h0))
 
     saved = [t.detach() for t in (xg, w_hh, b_hh, h0, y)]
-    dxg, dh0 = gru_ops.gru_backward_reference(*saved, dy, dhn)
+    _, hg = gru_ops.hidden_gates(saved[1], saved[2], saved[3], saved[4])
+    dxg, dh0 = gru_ops.gru_backward_reference(saved[0], hg, saved[1], saved[3], saved[4], dy, dhn)
     for g, w in zip((dxg, dh0), (want[0], want[3])):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=ATOL)
+    for g, w in zip(gru_ops.gru_backward(*saved, dy, dhn), (dxg, dh0)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
+    # The Function holds the layer's batch-major tensors.
     class Ctx:
-        saved_tensors = saved
-    got = gru_ops._Recurrence.backward(Ctx(), dy, dhn)
-    for g, w in zip(got, want):
+        saved_tensors = [t.transpose(0, 1) if t.ndim == 3 else t for t in saved]
+        seq_len = None
+    got = gru_ops._Recurrence.backward(Ctx(), dy.transpose(0, 1), dhn)
+    assert got[4] is None
+    for g, w in zip((got[0].transpose(0, 1), *got[1:4]), want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=ATOL)
 
 
@@ -273,3 +281,229 @@ def test_mlpg_matches_jax_and_float64(batched, per_frame, padding_size):
                                           seq_len=seq_len),
                                jmlpg_numpy(means, variances, padding_size=padding_size,
                                            seq_len=seq_len), atol=1e-12)
+
+
+def _recompute_per_step_backward(xg, w_hh, b_hh, h0, y, dy, dhn):
+    """K4's plain version as it was before hg was given: each step recomputes
+    hg = h_{t-1} @ w_hh + b_hh inside the reverse loop."""
+    hidden = w_hh.shape[0]
+    dh = dhn
+    dxg = [None] * xg.shape[0]
+    for t in range(xg.shape[0] - 1, -1, -1):
+        h_prev = y[t - 1] if t > 0 else h0
+        hg = torch.matmul(h_prev, w_hh) + b_hh
+        r, z, n = gru_ops._gates(xg[t], hg, hidden)
+        dh = dy[t] + dh
+        da_n = dh * (1.0 - z) * (1.0 - n * n)
+        da_z = dh * (h_prev - n) * z * (1.0 - z)
+        da_r = da_n * hg[..., 2 * hidden:] * r * (1.0 - r)
+        dxg[t] = torch.cat([da_r, da_z, da_n], dim=-1)
+        dh = dh * z + torch.matmul(torch.cat([da_r, da_z, da_n * r], dim=-1), w_hh.t())
+    return (torch.stack(dxg) if dxg else torch.zeros_like(xg)), dh
+
+
+def _scaled_close(got, want, rtol):
+    """Each array within rtol of its own max |value| (abs below 1)."""
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()) if want.size else 1.0, 1.0)
+    np.testing.assert_allclose(np.asarray(got) / scale, want / scale, atol=rtol)
+
+
+@pytest.mark.parametrize('steps', [0, 1, 17])
+@pytest.mark.parametrize('with_state', [False, True], ids=['zero_state', 'h0'])
+@pytest.mark.parametrize('empty_rows', [False, True], ids=['full_rows', 'rows_of_length_0'])
+def test_plain_k4_fed_hg_matches_jax_backward_and_the_recompute_formula(steps, with_state,
+                                                                        empty_rows):
+    """The plain K4 fed hg from the one GEMM (hidden_gates) against
+    jax.vjp through the Pallas core in interpret mode (dxg, dh0; at T = 0,
+    where the Pallas call takes no empty grid, dh0 = dhn and dxg is empty)
+    and against the per-step recompute formula it replaced; then the layer's
+    gradients (x through an identity w_ih, so dx is dxg; h0, w_hh, b_hh)
+    under a seq_len with rows of length 0 against jax.vjp through
+    pallas_gru.gru_layer(..., interpret=True), or through ops/rnn.gru at
+    T = 0. Each within 1e-5 of its max |value| (abs below 1)."""
+    from morgana_tpu.ops import pallas_gru
+
+    rng = np.random.default_rng(20 + steps)
+    xg = rng.normal(size=(steps, B, 3 * H)).astype(np.float32)
+    w_hh = (0.3 * rng.normal(size=(H, 3 * H))).astype(np.float32)
+    b_hh = rng.normal(size=(3 * H,)).astype(np.float32)
+    h0 = (rng.normal(size=(B, H)) if with_state else np.zeros((B, H))).astype(np.float32)
+    dy = rng.normal(size=(steps, B, H)).astype(np.float32)
+    dhn = rng.normal(size=(B, H)).astype(np.float32)
+
+    t_xg, t_w, t_b, t_h0, t_dy, t_dhn = map(torch.from_numpy, (xg, w_hh, b_hh, h0, dy, dhn))
+    y, _ = gru_ops.gru_recurrence_reference(t_xg, t_w, t_b, t_h0)
+    _, hg = gru_ops.hidden_gates(t_w, t_b, t_h0, y)
+    dxg, dh0 = gru_ops.gru_backward_reference(t_xg, hg, t_w, t_h0, y, t_dy, t_dhn)
+    assert dxg.shape == (steps, B, 3 * H) and dh0.shape == (B, H)
+
+    old = _recompute_per_step_backward(t_xg, t_w, t_b, t_h0, y, t_dy, t_dhn)
+    for g, w in zip((dxg, dh0), old):
+        _scaled_close(g.numpy(), w.numpy(), ATOL)
+    if steps:
+        _, vjp = jax.vjp(lambda a, c: pallas_gru._gru_layer_core(a, jnp.asarray(w_hh),
+                                                                 jnp.asarray(b_hh)[None], c, True),
+                         jnp.asarray(xg), jnp.asarray(h0))
+        want = vjp((jnp.asarray(dy), jnp.asarray(dhn)))
+    else:
+        want = (np.zeros_like(xg), dhn)
+    for g, w in zip((dxg, dh0), want):
+        _scaled_close(g.numpy(), w, ATOL)
+
+    # The layer, with xg = x @ I + 0 exactly, so that dx is dxg.
+    seq_len = np.array([steps, 0, min(steps, 1), 0]) if empty_rows else None
+    x = xg.transpose(1, 0, 2).copy()
+    eye, zero = np.eye(3 * H, dtype=np.float32), np.zeros(3 * H, np.float32)
+    wy = rng.normal(size=(B, steps, H)).astype(np.float32)
+    wh = rng.normal(size=(B, H)).astype(np.float32)
+    jlayer = (functools.partial(pallas_gru.gru_layer, interpret=True) if steps
+              else rnn_ops.gru)
+
+    def jloss(x, w_hh, b_hh, h0):
+        yy, hh = jlayer(x, jnp.asarray(eye), w_hh, jnp.asarray(zero), b_hh,
+                        seq_len=_jseq(None if seq_len is None else list(seq_len)), h0=h0)
+        return jnp.sum(yy * wy) + jnp.sum(hh * wh)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(*map(jnp.asarray, (x, w_hh, b_hh, h0)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, w_hh, b_hh, h0)]
+    yy, hh = gru_ops.gru_layer(leaves[0], torch.from_numpy(eye), leaves[1], torch.from_numpy(zero),
+                               leaves[2], seq_len=_tseq(None if seq_len is None else list(seq_len)),
+                               h0=leaves[3])
+    loss = (yy * torch.from_numpy(wy)).sum() + (hh * torch.from_numpy(wh)).sum()
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for g, w, leaf in zip(got, want, leaves):
+        _scaled_close(torch.zeros_like(leaf).numpy() if g is None else g.numpy(), w, ATOL)
+
+
+@pytest.mark.parametrize('seq_len', [[T, 11, 0, 1], None, [1, 1, 1, 1]],
+                         ids=['ragged_with_0', 'no_seq_len', 'all_1'])
+def test_backward_computes_hg_once_and_feeds_the_same_tensor_to_k4_and_dw_hh(monkeypatch,
+                                                                             seq_len):
+    """_Recurrence.backward makes hg with one product against the whole w_hh
+    (no separate product for the r columns), hands that very tensor to the
+    recurrence's backward, and takes dW_hh and db_hh from dxg's r and z
+    columns and the dnr it returns, dnr being dxg_n * sigmoid(xg_r + hg_r):
+    bit for bit against the two products and sums, and within 1e-6 of each
+    max of the one product h_prev^T @ [dxg_r, dxg_z, dnr]."""
+    rng = np.random.default_rng(30)
+    xg, w_hh, b_hh, h0 = (torch.from_numpy((s * rng.normal(size=shape)).astype(np.float32))
+                          for s, shape in ((1, (B, T, 3 * H)), (0.3, (H, 3 * H)), (1, (3 * H,)),
+                                           (1, (B, H))))
+    seq_len = None if seq_len is None else torch.tensor(seq_len)
+    y, hn = gru_ops._layer_forward(xg, w_hh, b_hh, h0, seq_len)
+    dy, dhn = (torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)) for t in (y, hn))
+
+    made, fed, products = [], [], []
+    hidden_gates, layer_backward = gru_ops.hidden_gates, gru_ops._layer_backward
+    matmul, addmm = torch.matmul, torch.addmm
+
+    def spy_hidden_gates(*args, **kwargs):
+        out = hidden_gates(*args, **kwargs)
+        made.append(out)
+        return out
+
+    def spy_backward(xg_, hg, *rest):
+        fed.append(hg)
+        out = layer_backward(xg_, hg, *rest)
+        fed.append(out)
+        return out
+
+    def spy_matmul(a, b, *rest):
+        products.append(b)
+        return matmul(a, b, *rest)
+
+    def spy_addmm(bias, a, b, *rest):
+        products.append(b)
+        return addmm(bias, a, b, *rest)
+
+    monkeypatch.setattr(gru_ops, 'hidden_gates', spy_hidden_gates)
+    monkeypatch.setattr(gru_ops, '_layer_backward', spy_backward)
+    monkeypatch.setattr(torch, 'matmul', spy_matmul)
+    monkeypatch.setattr(torch, 'addmm', spy_addmm)
+
+    class Ctx:
+        saved_tensors = (xg, w_hh, b_hh, h0, y)
+    ctx = Ctx()
+    ctx.seq_len = seq_len
+    dxg, dw_hh, db_hh, _, _ = gru_ops._Recurrence.backward(ctx, dy, dhn)
+    monkeypatch.undo()
+
+    assert len(made) == 1 and len(fed) == 2 and fed[0] is made[0][1]
+    assert sum(b is w_hh for b in products) == 1
+    # No product with the r columns alone (w_hh[:, :H]).
+    assert not any(b.data_ptr() == w_hh.data_ptr() and tuple(b.shape) == (H, H) for b in products)
+    h_prev, hg = made[0]
+    dnr = fed[1][1]
+    assert dnr.shape == (B, T, H) and fed[1][0] is dxg
+    r = torch.sigmoid(xg[..., :H] + hg[..., :H])
+    torch.testing.assert_close(dnr, dxg[..., 2 * H:] * r, rtol=0, atol=0)
+    d_rz, dnr = dxg.reshape(B * T, 3 * H)[:, :2 * H], dnr.reshape(B * T, H)
+    assert torch.equal(dw_hh, torch.cat([h_prev.t() @ d_rz, h_prev.t() @ dnr], dim=1))
+    assert torch.equal(db_hh, torch.cat([d_rz.sum(0), dnr.sum(0)]))
+    dhg = torch.cat([d_rz, dnr], dim=1)
+    for got, want in ((dw_hh, h_prev.t() @ dhg), (db_hh, dhg.sum(0))):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=1e-6)
+    if seq_len is not None:
+        for b, n in enumerate(seq_len.tolist()):
+            assert (dxg[b, n:] == 0).all()
+
+
+@pytest.mark.parametrize('seq_len', SEQ_LENS, ids=SEQ_IDS)
+@pytest.mark.parametrize('with_state', [False, True], ids=['zero_state', 'h0'])
+def test_layer_backward_reference_matches_autograd_through_the_masked_plain_layer(seq_len,
+                                                                                   with_state):
+    """layer_backward_reference (the plain K4 as the layer launches it:
+    batch-major, seq_len, dnr out) against torch autograd through the plain
+    forward with its masking and gather (_layer_forward on the CPU): dxg and
+    dh0 within 1e-5 abs; dnr is dxg's n block times r, and with dxg's r and
+    z blocks it gives autograd's dW_hh and db_hh within 2e-5 of each max."""
+    rng = np.random.default_rng(40)
+
+    def leaf(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).requires_grad_(True)
+
+    xg, w_hh, b_hh = leaf(B, T, 3 * H), leaf(H, 3 * H, scale=0.3), leaf(3 * H)
+    h0 = leaf(B, H) if with_state else torch.zeros(B, H, requires_grad=True)
+    tseq = _tseq(seq_len)
+    y, hn = gru_ops._layer_forward(xg, w_hh, b_hh, h0, tseq)
+    dy, dhn = (torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)) for t in (y, hn))
+    want = torch.autograd.grad((y * dy).sum() + (hn * dhn).sum(), (xg, w_hh, b_hh, h0))
+
+    saved = [t.detach() for t in (xg, w_hh, b_hh, h0, y)]
+    h_prev, hg = gru_ops.hidden_gates(saved[1], saved[2], saved[3], saved[4], batch_first=True)
+    dxg, dnr, dh0 = gru_ops.layer_backward_reference(saved[0], hg, saved[1], saved[3], saved[4],
+                                                     dy, dhn, tseq)
+    for g, w in ((dxg, want[0]), (dh0, want[3])):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=ATOL)
+    r = torch.sigmoid(saved[0][..., :H] + hg[..., :H])
+    torch.testing.assert_close(dnr, dxg[..., 2 * H:] * r, rtol=0, atol=0)
+    dhg = torch.cat([dxg[..., :2 * H], dnr], dim=-1).reshape(B * T, 3 * H)
+    for g, w in ((h_prev.t() @ dhg, want[1]), (dhg.sum(0), want[2])):
+        scale = max(float(w.abs().max()), 1e-30)
+        np.testing.assert_allclose(g.numpy() / scale, w.numpy() / scale, atol=GRAD_RTOL)
+
+
+@pytest.mark.parametrize('batch,hidden,message', [(0, 64, 'B >= 1'), (4, 48, 'multiple of 32'),
+                                                  (4, 16, 'multiple of 32'),
+                                                  (4, 160, 'up to 128')])
+def test_gru_kernel_limits_are_refused_before_any_launch(batch, hidden, message):
+    """The B and H that K3 and K4 do not take raise ValueError in the
+    wrappers' own checks, which need no card."""
+    with pytest.raises(ValueError, match=message):
+        gru_ops._check_sizes('K3', batch, hidden)
+    for ok in (32, 64, 96, 128):
+        gru_ops._check_sizes('K4', 1, ok)
+
+
+@pytest.mark.parametrize('time_major', [False, True], ids=['batch_major', 'time_major'])
+def test_gru_sizes_read_the_layout_they_are_given(time_major):
+    """(T, B, H) from a batch-major (B, T, 3H) xg, the kernels' layout, or a
+    time-major (T, B, 3H) one; a last axis not a multiple of 3 raises naming
+    the layout expected."""
+    xg = torch.zeros((5, 7, 3 * 32)) if time_major else torch.zeros((7, 5, 3 * 32))
+    assert gru_ops._sizes('K3', xg, time_major) == (5, 7, 32)
+    layout = r'\(T, B, 3H\)' if time_major else r'\(B, T, 3H\)'
+    with pytest.raises(ValueError, match=layout):
+        gru_ops._sizes('K3', torch.zeros((5, 7, 95)), time_major)

@@ -142,7 +142,11 @@ def test_k1_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     assert lstm_ops.launches == before
 
 
-GRU_SHAPES = [(32, 64), (5, 1), (40, 33), (16, 0), (1, 17), (256, 9)]
+# (B, T): the training batch, edge shapes (T = 1, T = 0, B = 1, B not a
+# multiple of 32, B above the SM count) and F0Model's serving shape, whose
+# 1024-step chain carries each split-k rounding through the whole sequence.
+GRU_SHAPES = [(32, 64), (5, 1), (40, 33), (16, 0), (1, 17), (256, 9), (16, 1024)]
+GRU_HIDDEN = [32, 64, 96, 128]
 
 
 def _gru_inputs(device, batch, steps, hidden, seed=10):
@@ -165,13 +169,13 @@ def _gru_inputs(device, batch, steps, hidden, seed=10):
     return x, weights, (None if steps == 0 else torch.from_numpy(seq_len).to(device)), h0
 
 
-@pytest.mark.parametrize('hidden', [64, 128])
+@pytest.mark.parametrize('hidden', GRU_HIDDEN)
 @pytest.mark.parametrize('batch,steps', GRU_SHAPES)
 def test_k3_matches_plain_version(cuda_device, batch, steps, hidden):
     """K3 through gru_layer against gru_layer_reference on the same GPU
     tensors, under no_grad (K3 alone): ragged seq_len with rows of length 1
-    and 0, a given h0, B = 1, 5, 40 and 256, T = 1 and T = 0; f32 with TF32
-    off, 1e-4 abs."""
+    and 0, a given h0, B = 1, 5, 16, 40 and 256, T = 0, 1 and 1024, every H
+    the kernel is built for; f32 with TF32 off, 1e-4 abs."""
     x, weights, seq_len, h0 = _gru_inputs(cuda_device, batch, steps, hidden)
     before = gru_ops.launches
     with torch.no_grad():
@@ -196,14 +200,16 @@ def _gru_loss_grads(layer, x, weights, seq_len, h0, seed=11):
     return [torch.zeros_like(leaf) if g is None else g for g, leaf in zip(grads, leaves)]
 
 
-@pytest.mark.parametrize('hidden', [64, 128])
+@pytest.mark.parametrize('hidden', GRU_HIDDEN)
 @pytest.mark.parametrize('batch,steps', GRU_SHAPES)
 def test_k4_gradients_match_plain_versions(cuda_device, batch, steps, hidden):
     """The gradient-enabled path (K3, then K4) against autograd through the
     plain recurrence, for dx, dw_ih, dw_hh, db_ih, db_hh and dh0: each within
     1e-4 of its own max |value| (f32, TF32 off; dW_hh sums T * B terms). K4
-    alone against gru_backward_reference on the same saved tensors: 1e-4 of
-    each output's max |value|."""
+    alone, on the layer's batch-major operands and seq_len, fed hg from the
+    one GEMM, against layer_backward_reference (dxg, dnr, dh0), and through
+    the time-major gru_backward against gru_backward_reference: 1e-4 of each
+    output's max |value|."""
     x, weights, seq_len, h0 = _gru_inputs(cuda_device, batch, steps, hidden)
     before = (gru_ops.launches, gru_ops.bwd_launches)
     got = _gru_loss_grads(gru_ops.gru_layer, x, weights, seq_len, h0)
@@ -215,14 +221,43 @@ def test_k4_gradients_match_plain_versions(cuda_device, batch, steps, hidden):
         torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)
 
     w_ih, w_hh, b_ih, b_hh = weights
-    xg = (x @ w_ih + b_ih).transpose(0, 1).contiguous()
-    y, _ = gru_ops.gru_recurrence(xg, w_hh, b_hh, h0)
+    xg = x @ w_ih + b_ih
+    y, _ = gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len)
     rng = np.random.default_rng(12)
     dy, dhn = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
                for shape in (tuple(y.shape), tuple(h0.shape)))
-    args = (xg, w_hh, b_hh, h0, y, dy, dhn)
-    for g, w in zip(gru_ops.gru_backward(*args), gru_ops.gru_backward_reference(*args)):
-        scale = max(float(w.abs().max()), 1e-30) if w.numel() else 1.0
+    _, hg = gru_ops.hidden_gates(w_hh, b_hh, h0, y, batch_first=True)
+    args = (xg, hg, w_hh, h0, y, dy, dhn, seq_len)
+    xg_t, y_t, dy_t = (t.transpose(0, 1).contiguous() for t in (xg, y, dy))
+    _, hg_t = gru_ops.hidden_gates(w_hh, b_hh, h0, y_t)
+    for got, want in ((gru_ops._gru_bwd_cuda(*args), gru_ops.layer_backward_reference(*args)),
+                      (gru_ops.gru_backward(xg_t, w_hh, b_hh, h0, y_t, dy_t, dhn),
+                       gru_ops.gru_backward_reference(xg_t, hg_t, w_hh, h0, y_t, dy_t, dhn))):
+        for g, w in zip(got, want):
+            scale = max(float(w.abs().max()), 1e-30) if w.numel() else 1.0
+            torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize('hidden', GRU_HIDDEN)
+@pytest.mark.parametrize('extra', [1, 5])
+def test_gru_kernels_past_one_wave(cuda_device, extra, hidden):
+    """B past the rows one wave of the card holds at one row a CTA (a
+    2-CTA cluster at H = 128), odd: K3 against the plain layer (1e-4 abs)
+    and the gradient path against autograd through the plain recurrence
+    (1e-4 of each gradient's max |value|)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    batch = sms // (2 if hidden > 96 else 1) + extra
+    batch += 1 - batch % 2
+    x, weights, seq_len, h0 = _gru_inputs(cuda_device, batch, 21, hidden)
+    with torch.no_grad():
+        y, hn = gru_ops.gru_layer(x, *weights, seq_len=seq_len, h0=h0)
+        wy, wh = gru_ops.gru_layer_reference(x, *weights, seq_len=seq_len, h0=h0)
+    torch.testing.assert_close(y, wy, rtol=0, atol=1e-4)
+    torch.testing.assert_close(hn, wh, rtol=0, atol=1e-4)
+    got = _gru_loss_grads(gru_ops.gru_layer, x, weights, seq_len, h0)
+    want = _gru_loss_grads(gru_ops.gru_layer_reference, x, weights, seq_len, h0)
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
         torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)
 
 
