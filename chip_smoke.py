@@ -11,15 +11,21 @@ code and without the final line:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions; TF32 is turned off for matmuls and cuDNN.
-2. build: every kernel under morgana_tpu_torch/csrc, built from source.
+2. build: every kernel under morgana_tpu_torch/csrc, built from source, and
+   the step_split build of K1 and K2 (their per-step clock records).
+   k1_step_split / k2_step_split: where a step of K1 (B16, B32, and B16
+   with bf16 storage) and K2 (B32) goes at H=512, T=1024.
 3. kernel K1 (the LSTM layer recurrence) against its plain PyTorch version
    and against torch.nn.LSTM (cuDNN, a yardstick the port never calls), at
-   H=512, ragged seq_len, with and without an initial state; times.
+   H=512, ragged seq_len, with and without an initial state, B up to 256;
+   times; then K1 built for bf16 storage (K1s) against the plain version
+   with the same storage.
 4. k2: the gradient path of the LSTM layer, K1 writing its gate trace and
    K2 (the backward), against autograd through the plain recurrence, for a
    loss on y, hn and cn under ragged seq_len; the gate trace against the
    plain gates; times of K2, of K1 with and without the gate trace, and of
-   one torch.nn.LSTM forward+backward (cuDNN) beside the port's layer.
+   one torch.nn.LSTM forward+backward (cuDNN) beside the port's layer; then
+   the same with bf16 storage.
 5. serving: LSTMAcousticModel at full width (609 inputs, 8 x LSTM(512),
    199 outputs) with seeded weights and normaliser statistics, served by
    InferenceEngine.predict_items on 32 utterances of 200-1000 frames; checks
@@ -32,7 +38,9 @@ code and without the final line:
    checks finite losses and metrics, 8 launches each of K1-with-gates and
    K2 per train step, K1 without gates in validation, the outputs and the
    checkpoint's strict reload; ms per step, frames/s, peak memory and where
-   a step's time goes.
+   a step's time goes. serve_bf16 and train_bf16: phases 5 and 6 again with
+   rnn_backend='pallas' and bf16 storage (MORGANA_PALLAS_STORE=bfloat16),
+   every K1 and K2 launch the bf16 build.
 7. train_parity: the same trainer on the GPU and on the CPU (plain
    versions) from the same init and data, 3 steps of B=4 at full width:
    per-step losses and the first step's gradients.
@@ -88,6 +96,8 @@ path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 Needs no network and writes only to a temporary directory. The profiler's
 device-time tables go to stderr.
 """
+import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -100,8 +110,29 @@ import numpy as np
 
 H = 512
 F32_PEAK_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+BF16_PEAK_FLOPS = 989e12    # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 KERNEL_TOL = 1e-4           # K1 vs plain and vs cuDNN, f32, abs; also the gate trace
+# bf16 storage (MORGANA_PALLAS_STORE=bfloat16): kernel and plain version sum
+# in f32 in other orders, so a stored value may round to the other bf16
+# neighbour and carry that through the chain. Each tensor within BF16_ULPS
+# units in the last place of bf16 (2**-7 relative at most) at its largest
+# |value|. And the kernel's mean |error| at least BF16_CLOSER times smaller
+# against that plain version than against the plain version with f32
+# storage on the same bf16 inputs (outputs rounded to bf16): a kernel that
+# skipped the rounding of h or of the gate gradients before a product would
+# sit near the second. On the H100 a sound kernel is 3.7-4.6x closer at
+# T=1024 (a flipped neighbour carries through the f32 cell state), 10x and
+# more on short chains; K2 built without the rounding of the gate gradients
+# was 4000x further, and passed the ulp bound. The network outputs of the
+# bf16 serving phase within BF16_NET_TOL abs of the CPU engine with the same
+# storage, trajectories relative (1.41e-5 at most in six runs), and closer
+# to it in mean than the same GPU engine with f32 storage is. The outputs
+# barely tell the storage types apart (the control's max error 2.13e-5,
+# its mean 1.5x the bf16 engine's), so the kernel cases hold the rounding.
+BF16_ULPS = 4
+BF16_CLOSER = 2
+BF16_NET_TOL = 3e-5
 NET_TOL = 1e-4              # network outputs, GPU engine vs CPU engine, abs
 TRAJ_RTOL = 1e-3            # MLPG trajectories, GPU vs CPU, relative to max |value|
 # Gradients of the kernel path vs autograd through the plain loop, each
@@ -152,27 +183,52 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def k1_bound(batch, time_steps, hidden, gates=False):
+def bf16_tol(want):
+    """BF16_ULPS units in the last place of bf16 at want's largest |value|."""
+    return BF16_ULPS * 2.0 ** -7 * max_abs(want.float())
+
+
+def mean_abs_err(pairs):
+    """Mean |a - b| over every element of the (a, b) pairs, in f32."""
+    pairs = list(pairs)
+    total = sum(float((a.float() - b.float()).abs().sum()) for a, b in pairs)
+    return total / max(sum(a.numel() for a, _ in pairs), 1)
+
+
+def closer(got, want, control):
+    """(mean |got - want|, mean |got - control|, whether the first is at
+    least BF16_CLOSER times smaller and the second not 0), over lists of
+    tensors."""
+    near, far = mean_abs_err(zip(got, want)), mean_abs_err(zip(got, control))
+    return near, far, far > 0 and near * BF16_CLOSER <= far
+
+
+def k1_bound(batch, time_steps, hidden, gates=False, store=None):
     """Least time for the recurrence: 2*B*H*4H flops per step against the
-    float32 peak, and xg read plus y and c_all written (with w_hh, h0, c0
-    read and hn, cn written; with `gates`, g_all (T, B, 4H) written too)
-    against the memory rate."""
+    peak of the inputs' type (f32, or bf16's tensor-core rate with bf16
+    storage), and xg read plus y and c_all written (with w_hh read; with
+    `gates`, g_all (T, B, 4H) written too) in the storage type, h0, c0 read
+    and hn, cn written in f32, against the memory rate."""
+    size, peak = (2, BF16_PEAK_FLOPS) if store == 'bfloat16' else (4, F32_PEAK_FLOPS)
     flops = 2.0 * batch * hidden * 4 * hidden * time_steps
-    nbytes = 4.0 * ((2 if gates else 1) * time_steps * batch * 4 * hidden
-                    + 2 * time_steps * batch * hidden + hidden * 4 * hidden + 4 * batch * hidden)
-    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes = size * ((2 if gates else 1) * time_steps * batch * 4 * hidden
+                     + 2 * time_steps * batch * hidden + hidden * 4 * hidden) \
+        + 4.0 * 4 * batch * hidden
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
-def k2_bound(batch, time_steps, hidden):
+def k2_bound(batch, time_steps, hidden, store=None):
     """Least time for the backward recurrence: 2*B*4H*H flops per step
-    (dh = dxg @ w_hh^T) against the float32 peak, and g_all read plus dxg
-    written, c_all, dy and dc_all read (with w_hh, c0, dhn, dcn read and
-    dh0, dc0 written) against the memory rate."""
+    (dh = dxg @ w_hh^T) against the peak of the inputs' type, and g_all read
+    plus dxg written, c_all, dy and dc_all read (with w_hh and c0 read) in
+    the storage type, dhn, dcn read and dh0, dc0 written in f32, against the
+    memory rate."""
+    size, peak = (2, BF16_PEAK_FLOPS) if store == 'bfloat16' else (4, F32_PEAK_FLOPS)
     flops = 2.0 * batch * 4 * hidden * hidden * time_steps
-    nbytes = 4.0 * (2 * time_steps * batch * 4 * hidden + 3 * time_steps * batch * hidden
-                    + hidden * 4 * hidden + 5 * batch * hidden)
-    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    nbytes = size * (2 * time_steps * batch * 4 * hidden + 3 * time_steps * batch * hidden
+                     + hidden * 4 * hidden + batch * hidden) + 4.0 * 4 * batch * hidden
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
@@ -222,19 +278,33 @@ def layer_inputs(torch, dev, batch, time_steps, with_state, seed):
     return x, weights, seq_len, h0, c0
 
 
-def k1_case(torch, dev, batch, time_steps, with_state, seed, timed):
+def k1_case(torch, dev, batch, time_steps, with_state, seed, timed, store=None):
+    """K1 through lstm_layer (no gradient) against the plain layer, f32
+    within KERNEL_TOL abs and also against cuDNN; with `store` 'bfloat16'
+    (the K1s variant) each output within bf16_tol of the plain layer with the
+    same storage, cuDNN's f32 error only reported, and the recurrence
+    BF16_CLOSER times closer to its bf16 plain version than to the f32
+    storage one (closer()). With `timed`, the times of
+    K1 alone, its plain version, the layer and cuDNN (in bf16 with bf16
+    storage), and the bound."""
     from morgana_tpu_torch.ops import lstm as lstm_ops
 
     x, (w_ih, w_hh, b_ih, b_hh), seq_len, h0, c0 = layer_inputs(
         torch, dev, batch, time_steps, with_state, seed)
     cudnn = cudnn_layer(torch, dev, w_ih, w_hh, b_ih, b_hh)
+    bf16 = store == 'bfloat16'
 
     with torch.inference_mode():
-        y_k, (hn_k, cn_k) = lstm_ops.lstm_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0)
-        y_p, (hn_p, cn_p) = lstm_ops.lstm_layer_reference(x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0)
+        before = (lstm_ops.launches, lstm_ops.bf16_launches)
+        y_k, (hn_k, cn_k) = lstm_ops.lstm_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0,
+                                                store_dtype=store)
         torch.cuda.synchronize()
-        err_plain = max(float((a - b).abs().max()) for a, b in
-                        ((y_k, y_p), (hn_k, hn_p), (cn_k, cn_p)))
+        launched = (lstm_ops.launches - before[0], lstm_ops.bf16_launches - before[1])
+        y_p, (hn_p, cn_p) = lstm_ops.lstm_layer_reference(x, w_ih, w_hh, b_ih, b_hh, seq_len, h0,
+                                                          c0, store_dtype=store)
+        pairs = ((y_k, y_p), (hn_k, hn_p), (cn_k, cn_p))
+        err_plain = max(max_abs(a - b) for a, b in pairs)
+        within = all(max_abs(a - b) <= (bf16_tol(b) if bf16 else KERNEL_TOL) for a, b in pairs)
 
         hx = None if h0 is None else (h0[None].contiguous(), c0[None].contiguous())
         y_c, _ = cudnn(x, hx)
@@ -242,24 +312,43 @@ def k1_case(torch, dev, batch, time_steps, with_state, seed, timed):
         hn_c = torch.gather(y_c, 1, (seq_len - 1)[:, None, None].expand(batch, 1, H))[:, 0]
         err_cudnn = max(float((y_k - y_c * mask).abs().max()), float((hn_k - hn_c).abs().max()))
 
-        out = {'phase': 'k1', 'B': batch, 'T': time_steps, 'H': H, 'initial_state': with_state,
-               'seq_len_min': int(seq_len.min()), 'seq_len_max': int(seq_len.max()),
-               'max_abs_err_vs_plain': err_plain, 'max_abs_err_vs_cudnn': err_cudnn,
-               'tolerance': KERNEL_TOL}
+        out = {'phase': 'k1', 'store': store or 'float32', 'B': batch, 'T': time_steps, 'H': H,
+               'initial_state': with_state, 'seq_len_min': int(seq_len.min()),
+               'seq_len_max': int(seq_len.max()), 'max_abs_err_vs_plain': err_plain,
+               'max_abs_err_vs_cudnn_f32': err_cudnn,
+               'tolerance': f'{BF16_ULPS} bf16 ulps at each output\'s max' if bf16 else KERNEL_TOL,
+               'within_tolerance': within, 'launches': launched[0],
+               'bf16_launches': launched[1]}
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        xg = (torch.matmul(x, w_ih) + (b_ih + b_hh)).transpose(0, 1).contiguous().to(dtype)
+        w_s = w_hh.to(dtype)
+        zeros = torch.zeros((batch, H), device=dev)
+        hs, cs = (zeros, zeros) if h0 is None else (h0, c0)
+        if bf16:   # y, c_all, hn, cn of the recurrence on the same bf16 inputs
+            got = lstm_ops.lstm_recurrence(xg, w_s, hs, cs)
+            want = lstm_ops.lstm_recurrence_reference(xg, w_s, hs, cs)
+            f32 = lstm_ops.lstm_recurrence_reference(xg.float(), w_s.float(), hs, cs)
+            control = (f32[0].to(dtype), f32[1].to(dtype), f32[3], f32[4])
+            pick = (0, 1, 3, 4)
+            out['mean_err_vs_plain'], out['mean_err_vs_f32_storage'], closer_ok = closer(
+                [got[i] for i in pick], [want[i] for i in pick], control)
+            out['within_tolerance'] = within = within and closer_ok
         if timed:
-            xg = (torch.matmul(x, w_ih) + (b_ih + b_hh)).transpose(0, 1).contiguous()
-            zeros = torch.zeros((batch, H), device=dev)
-            hs, cs = (zeros, zeros) if h0 is None else (h0, c0)
-            out['kernel_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence(xg, w_hh, hs, cs), 20)
+            out['kernel_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence(xg, w_s, hs, cs), 20)
             out['plain_ms'] = cuda_ms(
-                torch, lambda: lstm_ops.lstm_recurrence_reference(xg, w_hh, hs, cs), 2)
-            out['layer_ms'] = cuda_ms(
-                torch, lambda: lstm_ops.lstm_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0), 20)
-            out['library_ms'] = cuda_ms(torch, lambda: cudnn(x, hx), 20)
-            out['bound_ms'], out['bound_by'] = k1_bound(batch, time_steps, H)
-        out['launches'] = lstm_ops.launches
+                torch, lambda: lstm_ops.lstm_recurrence_reference(xg, w_s, hs, cs), 2)
+            out['layer_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_layer(
+                x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype=store), 20)
+            if bf16:   # cuDNN with its weights, input and state in bf16
+                cudnn, x_l = cudnn.to(dtype), x.to(dtype)
+                hx = None if hx is None else tuple(t.to(dtype) for t in hx)
+            else:
+                x_l = x
+            out['library_ms'] = cuda_ms(torch, lambda: cudnn(x_l, hx), 20)
+            out['bound_ms'], out['bound_by'] = k1_bound(batch, time_steps, H, store=store)
+            out['us_per_step'] = out['kernel_ms'] * 1e3 / time_steps
     emit(out)
-    if not (err_plain <= KERNEL_TOL and err_cudnn <= KERNEL_TOL):
+    if not (within and (bf16 or err_cudnn <= KERNEL_TOL) and launched == (1, int(bf16))):
         raise AssertionError(f'K1 disagrees at B={batch} T={time_steps}: {out}')
     return out
 
@@ -287,75 +376,171 @@ def layer_grads(torch, layer, x, weights, seq_len, h0, c0, loss_weights):
     return torch.autograd.grad(loss, leaves)
 
 
-def k2_case(torch, dev, batch, time_steps, with_state, seed, timed):
+def k2_case(torch, dev, batch, time_steps, with_state, seed, timed, store=None):
     """The gradient path (K1 with gates, then K2) against autograd through
-    the plain recurrence; the gate trace against the plain gates; with
-    `timed`, the times of K2, of K1 with and without gates, and of a layer
+    the plain recurrence (with `store` 'bfloat16', the plain versions in the
+    same autograd Function), each gradient relative to its max |value|; the
+    gate trace against the plain gates; K2 alone against its plain version
+    on the same saved tensors. f32 within GRAD_RTOL (the gate trace
+    KERNEL_TOL abs), bf16 within BF16_ULPS bf16 ulps, and BF16_CLOSER times
+    closer (closer()) to the bf16 plain versions than to the f32 ones: the
+    layer's gradients to autograd through the f32 plain layer, K2's outputs
+    to its plain version on the same inputs in f32. With `timed`, the
+    times of K2, of K1 with and without gates, and of a layer
     forward+backward beside cuDNN's."""
     from morgana_tpu_torch.ops import lstm as lstm_ops
 
+    bf16 = store == 'bfloat16'
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rtol = BF16_ULPS * 2.0 ** -7 if bf16 else GRAD_RTOL
     x, weights, seq_len, h0, c0 = layer_inputs(torch, dev, batch, time_steps, with_state, seed)
     rng = np.random.default_rng(seed + 100)
     loss_weights = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
                     for shape in ((batch, time_steps, H), (batch, H), (batch, H))]
     names = ('dx', 'dw_ih', 'dw_hh', 'db_ih', 'db_hh', 'dh0', 'dc0')
 
-    before = (lstm_ops.gate_launches, lstm_ops.bwd_launches)
-    got = layer_grads(torch, lstm_ops.lstm_layer, x, weights, seq_len, h0, c0, loss_weights)
+    def layer(reference):
+        fn = lstm_ops.lstm_layer_reference if reference else lstm_ops.lstm_layer
+        return lambda *a, **k: fn(*a, store_dtype=store, **k)
+
+    counts = ('gate_launches', 'bwd_launches', 'bf16_launches', 'bf16_bwd_launches')
+    before = [getattr(lstm_ops, c) for c in counts]
+    got = layer_grads(torch, layer(False), x, weights, seq_len, h0, c0, loss_weights)
     torch.cuda.synchronize()
-    launched = (lstm_ops.gate_launches - before[0], lstm_ops.bwd_launches - before[1])
-    want = layer_grads(torch, lstm_ops.lstm_layer_reference, x, weights, seq_len, h0, c0,
-                       loss_weights)
+    launched = tuple(getattr(lstm_ops, c) - b for c, b in zip(counts, before))
+    want = layer_grads(torch, layer(True), x, weights, seq_len, h0, c0, loss_weights)
     grad_rel = {n: float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
                 for n, g, w in zip(names, got, want)}
 
     w_ih, w_hh, b_ih, b_hh = weights
     zeros = torch.zeros((batch, H), device=dev)
     hs, cs = (zeros, zeros) if h0 is None else (h0, c0)
-    xg = (torch.matmul(x, w_ih) + (b_ih + b_hh)).transpose(0, 1).contiguous()
-    _, c_all, g_kernel, _, _ = lstm_ops.lstm_recurrence(xg, w_hh, hs, cs, with_gates=True)
-    _, _, g_plain, _, _ = lstm_ops.lstm_recurrence_reference(xg, w_hh, hs, cs)
-    gate_err = float((g_kernel - g_plain).abs().max())
+    xg = (torch.matmul(x, w_ih) + (b_ih + b_hh)).transpose(0, 1).contiguous().to(dtype)
+    w_s = w_hh.to(dtype)
+    _, c_all, g_kernel, _, _ = lstm_ops.lstm_recurrence(xg, w_s, hs, cs, with_gates=True)
+    _, _, g_plain, _, _ = lstm_ops.lstm_recurrence_reference(xg, w_s, hs, cs)
+    gate_err = max_abs(g_kernel.float() - g_plain.float())
+    gate_tol = bf16_tol(g_plain) if bf16 else KERNEL_TOL
 
     # K2 alone against its plain version on the same saved tensors.
     cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
            for shape in ((time_steps, batch, H), (time_steps, batch, H), (batch, H), (batch, H))]
-    bwd_args = (g_kernel, w_hh, cs, c_all, *cot)
+    bwd_args = (g_kernel, w_s, cs.to(dtype), c_all, cot[0].to(dtype), cot[1].to(dtype), *cot[2:])
     dxg_k = lstm_ops.lstm_backward(*bwd_args)
     dxg_p = lstm_ops.lstm_backward_reference(*bwd_args)
-    k2_err = max(float((a - b).abs().max()) for a, b in zip(dxg_k, dxg_p))
-    k2_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    k2_err = max(max_abs(a.float() - b.float()) for a, b in zip(dxg_k, dxg_p))
+    k2_rel = max(max_abs(a.float() - b.float()) / max(max_abs(b.float()), 1e-30)
                  for a, b in zip(dxg_k, dxg_p))
+    closer_ok = True
+    if bf16:
+        f32 = lstm_ops.lstm_backward_reference(*(a.float() for a in bwd_args))
+        k2_closer = closer(dxg_k, dxg_p, (f32[0].to(dtype), f32[1], f32[2]))
+        want_f32 = layer_grads(torch, lstm_ops.lstm_layer_reference, x, weights, seq_len, h0, c0,
+                               loss_weights)
+        grad_closer = {n: closer([g], [w], [o])
+                       for n, g, w, o in zip(names, got, want, want_f32)}
+        closer_ok = k2_closer[2] and all(c[2] for c in grad_closer.values())
 
-    out = {'phase': 'k2', 'B': batch, 'T': time_steps, 'H': H, 'initial_state': with_state,
-           'grad_rel_err_vs_plain': grad_rel, 'grad_rtol': GRAD_RTOL,
-           'gate_trace_max_abs_err': gate_err, 'gate_tol': KERNEL_TOL,
+    out = {'phase': 'k2', 'store': store or 'float32', 'B': batch, 'T': time_steps, 'H': H,
+           'initial_state': with_state, 'grad_rel_err_vs_plain': grad_rel, 'grad_rtol': rtol,
+           'gate_trace_max_abs_err': gate_err, 'gate_tol': gate_tol,
            'k2_max_abs_err': k2_err, 'k2_rel_err': k2_rel,
-           'k1_gate_launches': launched[0], 'k2_launches': launched[1]}
+           'k1_gate_launches': launched[0], 'k2_launches': launched[1],
+           'bf16_k1_launches': launched[2], 'bf16_k2_launches': launched[3]}
+    if bf16:
+        out['k2_mean_err_vs_plain'], out['k2_mean_err_vs_f32_storage'] = k2_closer[:2]
+        out['grad_mean_err_vs_plain_and_f32'] = {n: c[:2] for n, c in grad_closer.items()}
     if timed:
         out['kernel_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_backward(*bwd_args), 10)
         out['plain_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_backward_reference(*bwd_args), 2)
-        out['bound_ms'], out['bound_by'] = k2_bound(batch, time_steps, H)
-        out['k1_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence(xg, w_hh, hs, cs), 10)
+        out['bound_ms'], out['bound_by'] = k2_bound(batch, time_steps, H, store=store)
+        out['us_per_step'] = out['kernel_ms'] * 1e3 / time_steps
+        out['k1_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence(xg, w_s, hs, cs), 10)
         out['k1_gates_ms'] = cuda_ms(
-            torch, lambda: lstm_ops.lstm_recurrence(xg, w_hh, hs, cs, with_gates=True), 10)
-        out['k1_gates_bound_ms'], out['k1_gates_bound_by'] = k1_bound(batch, time_steps, H, True)
+            torch, lambda: lstm_ops.lstm_recurrence(xg, w_s, hs, cs, with_gates=True), 10)
+        out['k1_gates_bound_ms'], out['k1_gates_bound_by'] = k1_bound(batch, time_steps, H, True,
+                                                                      store)
         out['layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: layer_grads(
-            torch, lstm_ops.lstm_layer, x, weights, seq_len, h0, c0, loss_weights), 5)
-        cudnn = cudnn_layer(torch, dev, *weights)
-        hx = None if h0 is None else (h0[None].contiguous(), c0[None].contiguous())
+            torch, layer(False), x, weights, seq_len, h0, c0, loss_weights), 5)
+        cudnn = cudnn_layer(torch, dev, *weights).to(dtype)
+        hx = None if h0 is None else (h0[None].to(dtype).contiguous(),
+                                      c0[None].to(dtype).contiguous())
+        x_l, wy = x.to(dtype), loss_weights[0].to(dtype)
 
         def cudnn_fwd_bwd():
-            y_c, _ = cudnn(x, hx)
-            (y_c * loss_weights[0]).sum().backward()
+            y_c, _ = cudnn(x_l, hx)
+            (y_c * wy).sum().backward()
 
         # cuDNN's backward cannot be timed alone: this includes its forward.
         out['library_ms'] = cuda_ms(torch, cudnn_fwd_bwd, 5)
     emit(out)
-    if not (max(grad_rel.values()) <= GRAD_RTOL and gate_err <= KERNEL_TOL
-            and k2_rel <= GRAD_RTOL and launched == (1, 1)):
+    if not (max(grad_rel.values()) <= rtol and gate_err <= gate_tol and k2_rel <= rtol
+            and closer_ok and launched == (1, 1, int(bf16), int(bf16))):
         raise AssertionError(f'K1 with gates / K2 disagree at B={batch} T={time_steps}: {out}')
     return out
+
+
+SPLIT_STEPS = 512           # steps of a launch whose phases the step_split build records
+SPLIT_SKIP = 16             # first steps left out of the medians
+SPLIT_PHASES = ('exchange', 'product', 'reduction', 'gates', 'barrier')
+
+
+def read_split(torch, split, steps):
+    """The records of a step_split launch: per recording block (block 0 and
+    the middle one), each phase's median us a step over steps SPLIT_SKIP..
+    and the mean step; cycles become us by the launch's clock64 and
+    globaltimer deltas."""
+    rec = split.cpu().double().view(2, -1)
+    n = len(SPLIT_PHASES)
+    blocks = {}
+    for slot, name in enumerate(('block_0', 'block_middle')):
+        cycles = rec[slot, :steps * n].view(steps, n)[SPLIT_SKIP:]
+        c_start, ns_start, c_end, ns_end = rec[slot, steps * n:].tolist()
+        us_per_cycle = (ns_end - ns_start) / (c_end - c_start) / 1e3
+        medians = (cycles.median(dim=0).values * us_per_cycle).tolist()
+        blocks[name] = dict({f'{p}_us': v for p, v in zip(SPLIT_PHASES, medians)},
+                            mean_step_us=float(cycles.sum(dim=1).mean()) * us_per_cycle,
+                            sm_clock_ghz=(c_end - c_start) / (ns_end - ns_start))
+    return blocks
+
+
+def lstm_step_split_phase(torch, dev):
+    """k1_step_split (B16 and B32 in f32, B16 with bf16 storage, without the
+    gate trace) and k2_step_split (B32) at H=512, T=1024: the step_split
+    build of K1 and K2 records the phases of their first SPLIT_STEPS steps in
+    block 0 and the middle block."""
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    steps = 1024
+    split = torch.zeros(2 * (SPLIT_STEPS * len(SPLIT_PHASES) + 4), dtype=torch.int64, device=dev)
+    for batch, store in ((SERVE_BATCH, None), (TRAIN_BATCH, None), (SERVE_BATCH, 'bfloat16')):
+        x, (w_ih, w_hh, b_ih, b_hh), _, _, _ = layer_inputs(torch, dev, batch, steps, False, 70)
+        dtype = torch.bfloat16 if store else torch.float32
+        xg = (torch.matmul(x, w_ih) + (b_ih + b_hh)).transpose(0, 1).contiguous()
+        zeros = torch.zeros((batch, H), device=dev)
+        for _ in range(2):   # the first launch builds and warms up
+            split.zero_()
+            lstm_ops._lstm_fwd_cuda(xg.to(dtype), w_hh.to(dtype), zeros, zeros, split=split)
+            torch.cuda.synchronize()
+        emit({'phase': 'k1_step_split', 'store': store or 'float32', 'B': batch, 'T': steps,
+              'H': H, 'gates': False, 'steps_recorded': SPLIT_STEPS, 'skipped': SPLIT_SKIP,
+              **read_split(torch, split, SPLIT_STEPS)})
+        if batch == TRAIN_BATCH:
+            b32 = xg, w_hh, zeros
+    # K2 on the B32 layer's gate trace.
+    xg, w_hh, zeros = b32
+    _, c_all, g_all, _, _ = lstm_ops._lstm_fwd_cuda(xg, w_hh, zeros, zeros, with_gates=True)
+    rng = np.random.default_rng(71)
+    cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+           for shape in ((steps, TRAIN_BATCH, H), (steps, TRAIN_BATCH, H), (TRAIN_BATCH, H),
+                         (TRAIN_BATCH, H))]
+    for _ in range(2):
+        split.zero_()
+        lstm_ops._lstm_bwd_cuda(g_all, w_hh, zeros, c_all, *cot, split=split)
+        torch.cuda.synchronize()
+    emit({'phase': 'k2_step_split', 'store': 'float32', 'B': TRAIN_BATCH, 'T': steps,
+          'H': H, 'steps_recorded': SPLIT_STEPS, 'skipped': SPLIT_SKIP,
+          **read_split(torch, split, SPLIT_STEPS)})
 
 
 def gru_inputs(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed):
@@ -810,7 +995,31 @@ def make_items(rng):
     return items
 
 
-def serving_phase(torch, root):
+@contextlib.contextmanager
+def lstm_store(store):
+    """The LSTM layers of the 'pallas' backend store their recurrence in
+    `store` ('bfloat16' or None) inside the block: ops.lstm.STORE_DTYPE, as
+    MORGANA_PALLAS_STORE sets it at import."""
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    saved, lstm_ops.STORE_DTYPE = lstm_ops.STORE_DTYPE, store
+    try:
+        yield
+    finally:
+        lstm_ops.STORE_DTYPE = saved
+
+
+def serving_phase(torch, root, phase='serve', store=None):
+    """LSTMAcousticModel served at full width; with `store` 'bfloat16' the
+    model's rnn_backend is 'pallas' with that storage (every K1 launch the
+    bf16 variant), and its outputs are held to the CPU engine with the same
+    storage within BF16_NET_TOL and closer to them in mean than the same GPU
+    engine with f32 storage. Returns K1's launches (all, bf16)."""
+    with lstm_store(store):
+        return _serving_phase(torch, os.path.join(root, phase) if store else root, phase, store)
+
+
+def _serving_phase(torch, root, phase, store):
     from morgana_tpu_torch import data
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
     from morgana_tpu_torch.ops import lstm as lstm_ops
@@ -819,22 +1028,26 @@ def serving_phase(torch, root):
 
     seed = 0
     rng = np.random.default_rng(seed)
+    kwargs = {'rnn_backend': 'pallas'} if store else {}
     model = LSTMAcousticModel(generator=torch.Generator().manual_seed(seed))
+    os.makedirs(root, exist_ok=True)
     ckpt = os.path.join(root, 'epoch_1.npz')
     np.savez(ckpt, **{k: v.detach().numpy() for k, v in model.named_parameters()})
     write_normalisers(root, rng)
     items = make_items(rng)
 
-    engine = InferenceEngine(LSTMAcousticModel, ckpt, data_root=root, batch_size=SERVE_BATCH)
+    engine = InferenceEngine(LSTMAcousticModel, ckpt, data_root=root, batch_size=SERVE_BATCH,
+                             model_kwargs=kwargs)
     engine.predict_items(items[:2])   # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    lstm_ops.launches = 0
+    lstm_ops.launches = lstm_ops.bf16_launches = 0
     start = time.perf_counter()
     outputs = engine.predict_items(items)      # returns host arrays: ends synchronised
     seconds = time.perf_counter() - start
     launches = lstm_ops.launches
+    bf16_launches = lstm_ops.bf16_launches
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_UTTS // SERVE_BATCH)
 
@@ -848,14 +1061,15 @@ def serving_phase(torch, root):
             if out[key].shape != (n, dim) or not np.isfinite(out[key]).all():
                 raise AssertionError(f"{item['name']} {key}: shape {out[key].shape}, "
                                      f'expected ({n}, {dim}), finite={np.isfinite(out[key]).all()}')
-    if launches != 8 * n_batches:
-        raise AssertionError(f'K1 launched {launches} times for {n_batches} batches, '
-                             f'expected {8 * n_batches}')
+    if launches != 8 * n_batches or bf16_launches != (launches if store else 0):
+        raise AssertionError(f'K1 launched {launches} times ({bf16_launches} bf16) for '
+                             f'{n_batches} batches, expected {8 * n_batches}')
 
     # The same checkpoint on the CPU (plain versions) for the shortest utterances.
     few = sorted(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:4]
     cpu = InferenceEngine(LSTMAcousticModel, ckpt, data_root=root, device='cpu',
-                          batch_size=SERVE_BATCH).predict_items(few)
+                          batch_size=SERVE_BATCH, model_kwargs=kwargs).predict_items(few)
+    net_tol, traj_rtol = (BF16_NET_TOL, BF16_NET_TOL) if store else (NET_TOL, TRAJ_RTOL)
     errs = {}
     for key in dims:
         net = key.startswith('normalised') or key == 'vuv'
@@ -865,8 +1079,23 @@ def serving_phase(torch, root):
             err = float(np.abs(a - b).max())
             worst = max(worst, err if net else err / max(1.0, float(np.abs(b).max())))
         errs[key] = worst
-        if worst > (NET_TOL if net else TRAJ_RTOL):
-            raise AssertionError(f'{key}: GPU vs CPU {worst} beyond tolerance')
+        if worst > (net_tol if net else traj_rtol):
+            raise AssertionError(f'{phase} {key}: GPU vs CPU {worst} beyond tolerance')
+    control = {}
+    if store:   # the control: the same GPU engine with f32 storage
+        with lstm_store(None):
+            f32 = engine.predict_items(few)
+
+        def mean_err(got):
+            return float(np.mean(np.concatenate([np.abs(got[it['name']][key] - cpu[it['name']][key])
+                                                 .ravel() for it in few for key in dims])))
+        control = {'max_abs': {key: max(float(np.abs(f32[it['name']][key]
+                                                     - cpu[it['name']][key]).max()) for it in few)
+                               for key in dims},
+                   'mean_err_bf16': mean_err(outputs), 'mean_err_f32_storage': mean_err(f32)}
+        if not control['mean_err_bf16'] < control['mean_err_f32_storage']:
+            raise AssertionError(f'{phase}: the GPU engine with bf16 storage is not closer '
+                                 f'to the CPU one than with f32 storage: {control}')
 
     # Where one full-size batch's time goes: host clock around synchronised
     # calls, and the profiler's device time by kernel.
@@ -874,8 +1103,7 @@ def serving_phase(torch, root):
         engine.model.test_data_sources(), engine.model.normalisers,
         lambda name, source, item=item: source.package(item[name]), item['name'])
         for item in items[:SERVE_BATCH]])
-    batch = {k: torch.from_numpy(v).cuda() for k, v in features.items()
-             if isinstance(v, np.ndarray) and v.dtype.kind in 'fiub'}
+    batch = data.device_features(features, engine.device)
     m = engine.model
 
     def timed(fn):
@@ -898,19 +1126,22 @@ def serving_phase(torch, root):
         _, mlpg_ms = timed(lambda: MLPG_streams(streams, padding_size=100,
                                                 seq_len=batch['n_frames']))
         profile = profile_step(torch, lambda: m.predict(batch))
-    emit({'phase': 'serve', 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
+    emit({'phase': phase, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
+          'rnn_backend': kwargs.get('rnn_backend', 'scan'), 'store': store or 'float32',
           'utterances': N_UTTS, 'frames': frames, 'batch_size': SERVE_BATCH,
           'batches': n_batches, 'seconds': seconds,
           'utterances_per_s': N_UTTS / seconds, 'frames_per_s': frames / seconds,
           'ms_per_batch': seconds / n_batches * 1e3,
           'peak_memory_mib': peak_mib,
-          'k1_launches': launches, 'k1_launches_expected': 8 * n_batches,
-          'gpu_vs_cpu_err': errs, 'net_tol': NET_TOL, 'traj_rtol': TRAJ_RTOL})
-    emit(dict({'phase': 'batch_breakdown', 'B': SERVE_BATCH,
+          'k1_launches': launches, 'k1_bf16_launches': bf16_launches,
+          'k1_launches_expected': 8 * n_batches,
+          'gpu_vs_cpu_err': errs, 'net_tol': net_tol, 'traj_rtol': traj_rtol,
+          **({'f32_storage_err': control} if store else {})})
+    emit(dict({'phase': 'batch_breakdown' + ('_bf16' if store else ''), 'B': SERVE_BATCH,
                'T': int(features['normalised_counters'].shape[1]),
                'predict_ms': predict_ms, 'inputs_ms': inputs_ms, 'network_ms': net_ms,
                'mlpg_ms': mlpg_ms}, **profile))
-    return launches
+    return launches, bf16_launches
 
 
 def seeded_checkpoint(torch, model_class, path, seed):
@@ -947,20 +1178,28 @@ def builder_argv(data_root, experiments_base, name, ckpt, *flags):
             *flags]
 
 
-def train_phase(torch, root):
+def train_phase(torch, root, phase='train', store=None):
     """Trains the full-width model for 2 epochs through the ExperimentBuilder
-    on the card and checks what it wrote; then times and profiles steps."""
+    on the card and checks what it wrote; then times and profiles steps.
+    With `store` 'bfloat16', rnn_backend 'pallas' with that storage: every
+    K1 and K2 launch is the bf16 variant. Returns the launches."""
+    with lstm_store(store):
+        return _train_phase(torch, root, phase, store)
+
+
+def _train_phase(torch, root, phase, store):
     from morgana_tpu_torch import nn
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
     from morgana_tpu_torch.ops import lstm as lstm_ops
 
     data_root, corpus_s = train_corpus(root)
-    ckpt = seeded_checkpoint(torch, LSTMAcousticModel, os.path.join(root, 'init', 'epoch_0.npz'),
-                             11)
+    ckpt = seeded_checkpoint(torch, LSTMAcousticModel,
+                             os.path.join(root, f'{phase}_init', 'epoch_0.npz'), 11)
     exp_base = os.path.join(root, 'experiments')
+    flags = ['--model_kwargs', "{'rnn_backend': 'pallas'}"] if store else []
     args = ExperimentBuilder.get_experiment_args(
-        builder_argv(data_root, exp_base, 'train', ckpt, '--end_epoch', '2'))
+        builder_argv(data_root, exp_base, phase, ckpt, '--end_epoch', '2', *flags))
     exp = ExperimentBuilder(LSTMAcousticModel, **args)
     steps_per_epoch = len(exp.train_loader)
     valid_batches = len(exp.valid_loader)
@@ -968,21 +1207,24 @@ def train_phase(torch, root):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lstm_ops.launches = lstm_ops.gate_launches = lstm_ops.bwd_launches = 0
+    counts = {'k1': 'launches', 'k1_gates': 'gate_launches', 'k2': 'bwd_launches',
+              'k1_bf16': 'bf16_launches', 'k2_bf16': 'bf16_bwd_launches'}
+    for name in counts.values():
+        setattr(lstm_ops, name, 0)
     start = time.perf_counter()
     exp.run_experiment()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - start
-    launches = {'k1': lstm_ops.launches, 'k1_gates': lstm_ops.gate_launches,
-                'k2': lstm_ops.bwd_launches}
+    launches = {key: getattr(lstm_ops, name) for key, name in counts.items()}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
 
     train_steps = 2 * steps_per_epoch
     expected = {'k1': layers * (train_steps + 2 * valid_batches),
                 'k1_gates': layers * train_steps, 'k2': layers * train_steps}
+    expected.update(k1_bf16=expected['k1'] if store else 0, k2_bf16=expected['k2'] if store else 0)
     if launches != expected:
-        raise AssertionError(f'launches {launches}, expected {expected}')
-    exp_dir = os.path.join(exp_base, 'train')
+        raise AssertionError(f'{phase}: launches {launches}, expected {expected}')
+    exp_dir = os.path.join(exp_base, phase)
     epoch_metrics = {}
     for mode in ('train', 'valid'):
         for epoch in (1, 2):
@@ -1001,7 +1243,8 @@ def train_phase(torch, root):
     # Steady-state steps on one full batch, then the MLPG's share of one.
     features, step_ms, profile = time_train_steps(torch, exp)
 
-    emit({'phase': 'train', 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
+    emit({'phase': phase, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
+          'rnn_backend': 'pallas' if store else 'scan', 'store': store or 'float32',
           'corpus': '64 train + 16 valid, n_phones 40-119, dur 5-9', 'corpus_seconds': corpus_s,
           'batch_size': TRAIN_BATCH, 'epochs': 2, 'steps_per_epoch': steps_per_epoch,
           'run_seconds': run_s, 'step_losses': step_losses,
@@ -1011,7 +1254,7 @@ def train_phase(torch, root):
           'k1_gate_launches_per_step': launches['k1_gates'] / train_steps,
           'k2_launches_per_step': launches['k2'] / train_steps,
           'peak_memory_mib': peak_mib})
-    emit(dict({'phase': 'train_step_breakdown', 'B': TRAIN_BATCH,
+    emit(dict({'phase': phase + '_step_breakdown', 'B': TRAIN_BATCH,
                'T': int(features['normalised_counters'].shape[1]),
                'frames': float(np.sum(features['n_frames'])),
                'step_ms': step_ms, 'median_step_ms_after_first': float(np.median(step_ms[1:])),
@@ -1436,8 +1679,13 @@ def main():
           'cuda': torch.version.cuda, 'python': sys.version.split()[0],
           'tf32_matmul': False, 'tf32_cudnn': False})
 
+    # Every kernel, and the LSTM kernels' step_split build, one nvcc each, all
+    # started together.
     start = time.perf_counter()
-    paths = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        split_build = pool.submit(_build.build, ['lstm_fwd', 'lstm_bwd'], 'step_split')
+        paths = _build.build()
+        split_build.result()
     logs = {}
     for name, path in paths.items():
         with open(os.path.splitext(path)[0] + '.log') as f:
@@ -1445,22 +1693,35 @@ def main():
     emit({'phase': 'build', 'seconds': time.perf_counter() - start,
           'kernels': {k: os.path.relpath(v) for k, v in paths.items()}, 'ptxas': logs})
 
+    # Where the LSTM kernels' step goes.
+    dev = torch.device('cuda')
+    lstm_step_split_phase(torch, dev)
+
     # K1 against its plain version and cuDNN: B=32 (the training batch), the
     # serving path's shape, and edge shapes (T=1, B not a multiple of 32,
-    # two 32-row slices).
-    dev = torch.device('cuda')
+    # two 32-row slices, B = 88, 128 and 256, which a K1 staging all of h
+    # in shared memory could not take); then the same with bf16 storage (K1s).
     k1_case(torch, dev, 32, 1024, True, 1, timed=True)
     k1_case(torch, dev, 32, 1024, False, 2, timed=True)
     main_shape = k1_case(torch, dev, SERVE_BATCH, 1024, False, 3, timed=True)
-    for batch, steps in ((5, 1), (1, 17), (40, 33)):
+    for batch, steps in ((5, 1), (1, 17), (40, 33), (88, 17), (128, 17), (256, 9)):
         k1_case(torch, dev, batch, steps, True, 4, timed=False)
+    k1_case(torch, dev, 32, 1024, True, 81, timed=True, store='bfloat16')
+    bf16_shape = k1_case(torch, dev, SERVE_BATCH, 1024, False, 82, timed=True, store='bfloat16')
+    for batch, steps in ((5, 1), (1, 17), (40, 33), (88, 17), (128, 17)):
+        k1_case(torch, dev, batch, steps, True, 83, timed=False, store='bfloat16')
 
     # K1 with gates and K2 at the training shape, with and without an
-    # initial state, and at the edge shapes.
+    # initial state, and at the edge shapes; then with bf16 storage.
     train_shape = k2_case(torch, dev, TRAIN_BATCH, 1024, False, 5, timed=True)
     k2_case(torch, dev, TRAIN_BATCH, 1024, True, 6, timed=True)
-    for batch, steps in ((5, 1), (1, 17), (40, 33)):
+    for batch, steps in ((5, 1), (1, 17), (40, 33), (88, 17), (128, 9)):
         k2_case(torch, dev, batch, steps, True, 7, timed=False)
+    bf16_train_shape = k2_case(torch, dev, TRAIN_BATCH, 1024, False, 84, timed=True,
+                               store='bfloat16')
+    k2_case(torch, dev, SERVE_BATCH, 1024, True, 85, timed=False, store='bfloat16')
+    for batch, steps in ((5, 1), (40, 33), (88, 17)):
+        k2_case(torch, dev, batch, steps, True, 86, timed=False, store='bfloat16')
 
     # K3 against its plain version and cuDNN at F0Model's widths (H=64, B=32
     # the training batch, B=16 the serving one, T=1024) and DurationModel's
@@ -1516,8 +1777,10 @@ def main():
                     empty_row=empty)
 
     with tempfile.TemporaryDirectory() as root:
-        serve_launches = serving_phase(torch, root)
+        serve_launches, _ = serving_phase(torch, root)
         train_launches = train_phase(torch, root)
+        _, bf16_serve_launches = serving_phase(torch, root, 'serve_bf16', 'bfloat16')
+        bf16_train_launches = train_phase(torch, root, 'train_bf16', 'bfloat16')
         train_parity_phase(torch, root, LSTMAcousticModel)
         f0_serve_launches = f0_serving_phase(torch, root)
         f0_train_launches = f0_train_phase(torch, root)
@@ -1528,6 +1791,8 @@ def main():
         train_parity_phase(torch, root, TransformerAcousticModel, 'transformer_train_parity', 24,
                            '--learning_rate', TRANSFORMER_LR)
     if not (serve_launches and train_launches['k1_gates'] and train_launches['k2']
+            and bf16_serve_launches and bf16_train_launches['k1_bf16']
+            and bf16_train_launches['k2_bf16']
             and f0_serve_launches and f0_train_launches['k3'] and f0_train_launches['k4']
             and duration_launches['k3'] and duration_launches['k4']
             and attn_serve_launches and attn_train_launches['attn_fwd']
@@ -1552,6 +1817,19 @@ def main():
         'max_abs_err': train_shape['k2_max_abs_err'], 'ms': train_shape['kernel_ms'],
         'plain_ms': train_shape['plain_ms'], 'bound_ms': train_shape['bound_ms'],
         'bound_by': train_shape['bound_by'], 'library_ms': train_shape['library_ms']}, {
+        'name': 'lstm_fwd_bf16', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
+        'replaces': 'morgana_tpu/ops/pallas_rnn.py:176',
+        'launches': bf16_serve_launches + bf16_train_launches['k1_bf16'],
+        'max_abs_err': bf16_shape['max_abs_err_vs_plain'], 'ms': bf16_shape['kernel_ms'],
+        'plain_ms': bf16_shape['plain_ms'], 'bound_ms': bf16_shape['bound_ms'],
+        'bound_by': bf16_shape['bound_by'], 'library_ms': bf16_shape['library_ms']}, {
+        'name': 'lstm_bwd_bf16', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_bwd.cu',
+        'replaces': 'morgana_tpu/ops/pallas_rnn.py:176',
+        'launches': bf16_train_launches['k2_bf16'],
+        'max_abs_err': bf16_train_shape['k2_max_abs_err'], 'ms': bf16_train_shape['kernel_ms'],
+        'plain_ms': bf16_train_shape['plain_ms'], 'bound_ms': bf16_train_shape['bound_ms'],
+        'bound_by': bf16_train_shape['bound_by'],
+        'library_ms': bf16_train_shape['library_ms']}, {
         'name': 'gru_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/gru_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_gru.py:35',
         'launches': f0_serve_launches + f0_train_launches['k3'] + duration_launches['k3'],

@@ -8,6 +8,11 @@ an edited source is rebuilt and an unchanged one is reused. Nothing is fetched: 
 CUDA toolkit is found through ``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda``.
 The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
 is kept beside each library as ``<name>.<hash>.log``.
+
+A *variant* is the same source built with extra defines into a library of
+its own (``<name>-<variant>.<hash>.so``): ``step_split`` compiles the LSTM
+kernels' per-step clock records, which the main path's libraries never
+contain.
 """
 import ctypes
 import glob
@@ -17,12 +22,14 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ['CSRC_DIR', 'BUILD_DIR', 'build', 'kernel_names', 'load']
+__all__ = ['CSRC_DIR', 'BUILD_DIR', 'VARIANTS', 'build', 'kernel_names', 'load']
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# name -> the extra nvcc flags of that variant
+VARIANTS = {'step_split': ('-DMORGANA_STEP_SPLIT=1',)}
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -41,7 +48,11 @@ def _nvcc():
                        'that has the GPU')
 
 
-def _target(name):
+def _flags(variant):
+    return NVCC_FLAGS + (VARIANTS[variant] if variant else ())
+
+
+def _target(name, variant=None):
     source = os.path.join(CSRC_DIR, f'{name}.cu')
     digest = hashlib.sha256()
     # The shared headers count too: a source that includes one is rebuilt
@@ -49,8 +60,9 @@ def _target(name):
     for path in [source] + sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh'))):
         with open(path, 'rb') as f:
             digest.update(f.read())
-    digest.update(' '.join(NVCC_FLAGS).encode())
-    return source, os.path.join(BUILD_DIR, f'{name}.{digest.hexdigest()[:16]}.so')
+    digest.update(' '.join(_flags(variant)).encode())
+    stem = f'{name}-{variant}' if variant else name
+    return source, os.path.join(BUILD_DIR, f'{stem}.{digest.hexdigest()[:16]}.so')
 
 
 def kernel_names():
@@ -58,21 +70,21 @@ def kernel_names():
                   for p in glob.glob(os.path.join(CSRC_DIR, '*.cu')))
 
 
-def build(names=None):
+def build(names=None, variant=None):
     """Compiles every kernel in ``names`` (default: all of ``csrc/*.cu``)
-    whose library is missing, one ``nvcc`` each, all started together.
-    Returns ``{name: library path}``; raises with the compiler's output if
-    any build fails."""
+    whose library is missing, one ``nvcc`` each, all started together, with
+    ``variant``'s flags if one is named. Returns ``{name: library path}``;
+    raises with the compiler's output if any build fails."""
     names = kernel_names() if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths, running = {}, []
     for name in names:
-        source, target = _target(name)
+        source, target = _target(name, variant)
         paths[name] = target
         if os.path.exists(target):
             continue
         tmp = f'{target}.{os.getpid()}.tmp'
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, source]
+        cmd = [_nvcc(), *_flags(variant), '-o', tmp, source]
         running.append((name, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures = []
@@ -91,9 +103,10 @@ def build(names=None):
     return paths
 
 
-def load(name):
-    """The ``ctypes`` library of kernel ``name``, built on first use."""
+def load(name, variant=None):
+    """The ``ctypes`` library of kernel ``name`` (its ``variant``), built on
+    first use."""
     with _LOCK:
-        if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(build([name])[name])
-        return _LIBS[name]
+        if (name, variant) not in _LIBS:
+            _LIBS[name, variant] = ctypes.CDLL(build([name], variant)[name])
+        return _LIBS[name, variant]

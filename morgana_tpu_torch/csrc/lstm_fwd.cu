@@ -1,229 +1,318 @@
 // K1: one LSTM layer, forward, as one persistent launch on Hopper (sm_90a).
 //
 // Replaces morgana_tpu/ops/pallas_rnn.py::_lstm_fwd_kernel (driven there by
-// _fwd_call). Same function: with gates ordered i, f, g, o,
+// _fwd_call), with its storage type (K1s, pallas_rnn.py::_store_dtype). Same
+// function: with gates ordered i, f, g, o,
 //
-//     gates_t = xg_t + h_{t-1} @ w_hh
+//     gates_t = xg_t + round(h_{t-1}) @ w_hh
 //     c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
 //     h_t = sigmoid(o) * tanh(c_t)
 //
-// over the whole padded time axis, with h and c carried in f32. Inputs: xg
-// (T, B, 4H), w_hh (H, 4H), h0 and c0 (B, H). Outputs: y = h trace and c_all
-// = c trace (T, B, H), hn and cn (B, H). Masking past seq_len and the
-// final-state gather at seq_len - 1 happen outside (ops/lstm.py), as in
-// pallas_rnn.py. When g_all is given (training), the kernel also writes the
-// activated gates i, f, g, o of every step, (T, B, 4H), which only its
-// backward K2 (lstm_bwd.cu) reads. That is a template flag, not a runtime
-// branch: serving passes a null g_all and runs the variant without the
-// stores, with the same arithmetic and registers as without the flag.
+// over the whole padded time axis, with h and c carried in f32 and round()
+// the rounding to the storage type Store (none for f32, bf16 under
+// MORGANA_PALLAS_STORE=bfloat16). Inputs: xg (T, B, 4H) and w_hh (H, 4H) in
+// Store, h0 and c0 (B, H) in f32. Outputs: y = h trace and c_all = c trace
+// (T, B, H) in Store, hn and cn (B, H) in f32 from the carried state. When
+// g_all is given (training), the kernel also writes the activated gates i,
+// f, g, o of every step, (T, B, 4H) in Store, which only its backward K2
+// (lstm_bwd.cu) reads: a template flag, not a runtime branch. Masking past
+// seq_len and the final-state gather happen outside (ops/lstm.py).
 //
-// What bounds it. The recurrence needs 2*B*H*4H flops per step and only a
-// (B, H) vector from the previous step, so at serving shapes it is bound by
-// the step-to-step latency: the whole of w_hh must be applied every step and
-// nothing of step t+1 can start before step t is complete everywhere.
+// What bounds it. 2*B*H*4H flops a step and only a (B, H) vector from the
+// previous step: at serving shapes the step-to-step latency, not the
+// card's rates (PERF.md §6-7).
 //
-// Design. The TPU kernel keeps w_hh resident in VMEM and walks time in a
-// sequential grid. Here w_hh (4 MiB in f32 at H = 512) does not fit one
-// block's shared memory, so the hidden units are split over the blocks: each
-// block owns U consecutive units with all four of their gates and keeps that
-// (H, 4U) slice of w_hh resident in shared memory for the whole launch (at
-// H = 512: 128 blocks, U = 4, 32 KB each). The cell update of a unit then
-// stays inside its block. One launch runs every step; the blocks exchange
-// h_t through y itself (step t reads y[t-1], written by every block, and
-// writes y[t]) and meet at a grid-wide barrier after each step. The launch is
-// cooperative, so a grid whose blocks cannot all be resident at once is
-// refused rather than left to deadlock. Tensor cores, TMA and clusters are
-// left for later work.
+// Design (lstm_common.cuh has the split over the blocks: 128 of U = H / 128
+// units at H >= 128). Block j keeps its (H, 4U) slice of w_hh in registers:
+// warp w reduces the rows k of [w H/8, (w+1) H/8), lane (cslice, klane) =
+// (lane % 4, lane / 4) holds the H/64 rows from w H/8 + klane H/64 of the U
+// columns of gate cslice. A step:
+//   exchange   each warp copies its H/8 columns of h_{t-1} (rows of y[t-1],
+//              which every block wrote) into its own part of shared memory
+//              with cp.async through L2 (h0, rounded, at t = 0); no block
+//              barrier, as no other warp reads them;
+//   product    each lane multiplies its rows into the U partial sums of its
+//              columns, kRows batch rows at a time (their chains interleave),
+//              and three shuffle levels reduce over the 8 klanes, leaving
+//              every lane one column's sum (two lanes each) for the warp's
+//              partial in shared memory;
+//   reduction  gate item (row, unit, gate) on its own thread sums the 8
+//              warps' partials and adds xg, loaded a step ahead;
+//   gates      the item's activation (exp2-based, lstm_common.cuh); the
+//              pair's four gates meet by shuffles in four neighbouring lanes,
+//              and the gate-0 lane updates c and h and stores y, c_all (and
+//              each lane its g_all);
+//   barrier    all blocks meet at grid.sync (lstm_common.cuh) before y[t]
+//              is read.
+// Batch rows go through the product in tiles of kTile rows, so any B up to
+// 256 fits shared memory (the staged h is (kTile, H) in Store). H is 64,
+// 128, 256, 512 or 1024; the wrapper pads other widths to the next of them.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBatch = 32 * kWarps;
-constexpr int kStage = 16;  // float4 loads a thread keeps in flight when staging h
+using lstm::kThreads;
+using lstm::kWarps;
 
-__device__ __forceinline__ float sigmoid_f32(float x) { return 1.f / (1.f + expf(-x)); }
+constexpr int kTile = 32;  // batch rows a pass of the product
 
-// Shared memory, in floats:
-//   ws  [H][4U]          the block's slice of w_hh, column r = gate * U + j
-//   red [KS][4U][BP]     per-warp partial sums of h_{t-1} @ ws (KS * BP <= 256)
-//   hs  [B][H + 4]       h_{t-1}; with the row stride H + 4 the 16-byte reads
-//                        of eight lanes (eight batch rows) cover all 32 banks
-//   cs, hl [U][B]        the block's c_t and h_t
-template <int U>
-size_t smem_floats(int B, int H) {
-  return size_t(H) * 4 * U + size_t(kThreads) * 4 * U + size_t(B) * (H + 4) + 2 * size_t(U) * B;
-}
-
-template <int U, bool kGates>
-__global__ void __launch_bounds__(kThreads, 1)
-lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
-                const float* __restrict__ h0, const float* __restrict__ c0,
-                float* y, float* __restrict__ c_all, float* __restrict__ g_all,
-                float* __restrict__ hn, float* __restrict__ cn, int T, int B, int H) {
-  constexpr int G4 = 4 * U;
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);
-  float* red = ws + size_t(H) * G4;
-  float* hs = red + size_t(kThreads) * G4;
-  float* cs = hs + size_t(B) * (H + 4);
-  float* hl = cs + size_t(U) * B;
-  const int HP = H + 4;
-  const int u0 = blockIdx.x * U;
-  const int tid = threadIdx.x;
-
-  for (int idx = tid; idx < H * G4; idx += kThreads) {
-    const int k = idx / G4, r = idx % G4, g = r / U, unit = u0 + r % U;
-    ws[idx] = unit < H ? w_hh[size_t(k) * 4 * H + size_t(g) * H + unit] : 0.f;
+template <int H, typename Store>
+struct Fwd {
+  using S = lstm::Split<H, 128>;
+  static constexpr int U = S::U;
+  static constexpr int kCols = S::kCols;
+  static constexpr int KW = H / kWarps;  // rows of w_hh a warp reduces
+  static constexpr int KPL = KW / 8;     // of them a lane's
+  // Batch rows a lane's product handles at once (their chains interleave);
+  // fewer at U = 8, whose slice of w_hh takes 128 registers.
+  static constexpr int kRows = U >= 8 ? 4 : 8;
+  static constexpr int kRounds = (4 * U * kTile + kThreads - 1) / kThreads;  // gate items a thread a tile
+  // Lanes that hold the same column sum after klane_sum (the shuffle levels
+  // that added rather than split).
+  static constexpr int kDup = U >= 8 ? 0 : (U == 4 ? 4 : (U == 2 ? 12 : 28));
+  // Shared memory, bytes: stage [kWarps][kTile][KW] Store, red [kWarps][kTile][kCols]
+  // f32, then cs, hs [B * U] f32 (the block's c and h, pair p = row * U + unit).
+  static size_t smem(int B) {
+    return size_t(kWarps) * kTile * KW * sizeof(Store) + size_t(kWarps) * kTile * kCols * 4 +
+           2 * size_t(B) * U * 4;
   }
-  // Pair p = j * B + b is (unit u0 + j, batch row b); one thread owns it for
-  // the whole launch, so cs/hl need no barrier between its steps.
-  for (int p = tid; p < U * B; p += kThreads) {
-    const int j = p / B, b = p % B, unit = u0 + j;
-    cs[p] = unit < H ? c0[size_t(b) * H + unit] : 0.f;
-    hl[p] = unit < H ? h0[size_t(b) * H + unit] : 0.f;
-  }
+};
 
-  // Product h_{t-1} @ ws: lane = batch row within a 32-row slice, warps split
-  // the slices and then the reduction dimension k.
-  const int nbs = (B + 31) / 32, KS = kWarps / nbs, BP = nbs * 32;
-  const int warp = tid / 32, lane = tid % 32;
-  const int ks = warp / nbs, b_mv = (warp % nbs) * 32 + lane;
-  const bool mv_warp = ks < KS;
-  const int kc = ((H + KS - 1) / KS + 3) / 4 * 4;  // H is a multiple of 4
-  const int k_lo = min(H, ks * kc), k_hi = min(H, k_lo + kc);
-
-  cg::grid_group grid = cg::this_grid();
-  for (int t = 0; t < T; ++t) {
-    // xg does not depend on the recurrence: start the loads for the first
-    // owned pair now so that they land while the product runs.
-    float xpre[4] = {0.f, 0.f, 0.f, 0.f};
-    if (tid < U * B && u0 + tid / B < H) {
-      const float* row = xg + (size_t(t) * B + tid % B) * 4 * H + u0 + tid / B;
+// Sums v over the 8 klanes of a column slice (lanes 4 apart): the levels by
+// 16 and 8 split the N sums between the lanes while they add, and the rest
+// add; returns the sum of index `which` of v that this lane ends with.
+template <int N>
+__device__ __forceinline__ float klane_sum(float (&v)[N], int lane, int& which) {
+  which = 0;
+  int n = N;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) xpre[g] = __ldg(row + size_t(g) * H);
-    }
-
-    // Stage h_{t-1}. y is written by other blocks during this launch, so it
-    // is read through L2 (__ldcg), never through the non-coherent L1. All of
-    // a thread's loads are in flight before the first store waits on one.
-    const float4* hprev = reinterpret_cast<const float4*>(t == 0 ? h0 : y + size_t(t - 1) * B * H);
-    const int n4 = B * H / 4;
-    for (int base = tid; base < n4; base += kThreads * kStage) {
-      float4 v[kStage];
+  for (int mask = 16; mask >= 4; mask >>= 1) {
+    if (n > 1) {
+      const int half = n / 2;
+      const bool upper = (lane & mask) != 0;
 #pragma unroll
-      for (int s = 0; s < kStage; ++s)
-        if (base + s * kThreads < n4) v[s] = __ldcg(hprev + base + s * kThreads);
-#pragma unroll
-      for (int s = 0; s < kStage; ++s) {
-        const int e = 4 * (base + s * kThreads);
-        if (e < B * H) *reinterpret_cast<float4*>(hs + (e / H) * HP + e % H) = v[s];
-      }
-    }
-    __syncthreads();
-
-    if (mv_warp) {
-      float acc[G4];
-#pragma unroll
-      for (int r = 0; r < G4; ++r) acc[r] = 0.f;
-      if (b_mv < B) {
-        const float* hrow = hs + b_mv * HP;
-        for (int k = k_lo; k < k_hi; k += 4) {
-          const float4 h4 = *reinterpret_cast<const float4*>(hrow + k);
-          const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float4* wk = reinterpret_cast<const float4*>(ws + size_t(k + kk) * G4);
-#pragma unroll
-            for (int q = 0; q < U; ++q) {
-              const float4 w4 = wk[q];
-              acc[4 * q + 0] = fmaf(hv[kk], w4.x, acc[4 * q + 0]);
-              acc[4 * q + 1] = fmaf(hv[kk], w4.y, acc[4 * q + 1]);
-              acc[4 * q + 2] = fmaf(hv[kk], w4.z, acc[4 * q + 2]);
-              acc[4 * q + 3] = fmaf(hv[kk], w4.w, acc[4 * q + 3]);
-            }
-          }
+      for (int i = 0; i < N / 2; ++i) {
+        if (i < half) {
+          const float send = upper ? v[i] : v[half + i];
+          const float keep = upper ? v[half + i] : v[i];
+          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
         }
       }
-#pragma unroll
-      for (int r = 0; r < G4; ++r) red[(ks * G4 + r) * BP + b_mv] = acc[r];
+      which = 2 * which + (upper ? 1 : 0);
+      n = half;
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], mask);
     }
-    __syncthreads();
+  }
+  return v[0];
+}
 
-    for (int p = tid; p < U * B; p += kThreads) {
-      const int j = p / B, b = p % B, unit = u0 + j;
-      if (unit >= H) continue;
-      float gate[4];
+// xg of this thread's gate items of rows b0 .. b0 + bt - 1 of step t: item i
+// is row i / 4U, unit (i / 4) % U, gate i % 4.
+template <int H, typename Store>
+__device__ __forceinline__ void load_x(float (&x)[Fwd<H, Store>::kRounds], const Store* xg, int t,
+                                       int B, int b0, int bt, int u0) {
+  constexpr int U = Fwd<H, Store>::U;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float s = 0.f;
-        for (int q = 0; q < KS; ++q) s += red[(q * G4 + g * U + j) * BP + b];
-        const float x = p == tid ? xpre[g]
-                                 : __ldg(xg + (size_t(t) * B + b) * 4 * H + size_t(g) * H + unit);
-        gate[g] = x + s;
+  for (int r = 0; r < Fwd<H, Store>::kRounds; ++r) {
+    const int i = b0 * 4 * U + r * kThreads + int(threadIdx.x);
+    if (i < (b0 + bt) * 4 * U)
+      x[r] = lstm::to_f32(xg[(size_t(t) * B + i / (4 * U)) * 4 * H + (i % 4) * H + u0 + (i / 4) % U]);
+  }
+}
+
+template <int H, typename Store, bool kGates, bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_kernel(const Store* __restrict__ xg, const Store* __restrict__ w_hh,
+                const float* __restrict__ h0, const float* __restrict__ c0, Store* y,
+                Store* __restrict__ c_all, Store* __restrict__ g_all, float* __restrict__ hn,
+                float* __restrict__ cn, int T, int B, long long* split, int split_steps) {
+  using F = Fwd<H, Store>;
+  constexpr int U = F::U, kCols = F::kCols, KW = F::KW, KPL = F::KPL, kRows = F::kRows, G = 4 * H;
+  lstm::StepClock<kSplit> clock(split, split_steps);
+  extern __shared__ float4 smem4[];
+  Store* stage = reinterpret_cast<Store*>(smem4);
+  float* red = reinterpret_cast<float*>(stage + kWarps * kTile * KW);
+  float* cs = red + kWarps * kTile * kCols;
+  float* hs = cs + B * U;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cslice = lane % 4, klane = lane / 4;
+  const int u0 = blockIdx.x * U;
+  const int k0 = warp * KW + klane * KPL;  // the lane's first row of w_hh
+  Store* my_stage = stage + warp * kTile * KW;
+
+  float w[KPL][U];
+#pragma unroll
+  for (int kk = 0; kk < KPL; ++kk)
+#pragma unroll
+    for (int j = 0; j < U; ++j) w[kk][j] = lstm::to_f32(w_hh[size_t(k0 + kk) * G + cslice * H + u0 + j]);
+  for (int p = tid; p < B * U; p += kThreads) {
+    const size_t at = size_t(p / U) * H + u0 + p % U;
+    cs[p] = c0[at];
+    hs[p] = h0[at];
+  }
+  __syncthreads();
+
+  const int tiles = (B + kTile - 1) / kTile;
+  float x[F::kRounds];
+  if (T > 0) load_x<H, Store>(x, xg, 0, B, 0, min(B, kTile), u0);
+  for (int t = 0; t < T; ++t) {
+    clock.begin();
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int b0 = tile * kTile, bt = min(kTile, B - b0);
+      if (t == 0) {
+        for (int q = lane; q < bt * KW; q += 32)
+          my_stage[q] = lstm::from_f32<Store>(h0[size_t(b0 + q / KW) * H + warp * KW + q % KW]);
+      } else {
+        constexpr int kPer = 16 / int(sizeof(Store)), kChunks = KW / kPer;  // 16-byte chunks a row
+        const Store* src = y + (size_t(t - 1) * B + b0) * H + warp * KW;
+        for (int q = lane; q < bt * kChunks; q += 32)
+          lstm::cp_async16(my_stage + (q / kChunks) * KW + (q % kChunks) * kPer,
+                           src + size_t(q / kChunks) * H + (q % kChunks) * kPer);
+        lstm::cp_async_wait_all();
       }
-      const float ig = sigmoid_f32(gate[0]), fg = sigmoid_f32(gate[1]);
-      const float gg = tanhf(gate[2]), og = sigmoid_f32(gate[3]);
-      const float c = fg * cs[p] + ig * gg;
-      const float h = og * tanhf(c);
-      cs[p] = c;
-      hl[p] = h;
-      const size_t out = (size_t(t) * B + b) * H + unit;
-      y[out] = h;
-      c_all[out] = c;
-      if constexpr (kGates) {
-        float* gp = g_all + (size_t(t) * B + b) * 4 * H + unit;
-        gp[0] = ig;
-        gp[size_t(H)] = fg;
-        gp[2 * size_t(H)] = gg;
-        gp[3 * size_t(H)] = og;
+      __syncwarp();
+      clock.mark(lstm::kExchange);
+
+      // kRows rows at a time, whose chains interleave; rows past the tile
+      // repeat its last row and store nothing.
+      for (int b1 = 0; b1 < bt; b1 += kRows) {
+        float acc[kRows][U];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          float hv[KPL];
+          lstm::load_f32<KPL>(my_stage + min(b1 + r, bt - 1) * KW + klane * KPL, hv);
+#pragma unroll
+          for (int j = 0; j < U; ++j) acc[r][j] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < KPL; ++kk)
+#pragma unroll
+            for (int j = 0; j < U; ++j) acc[r][j] = fmaf(hv[kk], w[kk][j], acc[r][j]);
+        }
+        int which;
+        float s[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) s[r] = klane_sum<U>(acc[r], lane, which);
+        if ((lane & F::kDup) == 0) {
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            if (b1 + r < bt) red[(warp * kTile + b1 + r) * kCols + cslice * U + which] = s[r];
+        }
       }
+      __syncthreads();
+      clock.mark(lstm::kProduct);
+
+      float sum[F::kRounds];
+#pragma unroll
+      for (int r = 0; r < F::kRounds; ++r) {
+        const int i = b0 * 4 * U + r * kThreads + tid;
+        sum[r] = 0.f;
+        if (i < (b0 + bt) * 4 * U) {
+          const float* col = red + (i / (4 * U) - b0) * kCols + (i % 4) * U + (i / 4) % U;
+          float s = x[r];
+#pragma unroll
+          for (int q = 0; q < kWarps; ++q) s += col[q * kTile * kCols];
+          sum[r] = s;
+        }
+      }
+      clock.mark(lstm::kReduction);
+
+      // The item's activation; the pair's four gates meet in its gate-0
+      // lane (items i .. i + 3 sit in lanes 4k .. 4k + 3).
+      float act[F::kRounds], gate[F::kRounds][4];
+      const int g = tid % 4;
+#pragma unroll
+      for (int r = 0; r < F::kRounds; ++r)
+        act[r] = g == 2 ? lstm::tanh_fast(sum[r]) : lstm::sigmoid_fast(sum[r]);
+#pragma unroll
+      for (int r = 0; r < F::kRounds; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gate[r][q] = __shfl_sync(0xffffffffu, act[r], (lane & ~3) + q);
+#pragma unroll
+      for (int r = 0; r < F::kRounds; ++r) {
+        const int i = b0 * 4 * U + r * kThreads + tid;
+        if (i >= (b0 + bt) * 4 * U) continue;
+        const int b = i / (4 * U), j = (i / 4) % U;
+        if (g == 0) {
+          const int p = b * U + j;
+          const float c = gate[r][1] * cs[p] + gate[r][0] * gate[r][2];
+          const float h = gate[r][3] * lstm::tanh_fast(c);
+          cs[p] = c;
+          hs[p] = h;
+          const size_t out = (size_t(t) * B + b) * H + u0 + j;
+          y[out] = lstm::from_f32<Store>(h);
+          c_all[out] = lstm::from_f32<Store>(c);
+        }
+        if constexpr (kGates) g_all[(size_t(t) * B + b) * G + g * H + u0 + j] = lstm::from_f32<Store>(act[r]);
+      }
+      // xg of the next tile, or of the next step's first: it lands while
+      // the barrier and the next exchange and product run.
+      if (tile + 1 < tiles)
+        load_x<H, Store>(x, xg, t, B, b0 + kTile, min(kTile, B - b0 - kTile), u0);
+      else if (t + 1 < T)
+        load_x<H, Store>(x, xg, t + 1, B, 0, min(B, kTile), u0);
+      clock.mark(lstm::kGates);
+      if (tile + 1 < tiles) __syncthreads();  // the next tile rewrites red
     }
     // Publishes y[t] to every block before any block stages it; also the
-    // block-level barrier that lets hs and red be overwritten next step.
-    if (t + 1 < T) grid.sync();
+    // block barrier before red is rewritten.
+    if (t + 1 < T) lstm::grid_barrier();
+    clock.mark(lstm::kBarrierWait);
+    clock.end_step(t);
   }
-
-  for (int p = tid; p < U * B; p += kThreads) {
-    const int j = p / B, b = p % B, unit = u0 + j;
-    if (unit >= H) continue;
-    hn[size_t(b) * H + unit] = hl[p];
-    cn[size_t(b) * H + unit] = cs[p];
+  clock.finish();
+  __syncthreads();
+  for (int p = tid; p < B * U; p += kThreads) {
+    const size_t at = size_t(p / U) * H + u0 + p % U;
+    hn[at] = hs[p];
+    cn[at] = cs[p];
   }
 }
 
-template <int U, bool kGates>
-int launch_variant(const float* xg, const float* w_hh, const float* h0, const float* c0, float* y,
-                   float* c_all, float* g_all, float* hn, float* cn, int T, int B, int H,
-                   int device, cudaStream_t stream) {
-  const size_t smem = smem_floats<U>(B, H) * sizeof(float);
-  int max_smem = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  if (smem > size_t(max_smem)) return cudaErrorInvalidValue;
-  auto kernel = lstm_fwd_kernel<U, kGates>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  void* args[] = {&xg, &w_hh, &h0, &c0, &y, &c_all, &g_all, &hn, &cn, &T, &B, &H};
-  const int blocks = (H + U - 1) / U;
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
-                                    dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-template <int U>
-int launch(const float* xg, const float* w_hh, const float* h0, const float* c0, float* y,
-           float* c_all, float* g_all, float* hn, float* cn, int T, int B, int H, int device,
-           cudaStream_t stream) {
+template <int H, typename Store, bool kSplit>
+int run(const void* xg, const void* w_hh, const float* h0, const float* c0, void* y, void* c_all,
+        void* g_all, float* hn, float* cn, int T, int B, int device, cudaStream_t stream,
+        long long* split, int split_steps) {
+  const size_t smem = Fwd<H, Store>::smem(B);
+  const auto* x = static_cast<const Store*>(xg);
+  const auto* w = static_cast<const Store*>(w_hh);
+  auto* ys = static_cast<Store*>(y);
+  auto* cs = static_cast<Store*>(c_all);
+  auto* gs = static_cast<Store*>(g_all);
   if (g_all != nullptr)
-    return launch_variant<U, true>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, stream);
-  return launch_variant<U, false>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, stream);
+    return lstm::launch(lstm_fwd_kernel<H, Store, true, kSplit>, Fwd<H, Store>::S::kBlocks, smem,
+                        device, stream, x, w, h0, c0, ys, cs, gs, hn, cn, T, B, split,
+                        split_steps);
+  return lstm::launch(lstm_fwd_kernel<H, Store, false, kSplit>, Fwd<H, Store>::S::kBlocks, smem,
+                      device, stream, x, w, h0, c0, ys, cs, gs, hn, cn, T, B, split, split_steps);
+}
+
+template <bool kSplit>
+int dispatch(const void* xg, const void* w_hh, const float* h0, const float* c0, void* y,
+             void* c_all, void* g_all, float* hn, float* cn, int T, int B, int H, int bf16,
+             int device, void* stream, long long* split, int split_steps) {
+  if (T < 0 || B < 1 || B > lstm::kMaxBatch) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K1_RUN(HH, STORE)                                                                     \
+  return run<HH, STORE, kSplit>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, device, s, \
+                                split, split_steps)
+#define K1_H(HH)                         \
+  case HH:                               \
+    if (bf16) K1_RUN(HH, __nv_bfloat16); \
+    K1_RUN(HH, float);
+  switch (H) {
+    K1_H(64)
+    K1_H(128)
+    K1_H(256)
+    K1_H(512)
+    K1_H(1024)
+  }
+#undef K1_H
+#undef K1_RUN
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -231,26 +320,28 @@ int launch(const float* xg, const float* w_hh, const float* h0, const float* c0,
 extern "C" {
 
 // Launches K1 on `stream` (a cudaStream_t) of `device`; returns a cudaError_t
-// (0 on success). All pointers are device pointers to contiguous f32 arrays,
-// h0 16-byte aligned; H must be a multiple of 4. g_all, (T, B, 4H), may be
-// null: then the gate trace is not written.
-int morgana_lstm_fwd(const float* xg, const float* w_hh, const float* h0, const float* c0,
-                     float* y, float* c_all, float* g_all, float* hn, float* cn, int T, int B,
-                     int H, int device, void* stream) {
-  if (T < 0 || B < 1 || B > kMaxBatch || H < 4 || H % 4) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  // The fewest units per block that keep one block per SM.
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H <= sms) return launch<1>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, s);
-  if (H <= 2 * sms) return launch<2>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, s);
-  if (H <= 4 * sms) return launch<4>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, s);
-  if (H <= 8 * sms) return launch<8>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, device, s);
-  return cudaErrorInvalidValue;
+// (0 on success). Pointers are device pointers to contiguous arrays: xg,
+// w_hh, y, c_all and g_all in bf16 when `bf16` is non-zero, else f32, with
+// g_all null when the gate trace is not written; h0, c0, hn and cn in f32.
+// H is 64, 128, 256, 512 or 1024 and B at most 256.
+int morgana_lstm_fwd(const void* xg, const void* w_hh, const float* h0, const float* c0, void* y,
+                     void* c_all, void* g_all, float* hn, float* cn, int T, int B, int H,
+                     int bf16, int device, void* stream) {
+  return dispatch<false>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, bf16, device,
+                         stream, nullptr, 0);
 }
+
+#ifdef MORGANA_STEP_SPLIT
+// As morgana_lstm_fwd, recording the phases of the first split_steps steps
+// into split (two records of lstm::split_record(split_steps) entries).
+int morgana_lstm_fwd_split(const void* xg, const void* w_hh, const float* h0, const float* c0,
+                           void* y, void* c_all, void* g_all, float* hn, float* cn, int T, int B,
+                           int H, int bf16, int device, void* stream, long long* split,
+                           int split_steps) {
+  return dispatch<true>(xg, w_hh, h0, c0, y, c_all, g_all, hn, cn, T, B, H, bf16, device, stream,
+                        split, split_steps);
+}
+#endif
 
 const char* morgana_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from morgana_tpu_torch import checkpointing
 from morgana_tpu_torch import data
 from morgana_tpu_torch import lr_schedules
 from morgana_tpu_torch import utils
@@ -115,7 +116,9 @@ class ExperimentBuilder(object):
                             help='Last epoch number (inclusive) of this run.')
         parser.add_argument('--checkpoint_path', dest='checkpoint_path', type=str, default=None,
                             help='Initialise the parameters from this epoch_{N}.npz (written '
-                                 'by either package).')
+                                 'by either package); when training, the optimiser, EMA, '
+                                 'step and LR-schedule state too, from the JAX package\'s '
+                                 'epoch_{N}.train.pkl beside it.')
 
         parser.add_argument('--batch_size', dest='batch_size', type=int, default=32,
                             help='Utterances per training/validation batch.')
@@ -243,6 +246,9 @@ class ExperimentBuilder(object):
                                     **settings['optimizer_kwargs'])
         self.loop = TrainLoop(self.model, optimizer, ema_decay=self.ema_decay, seed=self.seed,
                               ema_model=ema_model)
+        self._restored_lr_state = None
+        if self.checkpoint_path and self.train:
+            self.restore_training_state(self.checkpoint_path)
         self.logger.info('Running on %s (%s)', self.device,
                          torch.cuda.get_device_name(self.device)
                          if self.device.type == 'cuda' else 'plain versions of the kernels')
@@ -310,6 +316,21 @@ class ExperimentBuilder(object):
             model.load_parameters(checkpoint_path)
         return model.to(self.device)
 
+    def restore_training_state(self, checkpoint_path):
+        r"""Exact resume (``experiment_builder.py:756-778``): when the JAX
+        package's ``.train.pkl`` sidecar sits beside ``checkpoint_path``, Adam's
+        state, the EMA parameters and the step count are taken from it, and
+        the LR-schedule state at :meth:`run_train`. Without one, Adam starts
+        afresh, as in the JAX package."""
+        path = checkpointing.training_state_path_for(checkpoint_path)
+        if not os.path.exists(path):
+            return
+        state = checkpointing.load_training_state(path)
+        self.loop.restore_jax_state(state)
+        self._restored_lr_state = (state.get('extra') or {}).get('lr_schedule')
+        self.logger.info('Restored optimiser state from %s (step %d)', path,
+                         self.loop.step_count)
+
     def load_data(self, data_sources, data_dir, id_list, normalisers=None, name='', shuffle=True):
         r"""The dataset and batching loader of one split (``experiment_builder.py:1233``)."""
         self.logger.info('Loading %s data using %s from %s/%s',
@@ -376,7 +397,10 @@ class ExperimentBuilder(object):
     def run_train(self):
         r"""Trains from ``start_epoch`` to ``end_epoch`` (``experiment_builder.py:1628``)."""
         self.logger.info('epoch %2d: Beginning training', self.start_epoch)
-        self._train_epochs(self._lr_schedule(self.learning_rate))
+        lr_schedule = self._lr_schedule(self.learning_rate)
+        if self._restored_lr_state is not None:
+            lr_schedule.load_state_dict(self._restored_lr_state)
+        self._train_epochs(lr_schedule)
 
     def _train_epochs(self, lr_schedule):
         """The epoch loop: divergence guard, checkpoint, validation and LR

@@ -33,7 +33,9 @@ __all__ = ['LSTMAcousticModel', 'main']
 class LSTMAcousticModel(BaseSPSS):
     """Parameters as the JAX model's. ``rnn_backend`` 'scan' and 'pallas'
     both run kernel K1 on the GPU (the two JAX backends compute the same
-    function); 'wavefront' is not ported yet. ``rnn_unroll`` is a knob of the
+    function); 'pallas' stores the recurrence in bf16 when
+    ``MORGANA_PALLAS_STORE=bfloat16``, as the JAX kernels do; 'wavefront' is
+    not ported yet. ``rnn_unroll`` is a knob of the
     JAX scan with no counterpart here; it is accepted so that the JAX
     model's ``model_kwargs`` carry over."""
 

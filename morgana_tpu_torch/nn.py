@@ -18,7 +18,7 @@ from torch import nn
 from morgana_tpu_torch.ops import attention as attention_ops
 from morgana_tpu_torch.ops.flash_attention import attention_bias, flash_attention
 from morgana_tpu_torch.ops.gru import gru_layer
-from morgana_tpu_torch.ops.lstm import lstm_layer
+from morgana_tpu_torch.ops import lstm as lstm_ops
 
 __all__ = ['Linear', 'Sigmoid', 'Dropout', 'LayerNorm', 'GELU', 'ModuleList', 'Recurrent', 'GRU',
            'MultiHeadAttention', 'TransformerEncoderLayer', 'TransformerEncoder',
@@ -123,7 +123,10 @@ class Recurrent(nn.Module):
     ``backend`` 'scan' and 'pallas' name the JAX package's two layer
     implementations, which compute the same function; here both run
     :func:`morgana_tpu_torch.ops.lstm.lstm_layer` (kernels K1 and K2 on the
-    GPU) or :func:`morgana_tpu_torch.ops.gru.gru_layer` (K3 and K4).
+    GPU) or :func:`morgana_tpu_torch.ops.gru.gru_layer` (K3 and K4). An LSTM
+    layer of the 'pallas' backend stores its recurrence in
+    ``ops.lstm.STORE_DTYPE`` (``MORGANA_PALLAS_STORE``, e.g. 'bfloat16'), read
+    at each call, as ``pallas_rnn.lstm_layer`` does; 'scan' stays f32.
     """
 
     def __init__(self, mode, input_size, hidden_size, num_layers=1, dropout=0.0,
@@ -139,6 +142,7 @@ class Recurrent(nn.Module):
         if backend not in ('scan', 'pallas'):
             raise ValueError(f'Unsupported backend {backend!r}')
         self.mode = mode
+        self.backend = backend
         self.num_layers = num_layers
         self.dropout = Dropout(dropout) if dropout else None  # between layers
         gates = (4 if mode == 'lstm' else 3) * hidden_size
@@ -168,7 +172,9 @@ class Recurrent(nn.Module):
             weights = [getattr(self, f'{name}_l{i}') for name in ('w_ih', 'w_hh', 'b_ih', 'b_hh')]
             if self.mode == 'lstm':
                 h0, c0 = (None, None) if hidden[i] is None else hidden[i]
-                x, state = lstm_layer(x, *weights, seq_len=seq_len, h0=h0, c0=c0)
+                store = lstm_ops.STORE_DTYPE if self.backend == 'pallas' else None
+                x, state = lstm_ops.lstm_layer(x, *weights, seq_len=seq_len, h0=h0, c0=c0,
+                                               store_dtype=store)
             else:
                 x, state = gru_layer(x, *weights, seq_len=seq_len, h0=hidden[i])
             new_hidden.append(state)

@@ -14,36 +14,40 @@ __all__ = ['check_operands', 'load_library', 'raise_on_error', 'mask_past_seq_le
            'state_at_seq_len']
 
 
-def check_operands(kernel, operands, device):
+def check_operands(kernel, operands, device, dtypes=(torch.float32,)):
     """Raises, before any launch, on what ``kernel`` does not take: each
-    operand of ``{name: (tensor, shape)}`` must have its shape, lie on
-    ``device``, be float32 and be contiguous."""
-    for name, (tensor, shape) in operands.items():
+    operand of ``{name: (tensor, shape[, dtype])}`` must have its shape, lie
+    on ``device``, have its dtype (float32 when none is named), one of the
+    ``dtypes`` the kernel is built for, and be contiguous."""
+    for name, (tensor, shape, *dtype) in operands.items():
+        want = dtype[0] if dtype else torch.float32
         if tuple(tensor.shape) != shape:
             raise ValueError(f'{kernel}: {name} must be {shape}, got {tuple(tensor.shape)}')
         if tensor.device != device:
             raise ValueError(f'{kernel}: {name} is on {tensor.device}, expected {device}')
-        if tensor.dtype != torch.float32:
-            raise TypeError(f'{kernel} takes float32, {name} is {tensor.dtype}')
+        if want not in dtypes or tensor.dtype != want:
+            raise TypeError(f'{kernel} takes {[str(d) for d in dtypes]}, {name} is '
+                            f'{tensor.dtype} (expected {want})')
         if not tensor.is_contiguous():
             raise ValueError(f'{kernel}: {name} must be contiguous')
 
 
-_ENTRIES = {}  # (name, entry) -> (lib, fn), set up once
+_ENTRIES = {}  # (name, entry, variant) -> (lib, fn), set up once
 
 
-def load_library(name, entry, argtypes):
-    """``(lib, fn)``: kernel ``name``'s library, built on first use, and its C
-    entry point with ``argtypes`` set; every entry returns a cudaError_t."""
-    if (name, entry) not in _ENTRIES:
-        lib = _build.load(name)
+def load_library(name, entry, argtypes, variant=None):
+    """``(lib, fn)``: kernel ``name``'s library (its ``variant``, see
+    ``_build.VARIANTS``), built on first use, and its C entry point with
+    ``argtypes`` set; every entry returns a cudaError_t."""
+    if (name, entry, variant) not in _ENTRIES:
+        lib = _build.load(name, variant)
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         lib.morgana_cuda_error_string.argtypes = [ctypes.c_int]
         lib.morgana_cuda_error_string.restype = ctypes.c_char_p
-        _ENTRIES[name, entry] = lib, fn
-    return _ENTRIES[name, entry]
+        _ENTRIES[name, entry, variant] = lib, fn
+    return _ENTRIES[name, entry, variant]
 
 
 def raise_on_error(lib, err, what, hint):

@@ -16,6 +16,7 @@ computes Adam in XLA, outside any Pallas kernel.
 import numpy as np
 import torch
 
+from morgana_tpu_torch import checkpointing as ckpt
 from morgana_tpu_torch import nn as mnn
 from morgana_tpu_torch.data import device_features
 
@@ -78,6 +79,13 @@ def apply_updates(optimizer, ema_decay, params, opt_state, ema_params, lr):
                 ema_params[name].copy_(value)
 
 
+def _check_names(what, saved, params):
+    if set(saved) != set(params):
+        raise KeyError(f'{what} of the sidecar do not match the model: '
+                       f'missing={sorted(set(params) - set(saved))}, '
+                       f'unexpected={sorted(set(saved) - set(params))}')
+
+
 class TrainLoop(object):
     r"""Training state of one model: the optimiser state and, with
     ``ema_decay``, the parameters of ``ema_model`` as the moving average.
@@ -109,6 +117,38 @@ class TrainLoop(object):
     @property
     def device(self):
         return next(iter(self.params.values())).device
+
+    def restore_jax_state(self, state):
+        """Takes over the training state of a JAX sidecar, as
+        :func:`~morgana_tpu_torch.checkpointing.load_training_state` returns
+        it (``experiment_builder.py:756-778``): Adam's ``count``, ``mu`` and
+        ``nu``, by parameter name, become ``torch.optim.Adam``'s ``step``,
+        ``exp_avg`` and ``exp_avg_sq``; the EMA parameters (when this loop
+        keeps an average) and the step count, which seeds dropout, are
+        copied."""
+        opt_state = state.get('opt_state')
+        if opt_state is not None:
+            # optax.chain's state is a plain tuple of its transforms' states.
+            chain = (opt_state,) if hasattr(opt_state, '_fields') else tuple(opt_state)
+            adam = [s for s in chain if isinstance(s, ckpt.AdamState)]
+            if len(adam) != 1:
+                raise ValueError(f'the sidecar optimiser state {[type(s).__name__ for s in chain]} '
+                                 'holds no single Adam state')
+            count, mu, nu = adam[0]
+            _check_names('Adam moments', mu, self.params)
+            saved = self.opt_state.state_dict()
+            saved['state'] = {i: {'step': torch.tensor(float(np.asarray(count))),
+                                  'exp_avg': torch.from_numpy(np.array(mu[name])),
+                                  'exp_avg_sq': torch.from_numpy(np.array(nu[name]))}
+                              for i, name in enumerate(self.params)}
+            self.opt_state.load_state_dict(saved)
+        ema_params = state.get('ema_params')
+        if ema_params is not None and self.ema_decay:
+            _check_names('EMA parameters', ema_params, self.ema_params)
+            with torch.no_grad():
+                for name, value in self.ema_params.items():
+                    value.copy_(torch.from_numpy(np.array(ema_params[name])))
+        self.step_count = int(state.get('step', 0))
 
     def _set_dropout_generators(self):
         seed = int(np.random.SeedSequence([self.seed, self.step_count]).generate_state(1)[0])

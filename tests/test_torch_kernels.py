@@ -18,6 +18,18 @@ from morgana_tpu_torch.ops import lstm as lstm_ops
 pytestmark = pytest.mark.cuda
 
 HIDDEN = 512
+# bf16 storage: kernel and plain version sum in f32 in other orders, so a
+# stored value may round to the other bf16 neighbour and carry that through
+# the chain: within BF16_ULPS units in the last place at each tensor's
+# largest |value|. And at least BF16_CLOSER times closer in mean |error| to
+# that plain version than to the plain version with f32 storage on the same
+# inputs: a kernel that skipped the rounding of h or of the gate gradients
+# before a product would sit near the second (on the H100, K2 built without
+# the rounding of the gate gradients passed the ulp bound and was ~4000x
+# further from the bf16 plain version than from the f32 one; the kernels
+# are 7-9x closer at T = 64, 3.7-4.6x at T = 1024).
+BF16_ULPS = 4
+BF16_CLOSER = 2
 
 
 @pytest.fixture
@@ -28,29 +40,56 @@ def cuda_device():
     return torch.device('cuda')
 
 
-def _layer_inputs(device, batch, steps, seed=8):
+def _layer_inputs(device, batch, steps, seed=8, hidden=HIDDEN):
     rng = np.random.default_rng(seed)
-    bound = HIDDEN ** -0.5
+    bound = hidden ** -0.5
 
     def tensor(array):
         return torch.from_numpy(array.astype(np.float32)).to(device)
 
-    x = tensor(rng.normal(size=(batch, steps, HIDDEN)))
+    x = tensor(rng.normal(size=(batch, steps, hidden)))
     weights = [tensor(rng.uniform(-bound, bound, size=shape))
-               for shape in ((HIDDEN, 4 * HIDDEN), (HIDDEN, 4 * HIDDEN), (4 * HIDDEN,), (4 * HIDDEN,))]
+               for shape in ((hidden, 4 * hidden), (hidden, 4 * hidden), (4 * hidden,), (4 * hidden,))]
     seq_len = rng.integers(1, steps + 1, batch) if steps else np.zeros(batch, np.int64)
     seq_len[0] = min(steps, 1)
     if batch > 2:
         seq_len[-1] = 0  # an empty row: its state is h0/c0, its gradient goes there
-    state = [tensor(0.5 * rng.normal(size=(batch, HIDDEN))) for _ in range(2)]
+    state = [tensor(0.5 * rng.normal(size=(batch, hidden))) for _ in range(2)]
     return x, weights, torch.from_numpy(seq_len).to(device), state
 
 
-@pytest.mark.parametrize('batch,steps', [(32, 64), (5, 1), (40, 33), (16, 0)])
+def _assert_bf16_close(got, want):
+    assert got.dtype == want.dtype
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=BF16_ULPS * 2.0 ** -7 * scale)
+
+
+def _assert_closer(got, want, f32):
+    """The tensors `got` BF16_CLOSER times closer in mean |error| to `want`
+    (the bf16 plain version) than to `f32` (the f32 one, cast to got's
+    types), which they differ from."""
+    def mean_err(others):
+        total = sum(float((g.float() - o.to(g.dtype).float()).abs().sum())
+                    for g, o in zip(got, others))
+        return total / sum(g.numel() for g in got)
+
+    near, far = mean_err(want), mean_err(f32)
+    assert far > 0 and near * BF16_CLOSER <= far, (near, far)
+
+
+# (B, T): the training batch, edge shapes (T = 1, B not a multiple of 32,
+# T = 0) and large batches (B = 88, 128, 256), which a K1 staging all of h
+# in shared memory could not take.
+LSTM_SHAPES = [(32, 64), (5, 1), (40, 33), (16, 0), (88, 9), (128, 9), (256, 5)]
+
+
+@pytest.mark.parametrize('batch,steps', LSTM_SHAPES)
 def test_k1_matches_plain_version(cuda_device, batch, steps):
     """K1 through lstm_layer against lstm_layer_reference on the same GPU
     tensors: ragged seq_len with rows of length 1 and 0, a given initial state,
-    B not a multiple of 32, T = 1 and T = 0; f32 with TF32 off, 1e-4 abs."""
+    B not a multiple of 32, T = 1 and T = 0, B up to 256; f32 with TF32 off,
+    1e-4 abs."""
     x, weights, seq_len, (h0, c0) = _layer_inputs(cuda_device, batch, steps)
     if steps == 0:
         seq_len = None
@@ -76,7 +115,7 @@ def _loss_grads(layer, x, weights, seq_len, state, seed=9):
     return [torch.zeros_like(leaf) if g is None else g for g, leaf in zip(grads, leaves)]
 
 
-@pytest.mark.parametrize('batch,steps', [(32, 64), (5, 1), (40, 33), (16, 0)])
+@pytest.mark.parametrize('batch,steps', LSTM_SHAPES)
 def test_k1_gates_and_k2_match_plain_versions(cuda_device, batch, steps):
     """The gradient-enabled path (K1 writing the gate trace, then K2) against
     autograd through the plain recurrence, for dx, dw_ih, dw_hh, db_ih,
@@ -102,8 +141,8 @@ def test_k1_gates_and_k2_match_plain_versions(cuda_device, batch, steps):
 
 
 def test_k2_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
-    """float64, a non-contiguous input and an H that is not a multiple of 4
-    raise before any launch; the K2 counter does not move."""
+    """float64, a non-contiguous input and an H above the widest built one
+    (1024) raise before any launch; the K2 counter does not move."""
     batch, steps, hidden = 4, 3, 8
     rng = np.random.default_rng(3)
 
@@ -119,16 +158,18 @@ def test_k2_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match='contiguous'):
         lstm_ops.lstm_backward(*args[:3], args[3].transpose(0, 1).contiguous().transpose(0, 1),
                                *args[4:])
-    bad = [t(steps, batch, 24), t(6, 24), t(batch, 6), t(steps, batch, 6), t(steps, batch, 6),
-           t(steps, batch, 6), t(batch, 6), t(batch, 6)]
-    with pytest.raises(ValueError, match='multiple of 4'):
+    wide = 1028
+    bad = [t(steps, batch, 4 * wide), t(wide, 4 * wide), t(batch, wide), t(steps, batch, wide),
+           t(steps, batch, wide), t(steps, batch, wide), t(batch, wide), t(batch, wide)]
+    with pytest.raises(ValueError, match='take H up to 1024'):
         lstm_ops.lstm_backward(*bad)
     assert lstm_ops.bwd_launches == before
 
 
 def test_k1_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
-    """float64, a non-contiguous xg and an H that is not a multiple of 4
-    raise before any launch; nothing falls back to the plain version."""
+    """float64, a non-contiguous xg, an H above the widest built one (1024)
+    and B = 257 raise before any launch; nothing falls back to the plain
+    version."""
     x, (w_ih, w_hh, b_ih, b_hh), _, (h0, c0) = _layer_inputs(cuda_device, 4, 3)
     xg = (x @ w_ih + b_ih + b_hh).transpose(0, 1).contiguous()
     before = lstm_ops.launches
@@ -136,10 +177,94 @@ def test_k1_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         lstm_ops.lstm_recurrence(xg.double(), w_hh.double(), h0.double(), c0.double())
     with pytest.raises(ValueError):
         lstm_ops.lstm_recurrence(xg.transpose(0, 1).contiguous().transpose(0, 1), w_hh, h0, c0)
-    with pytest.raises(ValueError):
-        lstm_ops.lstm_recurrence(xg[..., :4 * 6].contiguous(), w_hh[:6, :4 * 6].contiguous(),
-                                 h0[:, :6].contiguous(), c0[:, :6].contiguous())
+    too_wide = torch.zeros((3, 4, 4 * 1028), device=cuda_device)
+    with pytest.raises(ValueError, match='take H up to 1024'):
+        lstm_ops.lstm_recurrence(too_wide, torch.zeros((1028, 4 * 1028), device=cuda_device),
+                                 too_wide[0, :, :1028].contiguous(),
+                                 too_wide[0, :, :1028].contiguous())
+    wide = torch.zeros((3, 257, 4 * HIDDEN), device=cuda_device)
+    state = torch.zeros((257, HIDDEN), device=cuda_device)
+    with pytest.raises(ValueError, match='B <= 256'):
+        lstm_ops.lstm_recurrence(wide, w_hh, state, state)
     assert lstm_ops.launches == before
+
+
+@pytest.mark.parametrize('hidden', [64, 96, 128, 200, 256, 600, 1024])
+def test_lstm_kernels_at_the_other_widths(cuda_device, hidden):
+    """K1 and K2 at the other widths they are built for (1 or 2 units a
+    block; 8 at 1024, K2 over 128 blocks) and at widths the wrapper pads
+    with zero units to the next built one (96, 200, 600): the layer's values
+    (1e-4 abs) and gradients (1e-4 of each max) against the plain versions,
+    B = 40, T = 33; one launch of each kernel."""
+    x, weights, seq_len, state = _layer_inputs(cuda_device, 40, 33, hidden=hidden)
+    with torch.inference_mode():
+        got = lstm_ops.lstm_layer(x, *weights, seq_len=seq_len, h0=state[0], c0=state[1])
+        want = lstm_ops.lstm_layer_reference(x, *weights, seq_len=seq_len, h0=state[0],
+                                             c0=state[1])
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+    before = (lstm_ops.gate_launches, lstm_ops.bwd_launches)
+    got = _loss_grads(lstm_ops.lstm_layer, x, weights, seq_len, state)
+    torch.cuda.synchronize()
+    assert (lstm_ops.gate_launches, lstm_ops.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = _loss_grads(lstm_ops.lstm_layer_reference, x, weights, seq_len, state)
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize('batch,steps', [(16, 64), (32, 64), (5, 1), (88, 9), (256, 5)])
+def test_bf16_storage_kernels_match_plain_versions(cuda_device, batch, steps):
+    """K1 and K2 built for bf16 storage against the plain versions on the same
+    bf16 tensors, in the working type: K1's y, c_all and g_all (bf16) within
+    BF16_ULPS ulps, hn and cn (f32) likewise; K2's dxg (bf16), dh0 and dc0.
+    Each kernel's outputs BF16_CLOSER times closer to its bf16 plain version
+    than to the f32 one on the same inputs (where T > 1, so that a rounded h
+    or dgates reaches a product)."""
+    x, (w_ih, w_hh, b_ih, b_hh), _, (h0, c0) = _layer_inputs(cuda_device, batch, steps)
+    xg = (x @ w_ih + b_ih + b_hh).transpose(0, 1).contiguous().bfloat16()
+    w_s = w_hh.bfloat16()
+    before = (lstm_ops.launches, lstm_ops.bwd_launches)
+    got = lstm_ops.lstm_recurrence(xg, w_s, h0, c0, with_gates=True)
+    want = lstm_ops.lstm_recurrence_reference(xg, w_s, h0, c0)
+    for g, w in zip(got, want):
+        _assert_bf16_close(g, w)
+    if steps > 1:
+        _assert_closer(got, want, lstm_ops.lstm_recurrence_reference(xg.float(), w_s.float(), h0, c0))
+    _, c_all, g_all, _, _ = got
+    rng = np.random.default_rng(17)
+    cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+           for shape in ((steps, batch, HIDDEN),) * 2 + ((batch, HIDDEN),) * 2]
+    args = (g_all, w_s, c0.bfloat16(), c_all, cot[0].bfloat16(), cot[1].bfloat16(), *cot[2:])
+    got = lstm_ops.lstm_backward(*args)
+    torch.cuda.synchronize()
+    assert (lstm_ops.launches, lstm_ops.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = lstm_ops.lstm_backward_reference(*args)
+    for g, w in zip(got, want):
+        _assert_bf16_close(g, w)
+    if steps > 1:
+        _assert_closer(got, want, lstm_ops.lstm_backward_reference(*(a.float() for a in args)))
+
+
+def test_bf16_storage_layer_gradients_match_plain_versions(cuda_device):
+    """lstm_layer with store_dtype='bfloat16' (K1 and K2 built for bf16)
+    against lstm_layer_reference with the same storage (the plain versions
+    in the same autograd Function): values and the seven gradients, each
+    within BF16_ULPS bf16 ulps of its max |value| and BF16_CLOSER times closer
+    to it than to the f32 plain layer's; B32 T64, ragged seq_len."""
+    x, weights, seq_len, state = _layer_inputs(cuda_device, 32, 64)
+
+    def layer(reference):
+        fn = lstm_ops.lstm_layer_reference if reference else lstm_ops.lstm_layer
+        return lambda *a, **k: fn(*a, store_dtype='bfloat16', **k)
+
+    got = _loss_grads(layer(False), x, weights, seq_len, state)
+    want = _loss_grads(layer(True), x, weights, seq_len, state)
+    f32 = _loss_grads(lstm_ops.lstm_layer_reference, x, weights, seq_len, state)
+    for g, w, o in zip(got, want, f32):
+        _assert_bf16_close(g, w)
+        _assert_closer([g], [w], [o])
 
 
 # (B, T): the training batch, edge shapes (T = 1, T = 0, B = 1, B not a
