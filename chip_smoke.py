@@ -76,9 +76,11 @@ code and without the final line:
     the rows below seq_len, at H=4, T=1024 and ragged seq_len: dh 96 at B=16
     and B=32 (full, causal, causal with window 256), dh 64 and 128, and edge
     shapes (T=1, T=77, B=1, rows of length 0, padded rows past a window);
-    times against the bound and against torch's scaled_dot_product_attention
-    (a yardstick the port never calls). k6: MultiHeadAttention(backend=
-    'flash') at the model's width against the plain attention.
+    times against the bound on the tensor cores in 3xTF32 (and the bound
+    on the f32 CUDA cores, simt_bound_ms) and against torch's
+    scaled_dot_product_attention (a yardstick the port never calls). k6:
+    MultiHeadAttention(backend='flash') at the model's width against the
+    plain attention.
 15. k5_bwd: the attention backward (forward, then backward kernel) against
     autograd through the plain version, for a loss on the valid rows, at the
     same shapes; times of the backward, of the plain version's backward and
@@ -90,12 +92,24 @@ code and without the final line:
     at lr 0.001 (B=32); 6 forward and 6 backward attention launches per train
     step, 6 forward per valid batch; ms per step and where it goes.
 18. transformer_train_parity: as train_parity, for the Transformer.
+19. transformer_dropout: TransformerAcousticModel(dropout_prob=0.1) trained
+    for 1 epoch with validation: no attention kernel launched in its train
+    steps (probability dropout takes the exact plain path, as in the JAX
+    package), the forward kernel in validation; finite losses.
 
 Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 Needs no network and writes only to a temporary directory. The profiler's
 device-time tables go to stderr.
+
+Two other modes, each after the device and build phases: --attention-parent
+DIR times the attention kernels of another tree (DIR holds its
+morgana_tpu_torch/csrc, e.g. a git archive of the parent commit) beside this
+tree's, in turns, at the k5 / k5_bwd main shapes (attn_parent_compare);
+--transformer-only runs phases 16 and 17 alone: copied into another tree's
+root, it gives that tree's end-to-end numbers.
 """
+import argparse
 import concurrent.futures
 import contextlib
 import json
@@ -110,6 +124,10 @@ import numpy as np
 
 H = 512
 F32_PEAK_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+TF32_PEAK_FLOPS = 495e12    # H100 SXM, TF32 tensor cores, dense
+# exp2 on the special-function units: 16 a clock an SM (compute capability
+# 9.0), 132 SMs at the 1.83 GHz of the published tensor-core peaks.
+SFU_EXP_PER_S = 16 * 132 * 1.83e9
 BF16_PEAK_FLOPS = 989e12    # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 KERNEL_TOL = 1e-4           # K1 vs plain and vs cuDNN, f32, abs; also the gate trace
@@ -784,15 +802,23 @@ def attention_pairs(seq_len, time_steps, heads, causal, window):
 
 
 def attention_bound(batch, heads, time_steps, head_dim, pairs, backward=False):
-    """Least time for attention: 4 * P * dh flops forward (q.k and p.v), 10 *
-    P * dh backward (the logits and do.v again, dv, dq, dk) against the
-    float32 peak; q, k, v read and o, lse written (backward: q, k, v, o, do,
-    lse read and dq, dk, dv written) against the memory rate."""
+    """Least time for attention on the route the kernels take, the tensor
+    cores in 3xTF32: 3 * 4 * P * dh flops forward (q.k and p.v) and 3 * 10 *
+    P * dh backward (q.k and do.v again, then dv, dq and dk: the least work;
+    the two-pass kernels recompute both logits products, 14 * P * dh) at the
+    TF32 peak; P exp forward and 2 * P backward at the SFU rate; q, k, v read
+    and o, lse written (backward: q, k, v, o, do, lse read and dq, dk, dv
+    written) at the memory rate. Returns (bound_ms, bound_by, simt_bound_ms):
+    the largest of the three, what sets it, and the bound the kernels' f32
+    CUDA-core versions were held to (the flops once at the f32 peak, or the
+    bytes)."""
     width = heads * head_dim
     flops = (10.0 if backward else 4.0) * pairs * head_dim
     nbytes = 4.0 * ((8 if backward else 4) * batch * time_steps * width + batch * heads * time_steps)
-    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(3 * flops / TF32_PEAK_FLOPS, (2 if backward else 1) * pairs / SFU_EXP_PER_S) * 1e3
+    simt_ms = max(flops / F32_PEAK_FLOPS * 1e3, bytes_ms)
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes'), simt_ms
 
 
 def attention_inputs(torch, dev, batch, heads, time_steps, head_dim, seed, empty_row=False):
@@ -856,8 +882,8 @@ def k5_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, seed
             out['kernel_ms'] = cuda_ms(torch, lambda: fa.attention_forward(q, k, v, **mask), 20)
             out['plain_ms'] = cuda_ms(torch, lambda: fa.flash_attention_reference(q, k, v, **mask), 5)
             out['library_ms'] = cuda_ms(torch, lambda: sdpa(torch, q, k, v, **mask), 20)
-            out['bound_ms'], out['bound_by'] = attention_bound(batch, heads, time_steps, head_dim,
-                                                               pairs)
+            out['bound_ms'], out['bound_by'], out['simt_bound_ms'] = attention_bound(
+                batch, heads, time_steps, head_dim, pairs)
     emit(out)
     if not (err <= KERNEL_TOL and finite and empty_zero and launched == 1):
         raise AssertionError(f'K5/K6 forward disagrees: {out}')
@@ -947,12 +973,131 @@ def k5_bwd_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, 
         out['fwd_bwd_ms'] = cuda_ms(torch, lambda: grads(fa.flash_attention), 10)
         out['library_ms'] = cuda_ms(torch, lambda: grads(
             lambda *a, **m: sdpa(torch, *a, **m)), 10)
-        out['bound_ms'], out['bound_by'] = attention_bound(batch, heads, time_steps, head_dim,
-                                                           pairs, backward=True)
+        out['bound_ms'], out['bound_by'], out['simt_bound_ms'] = attention_bound(
+            batch, heads, time_steps, head_dim, pairs, backward=True)
     emit(out)
     if not (max(grad_rel.values()) <= GRAD_RTOL and bwd_rel <= GRAD_RTOL and launched == (1, 1)):
         raise AssertionError(f'K5/K6 gradients disagree: {out}')
     return out
+
+
+@contextlib.contextmanager
+def attention_kernels_of(entries):
+    """The attention wrappers of ops/flash_attention.py launch the kernels
+    of `entries` ({(name, entry, None): (lib, fn)}, as ops/_kernels.py keeps
+    them) instead of this tree's while the context is open."""
+    from morgana_tpu_torch.ops import _kernels
+
+    saved = {key: _kernels._ENTRIES.get(key) for key in entries}
+    _kernels._ENTRIES.update(entries)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                _kernels._ENTRIES.pop(key, None)
+            else:
+                _kernels._ENTRIES[key] = value
+
+
+def build_parent_attention(parent):
+    """The attention kernels of another tree (`parent` holds its
+    morgana_tpu_torch/csrc, e.g. a git archive of the parent commit), built
+    with this tree's nvcc flags into `parent`/build, one nvcc each, both
+    started together, and bound with this tree's entry types (the C entries
+    kept their signatures). Returns the entries for attention_kernels_of and
+    the compiler's register and spill lines."""
+    import ctypes
+
+    from morgana_tpu_torch import _build
+    from morgana_tpu_torch.ops import _kernels
+
+    csrc = os.path.join(parent, 'morgana_tpu_torch', 'csrc')
+    out_dir = os.path.join(parent, 'build')
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name in ('attn_fwd', 'attn_bwd'):
+        target = os.path.join(out_dir, f'{name}.so')
+        procs[name] = target, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, '-o', target, os.path.join(csrc, f'{name}.cu')],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    entries, logs = {}, {}
+    for name, (target, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f'parent {name}: nvcc exited {proc.returncode}\n{log}')
+        logs[name] = [line.strip() for line in log.splitlines() if 'Used' in line or 'spill' in line]
+        entry = f'morgana_{name}'
+        _, ours = _kernels._ENTRIES[name, entry, None]
+        lib = ctypes.CDLL(target)
+        fn = getattr(lib, entry)
+        fn.argtypes, fn.restype = ours.argtypes, ctypes.c_int
+        lib.morgana_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.morgana_cuda_error_string.restype = ctypes.c_char_p
+        entries[name, entry, None] = lib, fn
+    return entries, logs
+
+
+def attention_parent_phase(torch, dev, parent):
+    """The parent tree's attention kernels beside this tree's in one process,
+    in turns (parent, this, this, parent), through the same wrappers on the
+    inputs of the timed k5 / k5_bwd cases: the forward at B16 (the serving
+    batch) and B32, the backward at B32 (the training batch), T1024 H4 dh96,
+    full, causal and causal with window 256. Both outputs are held to each
+    other: the forward within KERNEL_TOL abs, the gradients within GRAD_RTOL
+    of their largest |value|."""
+    from morgana_tpu_torch.ops import flash_attention as fa
+
+    # (B, causal, window, backward, seed): the inputs of main()'s timed k5 and
+    # k5_bwd cases at dh 96.
+    cases = [(SERVE_BATCH, False, None, False, 51)] + [
+        (TRAIN_BATCH, causal, window, False, 52)
+        for causal, window in ((False, None), (True, None), (True, 256))] + [
+        (TRAIN_BATCH, False, None, True, 56), (TRAIN_BATCH, True, None, True, 57),
+        (TRAIN_BATCH, True, 256, True, 58)]
+    # Load this tree's libraries first: the parent's entries take their types.
+    q, k, v, seq_len = attention_inputs(torch, dev, 1, 1, 1, 96, 0)
+    o, lse = fa.attention_forward(q, k, v)
+    fa.attention_backward(q, k, v, o, lse, o)
+    entries, ptxas = build_parent_attention(parent)
+    rows = []
+    for batch, causal, window, backward, seed in cases:
+        q, k, v, seq_len = attention_inputs(torch, dev, batch, 4, 1024, 96, seed)
+        mask = dict(seq_len=seq_len, causal=causal, window=window)
+        pairs = attention_pairs(seq_len.tolist(), 1024, 4, causal, window)
+        if backward:
+            o, lse = fa.attention_forward(q, k, v, **mask)
+            rng = np.random.default_rng(seed + 100)
+            weight = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(dev)
+            weight = weight * valid_rows(torch, seq_len, 1024)
+            fn, reps = (lambda: fa.attention_backward(q, k, v, o, lse, weight, **mask)), 10
+        else:
+            fn, reps = (lambda: fa.attention_forward(q, k, v, **mask)[0]), 20
+        times, outs = {'parent': [], 'this': []}, {}
+        for who in ('parent', 'this', 'this', 'parent'):
+            with attention_kernels_of(entries) if who == 'parent' else contextlib.nullcontext():
+                times[who].append(cuda_ms(torch, fn, reps))
+                outs[who] = fn()
+        torch.cuda.synchronize()
+        if backward:
+            scale = max(max(max_abs(g) for g in outs['parent']), 1e-30)
+            err = max(max_abs(a - b) for a, b in zip(outs['this'], outs['parent'])) / scale
+            tol = GRAD_RTOL
+        else:
+            err = max_abs((outs['this'] - outs['parent']) * valid_rows(torch, seq_len, 1024))
+            tol = KERNEL_TOL
+        bound, bound_by, simt = attention_bound(batch, 4, 1024, 96, pairs, backward)
+        rows.append({'kernel': 'attn_bwd' if backward else 'attn_fwd', 'B': batch,
+                     'causal': causal, 'window': window, 'visible_pairs': pairs,
+                     'parent_ms': times['parent'], 'ms': times['this'],
+                     'speedup': min(times['parent']) / max(times['this']),
+                     'bound_ms': bound, 'bound_by': bound_by, 'simt_bound_ms': simt,
+                     'err_vs_parent': err, 'tolerance': tol})
+        if not err <= tol:
+            raise AssertionError(f'this tree and the parent disagree: {rows[-1]}')
+    emit({'phase': 'attn_parent_compare', 'parent': parent, 'parent_ptxas': ptxas,
+          'order': 'parent, this, this, parent', 'rows': rows})
+    return rows
 
 
 def write_normalisers(root, rng):
@@ -1527,6 +1672,51 @@ def transformer_train_phase(torch, root):
     return launches
 
 
+def transformer_dropout_phase(torch, root):
+    """TransformerAcousticModel(dropout_prob=0.1) trained for 1 epoch with
+    validation through the ExperimentBuilder at lr 0.001 (B=32): as in the
+    JAX package (nn.py:913-941), probability dropout in training leaves the
+    attention kernels for the exact plain path, so a train step launches
+    none, forward or backward; validation (eval mode, no dropout) launches
+    the forward kernel 6 times a batch. Finite losses and metrics."""
+    from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
+    from morgana_tpu_torch.ops import flash_attention as fa
+
+    data_root, _ = train_corpus(root)
+    ckpt = seeded_checkpoint(torch, TransformerAcousticModel,
+                             os.path.join(root, 'transformer_dropout_init', 'epoch_0.npz'), 44)
+    args = ExperimentBuilder.get_experiment_args(builder_argv(
+        data_root, os.path.join(root, 'experiments'), 'transformer_dropout', ckpt,
+        '--end_epoch', '1', '--learning_rate', TRANSFORMER_LR,
+        '--model_kwargs', "{'dropout_prob': 0.1}"))
+    exp = ExperimentBuilder(TransformerAcousticModel, **args)
+    steps, valid_batches = len(exp.train_loader), len(exp.valid_loader)
+    torch.cuda.synchronize()
+    fa.launches = fa.bwd_launches = 0
+    start = time.perf_counter()
+    exp.run_experiment()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    launches = {'attn_fwd': fa.launches, 'attn_bwd': fa.bwd_launches}
+    expected = {'attn_fwd': TRANSFORMER_BLOCKS * valid_batches, 'attn_bwd': 0}
+    with open(os.path.join(root, 'experiments', 'transformer_dropout', 'valid', 'epoch_1',
+                           'metrics.json')) as f:
+        valid_metrics = json.load(f)
+    losses = list(exp.train_losses[1])
+    values = losses + list(valid_metrics.values())
+    emit({'phase': 'transformer_dropout', 'model': 'TransformerAcousticModel(dropout_prob=0.1)',
+          'batch_size': TRAIN_BATCH, 'epochs': 1, 'steps': steps, 'valid_batches': valid_batches,
+          'run_seconds': run_s, 'step_losses': losses, 'valid_metrics': valid_metrics,
+          'launches': launches, 'launches_expected': expected,
+          'attention_launches_per_train_step': (launches['attn_fwd'] - expected['attn_fwd']
+                                                + launches['attn_bwd']) / steps})
+    if launches != expected or len(losses) != steps or not all(math.isfinite(x) for x in values):
+        raise AssertionError(f'transformer_dropout: launches {launches}, expected {expected}; '
+                             f'losses {losses}')
+    return launches
+
+
 def builder_train_phase(torch, root, model_class, phase, ops, names, layer_class, layers, seed,
                         *flags):
     """Trains `model_class` for 2 epochs with validation through the
@@ -1660,7 +1850,17 @@ def duration_train_phase(torch, root):
     return launches
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description='Smoke test of the port on one NVIDIA GPU; '
+                                     'with no arguments, every phase.')
+    parser.add_argument('--attention-parent', metavar='DIR',
+                        help='only time the attention kernels of DIR (a tree holding '
+                        'morgana_tpu_torch/csrc, e.g. a git archive of the parent commit) '
+                        "beside this tree's, in turns, and stop")
+    parser.add_argument('--transformer-only', action='store_true',
+                        help='only the Transformer serving and training phases (copied into '
+                        "another tree's root, this gives that tree's end-to-end numbers)")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1682,10 +1882,13 @@ def main():
     # Every kernel, and the LSTM kernels' step_split build, one nvcc each, all
     # started together.
     start = time.perf_counter()
+    only = args.attention_parent or args.transformer_only
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        split_build = pool.submit(_build.build, ['lstm_fwd', 'lstm_bwd'], 'step_split')
-        paths = _build.build()
-        split_build.result()
+        split_build = None if only else pool.submit(_build.build, ['lstm_fwd', 'lstm_bwd'],
+                                                    'step_split')
+        paths = _build.build(['attn_fwd', 'attn_bwd'] if only else None)
+        if split_build is not None:
+            split_build.result()
     logs = {}
     for name, path in paths.items():
         with open(os.path.splitext(path)[0] + '.log') as f:
@@ -1693,8 +1896,18 @@ def main():
     emit({'phase': 'build', 'seconds': time.perf_counter() - start,
           'kernels': {k: os.path.relpath(v) for k, v in paths.items()}, 'ptxas': logs})
 
-    # Where the LSTM kernels' step goes.
     dev = torch.device('cuda')
+    if only:
+        if args.attention_parent:
+            attention_parent_phase(torch, dev, args.attention_parent)
+        else:
+            with tempfile.TemporaryDirectory() as root:
+                transformer_serving_phase(torch, root)
+                transformer_train_phase(torch, root)
+        print(nvidia_smi(), flush=True)
+        return 0
+
+    # Where the LSTM kernels' step goes.
     lstm_step_split_phase(torch, dev)
 
     # K1 against its plain version and cuDNN: B=32 (the training batch), the
@@ -1790,6 +2003,7 @@ def main():
         attn_train_launches = transformer_train_phase(torch, root)
         train_parity_phase(torch, root, TransformerAcousticModel, 'transformer_train_parity', 24,
                            '--learning_rate', TRANSFORMER_LR)
+        transformer_dropout_phase(torch, root)
     if not (serve_launches and train_launches['k1_gates'] and train_launches['k2']
             and bf16_serve_launches and bf16_train_launches['k1_bf16']
             and bf16_train_launches['k2_bf16']
@@ -1849,13 +2063,15 @@ def main():
         'launches': attn_serve_launches + attn_train_launches['attn_fwd'],
         'max_abs_err': attn_fwd_shape['max_abs_err_vs_plain'], 'ms': attn_fwd_shape['kernel_ms'],
         'plain_ms': attn_fwd_shape['plain_ms'], 'bound_ms': attn_fwd_shape['bound_ms'],
-        'bound_by': attn_fwd_shape['bound_by'], 'library_ms': attn_fwd_shape['library_ms']}, {
+        'bound_by': attn_fwd_shape['bound_by'], 'library_ms': attn_fwd_shape['library_ms'],
+        'simt_bound_ms': attn_fwd_shape['simt_bound_ms']}, {
         'name': 'attn_bwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/attn_bwd.cu',
         'replaces': 'morgana_tpu/nn.py:1001', 'also_replaces': 'morgana_tpu/nn.py:1055',
         'launches': attn_train_launches['attn_bwd'],
         'max_abs_err': attn_bwd_shape['bwd_max_abs_err'], 'ms': attn_bwd_shape['kernel_ms'],
         'plain_ms': attn_bwd_shape['plain_ms'], 'bound_ms': attn_bwd_shape['bound_ms'],
-        'bound_by': attn_bwd_shape['bound_by'], 'library_ms': attn_bwd_shape['library_ms']}]})
+        'bound_by': attn_bwd_shape['bound_by'], 'library_ms': attn_bwd_shape['library_ms'],
+        'simt_bound_ms': attn_bwd_shape['simt_bound_ms']}]})
     print(nvidia_smi(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -203,7 +203,10 @@ class MultiHeadAttention(nn.Module):
     K5/K6 on the GPU at any length (the TPU kernels' 256-frame floor and
     pad-to-block layout do not apply), the plain path on the CPU. Probability
     dropout in training (noise from ``generator``, which the trainer sets
-    every step) runs only on the CPU: the kernel has no dropout yet.
+    every step on the model's device) leaves the kernel on every device, as
+    the JAX package leaves its TPU kernels: the exact path of
+    :func:`~morgana_tpu_torch.ops.attention.scaled_dot_product_attention`
+    with the same masks as biases.
     Cross-attention (``kv=``) and the streaming :meth:`step` are not ported
     yet.
     """
@@ -231,12 +234,11 @@ class MultiHeadAttention(nn.Module):
         batch, time, _ = x.shape
         q, k, v = (t.reshape(batch, time, self.num_heads, self.head_dim).transpose(1, 2).contiguous()
                    for t in self.in_proj(x).split(self.embed_dim, dim=-1))
+        # As the JAX package dispatches (nn.py:913-941): active probability
+        # dropout takes the exact plain path on any device (the kernels have
+        # no dropout hook); otherwise the kernel on the GPU.
         dropout_p = self.dropout_p if self.training else 0.0
         if dropout_p > 0.0:
-            if x.device.type != 'cpu':
-                raise NotImplementedError(
-                    f'attention-probability dropout on {x.device.type} {_NOT_PORTED}: the '
-                    'attention kernel has no dropout; train with dropout 0 or on the CPU')
             out = attention_ops.scaled_dot_product_attention(
                 q, k, v, bias=attention_bias(seq_len, time, causal, window, device=x.device),
                 dropout_p=dropout_p, generator=self.generator)

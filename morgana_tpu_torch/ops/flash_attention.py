@@ -21,13 +21,17 @@ uniform average from the plain version; such rows are padding, which the
 JAX package leaves undefined too (``nn.py:1007-1012``) and the masked losses
 discard.
 
-What bounds the kernel: its logits, 4 * P * dh flops forward and 10 * P * dh
-backward for P visible (query, key) pairs, against O(B * T * H * dh) bytes:
-it is bound by operations. The kernels keep the T x T logits out of device
+What bounds the kernels: their products, 4 * P * dh flops forward and at
+least 10 * P * dh backward for P visible (query, key) pairs, against
+O(B * T * H * dh) bytes: they are bound by operations. So every product
+runs on the tensor cores, as ``mma.sync`` in TF32 with each f32 operand
+split into a TF32 high part and the low rest and three products summed in
+f32 (3xTF32: within a few 2^-20 of f32, where one TF32 product alone misses
+the 1e-4 the card checks hold them to). The kernels keep the T x T logits out of device
 memory (an online softmax over key tiles of 64, recomputed in the backward
-from the saved log-sum-exp) and skip key tiles that no row of a query tile
-sees, so windowed attention is linear in T. They run plain f32 FMAs; the
-tensor cores are later work.
+from the saved log-sum-exp), stream k and v (q and do in the dk/dv pass)
+through a two-stage ``cp.async`` ring, and skip key tiles that no row of a
+query tile sees, so windowed attention is linear in T.
 """
 import ctypes
 
@@ -126,8 +130,8 @@ def attention_forward(q, k, v, seq_len=None, causal=False, window=None):
                  lse.data_ptr(), batch, heads, time, head_dim, int(causal),
                  int(window or 0), q.device.index, stream)
     raise_on_error(lib, err, f'attention kernel K5/K6 forward at B={batch} H={heads} T={time} '
-                   f'dh={head_dim}', 'the kernel keeps three 64 x (dh + 4) f32 tiles in one '
-                   "block's shared memory")
+                   f'dh={head_dim}', 'a block keeps two stages of a 64 x (dh + 16) k and a '
+                   '64 x (dh + 4) v f32 tile in shared memory (106 KB at dh 96)')
     launches += 1
     return o, lse
 
@@ -155,8 +159,9 @@ def attention_backward(q, k, v, o, lse, do, seq_len=None, causal=False, window=N
                  dv.data_ptr(), batch, heads, time, head_dim, int(causal),
                  int(window or 0), q.device.index, stream)
     raise_on_error(lib, err, f'attention kernel K5/K6 backward at B={batch} H={heads} T={time} '
-                   f'dh={head_dim}', 'the kernels keep four 64 x (dh + 4) f32 tiles and two '
-                   "64 x 68 tiles in one block's shared memory")
+                   f'dh={head_dim}', 'a block of either kernel keeps two 64 x (dh + 16) f32 '
+                   'tiles and two stages of two 32-row tiles in shared memory (109 KB at '
+                   'dh 96)')
     bwd_launches += 1
     return dq, dk, dv
 

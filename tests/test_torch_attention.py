@@ -298,3 +298,49 @@ def test_every_backend_computes_the_same_function(backend):
                                    ref(x, seq_len=torch.tensor([5, 3])), rtol=0, atol=0)
     with pytest.raises(ValueError, match='backend'):
         tnn.MultiHeadAttention(16, 2, backend='cudnn')
+
+
+def _tf32_nearest(x):
+    """x rounded to TF32 (round to nearest, ties away from zero, on the 13 low
+    mantissa bits), as cvt.rna.tf32.f32 does."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x as the tensor core reads an f32 register in TF32: its 13 low
+    mantissa bits ignored."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split_matmul(a, b, terms, split):
+    """a @ b as the tensor cores compute it in TF32 with f32 sums: one term
+    (each operand rounded), or three (hi = split(x), lo = x - hi; lo.hi +
+    hi.lo + hi.hi, every operand read through the tensor core's truncation)."""
+    if terms == 1:
+        return _tf32_nearest(a) @ _tf32_nearest(b)
+    a_hi, b_hi = split(a), split(b)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+@pytest.mark.parametrize('terms,split,within', [
+    (3, _tf32_nearest, True), (3, _tf32_truncated, True), (1, None, False)],
+    ids=['3xtf32_nearest', '3xtf32_truncated_as_the_kernels', '1xtf32'])
+def test_why_the_kernels_run_3xtf32(terms, split, within):
+    """The tolerance argument of K5/K6's design, without a card: attention
+    whose two products run in TF32 on emulated tensor cores, at B2 H4 T256
+    dh96 with ragged seq_len and seeded N(0, 1) inputs, against the f32
+    plain version on valid rows. With each operand split into a TF32 high
+    part and a low part and three products summed (hi by round to nearest,
+    or truncated as the kernels split it), it stays within the card checks'
+    1e-4 abs; with one TF32 product it does not."""
+    q, k, v = (_t(a) for a in _qkv(40, batch=2, heads=4, time=256, head_dim=96))
+    seq_len = torch.tensor([256, 141])
+    bias = fa.attention_bias(seq_len, 256)
+    with torch.no_grad():
+        logits = _split_matmul(q, k.transpose(-1, -2), terms, split) / np.sqrt(96.0) + bias
+        got = _split_matmul(torch.softmax(logits, dim=-1), v, terms, split)
+        want = fa.flash_attention_reference(q, k, v, seq_len=seq_len)
+    valid = _t(_valid(seq_len.numpy(), 256))[:, None]
+    err = float(((got - want) * valid).abs().max())
+    assert (err <= 1e-4) == within, err

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from morgana_tpu_torch import nn
+from morgana_tpu_torch.ops import attention as attention_ops
 from morgana_tpu_torch.ops import flash_attention as fa
 from morgana_tpu_torch.ops import gru as gru_ops
 from morgana_tpu_torch.ops import lstm as lstm_ops
@@ -420,10 +422,18 @@ def test_gru_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 # (B, H, T, dh, causal, window): the model's heads (dh 96), the other two
 # widths, T not a multiple of the 64-row tile, T = 1, and a small window with
-# padded rows past it that see no key.
+# padded rows past it that see no key. Then, for each dh, the edges of the
+# tiles: T one past a 64-row query tile and 64-key forward stage (65, 129),
+# one past a 32-row backward stage (33, 97), seq_len ending inside a tile,
+# and windows narrower than a stage (5, 31) or just wider (33).
 ATTN_SHAPES = [(4, 2, 130, 96, False, None), (3, 4, 77, 64, True, None),
                (2, 2, 200, 128, True, 16), (1, 1, 1, 96, False, None),
-               (3, 2, 77, 96, True, 8), (2, 4, 300, 96, True, 256)]
+               (3, 2, 77, 96, True, 8), (2, 4, 300, 96, True, 256),
+               (3, 2, 65, 64, False, None), (3, 2, 65, 96, True, None),
+               (3, 2, 65, 128, False, None), (3, 2, 33, 64, True, None),
+               (3, 2, 33, 96, False, None), (3, 2, 97, 128, True, None),
+               (3, 2, 129, 64, True, 5), (3, 2, 129, 96, True, 31),
+               (3, 2, 161, 128, True, 33), (2, 1, 257, 96, True, 40)]
 
 
 def _attn_inputs(device, batch, heads, steps, head_dim, seed=14):
@@ -515,4 +525,36 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1])
     empty = torch.zeros(2, 2, 0, 96, device=cuda_device)
     assert fa.flash_attention(empty, empty, empty).shape == (2, 2, 0, 96)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1])
+
+
+def test_attention_dropout_takes_the_plain_path_in_training(cuda_device):
+    """As in the JAX package, probability dropout in training leaves the
+    kernels: MultiHeadAttention launches no attention kernel, forward or
+    backward, and equals the plain exact path with the same CUDA generator
+    bit for bit; in eval mode it launches the forward kernel."""
+    torch.manual_seed(16)
+    mha = nn.MultiHeadAttention(384, 4, dropout=0.1).to(cuda_device)
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.normal(size=(2, 70, 384)).astype(np.float32)).to(cuda_device)
+    seq_len = torch.tensor([70, 41], device=cuda_device)
+    before = (fa.launches, fa.bwd_launches)
+    mha.generator = torch.Generator(device=cuda_device).manual_seed(3)
+    got = mha(x, seq_len=seq_len)
+    got.sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == before
+    with torch.no_grad():
+        q, k, v = (t.reshape(2, 70, 4, 96).transpose(1, 2).contiguous()
+                   for t in mha.in_proj(x).split(384, dim=-1))
+        bias = fa.attention_bias(seq_len, 70, device=cuda_device)
+        o = attention_ops.scaled_dot_product_attention(
+            q, k, v, bias=bias, dropout_p=0.1,
+            generator=torch.Generator(device=cuda_device).manual_seed(3))
+        want = mha.out_proj(o.transpose(1, 2).reshape(2, 70, 384))
+    torch.testing.assert_close(got.detach(), want, rtol=0, atol=0)
+    mha.eval()
+    with torch.no_grad():
+        mha(x, seq_len=seq_len)
+    torch.cuda.synchronize()
     assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1])
