@@ -13,6 +13,9 @@ code and without the final line:
    versions; TF32 is turned off for matmuls and cuDNN.
 2. build: every kernel under morgana_tpu_torch/csrc, built from source, and
    the step_split build of K1 and K2 (their per-step clock records).
+   vocoder_native: the vocoder's world_synth.cpp built by g++ and loaded
+   (its build seconds), and 5 s of a vowel through it and through the NumPy
+   path, held to each other; host ms a second of audio for each.
    k1_step_split / k2_step_split: where a step of K1 (B16, B32, and B16
    with bf16 storage) and K2 (B32) goes at H=512, T=1024.
 3. kernel K1 (the LSTM layer recurrence) against its plain PyTorch version
@@ -31,6 +34,16 @@ code and without the final line:
    InferenceEngine.predict_items on 32 utterances of 200-1000 frames; checks
    shapes, finiteness, K1's launch count and agreement with the same engine
    on the CPU; throughput, peak memory and where a batch's time goes.
+   vocoder_batch: the batched vocoder (torch_world.synthesize_batch) on the
+   card at B16, T=1000, on the 16 longest served utterances' features and on
+   seeded vowels of the same lengths: two card runs bit-identical, each row
+   against the same call on the CPU and the float64 host path; card ms,
+   real-time factor, peak memory. generate_lstm: the same checkpoint and
+   utterances, written as a corpus split, through
+   InferenceEngine.generate (32 wavs, 8 K1 launches a batch, one wav against
+   the CPU engine's); utt/s, frames/s, audio seconds/s and the split of the
+   seconds (load, predict, D2H, vocoder, writes); then the serving command
+   line once.
 6. train: the same model trained at full width by the port's
    ExperimentBuilder with the JAX package's defaults (B=32, Adam, lr 0.01,
    constant schedule) for 2 epochs with validation, on a synthetic corpus of
@@ -38,7 +51,10 @@ code and without the final line:
    checks finite losses and metrics, 8 launches each of K1-with-gates and
    K2 per train step, K1 without gates in validation, the outputs and the
    checkpoint's strict reload; ms per step, frames/s, peak memory and where
-   a step's time goes. serve_bf16 and train_bf16: phases 5 and 6 again with
+   a step's time goes. builder_test: the builder's --test without training
+   on that epoch_2.npz (the corpus's 16 valid utterances as its test set):
+   one wav each in test/epoch_2/synth, 8 K1 launches a batch. serve_bf16
+   and train_bf16: phases 5 and 6 again with
    rnn_backend='pallas' and bf16 storage (MORGANA_PALLAS_STORE=bfloat16),
    every K1 and K2 launch the bf16 build.
 7. train_parity: the same trainer on the GPU and on the CPU (plain
@@ -62,11 +78,12 @@ code and without the final line:
     B=16; checks shapes, finiteness, 3 K3 launches per batch and agreement
     with the same engine on the CPU; throughput and peak memory.
 11. f0_train: F0Model trained by the ExperimentBuilder (B=32, the JAX
-    defaults) for 2 epochs with validation on the train phase's corpus,
-    from a seeded epoch_0.npz; checks finite losses and metrics, 3 launches
-    each of K3 and K4 per train step, K3 alone in validation and the
-    checkpoint's strict reload; ms per step, frames/s, peak memory and
-    where a step's time goes.
+    defaults but --valid_output_interval 1) for 2 epochs with validation
+    on the train phase's corpus, from a seeded epoch_0.npz; checks finite
+    losses and metrics, 3 launches each of K3 and K4 per train step, K3
+    alone in validation and the checkpoint's strict reload; ms per step,
+    frames/s, peak memory and where a step's time goes. f0_valid_synth: its
+    validation analysis wrote one wav per valid utterance each epoch.
 12. f0_train_parity: as train_parity, for F0Model.
 13. duration_train: DurationModel (GRU(128)) trained for 2 epochs with its
     validation analysis every epoch; checks 1 launch each of K3 and K4 per
@@ -99,6 +116,8 @@ code and without the final line:
 
 Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
+The vocoder holds no kernel (the JAX package's is plain XLA), so it has no
+entry there; its phases' lines carry the card's name and power limit.
 Needs no network and writes only to a temporary directory. The profiler's
 device-time tables go to stderr.
 
@@ -167,6 +186,29 @@ TRAIN_BATCH = 32
 F0_LAYERS = 3       # F0Model: 3 x GRU(64)
 TRANSFORMER_BLOCKS = 6      # TransformerAcousticModel's defaults
 TRANSFORMER_LR = '0.001'    # the learning rate its JAX docstring recommends
+# The vocoder: 16 kHz, 5 ms frames. Float32 paths (card, CPU, JAX) against
+# each other: relative L2 within VOCODER_RTOL where no glottal pulse may
+# differ (unvoiced, or the same pulse train; the CPU tests measure 1.2e-6
+# against JAX); voiced rows whose pulse trains differ by a sample (a phase
+# crossing in an ulp gap), energy and peak within VOICED_RATIO_TOL. Against
+# the float64 host path: unvoiced within HOST_VOCODER_RTOL (6.4e-7 on the
+# CPU), voiced energy and peak. The native library against the NumPy path:
+# each draws its own noise, so NATIVE_RTOL on a nearly periodic vowel (its
+# aperiodic part about e^-8 of the amplitude; 5.0e-4 on the sandbox's CPU).
+FS = 16000
+HOP = 80
+VOCODER_T = 1000
+VOCODER_RTOL = 1e-5
+VOICED_RATIO_TOL = 1e-4
+HOST_VOCODER_RTOL = 1e-3
+NATIVE_RTOL = 2e-3
+# vocoder_batch's vowels: VOWEL_F0 + 10 * row Hz with an 8 Hz vibrato of 40
+# frames. With f0 a multiple of 20 Hz each whole vibrato period ends on an
+# integer phase exactly at a frame boundary, a tie that the float32 and
+# float64 paths break on opposite sides (either is right): 12-25 pulses a
+# row one sample apart at T = 1000, energy 1.5e-4-1.9e-4 apart (first chip
+# run of this script's vocoder phases, H100; the same on the CPU).
+VOWEL_F0 = 103.7
 # The acoustic models' served outputs and their widths.
 ACOUSTIC_DIMS = {'normalised_lf0_deltas': 3, 'normalised_mcep_deltas': 180,
                  'normalised_bap_deltas': 15, 'lf0': 1, 'vuv': 1, 'mcep': 60, 'bap': 5}
@@ -1159,7 +1201,8 @@ def serving_phase(torch, root, phase='serve', store=None):
     model's rnn_backend is 'pallas' with that storage (every K1 launch the
     bf16 variant), and its outputs are held to the CPU engine with the same
     storage within BF16_NET_TOL and closer to them in mean than the same GPU
-    engine with f32 storage. Returns K1's launches (all, bf16)."""
+    engine with f32 storage. Returns K1's launches (all, bf16) and what was
+    served: {'root', 'ckpt', 'items', 'outputs'}."""
     with lstm_store(store):
         return _serving_phase(torch, os.path.join(root, phase) if store else root, phase, store)
 
@@ -1286,7 +1329,8 @@ def _serving_phase(torch, root, phase, store):
                'T': int(features['normalised_counters'].shape[1]),
                'predict_ms': predict_ms, 'inputs_ms': inputs_ms, 'network_ms': net_ms,
                'mlpg_ms': mlpg_ms}, **profile))
-    return launches, bf16_launches
+    return launches, bf16_launches, {'root': root, 'ckpt': ckpt, 'items': items,
+                                     'outputs': outputs}
 
 
 def seeded_checkpoint(torch, model_class, path, seed):
@@ -1793,15 +1837,18 @@ def gru_train_phase(torch, root, model_class, phase, layers, seed, *flags):
                                nn.Recurrent, layers, seed, *flags)
 
 
-def f0_train_phase(torch, root):
-    """F0Model through gru_train_phase with the builder's defaults, then
-    steady-state steps on one full batch, one profiled step and the MLPG's
-    share of it."""
+def f0_train_phase(torch, root, smi):
+    """F0Model through gru_train_phase with the builder's defaults but
+    --valid_output_interval 1 (its validation analysis synthesises a wav per
+    valid utterance each epoch: f0_valid_synth_check), then steady-state
+    steps on one full batch, one profiled step and the MLPG's share of it."""
     from morgana_tpu_torch.data import device_features
     from morgana_tpu_torch.models.f0_test_model import F0Model
     from morgana_tpu_torch.viz.synthesis import MLPG
 
-    launches, exp, _ = gru_train_phase(torch, root, F0Model, 'f0_train', F0_LAYERS, 21)
+    launches, exp, exp_dir = gru_train_phase(torch, root, F0Model, 'f0_train', F0_LAYERS, 21,
+                                             '--valid_output_interval', '1')
+    f0_valid_synth_check(exp_dir, smi)
     features, step_ms, profile = time_train_steps(torch, exp)
     model = exp.model
     batch = device_features(features, exp.device)
@@ -1850,6 +1897,359 @@ def duration_train_phase(torch, root):
     return launches
 
 
+# ---------------------------------------------------------------- vocoder
+
+def vowel_features(rng, num_frames, f0_hz):
+    """Model-space features (f0 in Hz, vuv, 60 mcep, 5 bap) of a nearly
+    periodic two-formant vowel with an 8 Hz vibrato."""
+    from morgana_tpu_torch.vocoder import world
+
+    t = np.arange(num_frames)
+    f0 = f0_hz + 8.0 * np.sin(2 * np.pi * t / 40.0)
+    bins = np.linspace(0, FS / 2, 513)
+    env = (0.6 * np.exp(-0.5 * ((bins - 700) / 180.0) ** 2)
+           + 0.4 * np.exp(-0.5 * ((bins - 1800) / 260.0) ** 2) + 1e-3)
+    sp = np.tile(env ** 2, (num_frames, 1)) * (1 + 0.05 * rng.standard_normal((num_frames, 1)))
+    mcep = world.spectrum_to_mcep(sp, order=59, fs=FS)
+    bap = -8.0 + 0.3 * rng.standard_normal((num_frames, 5))
+    return f0, np.ones(num_frames), mcep, bap
+
+
+def wave_agreement(got, want):
+    """Relative L2 error, and the energy and peak ratios minus 1, of two
+    waveforms (float64)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return {'rel_l2': float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)),
+            'energy': float(np.sqrt((got ** 2).mean() / max((want ** 2).mean(), 1e-60)) - 1),
+            'peak': float(np.abs(got).max() / max(np.abs(want).max(), 1e-30) - 1)}
+
+
+def hold_wave(label, got, want, exact, rtol):
+    """`exact` (no pulse may differ: unvoiced, or the same pulse train):
+    relative L2 within `rtol`; else energy and peak within
+    VOICED_RATIO_TOL. Returns the agreement numbers."""
+    agree = wave_agreement(got, want)
+    ok = (agree['rel_l2'] <= rtol if exact
+          else abs(agree['energy']) <= VOICED_RATIO_TOL and abs(agree['peak']) <= VOICED_RATIO_TOL)
+    if not ok:
+        raise AssertionError(f'{label}: {agree} beyond tolerance (exact={exact}, rtol={rtol})')
+    return agree
+
+
+def vocoder_native_phase(smi):
+    """The port's world_synth.cpp built by g++ (morgana_tpu_torch/build/)
+    and loaded; 5 s of a seeded vowel through it and through the NumPy path,
+    both float64 with their own noise generators (XorShift, PCG64) on a
+    nearly periodic signal: within NATIVE_RTOL. Host times are the card
+    machine's CPU."""
+    from morgana_tpu_torch import _build
+    from morgana_tpu_torch.vocoder import world
+
+    start = time.perf_counter()
+    library = _build.build_cxx('world_synth', world.SOURCE)
+    build_s = time.perf_counter() - start
+    if not world.native_available():
+        raise AssertionError('vocoder_native: the native library did not load')
+    f0, _, mcep, bap = vowel_features(np.random.default_rng(70), 1000, 140.0)
+    sp, ap = world.mcep_to_spectrum(mcep, fs=FS), world.bap_to_aperiodicity(bap, fs=FS)
+    audio_s = len(f0) * HOP / FS
+    times = {}
+    waves = {}
+    for path, fn in (('native', lambda: world.synthesize(f0, sp, ap, FS)),
+                     ('numpy', lambda: world._synthesize_numpy(f0, sp, ap, FS, HOP))):
+        fn()
+        t0 = time.perf_counter()
+        waves[path] = fn()
+        times[path] = (time.perf_counter() - t0) * 1e3 / audio_s
+    if not all(np.isfinite(w).all() and w.shape == (len(f0) * HOP,) for w in waves.values()):
+        raise AssertionError('vocoder_native: a path gave a non-finite or misshapen wave')
+    agree = wave_agreement(waves['native'], waves['numpy'])
+    emit({'phase': 'vocoder_native', 'card': smi, 'library': os.path.relpath(library),
+          'cxx_flags': list(_build.CXX_FLAGS), 'build_seconds': build_s, 'native_loaded': True,
+          'frames': len(f0), 'audio_seconds': audio_s,
+          'host_ms_per_audio_s': times, 'host': "the card machine's CPU, one thread",
+          'native_vs_numpy': agree, 'rtol': NATIVE_RTOL})
+    if agree['rel_l2'] > NATIVE_RTOL:
+        raise AssertionError(f'vocoder_native: native vs NumPy {agree} beyond {NATIVE_RTOL}')
+
+
+def vocoder_batch_phase(torch, dev, served, smi):
+    """torch_world.synthesize_batch on the card at B16, T = VOCODER_T frames
+    (the 16 longest served utterances, 80,000 samples a row): the LSTM
+    serving phase's predicted features (unvoiced: the seeded model's vuv
+    stays below 0.5), and seeded vowels of the same lengths (voiced). Each
+    row's noise is the host path's draw (default_rng(100 + row)). Two card
+    runs give the same bits; each row agrees with the same call on the CPU
+    (relative L2 within VOCODER_RTOL where the two pulse trains are the same,
+    else energy and peak within VOICED_RATIO_TOL) and with the float64 host
+    path world._synthesize_numpy (relative L2 within HOST_VOCODER_RTOL
+    unvoiced, energy and peak voiced). Card ms by CUDA events, real-time
+    factor, peak memory; the host's native library on the same rows for
+    comparison."""
+    from morgana_tpu_torch.vocoder import torch_world, world
+
+    outputs = served['outputs']
+    names = sorted(outputs, key=lambda n: -outputs[n]['lf0'].shape[0])[:SERVE_BATCH]
+    lens = [outputs[n]['lf0'].shape[0] for n in names]
+    if max(lens) != VOCODER_T:
+        raise AssertionError(f'vocoder_batch: longest served utterance {max(lens)} frames')
+    rng = np.random.default_rng(71)
+    sets = {'lstm': [(np.exp(outputs[n]['lf0'][:, 0]), outputs[n]['vuv'][:, 0],
+                      outputs[n]['mcep'], outputs[n]['bap']) for n in names],
+            'vowel': [vowel_features(rng, n, VOWEL_F0 + 10 * i) for i, n in enumerate(lens)]}
+    noise = np.zeros((SERVE_BATCH, VOCODER_T * HOP), np.float32)
+    for i, n in enumerate(lens):
+        noise[i, :n * HOP] = np.random.default_rng(100 + i).standard_normal(n * HOP)
+    seq_len = np.array(lens)
+    audio_s = float(seq_len.sum()) * HOP / FS
+    line = {'phase': 'vocoder_batch', 'card': smi, 'B': SERVE_BATCH, 'T': VOCODER_T,
+            'samples_per_row': VOCODER_T * HOP, 'frames': int(seq_len.sum()),
+            'audio_seconds': audio_s, 'rtol_vs_cpu': VOCODER_RTOL,
+            'rtol_vs_host_float64': HOST_VOCODER_RTOL, 'voiced_ratio_tol': VOICED_RATIO_TOL}
+    for label, rows in sets.items():
+        f0, vuv = np.zeros((2, SERVE_BATCH, VOCODER_T), np.float32)
+        mcep = np.zeros((SERVE_BATCH, VOCODER_T, 60), np.float32)
+        bap = np.zeros((SERVE_BATCH, VOCODER_T, 5), np.float32)
+        for i, (n, row) in enumerate(zip(lens, rows)):
+            f0[i, :n], vuv[i, :n], mcep[i, :n], bap[i, :n] = row
+        args = [torch.from_numpy(a).to(dev) for a in (f0, vuv, mcep, bap, seq_len)]
+        noise_dev = torch.from_numpy(noise).to(dev)
+
+        def card():
+            return torch_world.synthesize_batch(*args, FS, noise=noise_dev)[0]
+
+        first, second = card().cpu(), card().cpu()
+        if not torch.equal(first, second):
+            raise AssertionError(f'vocoder_batch {label}: two card runs differ')
+        cpu = torch_world.synthesize_batch(f0, vuv, mcep, bap, seq_len, FS, noise=noise,
+                                           device='cpu')[0]
+        mask = np.arange(VOCODER_T)[None, :] < seq_len[:, None]
+        voiced_f0 = np.where(vuv > 0.5, f0, 0.0) * mask
+        trains = [(torch_world.pulse_train(torch.from_numpy(voiced_f0.astype(np.float32))
+                                           .to(d), FS, HOP) != 0).cpu() for d in (dev, 'cpu')]
+        vs_cpu, vs_host, same_pulses = [], [], 0
+        for i, n in enumerate(lens):
+            same = torch.equal(trains[0][i], trains[1][i])
+            same_pulses += same
+            vs_cpu.append(hold_wave(f'vocoder_batch {label} row {i} vs CPU', first[i], cpu[i],
+                                    same, VOCODER_RTOL))
+            host = world._synthesize_numpy(
+                voiced_f0[i, :n].astype(np.float64),
+                world.mcep_to_spectrum(mcep[i, :n], fs=FS),
+                world.bap_to_aperiodicity(bap[i, :n], fs=FS), FS, HOP, seed=100 + i)
+            vs_host.append(hold_wave(f'vocoder_batch {label} row {i} vs host', first[i, :n * HOP],
+                                     host, not voiced_f0[i].any(), HOST_VOCODER_RTOL))
+        ms = cuda_ms(torch, card, reps=5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        card()
+        torch.cuda.synchronize()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        t0 = time.perf_counter()
+        for i, n in enumerate(lens):
+            world.synthesize_world_feats(voiced_f0[i, :n], vuv[i, :n], mcep[i, :n], bap[i, :n],
+                                         FS)
+        host_s = time.perf_counter() - t0
+        line[label] = {
+            'voiced_frames': int((voiced_f0 > 0).sum()), 'card_ms': ms,
+            'real_time_factor': audio_s / (ms / 1e3), 'peak_memory_mib': peak_mib,
+            'card_runs_bit_identical': True, 'rows_with_the_cpu_pulse_train': same_pulses,
+            'max_vs_cpu': {k: max(abs(a[k]) for a in vs_cpu) for k in vs_cpu[0]},
+            'max_vs_host_float64': {k: max(abs(a[k]) for a in vs_host) for k in vs_host[0]},
+            'host_native_seconds': host_s, 'host_native_real_time_factor': audio_s / host_s,
+            'host': "the card machine's CPU, one thread, world.synthesize_world_feats"}
+    emit(line)
+
+
+def write_items(root, split, items, sources):
+    """The served utterances as a corpus split under `root` (the sources'
+    file layout) with its id list. Returns the id list's path under
+    `root`."""
+    from morgana_tpu_torch.data import data_sources, file_io
+
+    for item in items:
+        for name, source in sources.items():
+            path = source.file_path(item['name'], os.path.join(root, split))
+            if isinstance(source, data_sources.TextSource):
+                file_io.save_txt(item[name], path)
+            else:
+                file_io.save_bin(item[name], path)
+    id_list = os.path.join(split, f'{split}_file_id_list.scp')
+    file_io.save_lines([item['name'] for item in items], os.path.join(root, id_list))
+    return id_list
+
+
+@contextlib.contextmanager
+def timed_wav_writes():
+    """Sums the seconds spent in file_io.save_wav, which the analysis hooks
+    call, into the yielded dict's 'seconds'."""
+    from morgana_tpu_torch.data import file_io
+
+    spent = {'seconds': 0.0, 'files': 0}
+    save_wav = file_io.save_wav
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        save_wav(*args, **kwargs)
+        spent['seconds'] += time.perf_counter() - t0
+        spent['files'] += 1
+
+    file_io.save_wav = timed
+    try:
+        yield spent
+    finally:
+        file_io.save_wav = save_wav
+
+
+def check_wavs(label, synth_dir, lengths):
+    """One wav per name of `lengths` in `synth_dir`, each lengths[name] * HOP
+    samples. Returns the wavs."""
+    from morgana_tpu_torch.data import file_io
+
+    if sorted(os.listdir(synth_dir)) != sorted(f'{name}.wav' for name in lengths):
+        raise AssertionError(f'{label}: {synth_dir} holds {sorted(os.listdir(synth_dir))}')
+    wavs = {}
+    for name, n in lengths.items():
+        wav, rate = file_io.load_wav(os.path.join(synth_dir, f'{name}.wav'))
+        if wav.shape != (n * HOP,) or rate != FS:
+            raise AssertionError(f'{label} {name}: {wav.shape} at {rate} Hz, expected '
+                                 f'({n * HOP},) at {FS}')
+        wavs[name] = wav
+    return wavs
+
+
+def generate_lstm_phase(torch, served, smi):
+    """InferenceEngine(LSTMAcousticModel, device=None).generate at full width
+    over the serving phase's 32 utterances (written as a corpus split) at
+    B16: 32 wavs of n_frames * 80 samples, 8 K1 launches a batch, the
+    shortest utterance's wav against the CPU engine's (energy and peak
+    within VOICED_RATIO_TOL); throughput and where the seconds went. Then
+    the serving command line once on the same checkpoint. Returns K1's
+    launches."""
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    root, ckpt, items = served['root'], served['ckpt'], served['items']
+    engine = InferenceEngine(LSTMAcousticModel, ckpt, data_root=root, batch_size=SERVE_BATCH)
+    id_list = write_items(root, 'generate', items, engine.model.test_data_sources())
+    lengths = {item['name']: int(item['n_frames'].reshape(-1)[0]) for item in items}
+    out_dir = os.path.join(root, 'generated')
+    torch.cuda.synchronize()
+    lstm_ops.launches = 0
+    with timed_wav_writes() as writes:
+        stats = engine.generate(out_dir, data_dir='generate', id_list=id_list)
+    launches = lstm_ops.launches
+    n_batches = -(-N_UTTS // SERVE_BATCH)
+    if launches != 8 * n_batches or stats['utterances'] != N_UTTS:
+        raise AssertionError(f'generate_lstm: K1 launched {launches} times for {n_batches} '
+                             f'batches, {stats["utterances"]} utterances')
+    wavs = check_wavs('generate_lstm', os.path.join(out_dir, 'synth'), lengths)
+
+    shortest = min(lengths, key=lengths.get)
+    cpu_dir = os.path.join(root, 'generated_cpu')
+    InferenceEngine(LSTMAcousticModel, ckpt, data_root=root, batch_size=SERVE_BATCH,
+                    device='cpu').generate(cpu_dir, data_dir='generate', file_ids=[shortest])
+    cpu_wav = check_wavs('generate_lstm cpu', os.path.join(cpu_dir, 'synth'),
+                         {shortest: lengths[shortest]})[shortest]
+    vs_cpu = hold_wave('generate_lstm vs CPU engine', wavs[shortest], cpu_wav, False, 0.0)
+
+    cli_dir = os.path.join(root, 'generated_cli')
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'morgana_tpu_torch.serve', '--model',
+         'morgana_tpu_torch.models.rnn_spss:LSTMAcousticModel', '--checkpoint_path', ckpt,
+         '--data_root', root, '--data_dir', 'generate', '--out_dir', cli_dir,
+         '--batch_size', str(SERVE_BATCH)],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f'generate_lstm: the serving CLI exited {proc.returncode}\n'
+                             f'{proc.stderr[-4000:]}')
+    cli_stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    check_wavs('generate_lstm cli', os.path.join(cli_dir, 'synth'), lengths)
+
+    split = dict(stats['split_seconds'])
+    split['vocoder'] = split['analysis'] - writes['seconds']
+    split['writes'] = writes['seconds']
+    seconds = stats['seconds']
+    emit({'phase': 'generate_lstm', 'card': smi, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
+          'utterances': stats['utterances'], 'frames': stats['frames'], 'batch_size': SERVE_BATCH,
+          'batches': n_batches, 'seconds': seconds, 'utterances_per_s': N_UTTS / seconds,
+          'frames_per_s': stats['frames'] / seconds,
+          'audio_seconds_per_s': stats['frames'] * HOP / FS / seconds,
+          'split_seconds': split, 'wav_files': writes['files'],
+          'host': "predict's MLPG, the vocoder and the writes run on the card machine's CPU",
+          'k1_launches': launches, 'k1_launches_expected': 8 * n_batches,
+          'cpu_engine_check': {'utterance': shortest, **vs_cpu,
+                               'ratio_tol': VOICED_RATIO_TOL},
+          'cli': {'seconds': cli_s, 'utterances': cli_stats['utterances'],
+                  'seconds_inside': cli_stats['seconds']}})
+    return launches
+
+
+def f0_valid_synth_check(exp_dir, smi):
+    """The f0_train phase's validation analysis (--valid_output_interval 1):
+    valid/epoch_{1,2}/synth/ holds one wav per valid utterance, n_frames *
+    80 samples."""
+    from morgana_tpu_torch.data import file_io
+
+    data_root = os.path.join(os.path.dirname(os.path.dirname(exp_dir)), 'train_data')
+    ids = file_io.get_file_ids(os.path.join(data_root, 'valid', 'valid_file_id_list.scp'))
+    lengths = {utt: int(np.loadtxt(os.path.join(data_root, 'valid', 'n_frames', f'{utt}.txt')))
+               for utt in ids}
+    for epoch in (1, 2):
+        check_wavs('f0_valid_synth', os.path.join(exp_dir, 'valid', f'epoch_{epoch}', 'synth'),
+                   lengths)
+    emit({'phase': 'f0_valid_synth', 'card': smi, 'epochs': [1, 2], 'wavs_per_epoch': len(ids),
+          'frames_per_epoch': sum(lengths.values()),
+          'audio_seconds_per_epoch': sum(lengths.values()) * HOP / FS})
+
+
+def builder_test_phase(torch, root, smi):
+    """--test without training (--no-train --no-valid) on the train phase's
+    epoch_2.npz at full width: the train corpus's 16 valid utterances as the
+    test set, 8 K1 launches a batch, test/epoch_2/synth/ with one wav per
+    utterance and test/epoch_2/metrics.json. Returns K1's launches."""
+    from morgana_tpu_torch.data import file_io
+    from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    data_root, _ = train_corpus(root)
+    exp_base = os.path.join(root, 'experiments')
+    ckpt = os.path.join(exp_base, 'train', 'checkpoints', 'epoch_2.npz')
+    args = ExperimentBuilder.get_experiment_args([
+        '--experiment_name', 'builder_test', '--experiments_base', exp_base,
+        '--data_root', data_root, '--checkpoint_path', ckpt, '--no-train', '--no-valid',
+        '--test', '--test_dir', 'valid', '--test_id_list', 'valid/valid_file_id_list.scp'])
+    exp = ExperimentBuilder(LSTMAcousticModel, **args)
+    batches = len(exp.test_loader)
+    torch.cuda.synchronize()
+    lstm_ops.launches = 0
+    start = time.perf_counter()
+    with timed_wav_writes() as writes:
+        exp.run_experiment()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    launches = lstm_ops.launches
+    if launches != 8 * batches:
+        raise AssertionError(f'builder_test: K1 launched {launches} times for {batches} batches')
+    ids = file_io.get_file_ids(os.path.join(data_root, 'valid', 'valid_file_id_list.scp'))
+    lengths = {utt: int(np.loadtxt(os.path.join(data_root, 'valid', 'n_frames', f'{utt}.txt')))
+               for utt in ids}
+    test_dir = os.path.join(exp_base, 'builder_test', 'test', 'epoch_2')
+    check_wavs('builder_test', os.path.join(test_dir, 'synth'), lengths)
+    if not os.path.exists(os.path.join(test_dir, 'metrics.json')):
+        raise AssertionError('builder_test: test/epoch_2/metrics.json was not written')
+    emit({'phase': 'builder_test', 'card': smi, 'checkpoint': 'train/checkpoints/epoch_2.npz',
+          'utterances': len(ids), 'batches': batches, 'run_seconds': run_s,
+          'wav_write_seconds': writes['seconds'], 'k1_launches': launches,
+          'k1_launches_expected': 8 * batches})
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description='Smoke test of the port on one NVIDIA GPU; '
                                      'with no arguments, every phase.')
@@ -1895,6 +2295,8 @@ def main(argv=None):
             logs[name] = [line.strip() for line in f if 'Used' in line or 'spill' in line]
     emit({'phase': 'build', 'seconds': time.perf_counter() - start,
           'kernels': {k: os.path.relpath(v) for k, v in paths.items()}, 'ptxas': logs})
+    if not only:
+        vocoder_native_phase(smi)
 
     dev = torch.device('cuda')
     if only:
@@ -1990,13 +2392,16 @@ def main(argv=None):
                     empty_row=empty)
 
     with tempfile.TemporaryDirectory() as root:
-        serve_launches, _ = serving_phase(torch, root)
+        serve_launches, _, served = serving_phase(torch, root)
+        vocoder_batch_phase(torch, dev, served, smi)
+        generate_launches = generate_lstm_phase(torch, served, smi)
         train_launches = train_phase(torch, root)
-        _, bf16_serve_launches = serving_phase(torch, root, 'serve_bf16', 'bfloat16')
+        test_launches = builder_test_phase(torch, root, smi)
+        _, bf16_serve_launches, _ = serving_phase(torch, root, 'serve_bf16', 'bfloat16')
         bf16_train_launches = train_phase(torch, root, 'train_bf16', 'bfloat16')
         train_parity_phase(torch, root, LSTMAcousticModel)
         f0_serve_launches = f0_serving_phase(torch, root)
-        f0_train_launches = f0_train_phase(torch, root)
+        f0_train_launches = f0_train_phase(torch, root, smi)
         train_parity_phase(torch, root, F0Model, 'f0_train_parity', 23)
         duration_launches = duration_train_phase(torch, root)
         attn_serve_launches = transformer_serving_phase(torch, root)
@@ -2004,7 +2409,8 @@ def main(argv=None):
         train_parity_phase(torch, root, TransformerAcousticModel, 'transformer_train_parity', 24,
                            '--learning_rate', TRANSFORMER_LR)
         transformer_dropout_phase(torch, root)
-    if not (serve_launches and train_launches['k1_gates'] and train_launches['k2']
+    if not (serve_launches and generate_launches and test_launches
+            and train_launches['k1_gates'] and train_launches['k2']
             and bf16_serve_launches and bf16_train_launches['k1_bf16']
             and bf16_train_launches['k2_bf16']
             and f0_serve_launches and f0_train_launches['k3'] and f0_train_launches['k4']
@@ -2013,8 +2419,9 @@ def main(argv=None):
             and attn_train_launches['attn_bwd']):
         raise AssertionError('a kernel of the main path was not launched')
 
-    # launches: the main paths' runs, each counted from 0: serving and
-    # training for the LSTM kernels; F0Model serving and training and
+    # launches: the main paths' runs, each counted from 0: serving,
+    # generation (generate_lstm, builder_test) and training for the LSTM
+    # kernels; F0Model serving and training and
     # DurationModel training for the GRU kernels; TransformerAcousticModel
     # serving and training for the attention kernels. The forward kernels'
     # numbers are at the serving shape (B=16), the backward ones' at the
@@ -2022,7 +2429,7 @@ def main(argv=None):
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
-        'launches': serve_launches + train_launches['k1'],
+        'launches': serve_launches + generate_launches + test_launches + train_launches['k1'],
         'max_abs_err': main_shape['max_abs_err_vs_plain'], 'ms': main_shape['kernel_ms'],
         'plain_ms': main_shape['plain_ms'], 'bound_ms': main_shape['bound_ms'],
         'bound_by': main_shape['bound_by'], 'library_ms': main_shape['library_ms']}, {

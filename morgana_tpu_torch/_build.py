@@ -9,6 +9,11 @@ CUDA toolkit is found through ``CUDA_HOME``, ``PATH`` or ``/usr/local/cuda``.
 The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
 is kept beside each library as ``<name>.<hash>.log``.
 
+The host's C++ sources (the vocoder's ``vocoder/csrc/world_synth.cpp``) take
+the g++ route, :func:`build_cxx`: ``g++ -O3 -march=native`` into
+``build/<name>.<hash>.so``, the hash also covering the host's CPU (model and
+flags), since ``-march=native`` builds for it.
+
 A *variant* is the same source built with extra defines into a library of
 its own (``<name>-<variant>.<hash>.so``): ``step_split`` compiles the LSTM
 kernels' per-step clock records, which the main path's libraries never
@@ -18,16 +23,22 @@ import ctypes
 import glob
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
 
-__all__ = ['CSRC_DIR', 'BUILD_DIR', 'VARIANTS', 'build', 'kernel_names', 'load']
+__all__ = ['CSRC_DIR', 'BUILD_DIR', 'VARIANTS', 'build', 'build_cxx', 'kernel_names',
+           'load']
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# -march=native: the JAX package builds its copy of world_synth.cpp so, and
+# without it g++ contracts no multiply-adds, so the two libraries would
+# differ in the last bits of a sample.
+CXX_FLAGS = ('-O3', '-march=native', '-shared', '-fPIC', '-std=c++17', '-pthread')
 # name -> the extra nvcc flags of that variant
 VARIANTS = {'step_split': ('-DMORGANA_STEP_SPLIT=1',)}
 
@@ -110,3 +121,46 @@ def load(name, variant=None):
         if (name, variant) not in _LIBS:
             _LIBS[name, variant] = ctypes.CDLL(build([name], variant)[name])
         return _LIBS[name, variant]
+
+
+def _host_cpu():
+    """The CPU that ``-march=native`` builds for: the machine, and the model
+    name and flags of ``/proc/cpuinfo`` where there is one."""
+    lines = []
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in f:
+                if line.startswith(('model name', 'flags')):
+                    lines.append(line)
+                if len(lines) == 2:
+                    break
+    except OSError:
+        pass
+    return platform.machine() + ''.join(lines)
+
+
+def build_cxx(name, source):
+    """Compiles the C++ source ``source`` (a plain C interface) with g++ into
+    ``build/<name>.<hash>.so`` unless it is there. Returns the path; raises
+    ``RuntimeError`` with the compiler's output if g++ is missing or
+    fails."""
+    with open(source, 'rb') as f:
+        digest = hashlib.sha256(f.read())
+    digest.update(' '.join(CXX_FLAGS).encode())
+    digest.update(_host_cpu().encode())
+    target = os.path.join(BUILD_DIR, f'{name}.{digest.hexdigest()[:16]}.so')
+    if os.path.exists(target):
+        return target
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f'{target}.{os.getpid()}.tmp'
+    try:
+        proc = subprocess.run(['g++', *CXX_FLAGS, source, '-o', tmp], capture_output=True,
+                              text=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        raise RuntimeError(f'{name}: g++ did not run ({e})') from e
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f'{name}: g++ exited {proc.returncode}\n{proc.stdout}{proc.stderr}')
+    os.replace(tmp, target)
+    return target

@@ -25,13 +25,7 @@ class BaseModel(nn.Module):
     metrics : morgana_tpu_torch.metrics.Handler
     step : int
         Global step kept by the experiment builder.
-    unported_valid_analysis : str or None
-        Why :meth:`analysis_for_valid_batch` cannot run yet, or ``None``
-        when it can. The experiment builder refuses the settings that would
-        reach it.
     """
-
-    unported_valid_analysis = None
 
     def __init__(self):
         super().__init__()
@@ -85,7 +79,9 @@ class BaseModel(nn.Module):
         load_jax_params(self, sd)
         return sd
 
-    # Analysis hooks; each falls through test -> valid -> train.
+    # Analysis hooks (``base_models.py:105-121``); each falls through test ->
+    # valid -> train. The builder and ``serve.InferenceEngine.generate`` pass
+    # their ``analysis_kwargs`` (e.g. ``sample_rate``) as keywords.
 
     def analysis_for_train_batch(self, features, output_features, out_dir, **kwargs):
         pass

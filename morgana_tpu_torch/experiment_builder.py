@@ -9,7 +9,12 @@ Outputs keep the JAX package's layout under
 ``{experiments_base}/{experiment_name}``: ``config.json``,
 ``checkpoints/epoch_{N}.npz`` (which the JAX package loads),
 ``train/epoch_{N}/metrics.json`` (with ``epoch_duration_s``, ``ms_per_step``
-and ``frames_per_sec``), ``valid/epoch_{N}/metrics.json`` and ``log/``.
+and ``frames_per_sec``), ``valid/epoch_{N}/metrics.json`` and ``log/``. Every
+``--valid_output_interval`` epochs the validation runs the model's analysis
+hooks (the acoustic models synthesise ``valid/epoch_{N}/synth/*.wav``);
+``--test`` predicts the test set every ``--test_output_interval`` epochs, or
+once from ``--checkpoint_path`` without training, through the test hooks
+into ``test/epoch_{N}/``.
 
 The flags are the main path's subset of the JAX package's; any other flag is
 an argparse error. ``--device`` defaults to ``cuda`` and raises
@@ -101,14 +106,20 @@ class ExperimentBuilder(object):
         parser.add_argument('--model_kwargs', dest='model_kwargs', action=DictAction, type=str,
                             default={}, help='Keyword arguments of the model constructor, a '
                                              'quoted Python dict literal.')
+        parser.add_argument('--analysis_kwargs', dest='analysis_kwargs', action=DictAction,
+                            type=str, default={'sample_rate': 16000},
+                            help='Keyword arguments of the analysis hooks (e.g. the synthesis '
+                                 'sample rate), a quoted Python dict literal.')
 
         add_boolean_arg(parser, 'train', help='Run the training loop over --train_id_list '
                                               '(from --start_epoch to --end_epoch).')
         add_boolean_arg(parser, 'valid', help='Evaluate on --valid_id_list after every '
                                               'training epoch.')
         parser.add_argument('--test', dest='test', action='store_true', default=False,
-                            help='Generation over --test_id_list; not ported yet (it needs '
-                                 'the vocoder), so it raises.')
+                            help='Run generation (predict without a loss, then the test '
+                                 'analysis hooks) over --test_id_list: every '
+                                 '--test_output_interval epochs when training, else once from '
+                                 '--checkpoint_path.')
 
         parser.add_argument('--start_epoch', dest='start_epoch', type=int, default=1,
                             help='First epoch number of this run.')
@@ -154,8 +165,7 @@ class ExperimentBuilder(object):
                             default=10, help='Run the train-set analysis hooks every N epochs.')
         parser.add_argument('--valid_output_interval', dest='valid_output_interval', type=int,
                             default=10, help='Run the validation-set analysis hooks every N '
-                                             'epochs; refused while the model\'s hooks are '
-                                             'unported.')
+                                             'epochs.')
         parser.add_argument('--test_output_interval', dest='test_output_interval', type=int,
                             default=10, help='Run the test-set analysis hooks every N epochs.')
 
@@ -207,6 +217,7 @@ class ExperimentBuilder(object):
         self.model_class = model_class
         self.experiment_name = experiment_name
         self.model_kwargs = settings['model_kwargs']
+        self.analysis_kwargs = settings['analysis_kwargs']
         for name in ('train', 'valid', 'test', 'start_epoch', 'end_epoch', 'checkpoint_path',
                      'batch_size', 'learning_rate', 'lr_schedule_name', 'lr_schedule_kwargs',
                      'weight_decay', 'ema_decay', 'seed', 'model_checkpoint_interval',
@@ -216,9 +227,6 @@ class ExperimentBuilder(object):
             setattr(self, name, settings[name])
 
         self.device = resolve_device(settings['device'])
-        if self.test:
-            raise NotImplementedError('--test (generation) is not ported yet: it synthesises '
-                                      'with the vocoder')
 
         self.experiment_dir = os.path.join(self.experiments_base, self.experiment_name)
         self.logger = _create_logger(self.experiment_dir)
@@ -260,6 +268,10 @@ class ExperimentBuilder(object):
             self.valid_loader = self.load_data(self.model.valid_data_sources(), self.valid_dir,
                                                self.valid_id_list, normalisers, name='valid',
                                                shuffle=False)
+        if self.test:
+            self.test_loader = self.load_data(self.model.test_data_sources(), self.test_dir,
+                                              self.test_id_list, normalisers, name='test',
+                                              shuffle=False)
         self.log_initial_setup()
         self.model.finalise_init()
 
@@ -274,9 +286,9 @@ class ExperimentBuilder(object):
             json.dump(self.settings, f, indent=4, default=str)
 
     def resolve_setting_conflicts(self):
-        r"""Checks the settings (``experiment_builder.py:1190``)."""
-        if not (self.train or self.valid):
-            raise ValueError('No process specified, use --train or --valid.')
+        r"""Checks the settings (``experiment_builder.py:1194``)."""
+        if not (self.train or self.valid or self.test):
+            raise ValueError('No process specified, use --train, --valid or --test.')
         if self.train:
             if self.checkpoint_path:
                 checkpoint_epoch = utils.get_epoch_from_checkpoint_path(self.checkpoint_path)
@@ -287,25 +299,11 @@ class ExperimentBuilder(object):
                         'checkpoints would overwrite it. Increase --start_epoch.')
             if self.lr_schedule_name == 'plateau' and not self.valid:
                 raise ValueError("The 'plateau' learning rate schedule needs --valid.")
-        elif self.valid:
+        else:
             if not self.checkpoint_path:
-                raise ValueError('Validation without training needs --checkpoint_path.')
+                raise ValueError('Validation or testing without training needs '
+                                 '--checkpoint_path.')
             self.epoch = utils.get_epoch_from_checkpoint_path(self.checkpoint_path)
-
-        # Refuse now what would otherwise fail after epochs of training.
-        unported = self.model_class.unported_valid_analysis
-        if self.valid and unported:
-            name = self.model_class.__name__
-            if not self.train:
-                raise ValueError(f'Validation without training runs the validation analysis of '
-                                 f'{name}, and {unported}.')
-            epochs = [epoch for epoch in range(self.start_epoch, self.end_epoch + 1)
-                      if epoch % self.valid_output_interval == 0]
-            if epochs:
-                raise ValueError(
-                    f'--valid_output_interval {self.valid_output_interval} runs the validation '
-                    f'analysis of {name} at epoch {epochs[0]}, and {unported}. Set '
-                    f'--valid_output_interval above --end_epoch {self.end_epoch}, or --no-valid.')
 
     def build_model(self, model_class, model_kwargs, checkpoint_path=None):
         r"""The model on the builder's device, with the checkpoint's parameters
@@ -355,7 +353,7 @@ class ExperimentBuilder(object):
         losses, frames = self._train_batches(data_loader, lr_schedule, gen_output, out_dir,
                                              num_batches)
         if gen_output:
-            self.model.analysis_for_train_epoch(out_dir=out_dir)
+            self.model.analysis_for_train_epoch(out_dir=out_dir, **self.analysis_kwargs)
 
         # One host transfer for the epoch's losses, which also waits for the
         # device to finish the epoch before the clock is read.
@@ -391,7 +389,8 @@ class ExperimentBuilder(object):
             losses.append(batch_loss)
             self.model.metrics.accumulate(self.model.mode, loss=batch_loss)
             if gen_output:
-                self.model.analysis_for_train_batch(features, output_features, out_dir=out_dir)
+                self.model.analysis_for_train_batch(features, output_features, out_dir=out_dir,
+                                                    **self.analysis_kwargs)
         return losses, frames
 
     def run_train(self):
@@ -431,6 +430,9 @@ class ExperimentBuilder(object):
                 if self.lr_schedule_name == 'plateau':
                     lr_schedule.step(metrics=val_loss)
 
+            if self.test and self.epoch % self.test_output_interval == 0:
+                self.run_test()
+
             if self.lr_schedule_name in lr_schedules.EPOCH_LR_SCHEDULES:
                 lr_schedule.step()
 
@@ -454,9 +456,10 @@ class ExperimentBuilder(object):
             losses.append(batch_loss)
             self.model.metrics.accumulate('valid', loss=batch_loss)
             if gen_output:
-                model.analysis_for_valid_batch(features, output_features, out_dir=out_dir)
+                model.analysis_for_valid_batch(features, output_features, out_dir=out_dir,
+                                               **self.analysis_kwargs)
         if gen_output:
-            model.analysis_for_valid_epoch(out_dir=out_dir)
+            model.analysis_for_valid_epoch(out_dir=out_dir, **self.analysis_kwargs)
         if out_dir:
             file_io.save_json(self.model.metrics.results_as_json_dict('valid'),
                               os.path.join(out_dir, 'metrics.json'))
@@ -472,9 +475,46 @@ class ExperimentBuilder(object):
         self.logger.info('epoch %2d: valid loss %.6f', self.epoch, valid_loss)
         return valid_loss
 
+    # ------------------------------------------------------------------ test
+
+    def test_epoch(self, data_loader, out_dir=None):
+        r"""Predicts every batch without a loss and runs the test analysis
+        hooks (the acoustic models write ``synth/{name}.wav``), with the EMA
+        parameters when they are kept; writes the test metrics to
+        ``metrics.json`` (``experiment_builder.py:1931-1970``)."""
+        use_ema = bool(self.ema_decay)
+        model = self.loop.ema_model if use_ema else self.model
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+        model.mode = self.model.mode = 'test'
+        self.model.metrics.reset_state('test')
+
+        num_batches = len(data_loader)
+        for i, features in enumerate(data_loader):
+            self.model.step = (self.epoch - 1) * num_batches + i + 1
+            output_features = self.loop.predict_step(features, use_ema=use_ema)
+            model.analysis_for_test_batch(features, output_features, out_dir=out_dir,
+                                          **self.analysis_kwargs)
+        model.analysis_for_test_epoch(out_dir=out_dir, **self.analysis_kwargs)
+        if out_dir:
+            file_io.save_json(self.model.metrics.results_as_json_dict('test'),
+                              os.path.join(out_dir, 'metrics.json'))
+        model.mode = self.model.mode = ''
+
+    def run_test(self):
+        r"""Generation for the current epoch into ``test/epoch_{N}``
+        (``experiment_builder.py:1972-1978``)."""
+        out_dir = os.path.join(self.experiment_dir, 'test', f'epoch_{self.epoch}')
+        self.logger.info('epoch %2d: Running synthesis for the test set into %s', self.epoch,
+                         out_dir)
+        self.test_epoch(self.test_loader, out_dir=out_dir)
+
     def run_experiment(self):
         r"""Runs every procedure requested (``experiment_builder.py:2175``)."""
         if self.train:
             self.run_train()
-        elif self.valid:
-            self.run_valid(gen_output=True)
+        else:
+            if self.valid:
+                self.run_valid(gen_output=True)
+            if self.test:
+                self.run_test()

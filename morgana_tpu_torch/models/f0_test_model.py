@@ -8,21 +8,27 @@ Hz over the frames the target marks voiced. Train it with::
 
     python -m morgana_tpu_torch.models.f0_test_model --experiment_name NAME \\
         --data_root DATA --train_id_list train/train_file_id_list.scp \\
-        --valid_id_list valid/valid_file_id_list.scp --end_epoch 50 \\
-        --valid_output_interval 51 [--device cpu]
+        --valid_id_list valid/valid_file_id_list.scp --end_epoch 50 [--device cpu]
 
-The validation analysis synthesises wavs with the vocoder, which is not
-ported yet, so the builder refuses a ``--valid_output_interval`` that a
-trained epoch reaches.
+Every ``--valid_output_interval`` epochs (default 10) the validation analysis
+synthesises each utterance's wav from the predicted f0 and the corpus's
+spectral envelope and aperiodicity with the WORLD vocoder into
+``valid/epoch_N/synth/``; ``--test`` does the same for the test set.
 """
+import os
+
+import numpy as np
 import torch
 
 from morgana_tpu_torch import data
 from morgana_tpu_torch import losses
 from morgana_tpu_torch import metrics
 from morgana_tpu_torch import nn
+from morgana_tpu_torch import utils
+from morgana_tpu_torch import vocoder
 from morgana_tpu_torch.base_models import BaseSPSS
 from morgana_tpu_torch.data import data_sources
+from morgana_tpu_torch.data import file_io
 from morgana_tpu_torch.experiment_builder import ExperimentBuilder
 from morgana_tpu_torch.ops.sequence import upsample_to_repetitions
 from morgana_tpu_torch.viz.synthesis import MLPG
@@ -37,9 +43,6 @@ class F0Model(BaseSPSS):
     ported yet. ``rnn_unroll`` is a knob of the JAX scan with no counterpart
     here; it is accepted so that the JAX model's ``model_kwargs`` carry
     over."""
-
-    unported_valid_analysis = ('it synthesises wavs with the WORLD vocoder, which is not '
-                               'ported yet')
 
     def __init__(self, dropout_prob=0., input_dim=600 + 9, output_dim=1 * 3,
                  rnn_backend='scan', rnn_unroll=8, generator=None):
@@ -129,9 +132,28 @@ class F0Model(BaseSPSS):
             LF0_RMSE_Hz=(features['lf0'], output_features['lf0'], features['vuv'], seq_len))
         return loss
 
-    def analysis_for_valid_batch(self, features, output_features, out_dir, **kwargs):
-        raise NotImplementedError(
-            f'F0Model.analysis_for_valid_batch: {self.unported_valid_analysis}')
+    def analysis_for_valid_batch(self, features, output_features, out_dir, sample_rate=16000,
+                                 **kwargs):
+        """Synthesises ``{out_dir}/synth/{name}.wav`` for each utterance from
+        the smoothed predicted f0, voiced where the corpus's vuv is, with the
+        corpus's sp and ap (``models/f0_test_model.py:145-171``)."""
+        kwargs['sample_rate'] = sample_rate
+        super().analysis_for_valid_batch(features, output_features, out_dir, **kwargs)
+
+        synth_dir = os.path.join(out_dir, 'synth')
+        os.makedirs(synth_dir, exist_ok=True)
+        lf0 = utils.to_numpy(output_features['lf0'])
+        vuv = utils.to_numpy(features['vuv'])
+        sp = utils.to_numpy(features['sp'])
+        ap = utils.to_numpy(features['ap'])
+        n_frames = utils.to_numpy(features['n_frames']).astype(np.int64).reshape(-1)
+        for i, (n_frame, name) in enumerate(zip(n_frames, features['name'])):
+            f0_i = vocoder.smooth_f0(np.exp(lf0[i, :n_frame, 0]))
+            f0_i = f0_i * vuv[i, :n_frame, 0]
+            wav = vocoder.synthesize(f0_i.astype(np.float64),
+                                     sp[i, :n_frame].astype(np.float64),
+                                     ap[i, :n_frame].astype(np.float64), sample_rate)
+            file_io.save_wav(wav, os.path.join(synth_dir, f'{name}.wav'), sample_rate=sample_rate)
 
 
 def main(argv=None):

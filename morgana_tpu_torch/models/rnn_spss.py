@@ -8,21 +8,27 @@ of the normalised deltas plus the BCE of vuv. Train it with::
 
     python -m morgana_tpu_torch.models.rnn_spss --experiment_name NAME \
         --data_root DATA --train_id_list train/train_file_id_list.scp \
-        --valid_id_list valid/valid_file_id_list.scp --end_epoch 50 \
-        --valid_output_interval 51 [--device cpu]
+        --valid_id_list valid/valid_file_id_list.scp --end_epoch 50 [--device cpu]
 
-The validation analysis synthesises wavs with the vocoder, which is not
-ported yet, so the builder refuses a ``--valid_output_interval`` that a
-trained epoch reaches.
+Every ``--valid_output_interval`` epochs (default 10) the validation analysis
+synthesises each utterance's wav from the predicted features with the WORLD
+vocoder into ``valid/epoch_N/synth/``; ``--test`` does the same for the test
+set, and so does ``serve.InferenceEngine.generate``.
 """
+import os
+
+import numpy as np
 import torch
 
 from morgana_tpu_torch import data
 from morgana_tpu_torch import losses
 from morgana_tpu_torch import metrics
 from morgana_tpu_torch import nn
+from morgana_tpu_torch import utils
+from morgana_tpu_torch import vocoder
 from morgana_tpu_torch.base_models import BaseSPSS
 from morgana_tpu_torch.data import data_sources
+from morgana_tpu_torch.data import file_io
 from morgana_tpu_torch.experiment_builder import ExperimentBuilder
 from morgana_tpu_torch.ops.sequence import upsample_to_repetitions
 from morgana_tpu_torch.viz.synthesis import MLPG_streams
@@ -38,9 +44,6 @@ class LSTMAcousticModel(BaseSPSS):
     not ported yet. ``rnn_unroll`` is a knob of the
     JAX scan with no counterpart here; it is accepted so that the JAX
     model's ``model_kwargs`` carry over."""
-
-    unported_valid_analysis = ('it synthesises wavs with the WORLD vocoder, which is not '
-                               'ported yet')
 
     def __init__(self, input_dim=600 + 9, output_dims=None, dropout_prob=0.,
                  num_layers=8, hidden_size=512, rnn_backend='scan', rnn_unroll=8,
@@ -156,9 +159,25 @@ class LSTMAcousticModel(BaseSPSS):
         loss += losses.bce(output_features['vuv'].float(), features['vuv'].float(), n_frames)
         return loss / 4.
 
-    def analysis_for_valid_batch(self, features, output_features, out_dir, **kwargs):
-        raise NotImplementedError(
-            f'LSTMAcousticModel.analysis_for_valid_batch: {self.unported_valid_analysis}')
+    def analysis_for_valid_batch(self, features, output_features, out_dir, sample_rate=16000,
+                                 **kwargs):
+        """Synthesises ``{out_dir}/synth/{name}.wav`` for each utterance from
+        its predicted features (``models/rnn_spss.py:195-217``): f0 is the
+        smoothed ``exp(lf0)``, voiced where ``vuv > 0.5``; the mcep and bap
+        go through :func:`vocoder.synthesize_world_feats` on the host."""
+        kwargs['sample_rate'] = sample_rate
+        super().analysis_for_valid_batch(features, output_features, out_dir, **kwargs)
+
+        synth_dir = os.path.join(out_dir, 'synth')
+        os.makedirs(synth_dir, exist_ok=True)
+        lf0, vuv, mcep, bap = utils.detach_batched_seqs(
+            output_features['lf0'], output_features['vuv'], output_features['mcep'],
+            output_features['bap'], seq_len=features['n_frames'])
+        for _lf0, _vuv, _mcep, _bap, file_id in zip(lf0, vuv, mcep, bap, features['name']):
+            f0 = vocoder.smooth_f0(np.exp(_lf0))
+            wav = vocoder.synthesize_world_feats(f0, _vuv > 0.5, _mcep, _bap, sample_rate)
+            file_io.save_wav(wav, os.path.join(synth_dir, f'{file_id}.wav'),
+                             sample_rate=sample_rate)
 
 
 def main(argv=None):

@@ -13,13 +13,12 @@ it with::
     python -m morgana_tpu_torch.models.transformer_spss --experiment_name NAME \\
         --data_root DATA --train_id_list train/train_file_id_list.scp \\
         --valid_id_list valid/valid_file_id_list.scp --end_epoch 50 \\
-        --valid_output_interval 51 --learning_rate 0.001 [--device cpu]
+        --learning_rate 0.001 [--device cpu]
 
 ``--model_kwargs "{'num_layers': 2}"`` resizes it, ``{'causal': True}``
-selects the sliding-window causal configuration (window 256). The
-validation analysis synthesises wavs with the vocoder, which is not ported
-yet, so the builder refuses a ``--valid_output_interval`` that a trained
-epoch reaches.
+selects the sliding-window causal configuration (window 256). Its analysis
+hooks are the LSTM model's: the validation analysis and ``--test``
+synthesise wavs with the WORLD vocoder.
 """
 from morgana_tpu_torch import metrics
 from morgana_tpu_torch import nn

@@ -12,7 +12,11 @@ Both builders train each model for 2 epochs of B=4 from the same
 ``epoch_0.npz``: every per-epoch train and valid metric within 1e-3
 relative (measured on the CPU: at most 1.2e-6 for F0Model and 5.7e-6 for
 DurationModel), and DurationModel's validation analysis writes the same
-``feats/dur/*.npy``, within the same 1e-3 (measured 1.3e-6)."""
+``feats/dur/*.npy``, within the same 1e-3 (measured 1.3e-6). F0Model's
+validation analysis, run from the port's epoch_2.npz, writes the wavs that
+the JAX model's analysis writes from the same predictions, byte for byte
+(the predictions are held to JAX above; tests/test_torch_generate.py holds
+whole wavs to the JAX builder's)."""
 import json
 import os
 import sys
@@ -29,6 +33,7 @@ from morgana_tpu.serve import InferenceEngine as JEngine
 
 from morgana_tpu_torch import data as tdata
 from morgana_tpu_torch.data import device_features
+from morgana_tpu_torch.data import file_io
 from morgana_tpu_torch.device import DeviceError
 from morgana_tpu_torch.experiment_builder import ExperimentBuilder as TBuilder
 from morgana_tpu_torch.models import duration_model as tduration
@@ -159,22 +164,44 @@ def test_port_checkpoint_loads_into_the_jax_model(trained):
 
 
 def test_validation_analysis_or_its_refusal(trained):
-    """DurationModel's analysis writes feats/dur/{utt}.npy each epoch, equal
-    to the JAX builder's within 1e-3 relative, and its default validation
-    settings (--valid_output_interval 10 with --end_epoch 50) are accepted.
-    F0Model synthesises wavs there, so the default argv is refused when the
-    builder is made."""
+    """The default validation settings (--valid_output_interval 10 with
+    --end_epoch 50) are accepted by both models (F0Model's were refused
+    while the vocoder was unported). The analysis matches the JAX builder's:
+    DurationModel's feats/dur/{utt}.npy of each epoch within 1e-3 relative;
+    F0Model's synth/{utt}.wav, which validation alone writes from the port's
+    epoch_2.npz (--no-train), n_frames * 80 samples, byte for byte what the
+    JAX model's analysis writes from the port's predictions. (Whole wavs of
+    the two builders differ here by more than the vocoder's 1e-4: the two
+    models' lf0 differ within 5e-5, which moves glottal pulses by a sample
+    in this corpus's frame-by-frame random spectra; energy 6e-4 apart.)"""
     argv = _port_argv(trained['root'], str(trained['base'] / 'defaults'), trained['ckpt'],
                       '--device', 'cpu', '--end_epoch', '50')
     args = TBuilder.get_experiment_args(argv)
     assert args['valid_output_interval'] == 10
-    if trained['name'] == 'f0':
-        with pytest.raises(ValueError, match='vocoder'):
-            TBuilder(trained['port_model'], **args)
-        return
     TBuilder(trained['port_model'], **args)
     with open(os.path.join(trained['root'], 'valid', 'valid_file_id_list.scp')) as f:
         ids = f.read().split()
+    if trained['name'] == 'f0':
+        ckpt = os.path.join(trained['port'], 'checkpoints', 'epoch_2.npz')
+        base = trained['base'] / 'valid_only'
+        exp = TBuilder(trained['port_model'], **TBuilder.get_experiment_args(_port_argv(
+            trained['root'], str(base), ckpt, '--device', 'cpu', '--no-train')))
+        exp.run_experiment()
+        jmodel = trained['jax_model']()
+        for features in exp.valid_loader:
+            outputs = exp.loop.predict_step(features)
+            jmodel.analysis_for_valid_batch(features, {k: v.numpy() for k, v in outputs.items()},
+                                            str(base / 'jax_analysis'), sample_rate=16000)
+        synth = base / 'port' / 'valid' / 'epoch_2' / 'synth'
+        assert sorted(os.listdir(synth)) == sorted(f'{utt}.wav' for utt in ids)
+        for utt in ids:
+            n_frames = int(np.loadtxt(os.path.join(trained['root'], 'valid', 'n_frames',
+                                                   f'{utt}.txt')))
+            assert file_io.load_wav(str(synth / f'{utt}.wav'))[0].shape == (n_frames * 80,)
+            with open(synth / f'{utt}.wav', 'rb') as f, \
+                    open(base / 'jax_analysis' / 'synth' / f'{utt}.wav', 'rb') as g:
+                assert f.read() == g.read(), utt
+        return
     for epoch in (1, 2):
         subdir = os.path.join('valid', f'epoch_{epoch}', 'feats', 'dur')
         assert sorted(os.listdir(os.path.join(trained['port'], subdir))) == \

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels (K1, the LSTM layer forward with and
 without its gate trace, K2, its backward, K3, the GRU layer forward, K4, its
 backward, and K5/K6, attention forward and backward) against their plain
-PyTorch versions, on the GPU only (a CUDA kernel has no CPU mode): every test here is marked
+PyTorch versions, and the batched vocoder's determinism on the card, on the
+GPU only (a CUDA kernel has no CPU mode): every test here is marked
 ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed::
 
@@ -16,6 +17,8 @@ from morgana_tpu_torch.ops import attention as attention_ops
 from morgana_tpu_torch.ops import flash_attention as fa
 from morgana_tpu_torch.ops import gru as gru_ops
 from morgana_tpu_torch.ops import lstm as lstm_ops
+from morgana_tpu_torch.vocoder import torch_world
+from morgana_tpu_torch.vocoder import world
 
 pytestmark = pytest.mark.cuda
 
@@ -558,3 +561,33 @@ def test_attention_dropout_takes_the_plain_path_in_training(cuda_device):
         mha(x, seq_len=seq_len)
     torch.cuda.synchronize()
     assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1])
+
+
+def test_batched_vocoder_is_deterministic_and_matches_the_cpu(cuda_device):
+    """torch_world.synthesize_batch at B3 T96 (16 kHz, hop 80): two runs on
+    the card give the same bits (the overlap-add uses no atomics), and each
+    row agrees with the CPU run within 1e-5 relative L2 (f0 200 and 100 Hz,
+    whose phase steps are exact in float32, so the pulse trains agree)."""
+    rng = np.random.default_rng(12)
+    lens, steps, hop = (96, 72, 50), 96, 80
+    bins = np.linspace(0, 8000, 513)
+    env = (0.6 * np.exp(-0.5 * ((bins - 700) / 180.0) ** 2)
+           + 0.4 * np.exp(-0.5 * ((bins - 1800) / 260.0) ** 2) + 1e-3)
+    f0, vuv = np.zeros((2, 3, steps))
+    mcep, bap = np.zeros((3, steps, 60)), np.zeros((3, steps, 5))
+    noise = np.zeros((3, steps * hop))
+    for i, n in enumerate(lens):
+        sp = np.tile(env ** 2, (n, 1)) * (1 + 0.05 * rng.standard_normal((n, 1)))
+        f0[i, :n], vuv[i, :n] = (200.0, 100.0, 200.0)[i], 1.0
+        mcep[i, :n] = world.spectrum_to_mcep(sp, order=59, fs=16000)
+        bap[i, :n] = -8.0 + 0.3 * rng.standard_normal((n, 5))
+        noise[i, :n * hop] = rng.standard_normal(n * hop)
+    vuv[2, 20:35] = 0.0
+    args = (f0, vuv, mcep, bap, np.array(lens), 16000)
+    runs = [torch_world.synthesize_batch(*args, noise=noise, device=cuda_device)[0].cpu()
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    cpu = torch_world.synthesize_batch(*args, noise=noise, device='cpu')[0]
+    for i in range(3):
+        rel = float((runs[0][i] - cpu[i]).norm() / cpu[i].norm())
+        assert rel < 1e-5, (i, rel)

@@ -206,6 +206,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     anything of morgana_tpu (the port keeps its own copies)."""
     files = _port_files()
     assert len(files) > 10
+    assert {'world.py', 'torch_world.py', 'analysis.py'} <= {
+        os.path.basename(p) for p in files if os.sep + 'vocoder' + os.sep in p}
     offenders = []
     for path in files:
         with open(path) as f:

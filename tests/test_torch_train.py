@@ -161,8 +161,9 @@ def test_flags_and_settings_the_port_lacks_are_errors(trained):
     args = TBuilder.get_experiment_args(argv)
     with pytest.raises(TypeError, match='remat'):
         TBuilder(TModel, remat=True, **args)
-    with pytest.raises(NotImplementedError, match='vocoder'):
-        TBuilder(TModel, **dict(args, test=True))
+    # --test is ported: with --test_id_list it builds the test loader.
+    exp = TBuilder(TModel, **dict(args, test=True, test_id_list='test/test_file_id_list.scp'))
+    assert len(exp.test_loader) == 1
 
 
 @pytest.mark.parametrize('flags', [['--end_epoch', '50'], ['--no-train'],
@@ -170,15 +171,28 @@ def test_flags_and_settings_the_port_lacks_are_errors(trained):
                                     '--valid_output_interval', '11']],
                          ids=['default_intervals', 'valid_only', 'interval_reached'])
 def test_unported_valid_analysis_is_refused_at_construction(trained, flags):
-    """Settings that would run the vocoder's validation analysis (the
+    """The settings that were refused while the vocoder was unported (the
     default --end_epoch 50 with the default --valid_output_interval 10,
-    validation alone, an interval that a trained epoch reaches) fail when
-    the builder is made, not after the training they follow."""
-    argv = _port_argv(trained['root'], str(trained['base'] / 'refused'), trained['ckpt'],
-                      '--device', 'cpu')
-    args = TBuilder.get_experiment_args(argv + flags)
-    with pytest.raises(ValueError, match='vocoder'):
-        TBuilder(TModel, **args)
+    validation alone, an interval that a trained epoch reaches) are
+    accepted, and the validation analysis they reach writes one wav per
+    valid utterance to valid/epoch_N/synth/: at epoch 10 of the defaults
+    (its validation run alone), at epoch 0 of the checkpoint, and at epoch
+    11 of a 2-epoch run."""
+    base = trained['base'] / 'accepted' / flags[0].strip('-')
+    argv = _port_argv(trained['root'], str(base), trained['ckpt'], '--device', 'cpu')
+    exp = TBuilder(TModel, **TBuilder.get_experiment_args(argv + flags))
+    if flags == ['--end_epoch', '50']:
+        assert exp.valid_output_interval == 10
+        exp.epoch = 10
+        exp.run_valid(gen_output=True)
+        epoch = 10
+    else:
+        exp.run_experiment()
+        epoch = 0 if '--no-train' in flags else 11
+    with open(os.path.join(trained['root'], 'valid', 'valid_file_id_list.scp')) as f:
+        ids = f.read().split()
+    synth = base / 'port' / 'valid' / f'epoch_{epoch}' / 'synth'
+    assert sorted(os.listdir(synth)) == sorted(f'{utt}.wav' for utt in ids)
 
 
 def _small_builder(trained, name, *flags):
