@@ -43,7 +43,29 @@ code and without the final line:
    InferenceEngine.generate (32 wavs, 8 K1 launches a batch, one wav against
    the CPU engine's); utt/s, frames/s, audio seconds/s and the split of the
    seconds (load, predict, D2H, vocoder, writes); then the serving command
-   line once.
+   line once. pipeline_lstm: speech from the 32 utterances' labels,
+   TTSPipeline with a seeded full-width DurationModel (600 -> 128 ->
+   GRU(128) -> 1, about 8 frames a phone) before the same
+   LSTMAcousticModel, B16, with the host vocoder and then with
+   device_vocoder=True (one torch_world.synthesize_batch on the card): 1 K3
+   and 8 K1 launches a batch, 32 wavs each time, durations and features
+   against the CPU pipeline, the device vocoder bit-identical when called
+   again and against the CPU on its inputs; utt/s, frames/s, audio
+   seconds/s and the split (duration stage, acoustic stage, vocoder,
+   writes) of both routes; then the pipeline's command line with
+   --device_vocoder and --evaluate_against. stream_lstm:
+   TTSPipeline.stream_audio on the 4 utterances with the most phones at
+   (chunk 64, context 32, lookahead 16): 1 K3 launch, then 8 K1 launches a
+   chunk with the carried state; every chunk's network outputs and the
+   streamed features against the same card engine's batch predict, one
+   utterance against the CPU stream, one K1 chunk (B1, T64, with state)
+   against its plain version (k1_stream_chunk); time to the first audio,
+   ms a chunk (model, MLPG, vocoder), real-time factor.
+   stream_transformer: the causal TransformerAcousticModel (window 256) at
+   its default widths: the 4 longest utterances in one batch (6 attention
+   launches) and streamed through the KV caches (no kernel launch): the
+   network outputs against the batch, one utterance against the CPU
+   stream; ms a chunk and frames/s.
 6. train: the same model trained at full width by the port's
    ExperimentBuilder with the JAX package's defaults (B=32, Adam, lr 0.01,
    constant schedule) for 2 epochs with validation, on a synthetic corpus of
@@ -134,6 +156,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -209,6 +232,21 @@ NATIVE_RTOL = 2e-3
 # row one sample apart at T = 1000, energy 1.5e-4-1.9e-4 apart (first chip
 # run of this script's vocoder phases, H100; the same on the CPU).
 VOWEL_F0 = 103.7
+# The two-stage pipeline and the stream (pipeline_lstm, stream_lstm,
+# stream_transformer). DurationModel's dur statistics put about 8 frames on
+# a phone, as make_items' durations do. The stream runs at the serving
+# configuration (chunk, context, lookahead) on the STREAM_UTTS longest
+# utterances; its smoothed trajectories within JAX's own streamed-against-
+# batch atol of the same engine's batch predict (tests/test_streaming.py:493;
+# the LSTM stays within 1.5e-6 of it on the CPU at full width, its seeded
+# outputs being smooth).
+PIPELINE_DUR_STATS = {'mean': [8.0], 'std_dev': [2.0]}
+PIPELINE_DUR_SEED = 44
+STREAM_CONFIG = (64, 32, 16)
+STREAM_UTTS = 4
+STREAM_TRAJ_ATOL = {'lf0': 1e-4, 'mcep': 1e-3, 'bap': 1e-3}
+# A stream's network outputs, held to the batch predict's within NET_TOL.
+NET_OUTPUTS = ('normalised_lf0_deltas', 'normalised_mcep_deltas', 'normalised_bap_deltas', 'vuv')
 # The acoustic models' served outputs and their widths.
 ACOUSTIC_DIMS = {'normalised_lf0_deltas': 3, 'normalised_mcep_deltas': 180,
                  'normalised_bap_deltas': 15, 'lf0': 1, 'vuv': 1, 'mcep': 60, 'bap': 5}
@@ -1333,12 +1371,12 @@ def _serving_phase(torch, root, phase, store):
                                      'outputs': outputs}
 
 
-def seeded_checkpoint(torch, model_class, path, seed):
-    """A full-width model with weights from `seed`, saved as the JAX
-    package's epoch_0.npz."""
+def seeded_checkpoint(torch, model_class, path, seed, **kwargs):
+    """A full-width model (with `kwargs`) with weights from `seed`, saved as
+    the JAX package's epoch_0.npz."""
     from morgana_tpu_torch import checkpointing, nn
 
-    model = model_class(generator=torch.Generator().manual_seed(seed))
+    model = model_class(generator=torch.Generator().manual_seed(seed), **kwargs)
     return checkpointing.save_state_dict(nn.state_dict(model), path)
 
 
@@ -2080,25 +2118,35 @@ def write_items(root, split, items, sources):
 
 
 @contextlib.contextmanager
-def timed_wav_writes():
-    """Sums the seconds spent in file_io.save_wav, which the analysis hooks
-    call, into the yielded dict's 'seconds'."""
-    from morgana_tpu_torch.data import file_io
+def timed_calls(torch, owner, names, sync=False):
+    """Sums the seconds and counts the calls of `owner`'s methods `names`
+    (an instance's, or a class's for all its instances) into the yielded
+    {name: [seconds, calls]}; with `sync` each call ends with
+    torch.cuda.synchronize(), so that its device work is in its time."""
+    spent = {name: [0.0, 0] for name in names}
+    originals = {name: owner.__dict__.get(name) for name in names}
 
-    spent = {'seconds': 0.0, 'files': 0}
-    save_wav = file_io.save_wav
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            spent[name][0] += time.perf_counter() - t0
+            spent[name][1] += 1
+            return out
+        return timed
 
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        save_wav(*args, **kwargs)
-        spent['seconds'] += time.perf_counter() - t0
-        spent['files'] += 1
-
-    file_io.save_wav = timed
+    for name in names:
+        setattr(owner, name, wrap(name, getattr(owner, name)))
     try:
         yield spent
     finally:
-        file_io.save_wav = save_wav
+        for name, original in originals.items():
+            if original is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, original)
 
 
 def check_wavs(label, synth_dir, lengths):
@@ -2126,6 +2174,7 @@ def generate_lstm_phase(torch, served, smi):
     within VOICED_RATIO_TOL); throughput and where the seconds went. Then
     the serving command line once on the same checkpoint. Returns K1's
     launches."""
+    from morgana_tpu_torch.data import file_io
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
     from morgana_tpu_torch.ops import lstm as lstm_ops
     from morgana_tpu_torch.serve import InferenceEngine
@@ -2137,7 +2186,7 @@ def generate_lstm_phase(torch, served, smi):
     out_dir = os.path.join(root, 'generated')
     torch.cuda.synchronize()
     lstm_ops.launches = 0
-    with timed_wav_writes() as writes:
+    with timed_calls(torch, file_io, ('save_wav',)) as writes:
         stats = engine.generate(out_dir, data_dir='generate', id_list=id_list)
     launches = lstm_ops.launches
     n_batches = -(-N_UTTS // SERVE_BATCH)
@@ -2171,15 +2220,15 @@ def generate_lstm_phase(torch, served, smi):
     check_wavs('generate_lstm cli', os.path.join(cli_dir, 'synth'), lengths)
 
     split = dict(stats['split_seconds'])
-    split['vocoder'] = split['analysis'] - writes['seconds']
-    split['writes'] = writes['seconds']
+    split['vocoder'] = split['analysis'] - writes['save_wav'][0]
+    split['writes'] = writes['save_wav'][0]
     seconds = stats['seconds']
     emit({'phase': 'generate_lstm', 'card': smi, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
           'utterances': stats['utterances'], 'frames': stats['frames'], 'batch_size': SERVE_BATCH,
           'batches': n_batches, 'seconds': seconds, 'utterances_per_s': N_UTTS / seconds,
           'frames_per_s': stats['frames'] / seconds,
           'audio_seconds_per_s': stats['frames'] * HOP / FS / seconds,
-          'split_seconds': split, 'wav_files': writes['files'],
+          'split_seconds': split, 'wav_files': writes['save_wav'][1],
           'host': "predict's MLPG, the vocoder and the writes run on the card machine's CPU",
           'k1_launches': launches, 'k1_launches_expected': 8 * n_batches,
           'cpu_engine_check': {'utterance': shortest, **vs_cpu,
@@ -2229,7 +2278,7 @@ def builder_test_phase(torch, root, smi):
     torch.cuda.synchronize()
     lstm_ops.launches = 0
     start = time.perf_counter()
-    with timed_wav_writes() as writes:
+    with timed_calls(torch, file_io, ('save_wav',)) as writes:
         exp.run_experiment()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - start
@@ -2245,9 +2294,501 @@ def builder_test_phase(torch, root, smi):
         raise AssertionError('builder_test: test/epoch_2/metrics.json was not written')
     emit({'phase': 'builder_test', 'card': smi, 'checkpoint': 'train/checkpoints/epoch_2.npz',
           'utterances': len(ids), 'batches': batches, 'run_seconds': run_s,
-          'wav_write_seconds': writes['seconds'], 'k1_launches': launches,
+          'wav_write_seconds': writes['save_wav'][0], 'k1_launches': launches,
           'k1_launches_expected': 8 * batches})
     return launches
+
+
+# ------------------------------------------------ the pipeline and the stream
+
+@contextlib.contextmanager
+def vocoder_batches():
+    """Records each torch_world.synthesize_batch call of the pipeline: its
+    inputs as host arrays and its waves."""
+    from morgana_tpu_torch.vocoder import torch_world
+
+    calls = []
+    real = torch_world.synthesize_batch
+
+    def record(f0, vuv, mcep, bap, seq_len, sample_rate, **kwargs):
+        waves, lens = real(f0, vuv, mcep, bap, seq_len, sample_rate, **kwargs)
+        calls.append({'inputs': [np.array(a) for a in (f0, vuv, mcep, bap, seq_len)],
+                      'device': str(kwargs.get('device')), 'waves': waves.cpu()})
+        return waves, lens
+
+    torch_world.synthesize_batch = record
+    try:
+        yield calls
+    finally:
+        torch_world.synthesize_batch = real
+
+
+def pipeline_engines(torch, served, device=None):
+    """The two engines of the pipeline on the serving phase's root: a seeded
+    full-width DurationModel (600 -> 128 -> GRU(128) -> 1) and the serving
+    phase's LSTMAcousticModel checkpoint, B=16, both reading the serving
+    statistics with dur's set to PIPELINE_DUR_STATS (about 8 frames a
+    phone) from root/pipeline_norm. Returns (duration engine, acoustic
+    engine, the duration checkpoint, the normalisation dir)."""
+    from morgana_tpu_torch.models.duration_model import DurationModel
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    root, norm = served['root'], 'pipeline_norm'
+    norm_dir = os.path.join(root, norm)
+    dur_ckpt = os.path.join(norm_dir, 'duration_epoch_0.npz')
+    if not os.path.exists(dur_ckpt):
+        shutil.copytree(os.path.join(root, 'train'), norm_dir)
+        with open(os.path.join(norm_dir, 'dur_mvn.json'), 'w') as f:
+            json.dump(PIPELINE_DUR_STATS, f)
+        seeded_checkpoint(torch, DurationModel, dur_ckpt, PIPELINE_DUR_SEED)
+    common = dict(data_root=root, normalisation_dir=norm, batch_size=SERVE_BATCH, device=device)
+    return (InferenceEngine(DurationModel, dur_ckpt, **common),
+            InferenceEngine(LSTMAcousticModel, served['ckpt'], **common), dur_ckpt, norm)
+
+
+def label_items(items):
+    """What the pipeline reads of an utterance: its name and phone labels."""
+    return [{'name': item['name'], 'lab': item['lab']} for item in items]
+
+
+def float_durations(engine, items):
+    """The duration engine's float predictions of `items`, cut to each
+    utterance's phones."""
+    from morgana_tpu_torch.pipeline import TTSPipeline
+
+    built = [{'name': it['name'], 'lab': it['lab'],
+              'n_phones': np.asarray([[float(it['lab'].shape[0])]], np.float32)} for it in items]
+    sources = {k: v for k, v in engine.model.test_data_sources().items()
+               if k in TTSPipeline.DURATION_INPUTS}
+    out = engine.predict_items(built, sources=sources)
+    return {it['name']: np.asarray(out[it['name']]['dur']).reshape(-1)[:it['lab'].shape[0]]
+            for it in items}
+
+
+def hold_features(label, got, want, keys):
+    """Each of `keys` of the {name: outputs} `got` against `want`: network
+    outputs (normalised deltas, vuv) within NET_TOL abs, trajectories within
+    TRAJ_RTOL of max(1, max |want|). Returns the worst error by key."""
+    errs = {}
+    for key in keys:
+        net = key.startswith('normalised') or key == 'vuv'
+        worst = 0.0
+        for name in want:
+            a, b = np.asarray(got[name][key]), np.asarray(want[name][key])
+            if a.shape != b.shape:
+                raise AssertionError(f'{label} {name} {key}: shape {a.shape} vs {b.shape}')
+            err = float(np.abs(a - b).max()) if a.size else 0.0
+            worst = max(worst, err if net else err / max(1.0, float(np.abs(b).max())))
+        errs[key] = worst
+        if worst > (NET_TOL if net else TRAJ_RTOL):
+            raise AssertionError(f'{label} {key}: {worst} beyond tolerance')
+    return errs
+
+
+def pipeline_lstm_phase(torch, dev, served, smi):
+    """TTSPipeline on the card over the 32 smoke utterances' labels at B16:
+    the seeded DurationModel (K3) chained into the serving phase's
+    LSTMAcousticModel (K1), once with the host vocoder and once with
+    device_vocoder=True. Checks 1 K3 launch per duration batch and 8 K1
+    launches per acoustic batch, 32 wavs of n_frames * 80 samples each
+    time, the integer durations and the features of the 4 shortest
+    utterances against the same pipeline on the CPU, the device route's one
+    synthesize_batch call on the card, bit-identical when called again on
+    its inputs, and each row against the same call on the CPU (the card
+    generator's noise given to both; as vocoder_batch holds them). Records
+    utt/s, frames/s, seconds of audio a second and the split of the
+    seconds (duration stage, acoustic stage, vocoder, writes, the rest)
+    for each route, and the device vocoder's card ms. Then the pipeline's
+    command line once, with --device_vocoder and --evaluate_against.
+    Returns the launches {'k1', 'k3'} of both runs."""
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.pipeline import TTSPipeline
+    from morgana_tpu_torch.vocoder import torch_world
+
+    root = served['root']
+    items = label_items(served['items'])
+    dur_engine, ac_engine, dur_ckpt, norm = pipeline_engines(torch, served)
+    # Warm-up: the host vocoder's native library, and the device route at
+    # the timed shapes (cuFFT plans are made per size).
+    TTSPipeline(dur_engine, ac_engine).synthesize_items(items[1:2])
+    TTSPipeline(dur_engine, ac_engine, device_vocoder=True).synthesize_items(items)
+    n_batches = -(-N_UTTS // SERVE_BATCH)
+    launches = {'k1': 0, 'k3': 0}
+    runs, results = {}, {}
+    for route in ('host', 'device'):
+        pipe = TTSPipeline(dur_engine, ac_engine, device_vocoder=route == 'device')
+        out_dir = os.path.join(root, f'pipeline_{route}')
+        with timed_calls(torch, pipe, ('predict_durations', '_synthesize_wav',
+                                       '_synthesize_wavs_device', '_dump_outputs')) as split, \
+                timed_calls(torch, ac_engine, ('predict_items',)) as acoustic, \
+                vocoder_batches() as calls:
+            torch.cuda.synchronize()
+            gru_ops.launches = lstm_ops.launches = 0
+            start = time.perf_counter()
+            results[route] = pipe.synthesize_items(items, out_dir=out_dir)
+            seconds = time.perf_counter() - start
+        k1, k3 = lstm_ops.launches, gru_ops.launches
+        launches['k1'] += k1
+        launches['k3'] += k3
+        if k1 != 8 * n_batches or k3 != n_batches:
+            raise AssertionError(f'pipeline_lstm {route}: K1 launched {k1} times, K3 {k3} times '
+                                 f'for {n_batches} batches (expected {8 * n_batches}, '
+                                 f'{n_batches})')
+        lengths = {name: out['n_frames'] for name, out in results[route].items()}
+        check_wavs(f'pipeline_lstm {route}', os.path.join(out_dir, 'synth'), lengths)
+        if len(calls) != (route == 'device') or (calls and calls[0]['device'] != str(dev)):
+            raise AssertionError(f'pipeline_lstm {route}: synthesize_batch calls {calls}')
+        frames = sum(lengths.values())
+        vocoder_s = split['_synthesize_wav'][0] + split['_synthesize_wavs_device'][0]
+        parts = {'duration_stage': split['predict_durations'][0],
+                 'acoustic_stage': acoustic['predict_items'][0],
+                 'vocoder': vocoder_s, 'writes': split['_dump_outputs'][0]}
+        parts['other'] = seconds - sum(parts.values())
+        runs[route] = {'seconds': seconds, 'utterances_per_s': N_UTTS / seconds,
+                       'frames': frames, 'frames_per_s': frames / seconds,
+                       'audio_seconds_per_s': frames * HOP / FS / seconds,
+                       'split_seconds': parts, 'k1_launches': k1, 'k3_launches': k3}
+        if calls:
+            device_call = calls[0]
+    for name, out in results['host'].items():
+        if not np.array_equal(out['dur'], results['device'][name]['dur']):
+            raise AssertionError(f'pipeline_lstm {name}: the two routes predicted other durations')
+
+    # The device route's call again on its inputs (the card generator's
+    # noise, as the default draws it): the same bits; then on the CPU.
+    f0, vuv, mcep, bap, seq_len = device_call['inputs']
+    batch, num_frames = f0.shape
+    noise = torch.randn((batch, num_frames * HOP), generator=torch.Generator(device=dev)
+                        .manual_seed(0), device=dev)
+    args = [torch.from_numpy(a).to(dev) for a in (f0, vuv, mcep, bap, seq_len)]
+    again = torch_world.synthesize_batch(*args, FS, noise=noise)[0].cpu()
+    if not torch.equal(again, device_call['waves']):
+        raise AssertionError('pipeline_lstm: two card runs of the device vocoder differ')
+    cpu = torch_world.synthesize_batch(f0, vuv, mcep, bap, seq_len, FS, noise=noise.cpu(),
+                                       device='cpu')[0]
+    mask = np.arange(num_frames)[None, :] < seq_len[:, None]
+    voiced_f0 = np.where(vuv > 0.5, f0, 0.0) * mask
+    trains = [(torch_world.pulse_train(torch.from_numpy(voiced_f0.astype(np.float32)).to(d),
+                                       FS, HOP) != 0).cpu() for d in (dev, 'cpu')]
+    vs_cpu = [hold_wave(f'pipeline_lstm device vocoder row {i} vs CPU', again[i], cpu[i],
+                        torch.equal(trains[0][i], trains[1][i]), VOCODER_RTOL)
+              for i in range(batch)]
+    card_ms = cuda_ms(torch, lambda: torch_world.synthesize_batch(*args, FS, noise=noise), reps=3)
+
+    # The 4 shortest utterances through the same pipeline on the CPU.
+    few = sorted(items, key=lambda it: it['lab'].shape[0])[:4]
+    cpu_dur, cpu_ac, _, _ = pipeline_engines(torch, served, device='cpu')
+    cpu_out = TTSPipeline(cpu_dur, cpu_ac).synthesize_items(few)
+    floats = float_durations(cpu_dur, few)
+    tie = min(float(np.abs(np.abs(f - np.floor(f)) - 0.5).min()) for f in floats.values())
+    for it in few:
+        if not np.array_equal(results['host'][it['name']]['dur'], cpu_out[it['name']]['dur']):
+            raise AssertionError(f"pipeline_lstm {it['name']}: durations differ from the CPU's "
+                                 f'(nearest CPU float to a .5 boundary: {tie})')
+    errs = hold_features('pipeline_lstm vs CPU', results['host'], cpu_out, ACOUSTIC_DIMS)
+
+    # The command line once: labels -> wavs on the card, scored against the
+    # corpus split it read.
+    write_items(root, 'pipeline', served['items'], ac_engine.model.test_data_sources())
+    cli_dir = os.path.join(root, 'pipeline_cli')
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'morgana_tpu_torch.pipeline', '--duration_model',
+         'morgana_tpu_torch.models.duration_model:DurationModel', '--duration_checkpoint',
+         dur_ckpt, '--acoustic_model', 'morgana_tpu_torch.models.rnn_spss:LSTMAcousticModel',
+         '--acoustic_checkpoint', served['ckpt'], '--data_root', root, '--normalisation_dir',
+         norm, '--data_dir', 'pipeline', '--out_dir', cli_dir, '--batch_size', str(SERVE_BATCH),
+         '--device_vocoder', '--evaluate_against', os.path.join(root, 'pipeline')],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f'pipeline_lstm: the pipeline CLI exited {proc.returncode}\n'
+                             f'{proc.stderr[-4000:]}')
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    if cli['utterances'] != N_UTTS or cli['wavs'] != N_UTTS or 'evaluation' not in cli:
+        raise AssertionError(f'pipeline_lstm: the pipeline CLI printed {cli}')
+    check_wavs('pipeline_lstm cli', os.path.join(cli_dir, 'synth'),
+               {name: out['n_frames'] for name, out in results['device'].items()})
+
+    emit({'phase': 'pipeline_lstm', 'card': smi,
+          'models': 'DurationModel 600-GRU(128)-1 -> LSTMAcousticModel 609-8xLSTM(512)-199',
+          'utterances': N_UTTS, 'batch_size': SERVE_BATCH, 'batches': n_batches,
+          'phones': int(sum(it['lab'].shape[0] for it in items)),
+          'dur_stats': PIPELINE_DUR_STATS, 'host_vocoder': runs['host'],
+          'device_vocoder': dict(runs['device'], card_ms=card_ms, B=batch, T=num_frames,
+                                 card_runs_bit_identical=True,
+                                 max_vs_cpu={k: max(abs(a[k]) for a in vs_cpu)
+                                             for k in vs_cpu[0]}),
+          'host': "the vocoder's host route, MLPG, the writes and the pipeline's glue run on "
+                  "the card machine's CPU",
+          'cpu_check': {'utterances': [it['name'] for it in few], 'durations_equal': True,
+                        'nearest_cpu_duration_to_a_tie': tie, 'max_err': errs,
+                        'net_tol': NET_TOL, 'traj_rtol': TRAJ_RTOL},
+          'cli': {'seconds': cli_s, 'seconds_inside': cli['seconds'],
+                  'frames_per_sec_inside': cli['frames_per_sec'],
+                  'evaluation': cli['evaluation']}})
+    return launches
+
+
+def stream_chunk_case(torch, dev, seed):
+    """K1 as a streamed chunk runs it, through lstm_layer: B=1, T =
+    STREAM_CONFIG's chunk, H=512, an initial state (the previous chunk's),
+    no seq_len; against the plain layer within KERNEL_TOL, and timed beside
+    its plain version, the layer and cuDNN, with its bound."""
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    steps = STREAM_CONFIG[0]
+    x, (w_ih, w_hh, b_ih, b_hh), _, h0, c0 = layer_inputs(torch, dev, 1, steps, True, seed)
+    cudnn = cudnn_layer(torch, dev, w_ih, w_hh, b_ih, b_hh)
+    with torch.inference_mode():
+        before = lstm_ops.launches
+        y_k, (hn_k, cn_k) = lstm_ops.lstm_layer(x, w_ih, w_hh, b_ih, b_hh, h0=h0, c0=c0)
+        torch.cuda.synchronize()
+        launched = lstm_ops.launches - before
+        y_p, (hn_p, cn_p) = lstm_ops.lstm_layer_reference(x, w_ih, w_hh, b_ih, b_hh, h0=h0, c0=c0)
+        err = max(max_abs(a - b) for a, b in ((y_k, y_p), (hn_k, hn_p), (cn_k, cn_p)))
+        xg = (torch.matmul(x, w_ih) + (b_ih + b_hh)).transpose(0, 1).contiguous()
+        hx = (h0[None].contiguous(), c0[None].contiguous())
+        out = {'phase': 'k1_stream_chunk', 'B': 1, 'T': steps, 'H': H, 'initial_state': True,
+               'max_abs_err_vs_plain': err, 'tolerance': KERNEL_TOL, 'launches': launched,
+               'kernel_ms': cuda_ms(torch, lambda: lstm_ops.lstm_recurrence(xg, w_hh, h0, c0), 20),
+               'plain_ms': cuda_ms(torch, lambda: lstm_ops.lstm_recurrence_reference(
+                   xg, w_hh, h0, c0), 3),
+               'layer_ms': cuda_ms(torch, lambda: lstm_ops.lstm_layer(
+                   x, w_ih, w_hh, b_ih, b_hh, h0=h0, c0=c0), 20),
+               'library_ms': cuda_ms(torch, lambda: cudnn(x, hx), 20)}
+    out['bound_ms'], out['bound_by'] = k1_bound(1, steps, H)
+    out['us_per_step'] = out['kernel_ms'] * 1e3 / steps
+    emit(out)
+    if err > KERNEL_TOL or launched != 1:
+        raise AssertionError(f'K1 disagrees on a streamed chunk: {out}')
+    return out
+
+
+@contextlib.contextmanager
+def stream_timers(torch, model, keys):
+    """Times a stream's parts: the model's stream_step (synchronised, so
+    its device work is in its time; the host copy that follows is then
+    nearly free), the StreamingMLPG solves and the StreamingSynthesizer
+    pushes; and keeps the `keys` outputs of every chunk (on the device).
+    Yields {'outputs': [{key: (C, D)}], part: {method: [seconds, calls]}}
+    for the parts 'model', 'mlpg' and 'vocoder'."""
+    from morgana_tpu_torch.streaming import StreamingMLPG
+    from morgana_tpu_torch.vocoder import StreamingSynthesizer
+
+    kept = []
+    step = model.stream_step
+
+    def keep(chunk, state):
+        outputs, state = step(chunk, state)
+        kept.append({key: outputs[key][0] for key in keys})
+        return outputs, state
+
+    model.stream_step = keep
+    try:
+        with timed_calls(torch, model, ('stream_step',), sync=True) as model_s, \
+                timed_calls(torch, StreamingMLPG, ('push', 'flush')) as mlpg_s, \
+                timed_calls(torch, StreamingSynthesizer, ('push_world_feats', 'flush')) as voc_s:
+            yield {'outputs': kept, 'model': model_s, 'mlpg': mlpg_s, 'vocoder': voc_s}
+    finally:
+        del model.stream_step
+
+
+def chunk_ms(rec, chunks, parts=('model', 'mlpg', 'vocoder')):
+    """Mean ms a chunk of each part that stream_timers timed."""
+    return {part: sum(t[0] for t in rec[part].values()) / chunks * 1e3 for part in parts}
+
+
+def streamed(torch, chunks, n_frames, keys):
+    """The kept stream_step outputs of a stream, concatenated and cut at
+    n_frames, as host arrays."""
+    return {key: torch.cat([c[key] for c in chunks])[:n_frames].cpu().numpy() for key in keys}
+
+
+def stream_lstm_phase(torch, dev, served, smi):
+    """TTSPipeline.stream_audio on the card for the STREAM_UTTS utterances
+    with the most phones, at STREAM_CONFIG: labels -> durations (1 K3
+    launch) -> 8 K1 launches a chunk, each with the previous chunk's state
+    -> the streamed MLPG and vocoder on the host. Checks the launches, the
+    audio length (n_frames * 80), the network outputs of every chunk
+    against the same card engine's batch predict of the utterance within
+    NET_TOL, the streamed features against it within STREAM_TRAJ_ATOL
+    (vuv NET_TOL), and the shortest of them streamed on the CPU (features
+    within NET_TOL / TRAJ_RTOL of the card's stream); then one K1 chunk
+    against its plain version (stream_chunk_case). Records the time to the
+    first audio, ms a chunk split into model, MLPG and vocoder, and the
+    real-time factor. Returns K1's and K3's launches."""
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.pipeline import TTSPipeline
+
+    chunk_frames = STREAM_CONFIG[0]
+    items = label_items(served['items'])
+    longest = sorted(items, key=lambda it: -it['lab'].shape[0])[:STREAM_UTTS]
+    dur_engine, ac_engine, _, _ = pipeline_engines(torch, served)
+    pipe = TTSPipeline(dur_engine, ac_engine)
+    sources = pipe._stage_sources(ac_engine, pipe.ACOUSTIC_INPUTS)
+    list(pipe.stream_audio(items[1], *STREAM_CONFIG)[1])      # warm-up
+    launches = {'k1': 0, 'k3': 0}
+    per_utt, built, streams = [], {}, {}
+    for item in longest:
+        name = item['name']
+        with stream_timers(torch, ac_engine.model, NET_OUTPUTS) as rec:
+            torch.cuda.synchronize()
+            gru_ops.launches = lstm_ops.launches = 0
+            start = time.perf_counter()
+            dur, gen = pipe.stream_audio(item, *STREAM_CONFIG)
+            durations_s = time.perf_counter() - start
+            first, pairs = None, []
+            for feats, wav in gen:
+                if first is None and wav.shape[0]:
+                    first = time.perf_counter() - start
+                pairs.append((feats, wav))
+            seconds = time.perf_counter() - start
+        n_frames = int(dur.sum())
+        chunks = -(-n_frames // chunk_frames)
+        k1, k3 = lstm_ops.launches, gru_ops.launches
+        launches['k1'] += k1
+        launches['k3'] += k3
+        if k1 != 8 * chunks or k3 != 1:
+            raise AssertionError(f'stream_lstm {name}: K1 launched {k1} times for {chunks} '
+                                 f'chunks, K3 {k3} times')
+        audio = np.concatenate([w for _, w in pairs])
+        if audio.shape != (n_frames * HOP,) or not np.isfinite(audio).all():
+            raise AssertionError(f'stream_lstm {name}: audio {audio.shape}, expected '
+                                 f'({n_frames * HOP},)')
+        streams[name] = {k: np.concatenate([c[k] for c, _ in pairs if c])
+                         for k in ('lf0', 'vuv', 'mcep', 'bap')}
+        streams[name].update(streamed(torch, rec['outputs'], n_frames, NET_OUTPUTS))
+        built[name] = pipe._acoustic_item(name, item['lab'], dur)
+        per_utt.append({'utterance': name, 'frames': n_frames, 'chunks': chunks,
+                        'audio_seconds': n_frames * HOP / FS, 'seconds': seconds,
+                        'durations_ms': durations_s * 1e3,
+                        'time_to_first_audio_ms': first * 1e3,
+                        'ms_per_chunk': chunk_ms(rec, chunks),
+                        'real_time_factor': n_frames * HOP / FS / seconds,
+                        'k1_launches': k1, 'k3_launches': k3})
+    batch = ac_engine.predict_items(list(built.values()), sources=sources)
+    errs = hold_features('stream_lstm network vs batch', streams, batch, NET_OUTPUTS)
+    vs_batch = {key: max(float(np.abs(streams[n][key] - batch[n][key]).max()) for n in streams)
+                for key in STREAM_TRAJ_ATOL}
+    if any(vs_batch[key] > atol for key, atol in STREAM_TRAJ_ATOL.items()):
+        raise AssertionError(f'stream_lstm: streamed trajectories vs batch {vs_batch} beyond '
+                             f'{STREAM_TRAJ_ATOL}')
+
+    shortest = min(built, key=lambda n: built[n]['counters'].shape[0])
+    _, cpu_ac, _, _ = pipeline_engines(torch, served, device='cpu')
+    cpu_stream = {shortest: {k: np.concatenate([c[k] for c in cpu_ac.stream_item(
+        built[shortest], *STREAM_CONFIG, sources=sources)]) for k in ('lf0', 'vuv', 'mcep', 'bap')}}
+    vs_cpu = hold_features('stream_lstm vs CPU stream', streams, cpu_stream,
+                           ('lf0', 'vuv', 'mcep', 'bap'))
+    chunk_case = stream_chunk_case(torch, dev, 92)
+
+    def mean(key):
+        return float(np.mean([u[key] for u in per_utt]))
+    emit({'phase': 'stream_lstm', 'card': smi,
+          'models': 'DurationModel 600-GRU(128)-1 -> LSTMAcousticModel 609-8xLSTM(512)-199',
+          'config': dict(zip(('chunk_frames', 'context', 'lookahead'), STREAM_CONFIG)),
+          'utterances': per_utt, 'time_to_first_audio_ms': mean('time_to_first_audio_ms'),
+          'ms_per_chunk': {part: float(np.mean([u['ms_per_chunk'][part] for u in per_utt]))
+                           for part in per_utt[0]['ms_per_chunk']},
+          'real_time_factor': sum(u['audio_seconds'] for u in per_utt)
+          / sum(u['seconds'] for u in per_utt),
+          'host': "the streamed MLPG and the vocoder run on the card machine's CPU",
+          'network_vs_batch': errs, 'trajectories_vs_batch': vs_batch,
+          'trajectory_atol_vs_batch': STREAM_TRAJ_ATOL, 'cpu_stream_check': {
+              'utterance': shortest, **vs_cpu}, 'k1_chunk_kernel_ms': chunk_case['kernel_ms'],
+          'k1_chunk_bound_ms': chunk_case['bound_ms']})
+    return launches
+
+
+def stream_transformer_phase(torch, dev, served, smi):
+    """The causal TransformerAcousticModel at its default widths (window 256)
+    with seeded weights, on the serving phase's statistics: the
+    STREAM_UTTS longest utterances predicted in one batch (6 launches of
+    the attention kernel, causal with the window) and streamed at
+    STREAM_CONFIG through the KV caches (the plain attention step, no
+    kernel launch, as in JAX). Checks the network outputs of every chunk
+    against the batch within NET_TOL, and the shortest of them streamed on
+    the CPU (within NET_TOL / TRAJ_RTOL). The streamed trajectories'
+    distance from the batch's is recorded, not held: with these random
+    weights the outputs are rough enough that a window of 32 + 64 + 16
+    frames strays from the whole-utterance solve. So that distance is also
+    taken on the CPU for the shortest utterance, streamed and predicted
+    whole there, beside the card's for the same utterance: equal gaps put
+    it on the window solve, not on the card. Records ms a chunk (model,
+    MLPG) and frames/s. Returns the attention forward's launches."""
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
+    from morgana_tpu_torch.ops import flash_attention as fa
+    from morgana_tpu_torch.pipeline import TTSPipeline
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    root = served['root']
+    kwargs = {'causal': True}
+    ckpt = seeded_checkpoint(torch, TransformerAcousticModel,
+                             os.path.join(root, 'causal_transformer', 'epoch_0.npz'), 45, **kwargs)
+    engine = InferenceEngine(TransformerAcousticModel, ckpt, data_root=root,
+                             batch_size=SERVE_BATCH, model_kwargs=kwargs)
+    sources = {k: v for k, v in engine.model.test_data_sources().items()
+               if k in TTSPipeline.ACOUSTIC_INPUTS}
+    longest = sorted(served['items'], key=lambda it: -int(it['n_frames'].reshape(-1)[0]))
+    longest = longest[:STREAM_UTTS]
+    list(engine.stream_item(served['items'][1], *STREAM_CONFIG, sources=sources))  # warm-up
+    torch.cuda.synchronize()
+    fa.launches = 0
+    batch = engine.predict_items(longest, sources=sources)
+    batch_launches = fa.launches
+    if batch_launches != TRANSFORMER_BLOCKS:
+        raise AssertionError(f'stream_transformer: the attention kernel launched '
+                             f'{batch_launches} times for one batch')
+    streams, per_utt = {}, []
+    for item in longest:
+        name, n_frames = item['name'], int(item['n_frames'].reshape(-1)[0])
+        with stream_timers(torch, engine.model, NET_OUTPUTS) as rec:
+            torch.cuda.synchronize()
+            fa.launches = 0
+            start = time.perf_counter()
+            chunks = list(engine.stream_item(item, *STREAM_CONFIG, sources=sources))
+            seconds = time.perf_counter() - start
+        if fa.launches:
+            raise AssertionError(f'stream_transformer: the stream launched the attention '
+                                 f'kernel {fa.launches} times')
+        streams[name] = {k: np.concatenate([c[k] for c in chunks])
+                         for k in ('lf0', 'vuv', 'mcep', 'bap')}
+        streams[name].update(streamed(torch, rec['outputs'], n_frames, NET_OUTPUTS))
+        n_chunks = -(-n_frames // STREAM_CONFIG[0])
+        per_utt.append({'utterance': name, 'frames': n_frames, 'chunks': n_chunks,
+                        'seconds': seconds, 'frames_per_s': n_frames / seconds,
+                        'ms_per_chunk': chunk_ms(rec, n_chunks, ('model', 'mlpg'))})
+    errs = hold_features('stream_transformer network vs batch', streams, batch, NET_OUTPUTS)
+    vs_batch = {key: max(float(np.abs(streams[n][key] - batch[n][key]).max()) for n in streams)
+                for key in ('lf0', 'mcep', 'bap')}
+    shortest = min(longest, key=lambda it: int(it['n_frames'].reshape(-1)[0]))
+    cpu = InferenceEngine(TransformerAcousticModel, ckpt, data_root=root, device='cpu',
+                          model_kwargs=kwargs)
+    cpu_stream = {shortest['name']: {k: np.concatenate([c[k] for c in cpu.stream_item(
+        shortest, *STREAM_CONFIG, sources=sources)]) for k in ('lf0', 'vuv', 'mcep', 'bap')}}
+    vs_cpu = hold_features('stream_transformer vs CPU stream', streams, cpu_stream,
+                           ('lf0', 'vuv', 'mcep', 'bap'))
+    cpu_batch = cpu.predict_items([shortest], sources=sources)[shortest['name']]
+    same_utt = {side: {key: float(np.abs(stream[shortest['name']][key] - whole[key]).max())
+                       for key in ('lf0', 'mcep', 'bap')}
+                for side, stream, whole in (('card', streams, batch[shortest['name']]),
+                                            ('cpu', cpu_stream, cpu_batch))}
+    emit({'phase': 'stream_transformer', 'card': smi,
+          'model': 'TransformerAcousticModel 609-6x(384, 4 heads, 1536)-199, causal, window 256',
+          'config': dict(zip(('chunk_frames', 'context', 'lookahead'), STREAM_CONFIG)),
+          'utterances': per_utt, 'attn_fwd_launches_batch': batch_launches,
+          'ms_per_chunk': {part: float(np.mean([u['ms_per_chunk'][part] for u in per_utt]))
+                           for part in per_utt[0]['ms_per_chunk']},
+          'frames_per_s': sum(u['frames'] for u in per_utt) / sum(u['seconds'] for u in per_utt),
+          'network_vs_batch': errs, 'trajectories_vs_batch_not_held': vs_batch,
+          'trajectories_vs_batch_same_utterance': {'utterance': shortest['name'], **same_utt},
+          'cpu_stream_check': {'utterance': shortest['name'], **vs_cpu}})
+    return batch_launches
 
 
 def main(argv=None):
@@ -2395,6 +2936,9 @@ def main(argv=None):
         serve_launches, _, served = serving_phase(torch, root)
         vocoder_batch_phase(torch, dev, served, smi)
         generate_launches = generate_lstm_phase(torch, served, smi)
+        pipeline_launches = pipeline_lstm_phase(torch, dev, served, smi)
+        stream_launches = stream_lstm_phase(torch, dev, served, smi)
+        stream_attn_launches = stream_transformer_phase(torch, dev, served, smi)
         train_launches = train_phase(torch, root)
         test_launches = builder_test_phase(torch, root, smi)
         _, bf16_serve_launches, _ = serving_phase(torch, root, 'serve_bf16', 'bfloat16')
@@ -2410,6 +2954,8 @@ def main(argv=None):
                            '--learning_rate', TRANSFORMER_LR)
         transformer_dropout_phase(torch, root)
     if not (serve_launches and generate_launches and test_launches
+            and pipeline_launches['k1'] and pipeline_launches['k3'] and stream_launches['k1']
+            and stream_launches['k3'] and stream_attn_launches
             and train_launches['k1_gates'] and train_launches['k2']
             and bf16_serve_launches and bf16_train_launches['k1_bf16']
             and bf16_train_launches['k2_bf16']
@@ -2420,16 +2966,19 @@ def main(argv=None):
         raise AssertionError('a kernel of the main path was not launched')
 
     # launches: the main paths' runs, each counted from 0: serving,
-    # generation (generate_lstm, builder_test) and training for the LSTM
-    # kernels; F0Model serving and training and
-    # DurationModel training for the GRU kernels; TransformerAcousticModel
-    # serving and training for the attention kernels. The forward kernels'
-    # numbers are at the serving shape (B=16), the backward ones' at the
-    # training one (B=32).
+    # generation (generate_lstm, builder_test, pipeline_lstm's two routes),
+    # the streams of stream_lstm and training for the LSTM kernels; F0Model
+    # serving and training, DurationModel training and the duration stage of
+    # pipeline_lstm and stream_lstm for the GRU kernels;
+    # TransformerAcousticModel serving and training and stream_transformer's
+    # batch for the attention kernels. The forward kernels' numbers are at
+    # the serving shape (B=16), the backward ones' at the training one
+    # (B=32).
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
-        'launches': serve_launches + generate_launches + test_launches + train_launches['k1'],
+        'launches': serve_launches + generate_launches + test_launches + train_launches['k1']
+        + pipeline_launches['k1'] + stream_launches['k1'],
         'max_abs_err': main_shape['max_abs_err_vs_plain'], 'ms': main_shape['kernel_ms'],
         'plain_ms': main_shape['plain_ms'], 'bound_ms': main_shape['bound_ms'],
         'bound_by': main_shape['bound_by'], 'library_ms': main_shape['library_ms']}, {
@@ -2453,7 +3002,8 @@ def main(argv=None):
         'library_ms': bf16_train_shape['library_ms']}, {
         'name': 'gru_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/gru_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_gru.py:35',
-        'launches': f0_serve_launches + f0_train_launches['k3'] + duration_launches['k3'],
+        'launches': f0_serve_launches + f0_train_launches['k3'] + duration_launches['k3']
+        + pipeline_launches['k3'] + stream_launches['k3'],
         'max_abs_err': gru_fwd_shape['max_abs_err_vs_plain'], 'ms': gru_fwd_shape['kernel_ms'],
         'plain_ms': gru_fwd_shape['plain_ms'], 'bound_ms': gru_fwd_shape['bound_ms'],
         'bound_by': gru_fwd_shape['bound_by'], 'library_ms': gru_fwd_shape['library_ms']}, {
@@ -2467,7 +3017,7 @@ def main(argv=None):
         'hg_gemm_ms': gru_bwd_shape['hg_gemm_ms']}, {
         'name': 'attn_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/attn_fwd.cu',
         'replaces': 'morgana_tpu/nn.py:1001', 'also_replaces': 'morgana_tpu/nn.py:1055',
-        'launches': attn_serve_launches + attn_train_launches['attn_fwd'],
+        'launches': attn_serve_launches + attn_train_launches['attn_fwd'] + stream_attn_launches,
         'max_abs_err': attn_fwd_shape['max_abs_err_vs_plain'], 'ms': attn_fwd_shape['kernel_ms'],
         'plain_ms': attn_fwd_shape['plain_ms'], 'bound_ms': attn_fwd_shape['bound_ms'],
         'bound_by': attn_fwd_shape['bound_by'], 'library_ms': attn_fwd_shape['library_ms'],

@@ -110,3 +110,32 @@ class BaseSPSS(BaseModel):
         output_features = self.predict(features)
         loss = self.loss(features, output_features)
         return loss, output_features
+
+    # The streaming contract (``base_models.py:133-170``): a model that
+    # implements all three is driven chunk by chunk by
+    # ``serve.StreamingSession``.
+
+    def _no_streaming(self):
+        return NotImplementedError(f'{type(self).__name__} does not implement streaming '
+                                   '(stream_inputs/stream_step/stream_output_spec).')
+
+    def stream_inputs(self, features):
+        r"""The frame-rate network inputs ``(batch, max_frames, D_in)`` of a
+        collated batch of tensors: ``predict``'s input preparation, so that
+        the network can then run chunk by chunk."""
+        raise self._no_streaming()
+
+    def stream_step(self, inputs_chunk, state):
+        r"""The network on one ``(batch, chunk, D_in)`` slice of
+        :meth:`stream_inputs`' output. ``state`` is ``None`` for the first
+        chunk, then what the previous call returned. Returns
+        ``(outputs, new_state)``, each output ``(batch, chunk, D)``."""
+        raise self._no_streaming()
+
+    def stream_output_spec(self):
+        r"""What the stream emits: ``{name: None | (means_key, variances,
+        padding_size)}``. ``None`` passes ``outputs[name]`` through; a tuple
+        smooths ``outputs[means_key]`` by a
+        :class:`morgana_tpu_torch.streaming.StreamingMLPG` with those global
+        variances and edge burn-in, emitted as ``name``."""
+        raise self._no_streaming()

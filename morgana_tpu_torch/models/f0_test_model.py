@@ -123,6 +123,21 @@ class F0Model(BaseSPSS):
             features['normalised_lab'], features['dur'], max_len=max_n_frames)
         return torch.cat((norm_lab_at_frame_rate, features['normalised_counters']), dim=-1)
 
+    def stream_step(self, inputs_chunk, state):
+        """The network on one chunk, each GRU's state carried in ``state``
+        (``models/f0_test_model.py:117``)."""
+        pred_norm_lf0_deltas, state = self.layers(inputs_chunk, hiddens=state,
+                                                  return_hiddens=True)
+        pred_lf0_deltas = self.normalisers['lf0'].denormalise(pred_norm_lf0_deltas, deltas=True)
+        return {'normalised_lf0_deltas': pred_norm_lf0_deltas,
+                'lf0_deltas': pred_lf0_deltas}, state
+
+    def stream_output_spec(self):
+        """The normalised deltas pass through; lf0 goes through MLPG with
+        ``predict``'s global variance and burn-in."""
+        global_variance = self.normalisers['lf0'].delta_params['std_dev'] ** 2
+        return {'normalised_lf0_deltas': None, 'lf0': ('lf0_deltas', global_variance, 100)}
+
     def loss(self, features, output_features):
         seq_len = features['n_frames']
         loss = losses.mse(output_features['normalised_lf0_deltas'],

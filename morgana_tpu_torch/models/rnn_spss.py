@@ -10,6 +10,9 @@ of the normalised deltas plus the BCE of vuv. Train it with::
         --data_root DATA --train_id_list train/train_file_id_list.scp \
         --valid_id_list valid/valid_file_id_list.scp --end_epoch 50 [--device cpu]
 
+It also streams (``serve.InferenceEngine.stream_item``): chunk by chunk, each
+layer's state carried to the next chunk.
+
 Every ``--valid_output_interval`` epochs (default 10) the validation analysis
 synthesises each utterance's wav from the predicted features with the WORLD
 vocoder into ``valid/epoch_N/synth/``; ``--test`` does the same for the test
@@ -137,6 +140,33 @@ class LSTMAcousticModel(BaseSPSS):
         norm_lab_at_frame_rate = upsample_to_repetitions(
             features['normalised_lab'], features['dur'], max_len=max_n_frames)
         return torch.cat((norm_lab_at_frame_rate, features['normalised_counters']), dim=-1)
+
+    def stream_step(self, inputs_chunk, state):
+        """The network on one chunk, each LSTM layer's (h, c) carried in
+        ``state`` (``models/rnn_spss.py:145``): vuv, and the denormalised
+        deltas that the stream's MLPG smooths."""
+        pred_norm_deltas, state = self.layers(inputs_chunk, hiddens=state, return_hiddens=True)
+        pred_norm_lf0_deltas, pred_vuv, pred_norm_mcep_deltas, pred_norm_bap_deltas = \
+            self._split_heads(pred_norm_deltas)
+        outputs = {
+            'normalised_lf0_deltas': pred_norm_lf0_deltas,
+            'normalised_mcep_deltas': pred_norm_mcep_deltas,
+            'normalised_bap_deltas': pred_norm_bap_deltas,
+            'vuv': torch.sigmoid(pred_vuv),
+        }
+        for name, pred in (('lf0', pred_norm_lf0_deltas), ('mcep', pred_norm_mcep_deltas),
+                           ('bap', pred_norm_bap_deltas)):
+            outputs[f'{name}_deltas'] = self.normalisers[name].denormalise(pred, deltas=True)
+        return outputs, state
+
+    def stream_output_spec(self):
+        """vuv passes through; lf0, mcep and bap go through MLPG with
+        ``predict``'s global variances and burn-in of 100 frames."""
+        spec = {'vuv': None}
+        for name in ('lf0', 'mcep', 'bap'):
+            variances = self.normalisers[name].delta_params['std_dev'] ** 2
+            spec[name] = (f'{name}_deltas', variances, 100)
+        return spec
 
     def loss(self, features, output_features):
         n_frames = features['n_frames']

@@ -16,7 +16,8 @@ it with::
         --learning_rate 0.001 [--device cpu]
 
 ``--model_kwargs "{'num_layers': 2}"`` resizes it, ``{'causal': True}``
-selects the sliding-window causal configuration (window 256). Its analysis
+selects the sliding-window causal configuration (window 256), which also
+streams chunk by chunk through per-block KV caches. Its analysis
 hooks are the LSTM model's: the validation analysis and ``--test``
 synthesise wavs with the WORLD vocoder.
 """
@@ -68,6 +69,7 @@ class TransformerAcousticModel(LSTMAcousticModel):
         self.num_heads = num_heads
         self.d_ff = d_ff
         self.causal = causal
+        self.moe_experts = moe_experts
         self.attention_window = attention_window
         self.attention_backend = attention_backend
 
@@ -89,8 +91,21 @@ class TransformerAcousticModel(LSTMAcousticModel):
                                  BAP_distortion=metrics.Distortion())
 
     def stream_step(self, inputs_chunk, state):
-        raise NotImplementedError('TransformerAcousticModel.stream_step (chunked streaming '
-                                  'through KV caches) is not ported yet (ROADMAP.md)')
+        """Chunked streaming of the causal configuration
+        (``models/transformer_spss.py:161-177``): the container carries each
+        block's KV caches in the encoder's state slot, so the LSTM model's
+        step applies unchanged."""
+        if self.moe_experts:
+            raise NotImplementedError(
+                'streaming with MoE blocks is not supported: expert capacity is computed per '
+                'routed window, so chunked routing would not reproduce batch predictions exactly')
+        if not self.causal:
+            raise NotImplementedError(
+                'chunked streaming needs the streamable configuration (model_kwargs '
+                "\"{'causal': True}\" — sliding-window causal attention with per-layer KV "
+                'caches); the default bidirectional model requires the full utterance. '
+                'LSTMAcousticModel streams in any configuration.')
+        return LSTMAcousticModel.stream_step(self, inputs_chunk, state)
 
 
 def main(argv=None):

@@ -206,9 +206,10 @@ class MultiHeadAttention(nn.Module):
     every step on the model's device) leaves the kernel on every device, as
     the JAX package leaves its TPU kernels: the exact path of
     :func:`~morgana_tpu_torch.ops.attention.scaled_dot_product_attention`
-    with the same masks as biases.
-    Cross-attention (``kv=``) and the streaming :meth:`step` are not ported
-    yet.
+    with the same masks as biases. The streaming :meth:`step` takes that
+    plain path too, as the JAX step does (its queries sit at an offset into
+    a KV cache, which the kernel does not take). Cross-attention (``kv=``)
+    is not ported yet.
     """
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, backend='auto', generator=None):
@@ -247,7 +248,29 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.transpose(1, 2).reshape(batch, time, self.embed_dim))
 
     def step(self, x, cache_k, cache_v, pos, window):
-        raise NotImplementedError(f'MultiHeadAttention.step (the KV-cache stream) {_NOT_PORTED}')
+        """One streamed chunk of sliding-window causal self-attention
+        (``nn.py:1077-1107``). ``x`` (batch, chunk, E) sits at absolute
+        positions ``pos + i`` (``pos`` an int); ``cache_k``/``cache_v`` hold
+        the previous ``window`` frames' projected keys and values (batch,
+        window, E), zeros before the stream starts (masked by
+        :func:`~morgana_tpu_torch.ops.attention.streaming_bias` while their
+        positions are negative). Returns ``(out, new_cache_k,
+        new_cache_v)``: :meth:`forward` with ``causal=True, window=window``
+        on the whole sequence, chunk boundaries included."""
+        batch, chunk, _ = x.shape
+        q, k, v = self.in_proj(x).split(self.embed_dim, dim=-1)
+        k_full = torch.cat([cache_k, k], dim=1)            # (B, W+C, E)
+        v_full = torch.cat([cache_v, v], dim=1)
+
+        def to_heads(t):
+            return t.reshape(batch, t.shape[1], self.num_heads, self.head_dim).transpose(1, 2)
+
+        bias = attention_ops.streaming_bias(pos, chunk, window, device=x.device)
+        out = attention_ops.scaled_dot_product_attention(to_heads(q), to_heads(k_full),
+                                                         to_heads(v_full), bias=bias)
+        out = out.transpose(1, 2).reshape(batch, chunk, self.embed_dim)
+        # The cache keeps the latest `window` frames.
+        return self.out_proj(out), k_full[:, -cache_k.shape[1]:], v_full[:, -cache_v.shape[1]:]
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -277,18 +300,30 @@ class TransformerEncoderLayer(nn.Module):
         if self.dropout is not None:
             h = self.dropout(h)
         x = x + h
+        return x + self._ffn(x)
+
+    def _ffn(self, x):
         h = self.ffn_out(self.ffn_act(self.ffn_in(self.ffn_norm(x))))
         if self.dropout is not None:
             h = self.dropout(h)
-        return x + h
+        return h
+
+    def step(self, x, cache, pos, window):
+        """The streamed-chunk form of :meth:`forward` for inference
+        (``nn.py:1291``); ``cache`` is this block's (k, v) pair."""
+        cache_k, cache_v = cache
+        h, cache_k, cache_v = self.attn.step(self.attn_norm(x), cache_k, cache_v, pos, window)
+        x = x + h
+        return x + self._ffn(x), (cache_k, cache_v)
 
 
 class TransformerEncoder(nn.Module):
     """Pre-LN encoder blocks with sinusoidal positions added at entry and a
     final LayerNorm (``nn.py:1307``), called as ``(x, seq_len=None)`` like a
     ``Recurrent`` stack. The blocks are ``blocks.items.<i>``, as in the JAX
-    package. ``remat``, ``moe`` and ``activation_sharding`` are not ported
-    yet, nor is the streaming ``step``."""
+    package. A causal encoder with a window also streams, chunk by chunk
+    through per-block KV caches (:meth:`init_stream_state`, :meth:`step`).
+    ``remat``, ``moe`` and ``activation_sharding`` are not ported yet."""
 
     accepts_seq_len = True
 
@@ -322,28 +357,72 @@ class TransformerEncoder(nn.Module):
             x = block(x, seq_len=seq_len, causal=self.causal, window=self.window)
         return self.norm(x)
 
+    def init_stream_state(self, batch, dtype=torch.float32, device=None):
+        """Zero KV caches and position 0 for :meth:`step` (``nn.py:1391``).
+        The position is a host int, so a chunk costs no device read."""
+        if not (self.causal and self.window):
+            raise ValueError('streaming needs causal=True and a finite window '
+                             '(bidirectional attention requires the full utterance)')
+        caches = [(torch.zeros((batch, self.window, self.d_model), dtype=dtype, device=device),
+                   torch.zeros((batch, self.window, self.d_model), dtype=dtype, device=device))
+                  for _ in self.blocks]
+        return {'pos': 0, 'caches': caches}
+
     def step(self, x, state):
-        raise NotImplementedError(f'TransformerEncoder.step (the KV-cache stream) {_NOT_PORTED}')
+        """A streamed chunk (batch, C, d_model) -> ``(y, new_state)``
+        (``nn.py:1403``): chained chunks give :meth:`forward` on the whole
+        sequence (the same windowed causal mask, positions at their true
+        offsets)."""
+        if state is None:
+            state = self.init_stream_state(x.shape[0], dtype=x.dtype, device=x.device)
+        pos, caches = state['pos'], state['caches']
+        if self.add_positions:
+            x = x + attention_ops.sinusoidal_positions_at(
+                torch.arange(pos, pos + x.shape[1], device=x.device), self.d_model,
+                dtype=x.dtype)
+        new_caches = []
+        for block, cache in zip(self.blocks, caches):
+            x, cache = block.step(x, cache, pos, self.window)
+            new_caches.append(cache)
+        return self.norm(x), {'pos': pos + x.shape[1], 'caches': new_caches}
 
 
 class SequentialWithRecurrent(nn.Module):
-    """Sequential container passing ``seq_len`` to its recurrent members and
-    to the members that set ``accepts_seq_len`` (``nn.py:1424-1463``, without
-    the streaming states); members are named ``0``, ``1``, ..."""
+    """Sequential container threading ``(hiddens, seq_len)`` through its
+    recurrent members and ``seq_len`` through the members that set
+    ``accepts_seq_len`` (``nn.py:1424-1470``); members are named ``0``,
+    ``1``, ..."""
 
     def __init__(self, *modules):
         super().__init__()
         for i, module in enumerate(modules):
             self.add_module(str(i), module)
 
-    def forward(self, input, seq_len=None):
-        for module in self.children():
+    def forward(self, input, hiddens=None, seq_len=None, return_hiddens=False):
+        """``hiddens`` holds one state slot per member (``None`` for the
+        stateless ones). With ``return_hiddens`` (chunked streaming) returns
+        ``(output, new_hiddens)``: each recurrent member's final state, and
+        an attention member's KV caches when it has ``init_stream_state``
+        (a member that cannot stream raises). The caller's list is never
+        changed, so a client may keep the previous chunk's state."""
+        modules = list(self.children())
+        hiddens = [None] * len(modules) if hiddens is None else list(hiddens)
+        for i, module in enumerate(modules):
             if isinstance(module, Recurrent):
-                input, _ = module(input, seq_len=seq_len)
+                input, hiddens[i] = module(input, hiddens[i], seq_len)
             elif getattr(module, 'accepts_seq_len', False):
-                input = module(input, seq_len=seq_len)
+                if return_hiddens and hasattr(module, 'init_stream_state'):
+                    input, hiddens[i] = module.step(input, hiddens[i])
+                elif return_hiddens:
+                    raise NotImplementedError(
+                        f'{type(module).__name__} cannot stream: wrap attention blocks in a '
+                        'TransformerEncoder (causal + window) for chunked inference.')
+                else:
+                    input = module(input, seq_len=seq_len)
             else:
                 input = module(input)
+        if return_hiddens:
+            return input, hiddens
         return input
 
 

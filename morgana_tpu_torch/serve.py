@@ -18,9 +18,15 @@ GPU unless built with ``device='cpu'``; on the GPU every LSTM layer of a
 batch is one launch of kernel K1, every GRU layer one launch of K3, every
 attention block one of K5. Generation synthesises on the host, one
 utterance at a time, after the batch's features are copied back.
+
+A model with the streaming hooks also streams one utterance chunk by chunk
+(:meth:`InferenceEngine.stream_item`, :meth:`~InferenceEngine.stream_id`,
+:class:`StreamingSession`), to features or, with
+:meth:`~InferenceEngine.stream_item_audio`, to audio.
 """
 import argparse
 import ast
+import contextlib
 import importlib
 import importlib.util
 import json
@@ -33,9 +39,11 @@ import torch
 
 from morgana_tpu_torch import data
 from morgana_tpu_torch.device import resolve_device
+from morgana_tpu_torch.ops.deltas import DEFAULT_WINDOWS
+from morgana_tpu_torch.streaming import StreamingMLPG
 from morgana_tpu_torch.utils import to_numpy
 
-__all__ = ['InferenceEngine', 'load_model_class', 'main']
+__all__ = ['InferenceEngine', 'StreamingSession', 'load_model_class', 'main']
 
 
 def load_model_class(spec):
@@ -132,9 +140,10 @@ class InferenceEngine(object):
                 out[key] = arr
         return out
 
-    def _loader(self, data_dir, id_list=None, file_ids=None):
+    def _loader(self, data_dir, id_list=None, file_ids=None, sources=None):
         """Batches of ``data_dir``'s utterances named by ``id_list`` (a file
-        under ``data_root``) or else by ``file_ids``. The ids go to a
+        under ``data_root``) or else by ``file_ids``, read by ``sources``
+        (default: the model's test data sources). The ids go to a
         temporary id-list (never into data_root, which may be read-only);
         the dataset reads it in its constructor."""
         tmp = None
@@ -146,8 +155,8 @@ class InferenceEngine(object):
                 with os.fdopen(fd, 'w') as f:
                     f.write('\n'.join(file_ids))
                 id_list = tmp
-            dataset = data.FilesDataset(self.model.test_data_sources(), data_dir, id_list,
-                                        self.model.normalisers, self.data_root)
+            dataset = data.FilesDataset(sources or self.model.test_data_sources(), data_dir,
+                                        id_list, self.model.normalisers, self.data_root)
         finally:
             if tmp:
                 os.unlink(tmp)
@@ -158,20 +167,26 @@ class InferenceEngine(object):
         for b, name in enumerate(features['name']):
             results[name] = {k: v[b] for k, v in unpadded.items()}
 
-    def predict_items(self, items):
+    def _assemble(self, item, name, sources):
+        return data.assemble_item(sources or self.model.test_data_sources(),
+                                  self.model.normalisers,
+                                  lambda key, source: source.package(item[key]), name)
+
+    def predict_items(self, items, sources=None):
         """In-memory serving: ``items`` is a list of per-utterance dicts
-        mapping each test data-source name to its raw feature (what that
-        source's ``load_file`` returns); an optional ``'name'`` key labels the
+        mapping each data-source name to its raw feature (what that source's
+        ``load_file`` returns); an optional ``'name'`` key labels the
         utterance. Deltas, normalisation and bucketed collation run as in the
         file pipeline. Returns ``{name: outputs}``, frame-level outputs
-        unpadded."""
+        unpadded.
+
+        ``sources`` replaces the model's test data sources, e.g. by the
+        subset that holds ``predict``'s true inputs, so that a generation
+        caller (``pipeline.TTSPipeline``) need not make up training
+        targets."""
         names = [str(item.get('name', i)) for i, item in enumerate(items)]
         _check_unique(names)
-        sources = self.model.test_data_sources()
-        built = [data.assemble_item(sources, self.model.normalisers,
-                                    lambda name, source, item=item: source.package(item[name]),
-                                    name)
-                 for item, name in zip(items, names)]
+        built = [self._assemble(item, name, sources) for item, name in zip(items, names)]
         results = {}
         for start in range(0, len(built), self.batch_size):
             self._collect(data.collate(built[start:start + self.batch_size]), results)
@@ -235,6 +250,202 @@ class InferenceEngine(object):
         if metrics:
             stats['metrics'] = metrics
         return stats
+
+    # ----------------------------------------------------------- streaming
+
+    def _stream_session(self, chunk_frames, context, lookahead):
+        """A :class:`StreamingSession` for one chunk configuration. It holds
+        no compiled program, so nothing is kept between calls."""
+        return StreamingSession(self, chunk_frames=chunk_frames, context=context,
+                                lookahead=lookahead)
+
+    def stream_item(self, item, chunk_frames=64, context=32, lookahead=16, sources=None):
+        """Streams one in-memory utterance (an item of :meth:`predict_items`):
+        a generator of ``{name: (new_frames, D) array}`` chunks. The model
+        must implement the streaming hooks; ``sources`` as in
+        :meth:`predict_items`."""
+        features = data.collate([self._assemble(item, str(item.get('name', 0)), sources)])
+        return self._stream_session(chunk_frames, context, lookahead).stream(features)
+
+    def stream_id(self, file_id, data_dir='test', chunk_frames=64, context=32, lookahead=16):
+        """Streams one utterance of ``data_dir`` by id; see :meth:`stream_item`."""
+        features = next(iter(self._loader(data_dir, file_ids=[file_id])))
+        return self._stream_session(chunk_frames, context, lookahead).stream(features)
+
+    def stream_item_audio(self, item, chunk_frames=64, context=32, lookahead=16,
+                          sample_rate=16000, frame_period=5.0, sources=None, device_lock=None):
+        """Streams one utterance to audio (``serve.py:515-587``): yields
+        ``(feature_chunk, wav_chunk)`` pairs, ``wav_chunk`` the float64
+        samples that chunk finalises (possibly empty while the vocoder's
+        excitation window fills; the last pair carries the flush). The
+        model's streamed outputs must cover lf0, vuv, mcep and bap.
+
+        The wave is the NumPy host synthesis of the streamed features
+        (:class:`morgana_tpu_torch.vocoder.StreamingSynthesizer`, seed 0),
+        without that path's global clip-protection rescale, which needs the
+        whole signal's peak. Unlike the analysis hooks, f0 is not smoothed
+        (the filter needs future frames): it is ``exp(lf0)`` with lf0
+        clipped at 8 (about 3 kHz).
+
+        ``device_lock`` (optional): a lock held around each chunk of the
+        model only; the vocoder runs outside it."""
+        from morgana_tpu_torch.vocoder import StreamingSynthesizer
+
+        session = self._stream_session(chunk_frames, context, lookahead)
+        needed = {'lf0', 'vuv', 'mcep', 'bap'}
+        if not needed <= set(session.spec):
+            raise ValueError(
+                f'audio streaming needs streamed outputs {sorted(needed)}; '
+                f'{type(self.model).__name__} streams {sorted(session.spec)} '
+                '(use stream_item for feature-only streaming)')
+        synth = StreamingSynthesizer(sample_rate, frame_period=frame_period, seed=0)
+        # Assembled here, not at the first next(): a missing feature raises
+        # before the caller commits to a streamed response.
+        feature_stream = iter(self.stream_item(item, chunk_frames=chunk_frames, context=context,
+                                               lookahead=lookahead, sources=sources))
+        lock = contextlib.nullcontext() if device_lock is None else device_lock
+
+        def generate():
+            chunk = None
+            while True:
+                with lock:
+                    got = next(feature_stream, None)
+                if got is None:
+                    break
+                chunk = got
+                f0 = np.exp(np.clip(chunk['lf0'][:, 0], None, 8.0))
+                yield chunk, synth.push_world_feats(f0, chunk['vuv'][:, 0], chunk['mcep'],
+                                                    chunk['bap'])
+            tail = synth.flush()
+            if tail.shape[0]:
+                yield ({} if chunk is None else {k: v[:0] for k, v in chunk.items()}), tail
+
+        return generate()
+
+
+class StreamingSession(object):
+    """Chunked streaming inference (``serve.py:590-749``): the time to the
+    first frame does not grow with the utterance.
+
+    The model's :meth:`stream_inputs` run once on the engine's device; then
+    each chunk of ``chunk_frames`` frames (the last one zero-padded) runs
+    ``stream_step`` under ``torch.inference_mode()``, its recurrent state or
+    KV caches kept on the device between chunks. One copy a chunk brings
+    the outputs that the stream emits to the host, where the MLPG streams
+    that share a burn-in are fused into one
+    :class:`~morgana_tpu_torch.streaming.StreamingMLPG` windowed solve a
+    chunk. Emission is aligned across the outputs, ``lookahead`` frames
+    behind. On the GPU every LSTM layer of a chunk is one launch of K1 with
+    the carried state, every GRU layer one of K3; the attention step is the
+    plain attention over the cache, as in JAX.
+
+    Each :meth:`stream` call is an independent generator.
+    """
+
+    def __init__(self, engine, chunk_frames=64, context=32, lookahead=16):
+        self.engine = engine
+        self.chunk_frames = int(chunk_frames)
+        self.context = int(context)
+        self.lookahead = int(lookahead)
+        self.spec = engine.model.stream_output_spec()
+
+    def _mlpg_groups(self):
+        """The MLPG outputs grouped by burn-in: ``[(members, StreamingMLPG)]``
+        with members ``(name, means_key, dim)``; each group's lanes are
+        concatenated inside each delta window and solved together."""
+        num_windows = len(DEFAULT_WINDOWS)
+        groups = {}
+        for name, spec in self.spec.items():
+            if spec is None:
+                continue
+            means_key, variances, padding_size = spec
+            variances = np.asarray(variances, np.float32).reshape(num_windows, -1)
+            groups.setdefault(int(padding_size), []).append((name, means_key, variances))
+        return [([(name, key, v.shape[1]) for name, key, v in members],
+                 StreamingMLPG(np.concatenate([v for _, _, v in members], axis=1).reshape(-1),
+                               self.chunk_frames, context=self.context,
+                               lookahead=self.lookahead, padding_size=padding_size))
+                for padding_size, members in groups.items()]
+
+    def stream(self, features):
+        """A generator over one collated one-utterance batch: yields
+        ``{name: (new_frames, D) np.ndarray}``, every dict covering the same
+        frames for every name of the model's ``stream_output_spec``."""
+        engine, model = self.engine, self.engine.model
+        batch = data.device_features(features, engine.device)
+        with torch.inference_mode():
+            inputs = model.stream_inputs(batch)
+        if inputs.shape[0] != 1:
+            raise ValueError('streaming serves one utterance per session; '
+                             f'got a batch of {inputs.shape[0]}')
+        if 'n_frames' in features:
+            n_frames = int(np.asarray(features['n_frames']).reshape(-1)[0])
+        else:
+            n_frames = inputs.shape[1]
+
+        num_windows = len(DEFAULT_WINDOWS)
+        chunk_size = self.chunk_frames
+        mlpg_groups = self._mlpg_groups()
+        # The outputs the stream reads, in one (chunk, D) host copy a chunk.
+        keys = [name for name, spec in self.spec.items() if spec is None] + \
+            [key for members, _ in mlpg_groups for _, key, _ in members]
+        buffers = {name: [] for name in self.spec}
+
+        def drain():
+            """The frames every output has, cut from the buffers."""
+            ready = min(sum(a.shape[0] for a in parts) for parts in buffers.values())
+            if ready == 0:
+                return None
+            out = {}
+            for name, parts in buffers.items():
+                whole = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+                out[name], buffers[name] = whole[:ready], [whole[ready:]]
+            return out
+
+        def emit(got, members):
+            if not got.shape[1]:
+                return
+            offset = 0
+            for name, _, dim in members:
+                buffers[name].append(got[0, :, offset:offset + dim])
+                offset += dim
+
+        emitted = 0
+        state = None
+        for start in range(0, n_frames, chunk_size):
+            valid = min(chunk_size, n_frames - start)
+            with torch.inference_mode():
+                chunk = inputs[:, start:start + valid]
+                if valid < chunk_size:
+                    # The final partial chunk is zero-padded; only the
+                    # carried state, which ends here, sees the padding.
+                    chunk = torch.cat([chunk, chunk.new_zeros(
+                        (1, chunk_size - valid) + tuple(chunk.shape[2:]))], dim=1)
+                outputs, state = model.stream_step(chunk, state)
+                host = torch.cat([outputs[key][0, :valid] for key in keys],
+                                 dim=-1).cpu().numpy()
+            split = dict(zip(keys, np.split(host, np.cumsum(
+                [outputs[key].shape[-1] for key in keys])[:-1], axis=-1)))
+            for name, spec in self.spec.items():
+                if spec is None:
+                    buffers[name].append(split[name])
+            for members, streaming_mlpg in mlpg_groups:
+                means = np.concatenate([split[key].reshape(valid, num_windows, dim)
+                                        for _, key, dim in members], axis=2)
+                emit(streaming_mlpg.push(means.reshape(1, valid, -1)), members)
+            out = drain()
+            if out is not None:
+                emitted += next(iter(out.values())).shape[0]
+                yield out
+
+        for members, streaming_mlpg in mlpg_groups:
+            emit(streaming_mlpg.flush(), members)
+        out = drain()
+        if out is not None:
+            emitted += next(iter(out.values())).shape[0]
+            yield out
+        if emitted != n_frames:
+            raise RuntimeError(f'stream emitted {emitted} of {n_frames} frames')
 
 
 def main(argv=None):

@@ -188,22 +188,25 @@ def test_unported_options_raise(kwargs):
 
 
 def test_unported_paths_raise():
-    """The KV-cache stream, cross-attention, MoE blocks and sharded
-    activations raise NotImplementedError naming ROADMAP.md."""
+    """Cross-attention, MoE blocks and sharded activations raise
+    NotImplementedError naming ROADMAP.md. The KV-cache stream of the causal
+    configuration (window 256) is ported: its step runs and carries the
+    caches (held to JAX in tests/test_torch_streaming.py)."""
     model = TModel(**CUT, causal=True)
     assert model.attention_window == 256
     encoder = getattr(model.layers, '2')
     assert encoder.window == 256 and encoder.causal
     x = torch.zeros(1, 3, 384)
-    calls = [lambda: model.stream_step(x, None),
-             lambda: encoder.step(x, None),
-             lambda: encoder.blocks[0].attn.step(x, None, None, 0, 256),
-             lambda: encoder.blocks[0].attn(x, kv=x),
+    calls = [lambda: encoder.blocks[0].attn(x, kv=x),
              lambda: tnn.TransformerEncoderLayer(384, 4, 1536, moe={'num_experts': 2}),
              lambda: tnn.TransformerEncoder(1, 384, 4, 1536, activation_sharding=object())]
     for call in calls:
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             call()
+    with torch.no_grad():
+        y, state = encoder.step(x, None)
+    assert y.shape == (1, 3, 384) and state['pos'] == 3
+    assert [k.shape for k, _ in state['caches']] == [(1, 256, 384)] * CUT['num_layers']
 
 
 def test_cli_needs_a_gpu_unless_asked_for_the_cpu(trained, monkeypatch):
