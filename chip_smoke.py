@@ -65,7 +65,20 @@ code and without the final line:
    its default widths: the 4 longest utterances in one batch (6 attention
    launches) and streamed through the KV caches (no kernel launch): the
    network outputs against the batch, one utterance against the CPU
-   stream; ms a chunk and frames/s.
+   stream; ms a chunk and frames/s. http_serve: http_serve.make_server on
+   127.0.0.1 over the same checkpoint, dynamic batching 5 ms: 32 sequential
+   one-utterance /predict (8 K1 launches each, replies against the
+   engine's predict_items), 32 concurrent clients (dispatch groups, padded
+   rows, where a request's seconds go: JSON decode, predict, JSON encode),
+   /stream with audio on the longest (samples equal to stream_item_audio's,
+   time to the first line), a hot reload under 8 posting clients (no error,
+   /healthz switched within 2 s, a stream paused across the switch ends on
+   the old weights) and a fleet {lstm, f0, transformer} (8 K1, 3 K3, 6
+   attention launches, an unknown voice 404). quantize_serve: the engine in
+   int8 and int4 on the 32 utterances against the CPU engine in the same
+   mode, its error against f32, its device bytes against f32 (nothing left
+   resident by a call), frames/s; then python -m morgana_tpu_torch.quantize
+   and the engine detecting its output, bit-identical to quantize='int8'.
 6. train: the same model trained at full width by the port's
    ExperimentBuilder with the JAX package's defaults (B=32, Adam, lr 0.01,
    constant schedule) for 2 epochs with validation, on a synthetic corpus of
@@ -151,6 +164,7 @@ tree's, in turns, at the k5 / k5_bwd main shapes (attn_parent_compare);
 root, it gives that tree's end-to-end numbers.
 """
 import argparse
+import base64
 import concurrent.futures
 import contextlib
 import json
@@ -245,6 +259,31 @@ PIPELINE_DUR_SEED = 44
 STREAM_CONFIG = (64, 32, 16)
 STREAM_UTTS = 4
 STREAM_TRAJ_ATOL = {'lf0': 1e-4, 'mcep': 1e-3, 'bap': 1e-3}
+# The HTTP server (http_serve): replies against the same engine's
+# predict_items within JAX's batched-against-single tolerance
+# (tests/test_serve.py:431-435); a stream that a reload lands in, against
+# the old weights' stream, within STREAM_PIN_RTOL of each output's largest
+# |value| (the same weights and kernels: equal but for the order of host
+# sums); the reload seen by /healthz within RELOAD_DEADLINE s of the file's
+# rename at a RELOAD_WATCH s poll, under RELOAD_CLIENTS posting clients.
+HTTP_RTOL = 2e-4
+HTTP_ATOL = 2e-5
+HTTP_BATCH_MS = 5.0
+HTTP_TIMEOUT = 120
+STREAM_PIN_RTOL = 1e-5
+RELOAD_CLIENTS = 8
+RELOAD_WATCH = 0.2
+RELOAD_DEADLINE = 2.0
+# Quantized serving (quantize_serve): the card engine against the CPU engine
+# in the same mode within QUANT_RTOL relative L2 (both dequantise the same
+# q * scale); the model's device bytes at most QUANT_BYTES_BOUND of the f32
+# model's (int8: 1 byte a weight and an f32 scale a column; int4: half a
+# byte and an f32 scale per 64 rows a column). JAX's bounds against the
+# float engine at its test sizes (tests/test_quantize.py:183, :465), written
+# beside the full-width numbers, not held.
+QUANT_RTOL = 1e-4
+QUANT_BYTES_BOUND = {'int8': 0.26, 'int4': 0.15}
+JAX_QUANT_BOUND = {'int8': 2e-2, 'int4': 0.15}
 # A stream's network outputs, held to the batch predict's within NET_TOL.
 NET_OUTPUTS = ('normalised_lf0_deltas', 'normalised_mcep_deltas', 'normalised_bap_deltas', 'vuv')
 # The acoustic models' served outputs and their widths.
@@ -2118,21 +2157,23 @@ def write_items(root, split, items, sources):
 
 
 @contextlib.contextmanager
-def timed_calls(torch, owner, names, sync=False):
+def timed_calls(torch, owner, names, sync=False, clock=time.perf_counter):
     """Sums the seconds and counts the calls of `owner`'s methods `names`
     (an instance's, or a class's for all its instances) into the yielded
     {name: [seconds, calls]}; with `sync` each call ends with
-    torch.cuda.synchronize(), so that its device work is in its time."""
+    torch.cuda.synchronize(), so that its device work is in its time. The
+    seconds are `clock`'s: the wall by default, time.thread_time for the
+    calling thread's CPU time."""
     spent = {name: [0.0, 0] for name in names}
     originals = {name: owner.__dict__.get(name) for name in names}
 
     def wrap(name, fn):
         def timed(*args, **kwargs):
-            t0 = time.perf_counter()
+            t0 = clock()
             out = fn(*args, **kwargs)
             if sync:
                 torch.cuda.synchronize()
-            spent[name][0] += time.perf_counter() - t0
+            spent[name][0] += clock() - t0
             spent[name][1] += 1
             return out
         return timed
@@ -2791,6 +2832,540 @@ def stream_transformer_phase(torch, dev, served, smi):
     return batch_launches
 
 
+def http_request(port, path, payload=None):
+    """(status, JSON reply, headers) of a GET (no payload) or a POST to the
+    server on 127.0.0.1:`port`."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f'http://127.0.0.1:{port}{path}', data=data,
+                                 headers={'Content-Type': 'application/json'})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            return r.status, json.loads(r.read()), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+def post_bytes(port, path, data):
+    """(status, reply bytes) of a POST of ready-encoded JSON: a client that
+    parses nothing, as one in another process would cost the server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f'http://127.0.0.1:{port}{path}', data=data,
+                                 headers={'Content-Type': 'application/json'})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def json_item(item):
+    return {k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in item.items()}
+
+
+def hold_reply(label, got, want):
+    """A /predict reply's outputs against the engine's own (host arrays):
+    each within HTTP_RTOL / HTTP_ATOL. Returns the largest abs error."""
+    worst = 0.0
+    for key, value in want.items():
+        a = np.asarray(got[key], np.float32)
+        if a.shape != value.shape or not np.allclose(a, value, rtol=HTTP_RTOL, atol=HTTP_ATOL):
+            raise AssertionError(f'{label} {key}: reply {a.shape} vs {value.shape}, max err '
+                                 f'{float(np.abs(a - value).max()) if a.shape == value.shape else None}')
+        worst = max(worst, float(np.abs(a - value).max()))
+    return worst
+
+
+@contextlib.contextmanager
+def running_server(engine, **kwargs):
+    """http_serve.make_server on 127.0.0.1, a free port, serving on a thread;
+    shut and closed (watcher and batchers too) on the way out."""
+    import threading
+
+    from morgana_tpu_torch import http_serve
+
+    server = http_serve.make_server(engine, host='127.0.0.1', port=0, **kwargs)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=HTTP_TIMEOUT)
+
+
+@contextlib.contextmanager
+def group_sizes(engine):
+    """Records the size of every engine call the batcher makes, and its
+    padded rows (the '__dynpad' filler items), into the yielded list of
+    (rows, padded rows)."""
+    groups = []
+    call = engine.predict_items
+
+    def record(items, sources=None):
+        groups.append((len(items), sum(str(it['name']).startswith('__dynpad') for it in items)))
+        return call(items, sources=sources)
+
+    engine.predict_items = record
+    try:
+        yield groups
+    finally:
+        del engine.predict_items
+
+
+@contextlib.contextmanager
+def request_split(torch, server, engine):
+    """Where the /predict requests made inside go, summed: 'json_decode'
+    (the body parsed, its items made arrays), 'predict' (the engine's
+    predict_items, synchronised) and 'json_encode' (the outputs made lists,
+    serialised and written). Fills the yielded dict on the way out with
+    {'wall_s': {part: s}, 'cpu_s': {part: s}}: wall seconds, and the CPU
+    seconds of the threads that ran each part (concurrent wall seconds
+    overlap, and include waits for the interpreter lock)."""
+    from morgana_tpu_torch import http_serve
+
+    split, timers = {}, {}
+    with contextlib.ExitStack() as stack:
+        for label, clock in (('wall_s', time.perf_counter), ('cpu_s', time.thread_time)):
+            timers[label] = [stack.enter_context(timed_calls(torch, owner, names, sync, clock))
+                             for owner, names, sync in (
+                                 (server.RequestHandlerClass, ('_read_json', '_reply'), False),
+                                 (http_serve, ('_to_arrays', '_to_lists'), False),
+                                 (engine, ('predict_items',), True))]
+        yield split
+    for label, (handler, convert, predict) in timers.items():
+        split[label] = {'json_decode': handler['_read_json'][0] + convert['_to_arrays'][0],
+                        'predict': predict['predict_items'][0],
+                        'json_encode': handler['_reply'][0] + convert['_to_lists'][0]}
+
+
+def percentiles(values):
+    return {'p50': float(np.percentile(values, 50)), 'p95': float(np.percentile(values, 95))}
+
+
+def http_serve_phase(torch, served, smi):
+    """The HTTP server (http_serve.make_server on 127.0.0.1, dynamic batching
+    HTTP_BATCH_MS) over the serving phase's full-width LSTMAcousticModel
+    checkpoint and its 32 utterances, in five parts, each counting launches
+    from 0: sequential (32 one-utterance /predict, 8 K1 launches each, every
+    reply within HTTP_RTOL / HTTP_ATOL of the same engine's predict_items;
+    p50/p95 of /stats, utt/s); concurrent (32 clients at once: dispatch
+    groups, requests coalesced, mean group, padded rows, utt/s, p50/p95, and
+    the seconds of JSON decoding, of predict on the device, synchronised,
+    and of JSON encoding); stream (/stream with audio on the longest
+    utterance: the int16 samples equal to clip(stream_item_audio * 32767) of
+    the same engine; time to the first NDJSON line, real-time factor);
+    hot reload (a second seeded epoch_2.npz beside the served one while
+    RELOAD_CLIENTS clients post ready-encoded bodies and read the replies
+    without parsing them, as clients in other processes cost the server,
+    and a /stream is paused in its vocoder: no
+    error, /healthz names it within RELOAD_DEADLINE s (and the seconds the
+    watcher's reload_checkpoint took are recorded), replies after the
+    switch within tolerance of the new weights' predict_items, the stream
+    frame for frame the old weights' stream); fleet ({lstm, f0,
+    transformer}: F0Model and TransformerAcousticModel seeded at their
+    default widths; each voice's reply its engine's, 8 K1, 3 K3 and 6
+    attention launches for one request each; an unknown voice 404).
+    Returns the launches of K1, K3 and the attention forward."""
+    import threading
+
+    from morgana_tpu_torch.models.f0_test_model import F0Model
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
+    from morgana_tpu_torch.ops import flash_attention as fa
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.serve import InferenceEngine
+    from morgana_tpu_torch.vocoder import StreamingSynthesizer
+
+    root, items = served['root'], served['items']
+    http_root = os.path.join(root, 'http')
+    os.makedirs(http_root)
+    ckpt = shutil.copy(served['ckpt'], os.path.join(http_root, 'epoch_1.npz'))
+    engine = InferenceEngine(LSTMAcousticModel, ckpt, data_root=root, batch_size=SERVE_BATCH)
+    direct = engine.predict_items(items)
+    by_name = {item['name']: item for item in items}
+    bodies = {item['name']: {'items': [json_item(item)]} for item in items}
+    frames = sum(int(item['n_frames'].reshape(-1)[0]) for item in items)
+    launches = {'k1': 0, 'k3': 0, 'attn': 0}
+    out = {'phase': 'http_serve', 'card': smi, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
+           'utterances': N_UTTS, 'frames': frames, 'dynamic_batch_ms': HTTP_BATCH_MS,
+           'rtol': HTTP_RTOL, 'atol': HTTP_ATOL}
+
+    # Sequential: one request at a time.
+    with running_server(engine, dynamic_batch_ms=HTTP_BATCH_MS) as server, \
+            request_split(torch, server, engine) as split:
+        port = server.server_address[1]
+        lstm_ops.launches = 0
+        worst = 0.0
+        start = time.perf_counter()
+        for item in items:
+            before = lstm_ops.launches
+            code, reply, _ = http_request(port, '/predict', bodies[item['name']])
+            if code != 200 or lstm_ops.launches - before != 8:
+                raise AssertionError(f"http sequential {item['name']}: {code}, K1 launched "
+                                     f'{lstm_ops.launches - before} times, expected 8')
+            worst = max(worst, hold_reply('http sequential', reply['results'][item['name']],
+                                          direct[item['name']]))
+        seconds = time.perf_counter() - start
+        stats = http_request(port, '/stats')[1]
+        k1 = lstm_ops.launches
+    launches['k1'] += k1
+    out['sequential'] = {'seconds': seconds, 'utterances_per_s': N_UTTS / seconds,
+                         'frames_per_s': frames / seconds, 'latency_ms': stats['latency_ms'],
+                         'k1_launches': k1, 'max_abs_err': worst,
+                         'dispatch_groups': stats['dynamic_batching']['dispatch_groups'],
+                         'split_ms_per_request': {label: {part: v / N_UTTS * 1e3
+                                                          for part, v in parts.items()}
+                                                  for label, parts in split.items()}}
+
+    # Concurrent: every utterance at once, one client each.
+    with running_server(engine, dynamic_batch_ms=HTTP_BATCH_MS) as server, \
+            group_sizes(engine) as groups, request_split(torch, server, engine) as split:
+        port = server.server_address[1]
+        lstm_ops.launches = 0
+        latencies = {}
+
+        def client(item):
+            t0 = time.perf_counter()
+            code, reply, _ = http_request(port, '/predict', bodies[item['name']])
+            latencies[item['name']] = time.perf_counter() - t0
+            return code, reply
+
+        start = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(N_UTTS) as pool:
+            replies = list(pool.map(client, items))
+        seconds = time.perf_counter() - start
+        stats = http_request(port, '/stats')[1]
+        k1 = lstm_ops.launches
+    worst = 0.0
+    for item, (code, reply) in zip(items, replies):
+        if code != 200:
+            raise AssertionError(f"http concurrent {item['name']}: {code} {reply}")
+        worst = max(worst, hold_reply('http concurrent', reply['results'][item['name']],
+                                      direct[item['name']]))
+    dispatch = stats['dynamic_batching']
+    if k1 != 8 * len(groups) or dispatch['requests_coalesced'] != N_UTTS:
+        raise AssertionError(f'http concurrent: K1 launched {k1} times for {len(groups)} groups, '
+                             f'{dispatch}')
+    launches['k1'] += k1
+    out['concurrent'] = {
+        'clients': N_UTTS, 'seconds': seconds, 'utterances_per_s': N_UTTS / seconds,
+        'frames_per_s': frames / seconds, 'latency_ms': stats['latency_ms'],
+        'client_latency_ms': percentiles([v * 1e3 for v in latencies.values()]),
+        'dispatch_groups': dispatch['dispatch_groups'],
+        'requests_coalesced': dispatch['requests_coalesced'],
+        'group_rows': [g for g, _ in groups], 'mean_group': float(np.mean([g for g, _ in groups])),
+        'padded_rows': sum(p for _, p in groups), 'k1_launches': k1, 'max_abs_err': worst,
+        'split_seconds': split, 'reply_mb': sum(len(json.dumps(r[1])) for r in replies) / 2 ** 20}
+
+    # A stream to audio on the longest utterance.
+    longest = max(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))
+    n_longest = int(longest['n_frames'].reshape(-1)[0])
+    with running_server(engine, dynamic_batch_ms=HTTP_BATCH_MS) as server:
+        import http.client
+
+        lstm_ops.launches = 0
+        conn = http.client.HTTPConnection('127.0.0.1', server.server_address[1],
+                                          timeout=HTTP_TIMEOUT)
+        start = time.perf_counter()
+        conn.request('POST', '/stream', json.dumps({'item': json_item(longest), 'audio': True}),
+                     {'Content-Type': 'application/json'})
+        resp = conn.getresponse()
+        lines, first = [], None
+        for raw in iter(resp.readline, b''):
+            if first is None:
+                first = time.perf_counter() - start
+            lines.append(json.loads(raw))
+        seconds = time.perf_counter() - start
+        conn.close()
+        k1 = lstm_ops.launches
+    pcm = np.concatenate([np.frombuffer(base64.b64decode(line['wav_int16_b64']), '<i2')
+                          for line in lines if 'wav_int16_b64' in line])
+    wav = np.concatenate([w for _, w in engine.stream_item_audio(dict(longest))])
+    chunks = -(-n_longest // STREAM_CONFIG[0])
+    want = np.clip(wav * 32767.0, -32768, 32767).astype('<i2')
+    if resp.status != 200 or not lines[-1].get('done') or not np.array_equal(pcm, want) \
+            or k1 != 8 * chunks:
+        raise AssertionError(f'http stream: status {resp.status}, last line {lines[-1]}, '
+                             f'{pcm.shape} samples against {want.shape}, K1 {k1} for {chunks} '
+                             'chunks')
+    launches['k1'] += k1
+    out['stream'] = {'utterance': longest['name'], 'frames': n_longest, 'chunks': chunks,
+                     'lines': len(lines), 'samples': int(pcm.shape[0]),
+                     'time_to_first_line_ms': first * 1e3, 'seconds': seconds,
+                     'real_time_factor': pcm.shape[0] / FS / seconds, 'k1_launches': k1,
+                     'samples_equal_stream_item_audio': True}
+
+    # Hot reload under load.
+    old_stream = [c for c in engine.stream_item(dict(longest))]
+    gate, paused, stop = threading.Event(), threading.Event(), threading.Event()
+    push = StreamingSynthesizer.push_world_feats
+    pushes = [0]
+
+    def gated_push(self, *args):
+        pushes[0] += 1
+        if pushes[0] == 2:   # the stream's second chunk waits for the reload
+            paused.set()
+            gate.wait(HTTP_TIMEOUT)
+        return push(self, *args)
+
+    path2 = os.path.join(http_root, 'epoch_2.npz')
+    posted, errors, stream_lines = [], [], []
+    raw_bodies = [json.dumps(bodies[item['name']]).encode() for item in items]
+    with running_server(engine, dynamic_batch_ms=HTTP_BATCH_MS,
+                        watch_checkpoints=RELOAD_WATCH) as server, \
+            timed_calls(torch, engine, ('reload_checkpoint',)) as reload_s:
+        port = server.server_address[1]
+        lstm_ops.launches = 0
+
+        def poster(i):
+            k = i
+            while not stop.is_set():
+                code, reply = post_bytes(port, '/predict', raw_bodies[k % N_UTTS])
+                posted.append(code)
+                if code != 200:
+                    errors.append((items[k % N_UTTS]['name'], code, reply[:200]))
+                k += RELOAD_CLIENTS
+
+        def streamer():
+            import http.client
+            conn = http.client.HTTPConnection('127.0.0.1', port, timeout=HTTP_TIMEOUT)
+            conn.request('POST', '/stream', json.dumps({'item': json_item(longest),
+                                                        'audio': True}),
+                         {'Content-Type': 'application/json'})
+            resp = conn.getresponse()
+            stream_lines.extend(json.loads(raw) for raw in iter(resp.readline, b''))
+            conn.close()
+
+        StreamingSynthesizer.push_world_feats = gated_push
+        threads = [threading.Thread(target=poster, args=(i,)) for i in range(RELOAD_CLIENTS)]
+        threads.append(threading.Thread(target=streamer))
+        try:
+            for t in threads:
+                t.start()
+            if not paused.wait(HTTP_TIMEOUT):
+                raise AssertionError('http reload: the stream never reached its second chunk')
+            seeded_checkpoint(torch, LSTMAcousticModel, path2, 7)   # written atomically
+            written = time.perf_counter()
+            switch = None
+            while time.perf_counter() - written < HTTP_TIMEOUT:
+                if http_request(port, '/healthz')[1]['checkpoint'] == path2:
+                    switch = time.perf_counter() - written
+                    break
+                time.sleep(0.02)
+            gate.set()
+            posted_at_switch = len(posted)
+            while len(posted) < posted_at_switch + 2 * RELOAD_CLIENTS:
+                time.sleep(0.05)
+        finally:
+            gate.set()
+            stop.set()
+            for t in threads:
+                t.join(timeout=HTTP_TIMEOUT)
+            StreamingSynthesizer.push_world_feats = push
+        if switch is None or switch > RELOAD_DEADLINE or errors:
+            raise AssertionError(f'http reload: /healthz switched after {switch} s '
+                                 f'(limit {RELOAD_DEADLINE}), errors {errors[:3]}')
+        after = {item['name']: http_request(port, '/predict', bodies[item['name']])[1]
+                 for item in items[:RELOAD_CLIENTS]}
+        k1 = lstm_ops.launches
+    new_direct = engine.predict_items(items[:RELOAD_CLIENTS])
+    worst = max(hold_reply('http after reload', after[name]['results'][name], new_direct[name])
+                for name in after)
+    moved = max(float(np.abs(new_direct[name]['vuv'] - direct[name]['vuv']).max())
+                for name in after)
+    streamed_chunks = [line['chunk'] for line in stream_lines
+                       if line.get('chunk') and len(next(iter(line['chunk'].values())))]
+    new_stream = list(engine.stream_item(dict(longest)))
+
+    def stream_err(chunks):
+        if [len(c['lf0']) for c in chunks] != [len(c['lf0']) for c in old_stream]:
+            return math.inf
+        return max(rel_max(np.asarray(got[key], want[key].dtype), want[key])
+                   for got, want in zip(chunks, old_stream) for key in want)
+
+    vs_old, new_vs_old = stream_err(streamed_chunks), stream_err(new_stream)
+    if not stream_lines[-1].get('done') or vs_old > STREAM_PIN_RTOL \
+            or not new_vs_old > 100 * STREAM_PIN_RTOL or moved == 0.0:
+        raise AssertionError(f'http reload: the stream started before the switch is '
+                             f"{vs_old} from the old weights' stream frame for frame, the new "
+                             f"weights' stream {new_vs_old}; replies moved by {moved}")
+    launches['k1'] += k1
+    out['hot_reload'] = {'clients': RELOAD_CLIENTS, 'watch_s': RELOAD_WATCH,
+                         'switch_s': switch, 'reload_build_s': reload_s['reload_checkpoint'][0],
+                         'requests': len(posted), 'errors': len(errors),
+                         'max_abs_err_after': worst, 'vuv_moved_by': moved,
+                         'stream_chunks': len(streamed_chunks), 'stream_vs_old_weights': vs_old,
+                         'new_weights_stream_vs_old': new_vs_old, 'k1_launches': k1}
+
+    # A fleet of three voices.
+    f0_ckpt = seeded_checkpoint(torch, F0Model, os.path.join(http_root, 'f0', 'epoch_1.npz'), 20)
+    tf_ckpt = seeded_checkpoint(torch, TransformerAcousticModel,
+                                os.path.join(http_root, 'transformer', 'epoch_1.npz'), 40)
+    fleet = {'lstm': engine,
+             'f0': InferenceEngine(F0Model, f0_ckpt, data_root=root, batch_size=SERVE_BATCH),
+             'transformer': InferenceEngine(TransformerAcousticModel, tf_ckpt, data_root=root,
+                                            batch_size=SERVE_BATCH)}
+    f0_item = f0_items(np.random.default_rng(20))[1]
+    voice_items = {'lstm': items[1], 'f0': f0_item, 'transformer': items[1]}
+    expect = {'lstm': (8, 0, 0), 'f0': (0, 3, 0), 'transformer': (0, 0, 6)}
+    fleet_out = {}
+    with running_server(fleet, dynamic_batch_ms=HTTP_BATCH_MS) as server:
+        port = server.server_address[1]
+        for voice, item in voice_items.items():
+            fleet[voice].predict_items([item])     # warm-up, not counted
+            lstm_ops.launches = gru_ops.launches = fa.launches = 0
+            start = time.perf_counter()
+            code, reply, _ = http_request(port, '/predict', {'items': [json_item(item)],
+                                                             'model': voice})
+            seconds = time.perf_counter() - start
+            counts = (lstm_ops.launches, gru_ops.launches, fa.launches)
+            if code != 200 or counts != expect[voice]:
+                raise AssertionError(f'http fleet {voice}: {code}, launches (K1, K3, attention) '
+                                     f'{counts}, expected {expect[voice]}')
+            err = hold_reply(f'http fleet {voice}', reply['results'][item['name']],
+                             fleet[voice].predict_items([item])[item['name']])
+            for kind, n in zip(('k1', 'k3', 'attn'), counts):
+                launches[kind] += n
+            fleet_out[voice] = {'seconds': seconds, 'k1_k3_attn_launches': counts,
+                                'max_abs_err': err}
+        code, reply, _ = http_request(port, '/predict', {'items': [json_item(items[1])],
+                                                         'model': 'nope'})
+        health = http_request(port, '/healthz')[1]
+    if code != 404 or sorted(health['models']) != sorted(fleet):
+        raise AssertionError(f'http fleet: unknown voice answered {code}, /healthz {health}')
+    out['fleet'] = dict(fleet_out, unknown_voice=code)
+    out['launches'] = launches
+    emit(out)
+    return launches
+
+
+def quantize_serve_phase(torch, served, smi):
+    """The full-width LSTMAcousticModel engine with quantize='int8' and
+    'int4' on the 32 utterances at B16: each held to the CPU engine in the
+    same mode on the 4 shortest (QUANT_RTOL relative L2: both dequantise the
+    same q * scale); the relative L2 of each output against the f32 engine
+    (recorded beside JAX's bounds at its test sizes, not held); the device
+    bytes of the model, from torch.cuda.memory_allocated around the build,
+    against the f32 engine's (held to QUANT_BYTES_BOUND), and that a call
+    leaves nothing resident; frames/s and K1 launches (8 a batch, the f32
+    build). Then python -m morgana_tpu_torch.quantize --bits 8 on the
+    checkpoint: an engine on its output, without the flag, serves
+    quantized, bit-identical to the quantize='int8' engine. Returns K1's
+    launches."""
+    import gc
+
+    from morgana_tpu_torch import quantize
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    root, items = served['root'], served['items']
+    few = sorted(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:4]
+    frames = sum(int(item['n_frames'].reshape(-1)[0]) for item in items)
+    n_batches = -(-N_UTTS // SERVE_BATCH)
+
+    def build(ckpt, mode):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        engine = InferenceEngine(LSTMAcousticModel, ckpt, data_root=root,
+                                 batch_size=SERVE_BATCH, quantize=mode)
+        torch.cuda.synchronize()
+        return engine, torch.cuda.memory_allocated() - before
+
+    f32, f32_bytes = build(served['ckpt'], None)
+    f32.predict_items(items[:2])     # warm-up: this thread's cuBLAS workspace
+    f32_params = dict(f32.model.named_parameters())
+    out = {'phase': 'quantize_serve', 'card': smi, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
+           'utterances': N_UTTS, 'frames': frames, 'batch_size': SERVE_BATCH,
+           'f32_model_bytes': f32_bytes, 'cpu_rtol': QUANT_RTOL,
+           'jax_float_bounds_at_test_sizes': JAX_QUANT_BOUND, 'modes': {}}
+    launches = 0
+    engines = {}
+    for mode in ('int8', 'int4'):
+        engine, model_bytes = build(served['ckpt'], mode)
+        engines[mode] = engine
+        held = dict(engine.model.named_parameters())
+        q_bytes = sum(p.numel() * p.element_size() for n, p in held.items()
+                      if '.parametrizations.' in n)
+        matrices = [f32_params[n.replace('.parametrizations.', '.').rsplit('.', 1)[0]]
+                    for n in held if n.endswith('.original0')]
+        f32_matrix_bytes = sum(4 * p.numel() for p in matrices)
+        resident = torch.cuda.memory_allocated()
+        lstm_ops.launches = lstm_ops.bf16_launches = 0
+        start = time.perf_counter()
+        outputs = engine.predict_items(items)
+        seconds = time.perf_counter() - start
+        k1, k1_bf16 = lstm_ops.launches, lstm_ops.bf16_launches
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - resident
+        smallest = min(4 * p.numel() for p in matrices)
+        cpu = InferenceEngine(LSTMAcousticModel, served['ckpt'], data_root=root, device='cpu',
+                              batch_size=SERVE_BATCH, quantize=mode).predict_items(few)
+        vs_cpu = {key: max(rel_l2(outputs[it['name']][key], cpu[it['name']][key]) for it in few)
+                  for key in ACOUSTIC_DIMS}
+        vs_f32 = {key: max(rel_l2(outputs[it['name']][key], served['outputs'][it['name']][key])
+                           for it in items) for key in ACOUSTIC_DIMS}
+        ratio = model_bytes / f32_bytes
+        if not engine.quantized or k1 != 8 * n_batches or k1_bf16 \
+                or max(vs_cpu.values()) > QUANT_RTOL or ratio > QUANT_BYTES_BOUND[mode] \
+                or left >= smallest or not all(
+                    np.isfinite(outputs[it['name']][k]).all() for it in items for k in ACOUSTIC_DIMS):
+            raise AssertionError(f'quantize_serve {mode}: K1 {k1} ({k1_bf16} bf16), vs CPU '
+                                 f'{vs_cpu}, bytes {ratio} of f32, {left} bytes left after a call')
+        launches += k1
+        out['modes'][mode] = {
+            'model_bytes': model_bytes, 'bytes_vs_f32': ratio,
+            'bytes_bound': QUANT_BYTES_BOUND[mode], 'quantized_matrix_bytes': q_bytes,
+            'quantized_matrix_bytes_vs_f32': q_bytes / f32_matrix_bytes,
+            'resident_after_call_bytes': left, 'seconds': seconds,
+            'utterances_per_s': N_UTTS / seconds, 'frames_per_s': frames / seconds,
+            'k1_launches': k1, 'rel_l2_vs_cpu': vs_cpu, 'rel_l2_vs_f32': vs_f32}
+
+    qdir = os.path.join(root, 'quantized')
+    os.makedirs(qdir)
+    qpath = os.path.join(qdir, 'epoch_1_q8.npz')
+    proc = subprocess.run([sys.executable, '-m', 'morgana_tpu_torch.quantize', '--checkpoint',
+                           served['ckpt'], '--out', qpath, '--bits', '8'],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f'quantize CLI failed: {proc.stderr[-2000:]}')
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    detected = InferenceEngine(LSTMAcousticModel, qpath, data_root=root, batch_size=SERVE_BATCH)
+    lstm_ops.launches = 0
+    got = detected.predict_items(items)
+    want = engines['int8'].predict_items(items)
+    launches += lstm_ops.launches
+    same = all(np.array_equal(got[it['name']][k], want[it['name']][k])
+               for it in items for k in ACOUSTIC_DIMS)
+    if not quantize.is_quantized_checkpoint(qpath) or not detected.quantized or not same:
+        raise AssertionError(f'quantize CLI: {qpath} detected {detected.quantized}, outputs equal '
+                             f'to the int8 engine {same}')
+    out['cli'] = dict(cli, detected=True, bit_identical_to_int8_engine=True)
+    out['k1_launches'] = launches
+    emit(out)
+    return launches
+
+
+def rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def rel_max(a, b):
+    """max |a - b| over max(1, max |b|)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max()))) if b.size else 0.0
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description='Smoke test of the port on one NVIDIA GPU; '
                                      'with no arguments, every phase.')
@@ -2939,6 +3514,8 @@ def main(argv=None):
         pipeline_launches = pipeline_lstm_phase(torch, dev, served, smi)
         stream_launches = stream_lstm_phase(torch, dev, served, smi)
         stream_attn_launches = stream_transformer_phase(torch, dev, served, smi)
+        http_launches = http_serve_phase(torch, served, smi)
+        quantize_launches = quantize_serve_phase(torch, served, smi)
         train_launches = train_phase(torch, root)
         test_launches = builder_test_phase(torch, root, smi)
         _, bf16_serve_launches, _ = serving_phase(torch, root, 'serve_bf16', 'bfloat16')
@@ -2955,7 +3532,8 @@ def main(argv=None):
         transformer_dropout_phase(torch, root)
     if not (serve_launches and generate_launches and test_launches
             and pipeline_launches['k1'] and pipeline_launches['k3'] and stream_launches['k1']
-            and stream_launches['k3'] and stream_attn_launches
+            and stream_launches['k3'] and stream_attn_launches and http_launches['k1']
+            and http_launches['k3'] and http_launches['attn'] and quantize_launches
             and train_launches['k1_gates'] and train_launches['k2']
             and bf16_serve_launches and bf16_train_launches['k1_bf16']
             and bf16_train_launches['k2_bf16']
@@ -2971,14 +3549,17 @@ def main(argv=None):
     # serving and training, DurationModel training and the duration stage of
     # pipeline_lstm and stream_lstm for the GRU kernels;
     # TransformerAcousticModel serving and training and stream_transformer's
-    # batch for the attention kernels. The forward kernels' numbers are at
+    # batch for the attention kernels; and http_serve's requests (K1, K3 and
+    # the attention forward) and quantize_serve's batches (K1). The forward
+    # kernels' numbers are at
     # the serving shape (B=16), the backward ones' at the training one
     # (B=32).
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
         'launches': serve_launches + generate_launches + test_launches + train_launches['k1']
-        + pipeline_launches['k1'] + stream_launches['k1'],
+        + pipeline_launches['k1'] + stream_launches['k1'] + http_launches['k1']
+        + quantize_launches,
         'max_abs_err': main_shape['max_abs_err_vs_plain'], 'ms': main_shape['kernel_ms'],
         'plain_ms': main_shape['plain_ms'], 'bound_ms': main_shape['bound_ms'],
         'bound_by': main_shape['bound_by'], 'library_ms': main_shape['library_ms']}, {
@@ -3003,7 +3584,7 @@ def main(argv=None):
         'name': 'gru_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/gru_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_gru.py:35',
         'launches': f0_serve_launches + f0_train_launches['k3'] + duration_launches['k3']
-        + pipeline_launches['k3'] + stream_launches['k3'],
+        + pipeline_launches['k3'] + stream_launches['k3'] + http_launches['k3'],
         'max_abs_err': gru_fwd_shape['max_abs_err_vs_plain'], 'ms': gru_fwd_shape['kernel_ms'],
         'plain_ms': gru_fwd_shape['plain_ms'], 'bound_ms': gru_fwd_shape['bound_ms'],
         'bound_by': gru_fwd_shape['bound_by'], 'library_ms': gru_fwd_shape['library_ms']}, {
@@ -3017,7 +3598,8 @@ def main(argv=None):
         'hg_gemm_ms': gru_bwd_shape['hg_gemm_ms']}, {
         'name': 'attn_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/attn_fwd.cu',
         'replaces': 'morgana_tpu/nn.py:1001', 'also_replaces': 'morgana_tpu/nn.py:1055',
-        'launches': attn_serve_launches + attn_train_launches['attn_fwd'] + stream_attn_launches,
+        'launches': attn_serve_launches + attn_train_launches['attn_fwd'] + stream_attn_launches
+        + http_launches['attn'],
         'max_abs_err': attn_fwd_shape['max_abs_err_vs_plain'], 'ms': attn_fwd_shape['kernel_ms'],
         'plain_ms': attn_fwd_shape['plain_ms'], 'bound_ms': attn_fwd_shape['bound_ms'],
         'bound_by': attn_fwd_shape['bound_by'], 'library_ms': attn_fwd_shape['library_ms'],

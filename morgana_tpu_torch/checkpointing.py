@@ -9,12 +9,13 @@ checkpoint (``checkpointing.py:66``): a plain pickle of the optimiser state
 and the LR-schedule state, for exact resume. :func:`load_training_state`
 reads it without optax or JAX; the port does not write one."""
 import collections
+import io
 import os
 import pickle
 
 import numpy as np
 
-__all__ = ['save_state_dict', 'load_state_dict', 'training_state_path_for',
+__all__ = ['save_state_dict', 'load_state_dict', 'read_npz', 'training_state_path_for',
            'load_training_state', 'AdamState', 'EmptyState']
 
 # optax's state classes, as plain named tuples with the same fields: the
@@ -52,8 +53,18 @@ def load_state_dict(path):
     without its ``.npz`` extension is found too."""
     if not os.path.exists(path) and os.path.exists(str(path) + '.npz'):
         path = str(path) + '.npz'
-    with np.load(path, allow_pickle=False) as data:
+    with read_npz(path) as data:
         return {k: data[k] for k in data.files}
+
+
+def read_npz(path):
+    """``np.load`` (without pickles) of an ``.npz`` file read in one call.
+    ``np.load`` on the path reads each array in 256 KiB pieces, and each
+    read gives up the interpreter lock: a checkpoint reload in a serving
+    process then waits behind the request threads once a piece. Returns
+    the ``NpzFile``, a context manager."""
+    with open(path, 'rb') as f:
+        return np.load(io.BytesIO(f.read()), allow_pickle=False)
 
 
 def training_state_path_for(checkpoint_path):

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
 from morgana_tpu_torch.ops import attention as attention_ops
 from morgana_tpu_torch.ops.flash_attention import attention_bias, flash_attention
@@ -126,7 +127,10 @@ class Recurrent(nn.Module):
     GPU) or :func:`morgana_tpu_torch.ops.gru.gru_layer` (K3 and K4). An LSTM
     layer of the 'pallas' backend stores its recurrence in
     ``ops.lstm.STORE_DTYPE`` (``MORGANA_PALLAS_STORE``, e.g. 'bfloat16'), read
-    at each call, as ``pallas_rnn.lstm_layer`` does; 'scan' stays f32.
+    at each call, as ``pallas_rnn.lstm_layer`` does; 'scan' stays f32, and so
+    does a layer with quantized weights (``quantize.Dequantize``), as the JAX
+    package's 'pallas' backend falls back to its f32 scan for them
+    (``nn.py:652``).
     """
 
     def __init__(self, mode, input_size, hidden_size, num_layers=1, dropout=0.0,
@@ -172,7 +176,8 @@ class Recurrent(nn.Module):
             weights = [getattr(self, f'{name}_l{i}') for name in ('w_ih', 'w_hh', 'b_ih', 'b_hh')]
             if self.mode == 'lstm':
                 h0, c0 = (None, None) if hidden[i] is None else hidden[i]
-                store = lstm_ops.STORE_DTYPE if self.backend == 'pallas' else None
+                store = lstm_ops.STORE_DTYPE if self.backend == 'pallas' \
+                    and not parametrize.is_parametrized(self) else None
                 x, state = lstm_ops.lstm_layer(x, *weights, seq_len=seq_len, h0=h0, c0=c0,
                                                store_dtype=store)
             else:

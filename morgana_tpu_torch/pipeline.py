@@ -47,6 +47,7 @@ import torch
 from morgana_tpu_torch import vocoder
 from morgana_tpu_torch.data import bucket_size, file_io
 from morgana_tpu_torch.data.prepare import _frame_counters
+from morgana_tpu_torch.serve import InferenceEngine, _Unported, load_model_class
 from morgana_tpu_torch.vocoder import torch_world
 
 __all__ = ['TTSPipeline', 'durations_to_int', 'main']
@@ -277,13 +278,6 @@ class TTSPipeline(object):
             np.asarray(outputs['bap'], np.float64), self.sample_rate)
 
 
-class _Unported(argparse.Action):
-    """A JAX flag the port lacks: an argparse error that says so."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f'{option_string} is not ported yet (ROADMAP.md)')
-
-
 def main(argv=None):
     """Labels to wavs from the command line (``pipeline.py:355``): builds
     both engines on ``--device`` (``cuda`` by default, an error without a
@@ -291,8 +285,9 @@ def main(argv=None):
     ``--data_dir`` into ``--out_dir`` and prints its stats as one JSON
     line: ``utterances``, ``frames``, ``wavs``, ``seconds``,
     ``frames_per_sec``, ``out_dir`` and, with ``--evaluate_against``, the
-    scores of ``evaluate.evaluate_dirs``. ``--quantize``,
-    ``--data_parallel`` and ``--compute_dtype`` are argparse errors."""
+    scores of ``evaluate.evaluate_dirs``. ``--quantize int8|int4`` serves
+    both stages quantized. ``--data_parallel`` and ``--compute_dtype`` are
+    argparse errors."""
     parser = argparse.ArgumentParser(
         description='Two-stage TTS generation with the PyTorch/CUDA port of morgana_tpu: '
                     'duration model -> acoustic model -> WORLD vocoder, from phone-level '
@@ -324,11 +319,12 @@ def main(argv=None):
                         help='Reference feature directory (e.g. the data split itself): score '
                              'the dumped features with morgana_tpu_torch.evaluate and add the '
                              'scores to the stats line.')
-    for flag, nargs in (('--quantize', 1), ('--data_parallel', 0), ('--compute_dtype', 1)):
+    parser.add_argument('--quantize', default=None, choices=['int8', 'int4'],
+                        help='Serve both stages with weight-only quantized parameters (int8, '
+                             'or packed group-wise int4).')
+    for flag, nargs in (('--data_parallel', 0), ('--compute_dtype', 1)):
         parser.add_argument(flag, nargs=nargs, action=_Unported, help='Not ported yet.')
     args = parser.parse_args(argv)
-
-    from morgana_tpu_torch.serve import InferenceEngine, load_model_class
 
     if args.id_list is None:
         base = os.path.basename(os.path.normpath(args.data_dir))
@@ -336,7 +332,7 @@ def main(argv=None):
     ids = file_io.get_file_ids(os.path.join(args.data_root, args.id_list))
 
     common = dict(data_root=args.data_root, normalisation_dir=args.normalisation_dir,
-                  device=args.device, batch_size=args.batch_size)
+                  device=args.device, batch_size=args.batch_size, quantize=args.quantize)
     duration_engine = InferenceEngine(
         load_model_class(args.duration_model), args.duration_checkpoint,
         model_kwargs=ast.literal_eval(args.duration_model_kwargs), **common)

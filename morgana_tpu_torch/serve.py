@@ -1,6 +1,6 @@
 """Deployment inference: serve a trained checkpoint (counterpart of
-``morgana_tpu/serve.py``: :class:`InferenceEngine`'s predict and generate
-paths, and the command line for generation).
+``morgana_tpu/serve.py``: :class:`InferenceEngine`, :class:`StreamingSession`,
+:class:`DynamicBatcher` and the command line).
 
     engine = InferenceEngine(LSTMAcousticModel, 'epoch_50.npz', data_root='data')
     outputs = engine.predict_ids(['utt_001', 'utt_002'])   # unpadded feature dicts
@@ -10,14 +10,25 @@ paths, and the command line for generation).
 From the shell, ``python -m morgana_tpu_torch.serve --model
 morgana_tpu_torch.models.rnn_spss:LSTMAcousticModel --checkpoint_path
 epoch_50.npz --data_root data --out_dir out [--device cpu]`` runs
-:meth:`InferenceEngine.generate` and prints its stats as one JSON line.
+:meth:`InferenceEngine.generate` and prints its stats as one JSON line; with
+``--http_port`` it serves the checkpoint over HTTP instead
+(:mod:`morgana_tpu_torch.http_serve`: ``/predict`` through a
+:class:`DynamicBatcher`, ``/stream``, ``/healthz``, ``/stats``), one voice or
+a ``--fleet`` of them, with ``--watch_checkpoints`` hot reload.
 
-The checkpoint is the JAX package's ``epoch_{N}.npz``. Batches are padded
-to the same length buckets as the training loader's. The engine runs on the
-GPU unless built with ``device='cpu'``; on the GPU every LSTM layer of a
-batch is one launch of kernel K1, every GRU layer one launch of K3, every
-attention block one of K5. Generation synthesises on the host, one
-utterance at a time, after the batch's features are copied back.
+The checkpoint is the JAX package's ``epoch_{N}.npz``, or a quantized one
+(:mod:`morgana_tpu_torch.quantize`); ``quantize='int8'|'int4'`` serves a
+float checkpoint quantized. Batches are padded to the same length buckets as
+the training loader's. The engine runs on the GPU unless built with
+``device='cpu'``; on the GPU every LSTM layer of a batch is one launch of
+kernel K1, every GRU layer one launch of K3, every attention block one of K5.
+Generation synthesises on the host, one utterance at a time, after the
+batch's features are copied back.
+
+Each parameter version is a model instance of its own (:attr:`InferenceEngine.model`):
+:meth:`~InferenceEngine.reload_checkpoint` builds the next one beside it and
+swaps the reference, so a call in flight, or a stream, finishes on the
+version it started with.
 
 A model with the streaming hooks also streams one utterance chunk by chunk
 (:meth:`InferenceEngine.stream_item`, :meth:`~InferenceEngine.stream_id`,
@@ -31,19 +42,30 @@ import importlib
 import importlib.util
 import json
 import os
+import re
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from morgana_tpu_torch import checkpointing
 from morgana_tpu_torch import data
+from morgana_tpu_torch import quantize as quantize_mod
 from morgana_tpu_torch.device import resolve_device
 from morgana_tpu_torch.ops.deltas import DEFAULT_WINDOWS
 from morgana_tpu_torch.streaming import StreamingMLPG
 from morgana_tpu_torch.utils import to_numpy
 
-__all__ = ['InferenceEngine', 'StreamingSession', 'load_model_class', 'main']
+__all__ = ['InferenceEngine', 'StreamingSession', 'DynamicBatcher', 'Overloaded',
+           'load_model_class', 'main']
+
+
+class Overloaded(RuntimeError):
+    """Raised by :class:`DynamicBatcher` when its queue of pending requests is
+    full (``serve.py:46``): backpressure, which the HTTP layer answers with
+    503."""
 
 
 def load_model_class(spec):
@@ -79,8 +101,9 @@ class InferenceEngine(object):
     model_class : type
         A :class:`~morgana_tpu_torch.base_models.BaseModel` subclass.
     checkpoint_path : str
-        ``epoch_{N}.npz`` saved by the JAX package (names and shapes are
-        checked strictly).
+        ``epoch_{N}.npz`` saved by either package, or a quantized checkpoint
+        of either (:mod:`morgana_tpu_torch.quantize`), detected and served
+        quantized; names and shapes are checked strictly.
     data_root : str
         Root of the normalisation parameter files and data directories.
     normalisation_dir : str
@@ -95,33 +118,117 @@ class InferenceEngine(object):
     analysis_kwargs : dict, optional
         Keyword arguments of the model's test analysis hooks in
         :meth:`generate` (e.g. ``sample_rate``).
+    stream_configs : list of (chunk_frames, context, lookahead), optional
+        The stream configurations that the HTTP ``/stream`` endpoint serves
+        (default ``[(64, 32, 16)]``): the operator chooses them, not the
+        client (``serve.py:158-163``).
+    quantize : {None, 'int8', 'int4'}
+        Serve the weights that :func:`~morgana_tpu_torch.quantize.default_should_quantize`
+        picks quantized: per-channel int8, or packed int4 with group-wise
+        scales. Only the quantized tensors stay on the device; each layer
+        reads its weight dequantised at each call.
+
+    Attributes
+    ----------
+    model : BaseModel
+        The parameter version being served, one model instance; every call
+        reads it once when it starts. :meth:`reload_checkpoint` replaces it
+        whole.
     """
 
     def __init__(self, model_class, checkpoint_path, data_root='.', normalisation_dir='train',
-                 model_kwargs=None, device=None, batch_size=8, analysis_kwargs=None):
+                 model_kwargs=None, device=None, batch_size=8, analysis_kwargs=None,
+                 stream_configs=None, quantize=None):
+        if quantize not in (None, 'int8', 'int4'):
+            raise ValueError(f"quantize must be None, 'int8' or 'int4', got {quantize!r}")
         self.device = resolve_device(device)
         self.data_root = data_root
-        self.checkpoint_path = checkpoint_path
         self.batch_size = int(batch_size)
         self.analysis_kwargs = dict(analysis_kwargs or {})
+        self.stream_configs = {tuple(int(v) for v in cfg)
+                               for cfg in (stream_configs or [(64, 32, 16)])}
+        self._model_class = model_class
+        self._model_kwargs = dict(model_kwargs or {})
+        self._quantize = quantize
 
-        self.model = model_class(**(model_kwargs or {}))
-        normalisers = self.model.normaliser_sources()
-        for normaliser in normalisers.values():
+        self.model = self._build_model(checkpoint_path)
+        self._normalisers = self.model.normaliser_sources()
+        for normaliser in self._normalisers.values():
             normaliser.load_params(normalisation_dir, data_root)
-        self.model.normalisers = normalisers
-        self._load_checkpoint_params(checkpoint_path)
-        self.model.to(self.device).eval()
+        self.model.normalisers = self._normalisers
+        self.checkpoint_path = checkpoint_path
 
-    def _load_checkpoint_params(self, checkpoint_path):
-        """Copies the checkpoint's parameters into the model."""
-        self.model.load_parameters(checkpoint_path)
+    def _build_model(self, checkpoint_path):
+        """A model instance holding one checkpoint's parameters on the
+        engine's device (quantized as the checkpoint or the engine's mode
+        says), in eval mode. Raises, and touches nothing the engine serves,
+        when the checkpoint does not match the model."""
+        # Made on the meta device, then given storage that the checkpoint
+        # fills: no random init, which a reload would spend in the host's
+        # time under serving load.
+        with torch.device('meta'):
+            model = self._model_class(**self._model_kwargs)
+        model.to_empty(device='cpu')
+        if quantize_mod.is_quantized_checkpoint(checkpoint_path):
+            params = quantize_mod.load_quantized_checkpoint(checkpoint_path)
+        else:
+            params = checkpointing.load_state_dict(checkpoint_path)
+        if self._quantize:
+            params = quantize_mod.quantize_params(params,
+                                                  bits={'int8': 8, 'int4': 4}[self._quantize])
+        quantize_mod.load_params(model, params)
+        return model.to(self.device).eval()
+
+    @property
+    def quantized(self):
+        """True when the served version holds quantized weights."""
+        return quantize_mod.is_quantized(self.model)
+
+    def reload_checkpoint(self, checkpoint_path):
+        """Serves another checkpoint of the same architecture
+        (``serve.py:224-239``): the new version is built beside the old one,
+        with the engine's normalisers and quantize mode, and then replaces it
+        in one assignment. Calls and streams in flight finish on the version
+        they started with. A checkpoint that does not match raises, and the
+        old version goes on serving. Returns ``checkpoint_path``."""
+        model = self._build_model(checkpoint_path)
+        model.normalisers = self._normalisers
+        self.model = model
+        self.checkpoint_path = checkpoint_path
+        return checkpoint_path
+
+    def maybe_reload_newer_checkpoint(self):
+        """Reloads the highest-epoch sibling of the served checkpoint with the
+        same ``epoch_{N}`` file name pattern (``serve.py:241-266``; an
+        ``epoch_9_ema.npz`` does not match ``epoch_1.npz``). Returns the path
+        reloaded, or None when nothing newer is there."""
+        match = re.match(r'^(.*epoch_)(\d+)(\D.*\.npz|\.npz)$',
+                         os.path.basename(self.checkpoint_path))
+        if not match:
+            return None
+        prefix, current, suffix = match.group(1), int(match.group(2)), match.group(3)
+        ckpt_dir = os.path.dirname(self.checkpoint_path) or '.'
+        try:
+            names = os.listdir(ckpt_dir)
+        except OSError:
+            return None
+        best, best_epoch = None, current
+        for name in names:
+            m = re.match(rf'^{re.escape(prefix)}(\d+){re.escape(suffix)}$', name)
+            if m and int(m.group(1)) > best_epoch:
+                best_epoch, best = int(m.group(1)), os.path.join(ckpt_dir, name)
+        if best is None:
+            return None
+        return self.reload_checkpoint(best)
 
     def predict_batch(self, features):
         """Runs ``predict`` on one collated (padded) batch: its numeric arrays
         go to the engine's device. Returns the output tensors, on device."""
+        return self._predict(self.model, features)
+
+    def _predict(self, model, features):
         with torch.inference_mode():
-            return self.model.predict(data.device_features(features, self.device))
+            return model.predict(data.device_features(features, self.device))
 
     def _unpad(self, features, outputs):
         """Every (B, T_pad, D) output becomes a list of (t_i, D) numpy arrays
@@ -156,20 +263,19 @@ class InferenceEngine(object):
                     f.write('\n'.join(file_ids))
                 id_list = tmp
             dataset = data.FilesDataset(sources or self.model.test_data_sources(), data_dir,
-                                        id_list, self.model.normalisers, self.data_root)
+                                        id_list, self._normalisers, self.data_root)
         finally:
             if tmp:
                 os.unlink(tmp)
         return data.batch(dataset, batch_size=self.batch_size)
 
-    def _collect(self, features, results):
-        unpadded = self._unpad(features, self.predict_batch(features))
+    def _collect(self, model, features, results):
+        unpadded = self._unpad(features, self._predict(model, features))
         for b, name in enumerate(features['name']):
             results[name] = {k: v[b] for k, v in unpadded.items()}
 
     def _assemble(self, item, name, sources):
-        return data.assemble_item(sources or self.model.test_data_sources(),
-                                  self.model.normalisers,
+        return data.assemble_item(sources or self.model.test_data_sources(), self._normalisers,
                                   lambda key, source: source.package(item[key]), name)
 
     def predict_items(self, items, sources=None):
@@ -178,27 +284,29 @@ class InferenceEngine(object):
         ``load_file`` returns); an optional ``'name'`` key labels the
         utterance. Deltas, normalisation and bucketed collation run as in the
         file pipeline. Returns ``{name: outputs}``, frame-level outputs
-        unpadded.
+        unpadded; every batch runs on the version served when the call began.
 
         ``sources`` replaces the model's test data sources, e.g. by the
         subset that holds ``predict``'s true inputs, so that a generation
         caller (``pipeline.TTSPipeline``) need not make up training
         targets."""
+        model = self.model
         names = [str(item.get('name', i)) for i, item in enumerate(items)]
         _check_unique(names)
         built = [self._assemble(item, name, sources) for item, name in zip(items, names)]
         results = {}
         for start in range(0, len(built), self.batch_size):
-            self._collect(data.collate(built[start:start + self.batch_size]), results)
+            self._collect(model, data.collate(built[start:start + self.batch_size]), results)
         return results
 
     def predict_ids(self, file_ids, data_dir='test'):
         """Predicts the given utterance ids of ``data_dir``; returns ``{id:
         outputs}``, frame-level outputs unpadded."""
+        model = self.model
         _check_unique(file_ids)
         results = {}
         for features in self._loader(data_dir, file_ids=file_ids):
-            self._collect(features, results)
+            self._collect(model, features, results)
         return results
 
     def _synchronize(self):
@@ -254,10 +362,12 @@ class InferenceEngine(object):
     # ----------------------------------------------------------- streaming
 
     def _stream_session(self, chunk_frames, context, lookahead):
-        """A :class:`StreamingSession` for one chunk configuration. It holds
-        no compiled program, so nothing is kept between calls."""
+        """A :class:`StreamingSession` for one chunk configuration on the
+        version served now, which the stream keeps to its last chunk
+        (``serve.py:641-647``). It holds no compiled program, so nothing is
+        kept between calls."""
         return StreamingSession(self, chunk_frames=chunk_frames, context=context,
-                                lookahead=lookahead)
+                                lookahead=lookahead, model=self.model)
 
     def stream_item(self, item, chunk_frames=64, context=32, lookahead=16, sources=None):
         """Streams one in-memory utterance (an item of :meth:`predict_items`):
@@ -296,7 +406,7 @@ class InferenceEngine(object):
         if not needed <= set(session.spec):
             raise ValueError(
                 f'audio streaming needs streamed outputs {sorted(needed)}; '
-                f'{type(self.model).__name__} streams {sorted(session.spec)} '
+                f'{type(session.model).__name__} streams {sorted(session.spec)} '
                 '(use stream_item for feature-only streaming)')
         synth = StreamingSynthesizer(sample_rate, frame_period=frame_period, seed=0)
         # Assembled here, not at the first next(): a missing feature raises
@@ -339,15 +449,18 @@ class StreamingSession(object):
     the carried state, every GRU layer one of K3; the attention step is the
     plain attention over the cache, as in JAX.
 
-    Each :meth:`stream` call is an independent generator.
+    Each :meth:`stream` call is an independent generator. A session runs on
+    ``model``, the engine's version when it was made by default, to the end
+    of each stream, whatever the engine reloads meanwhile.
     """
 
-    def __init__(self, engine, chunk_frames=64, context=32, lookahead=16):
+    def __init__(self, engine, chunk_frames=64, context=32, lookahead=16, model=None):
         self.engine = engine
+        self.model = engine.model if model is None else model
         self.chunk_frames = int(chunk_frames)
         self.context = int(context)
         self.lookahead = int(lookahead)
-        self.spec = engine.model.stream_output_spec()
+        self.spec = self.model.stream_output_spec()
 
     def _mlpg_groups(self):
         """The MLPG outputs grouped by burn-in: ``[(members, StreamingMLPG)]``
@@ -371,7 +484,7 @@ class StreamingSession(object):
         """A generator over one collated one-utterance batch: yields
         ``{name: (new_frames, D) np.ndarray}``, every dict covering the same
         frames for every name of the model's ``stream_output_spec``."""
-        engine, model = self.engine, self.engine.model
+        engine, model = self.engine, self.model
         batch = data.device_features(features, engine.device)
         with torch.inference_mode():
             inputs = model.stream_inputs(batch)
@@ -448,20 +561,181 @@ class StreamingSession(object):
             raise RuntimeError(f'stream emitted {emitted} of {n_frames} frames')
 
 
+class DynamicBatcher(object):
+    """Coalesces concurrent :meth:`InferenceEngine.predict_items` calls into
+    shared batches (``serve.py:752-928``).
+
+    Callers block in :meth:`predict_items` while a worker thread gathers
+    requests for up to ``max_wait_ms`` (or until ``max_batch`` utterances are
+    pending), renames the items to internal ids, runs one engine call for the
+    group and hands each caller back its own results under its own names.
+    The group is padded to the next power of two (capped at ``max_batch``)
+    by repeating its first item, so that the batch shapes and the dispatch
+    counts are the JAX package's (which bounds its compiled programs so).
+    A group that fails runs again request by request, so that one bad
+    request fails only its own caller.
+
+    Parameters
+    ----------
+    engine : InferenceEngine
+    max_wait_ms : float
+        How long a forming group waits for company once at least two
+        requests are pending. A lone request never waits; 0 still coalesces
+        what is queued already.
+    max_batch : int, optional
+        Utterances per group (default: the engine's ``batch_size``).
+    lock : threading.Lock, optional
+        The device lock, shared with the server's other paths; held around
+        each engine call.
+    max_queue : int, optional
+        When more utterances than this are pending, :meth:`predict_items`
+        raises :class:`Overloaded` (default ``32 * max_batch``). An empty
+        queue admits a request of any size.
+
+    Attributes
+    ----------
+    batches_run, requests_coalesced : int
+        Engine calls made, and the requests they served.
+    """
+
+    def __init__(self, engine, max_wait_ms=5.0, max_batch=None, lock=None, max_queue=None):
+        self.engine = engine
+        self.max_wait = float(max_wait_ms) / 1e3
+        self.max_batch = int(max_batch or engine.batch_size)
+        if self.max_batch < 1:
+            raise ValueError('max_batch must be >= 1')
+        self.max_queue = int(max_queue or 32 * self.max_batch)
+        self.lock = lock if lock is not None else threading.Lock()
+        self.batches_run = 0
+        self.requests_coalesced = 0
+        self._cv = threading.Condition()
+        self._pending = []
+        self._closed = False
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name='morgana-dynamic-batcher')
+        self._worker.start()
+
+    def predict_items(self, items):
+        """The contract and results of ``engine.predict_items(items)``; blocks
+        until this request's group has run. Names may repeat across
+        requests, not within one."""
+        if not items:
+            return {}
+        _check_unique([str(item.get('name', i)) for i, item in enumerate(items)])
+        req = {'items': list(items), 'event': threading.Event(), 'results': None,
+               'error': None}
+        with self._cv:
+            if self._closed:
+                raise RuntimeError('DynamicBatcher is closed')
+            queued = sum(len(r['items']) for r in self._pending)
+            if queued and queued + len(req['items']) > self.max_queue:
+                raise Overloaded(f'{queued} utterances already pending '
+                                 f'(max_queue={self.max_queue}); retry later')
+            self._pending.append(req)
+            self._cv.notify()
+        req['event'].wait()
+        if req['error'] is not None:
+            raise req['error']
+        return req['results']
+
+    def close(self):
+        """Stops the worker after it has served the requests queued."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify()
+        self._worker.join(timeout=30)
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._pending and not self._closed:
+                    self._cv.wait()
+                if not self._pending:
+                    return   # closed and drained
+                # A lone request goes at once; the window opens only when two
+                # or more are pending.
+                if self.max_wait > 0 and not self._closed and len(self._pending) > 1:
+                    deadline = time.monotonic() + self.max_wait
+                    while sum(len(r['items']) for r in self._pending) < self.max_batch:
+                        left = deadline - time.monotonic()
+                        if left <= 0 or self._closed:
+                            break
+                        self._cv.wait(timeout=left)
+                group, total = [], 0
+                while self._pending:
+                    n = len(self._pending[0]['items'])
+                    if group and total + n > self.max_batch:
+                        break
+                    group.append(self._pending.pop(0))
+                    total += n
+            self._execute(group)
+
+    @staticmethod
+    def _padded_count(n, cap):
+        """The next power of two >= n, capped at ``max(n, cap)``."""
+        size = 1
+        while size < n:
+            size *= 2
+        return min(size, max(n, cap))
+
+    def _execute(self, group):
+        renamed, owners = [], []
+        for gi, req in enumerate(group):
+            for ii, item in enumerate(req['items']):
+                internal = dict(item, name=f'__dyn{gi}.{ii}')
+                renamed.append(internal)
+                owners.append((req, str(item.get('name', ii)), internal['name']))
+        for p in range(self._padded_count(len(renamed), self.max_batch) - len(renamed)):
+            renamed.append(dict(renamed[0], name=f'__dynpad{p}'))
+        try:
+            with self.lock:
+                results = self.engine.predict_items(renamed)
+            self.batches_run += 1
+            self.requests_coalesced += len(group)
+            split = {}
+            for req, public, internal in owners:
+                split.setdefault(id(req), {})[public] = results[internal]
+            for req in group:
+                req['results'] = split.get(id(req), {})
+                req['event'].set()
+        except Exception:   # noqa: BLE001 - each request runs again alone
+            for req in group:
+                try:
+                    with self.lock:
+                        req['results'] = self.engine.predict_items(req['items'])
+                    self.batches_run += 1
+                    self.requests_coalesced += 1
+                except Exception as exc:   # noqa: BLE001 - delivered to the caller
+                    req['error'] = exc
+                req['event'].set()
+
+
+class _Unported(argparse.Action):
+    """A JAX flag the port lacks: an argparse error that says so."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f'{option_string} is not ported yet (ROADMAP.md)')
+
+
 def main(argv=None):
-    """Generation from the command line (``serve.py:931``, its generate
-    path): builds an :class:`InferenceEngine`, runs :meth:`generate` over
-    ``--data_dir`` and prints the stats as one JSON line. The JAX package's
-    HTTP, fleet, quantisation, data-parallel, compute-dtype, streaming,
-    loader-thread, hot-reload, dynamic-batching and compilation-cache flags
-    are not ported: passing one is an argparse error."""
+    """The serving command line (``serve.py:931-1086``): builds an
+    :class:`InferenceEngine` (or, with ``--fleet``, one per voice) on
+    ``--device`` (``cuda`` by default, an error without a GPU; ``cpu`` when
+    asked). With ``--http_port`` it serves them over HTTP
+    (:func:`morgana_tpu_torch.http_serve.serve_forever`, with
+    ``--dynamic_batch_ms`` batching and ``--watch_checkpoints`` hot reload);
+    otherwise it runs :meth:`InferenceEngine.generate` over ``--data_dir``
+    and prints the stats as one JSON line. ``--data_parallel``,
+    ``--compute_dtype``, ``--compilation_cache_dir`` and
+    ``--num_data_threads`` are not ported: each is an argparse error."""
     parser = argparse.ArgumentParser(
-        description='Generate wavs from a trained checkpoint with the PyTorch/CUDA port of '
-                    'morgana_tpu.')
-    parser.add_argument('--model', required=True,
-                        help="Model class: 'pkg.module:Class' or 'file.py:Class'.")
-    parser.add_argument('--checkpoint_path', required=True,
-                        help='epoch_{N}.npz written by either package.')
+        description='Serve a trained checkpoint with the PyTorch/CUDA port of morgana_tpu: '
+                    'generate wavs, or answer HTTP requests.')
+    parser.add_argument('--model', default=None,
+                        help="Model class: 'pkg.module:Class' or 'file.py:Class' (required "
+                             'unless --fleet is given).')
+    parser.add_argument('--checkpoint_path', default=None,
+                        help='epoch_{N}.npz written by either package, or a quantized one.')
     parser.add_argument('--data_root', default='.')
     parser.add_argument('--normalisation_dir', default='train')
     parser.add_argument('--data_dir', default='test')
@@ -476,9 +750,41 @@ def main(argv=None):
                         help='Python-dict string of model constructor kwargs.')
     parser.add_argument('--analysis_kwargs', default='{}',
                         help='Python-dict string of analysis-hook kwargs.')
+    parser.add_argument('--quantize', default=None, choices=['int8', 'int4'],
+                        help='Serve weight-only quantized parameters: int8 (per channel) or '
+                             'int4 (packed, group-wise scales). Quantized checkpoints (python -m '
+                             'morgana_tpu_torch.quantize) are detected without this flag.')
+    parser.add_argument('--stream_configs', default='64,32,16',
+                        help='Semicolon-separated chunk_frames,context,lookahead triples that '
+                             'the HTTP /stream endpoint serves.')
+    parser.add_argument('--http_port', type=int, default=None,
+                        help='Serve over HTTP on this port instead of generating '
+                             '(GET /healthz, GET /stats, POST /predict, POST /stream).')
+    parser.add_argument('--fleet', default=None,
+                        help='Several voices: a JSON file mapping each name to an engine spec '
+                             '({"model", "checkpoint_path", optional "model_kwargs", '
+                             '"data_root", "normalisation_dir", "batch_size", "quantize", '
+                             '"analysis_kwargs"}); unset fields take this command\'s flags. '
+                             'Needs --http_port; a request picks its voice with a top-level '
+                             '"model" key.')
+    parser.add_argument('--http_host', default='127.0.0.1')
+    parser.add_argument('--watch_checkpoints', type=float, default=0.0,
+                        help='Poll every N seconds for a higher-epoch checkpoint beside each '
+                             'served one and reload it (HTTP only).')
+    parser.add_argument('--dynamic_batch_ms', type=float, default=5.0,
+                        help='Coalesce concurrent /predict requests into shared batches, each '
+                             'waiting at most this long for company once two are pending (0 '
+                             'serves each request alone). A lone request never waits.')
+    for flag, nargs in (('--data_parallel', 0), ('--compute_dtype', 1),
+                        ('--compilation_cache_dir', 1), ('--num_data_threads', 1)):
+        parser.add_argument(flag, nargs=nargs, action=_Unported, help='Not ported yet.')
     args = parser.parse_args(argv)
 
-    if args.id_list is None:
+    if args.fleet is None and (args.model is None or args.checkpoint_path is None):
+        parser.error('--model and --checkpoint_path are required (or pass --fleet)')
+    if args.fleet is not None and args.http_port is None:
+        parser.error('--fleet serves over HTTP; add --http_port')
+    if args.id_list is None and args.http_port is None:
         base = os.path.basename(os.path.normpath(args.data_dir))
         candidate = os.path.join(args.data_dir, f'{base}_file_id_list.scp')
         if os.path.exists(os.path.join(args.data_root, candidate)):
@@ -486,12 +792,48 @@ def main(argv=None):
         else:
             parser.error(f'--id_list is required (no conventional id list at '
                          f'{os.path.join(args.data_root, candidate)})')
+    stream_configs = [tuple(int(v) for v in cfg.split(','))
+                      for cfg in args.stream_configs.split(';') if cfg]
 
-    engine = InferenceEngine(
-        load_model_class(args.model), args.checkpoint_path, data_root=args.data_root,
-        normalisation_dir=args.normalisation_dir,
-        model_kwargs=ast.literal_eval(args.model_kwargs), device=args.device,
-        batch_size=args.batch_size, analysis_kwargs=ast.literal_eval(args.analysis_kwargs))
+    def build_engine(spec):
+        model_kwargs = spec.get('model_kwargs')
+        analysis_kwargs = spec.get('analysis_kwargs')
+        return InferenceEngine(
+            load_model_class(spec.get('model', args.model)),
+            spec.get('checkpoint_path', args.checkpoint_path),
+            data_root=spec.get('data_root', args.data_root),
+            normalisation_dir=spec.get('normalisation_dir', args.normalisation_dir),
+            model_kwargs=ast.literal_eval(args.model_kwargs) if model_kwargs is None
+            else model_kwargs,
+            device=args.device, batch_size=int(spec.get('batch_size', args.batch_size)),
+            analysis_kwargs=ast.literal_eval(args.analysis_kwargs) if analysis_kwargs is None
+            else analysis_kwargs,
+            stream_configs=stream_configs, quantize=spec.get('quantize', args.quantize))
+
+    if args.fleet is not None:
+        with open(args.fleet) as f:
+            fleet = json.load(f)
+        if not isinstance(fleet, dict) or not fleet:
+            parser.error(f'--fleet {args.fleet} must be a non-empty JSON object of name -> '
+                         'engine spec')
+        for name, spec in fleet.items():
+            if not isinstance(spec, dict):
+                parser.error(f'--fleet entry {name!r} must be a JSON object '
+                             f'(got {type(spec).__name__})')
+            if 'checkpoint_path' not in spec:
+                parser.error(f"--fleet entry {name!r} needs 'checkpoint_path'")
+            if 'model' not in spec and args.model is None:
+                parser.error(f"--fleet entry {name!r} needs 'model' (or pass a shared --model)")
+        engine = {name: build_engine(spec) for name, spec in fleet.items()}
+    else:
+        engine = build_engine({})
+
+    if args.http_port is not None:
+        from morgana_tpu_torch.http_serve import serve_forever
+        serve_forever(engine, host=args.http_host, port=args.http_port,
+                      dynamic_batch_ms=args.dynamic_batch_ms,
+                      watch_checkpoints=args.watch_checkpoints)
+        return
     stats = engine.generate(args.out_dir, data_dir=args.data_dir, id_list=args.id_list)
     print(json.dumps(stats))
 

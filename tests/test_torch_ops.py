@@ -208,6 +208,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     assert {'world.py', 'torch_world.py', 'analysis.py'} <= {
         os.path.basename(p) for p in files if os.sep + 'vocoder' + os.sep in p}
+    assert {'serve.py', 'http_serve.py', 'quantize.py'} <= {os.path.basename(p) for p in files}
     offenders = []
     for path in files:
         with open(path) as f:

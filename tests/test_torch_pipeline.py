@@ -436,9 +436,8 @@ def test_pipeline_cli_writes_wavs_and_prints_stats(stages, device_vocoder):
         assert stats['evaluation'][key] == pytest.approx(value, rel=SCORE_RTOL), key
 
 
-@pytest.mark.parametrize('flag', [['--quantize', 'int8'], ['--data_parallel'],
-                                  ['--compute_dtype', 'bfloat16']],
-                         ids=['quantize', 'data_parallel', 'compute_dtype'])
+@pytest.mark.parametrize('flag', [['--data_parallel'], ['--compute_dtype', 'bfloat16']],
+                         ids=['data_parallel', 'compute_dtype'])
 def test_pipeline_cli_refuses_the_flags_it_lacks(stages, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         tpipeline.main(_cli(stages, *flag))
