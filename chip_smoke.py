@@ -149,6 +149,28 @@ code and without the final line:
     steps (probability dropout takes the exact plain path, as in the JAX
     package), the forward kernel in validation; finite losses.
 
+20. mlpg_kernel (before the main paths): MLPG's banded solve
+    (csrc/mlpg.cu, the custom op morgana::mlpg_solve) against its plain
+    loop on the same card inputs, the systems MLPG builds at B16 T1024 with
+    padding 100: the LSTM's three streams (66 static features, 1,056 lanes)
+    and F0Model's one; bit for bit (MLPG_RTOL), one launch, times of the
+    kernel, the loop and the whole mlpg(), against the bound; the whole
+    mlpg() against the CPU. Every serving and training phase's MLPG runs
+    through it: serve, f0_serving and transformer_serving count one solve a
+    batch and report mlpg_ms beside frames/s and the idle share.
+21. export (after quantize_serve): export_bundle of the serving phase's
+    LSTMAcousticModel at B16 over the 32 utterances (a program a bucket)
+    and of one bucket each of seeded TransformerAcousticModel and F0Model
+    voices; a fresh process that imports no model module runs them with
+    ExportedVoice: outputs equal to the engine's (EXPORT_RTOL), 8 K1 / 6
+    attention / 3 K3 launches and one MLPG solve a batch inside the loaded
+    programs; export seconds, program and params bytes, the first-call
+    latency of the bundle's process against a fresh engine's.
+22. compilation_cache: the serving command line twice in fresh processes
+    with --compilation_cache_dir: the first runs nvcc for K1 and the solve
+    and g++ for the vocoder into the directory, the second runs no
+    compiler; both launch the kernels and write the wavs.
+
 Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 The vocoder holds no kernel (the JAX package's is plain XLA), so it has no
@@ -217,6 +239,16 @@ GRAD_RTOL = 1e-3
 # step's gradients (relative to each parameter's max |grad|).
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_RTOL = 1e-3
+# MLPG's solve (csrc/mlpg.cu) against its plain loop on the card, relative
+# to the largest |x|: the kernel rounds every operation as the loop does, so
+# it gives the loop's bits (0.0 in the first card runs); the bar only leaves
+# room for a card whose division or root rounds otherwise.
+MLPG_RTOL = 1e-6
+MLPG_PADDING = 100          # the acoustic models' burn-in (models/rnn_spss.py:119)
+MLPG_FEATS = {'lstm': 1 + 60 + 5, 'f0': 1}   # static features a stream group solves
+# An exported program against the engine it came from: the same kernels on
+# the same inputs, relative to each output's largest |value|.
+EXPORT_RTOL = 1e-6
 SERVE_BATCH = 16
 N_UTTS = 32
 TRAIN_BATCH = 32
@@ -1219,6 +1251,114 @@ def attention_parent_phase(torch, dev, parent):
     return rows
 
 
+def mlpg_flops(bandwidth):
+    """Operations of one lane and frame of the solve, as csrc/mlpg.cu does
+    them: the factorisation's products, differences and divisions, the
+    pivot's squares, differences, clamp and root; the forward and back
+    substitutions' products, differences and division."""
+    factor = sum(2 * (bandwidth - p) + 1 for p in range(1, bandwidth + 1)) + 2 * bandwidth + 2
+    return factor + 2 * (2 * bandwidth + 1)
+
+
+def mlpg_bound(frames, lanes, bandwidth):
+    """Least time for the solve: b and the BW + 1 bands read once and x
+    written once at the memory rate, against its operations at the f32
+    peak. (The dependence of each lane's 2 T' steps, which the kernel's time
+    follows, is not in it.)"""
+    bytes_ms = (bandwidth + 3) * frames * lanes * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = mlpg_flops(bandwidth) * frames * lanes / F32_PEAK_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
+
+
+def mlpg_case(torch, dev, label, batch, feats, seed):
+    """MLPG at B16 T1024 with `feats` static features a window (padding 100,
+    ragged seq_len 200-1024): the banded systems it builds
+    (ops.mlpg.banded_system), the solve kernel against the plain loop on the
+    same card inputs, each timed; then the whole mlpg() on the card against
+    the CPU. Returns the numbers."""
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
+
+    rng = np.random.default_rng(seed)
+    frames = 1024
+    means = rng.normal(size=(batch, frames, 3 * feats)).astype(np.float32)
+    variances = rng.uniform(0.2, 2.0, size=(3 * feats,)).astype(np.float32)
+    seq_len = rng.integers(200, frames + 1, batch)
+    seq_len[0] = frames
+    args = [torch.from_numpy(a).to(dev) for a in (means, variances, seq_len)]
+    b, bands, _ = mlpg_ops.banded_system(args[0], args[1], padding_size=MLPG_PADDING,
+                                         seq_len=args[2])
+    bandwidth = bands.shape[0] - 1
+    before = mlpg_ops.launches
+    got = torch.ops.morgana.mlpg_solve(b, bands)
+    torch.cuda.synchronize()
+    launched = mlpg_ops.launches - before
+    want = mlpg_ops._banded_cholesky_solve(b, list(bands.unbind(0)), bandwidth)
+    err = max_abs(got - want)
+    rel = err / max(max_abs(want), 1e-30)
+    if launched != 1 or not torch.isfinite(got).all() or rel > MLPG_RTOL:
+        raise AssertionError(f'mlpg_kernel {label}: {launched} launches, finite '
+                             f'{bool(torch.isfinite(got).all())}, {rel} from the plain loop')
+    kernel_ms = cuda_ms(torch, lambda: torch.ops.morgana.mlpg_solve(b, bands), 20)
+    plain_ms = cuda_ms(torch, lambda: mlpg_ops._banded_cholesky_solve(
+        b, list(bands.unbind(0)), bandwidth), 1, warmup=0)
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def run():
+        return mlpg_ops.mlpg(*args[:2], padding_size=MLPG_PADDING, seq_len=args[2])
+
+    run()
+    mlpg_ms = sorted(host_ms(run) for _ in range(5))[2]
+    system_ms = sorted(host_ms(lambda: mlpg_ops.banded_system(
+        args[0], args[1], padding_size=MLPG_PADDING, seq_len=args[2])) for _ in range(5))[2]
+    traj = run().cpu()
+    cpu = mlpg_ops.mlpg(*(torch.from_numpy(a) for a in (means, variances)),
+                        padding_size=MLPG_PADDING, seq_len=torch.from_numpy(seq_len))
+    vs_cpu = max_abs(traj - cpu) / max(max_abs(cpu), 1e-30)
+    if vs_cpu > MLPG_RTOL:
+        raise AssertionError(f'mlpg_kernel {label}: mlpg() on the card {vs_cpu} from the CPU')
+    bound_ms, bound_by = mlpg_bound(b.shape[0], b.shape[1], bandwidth)
+    out = {'case': label, 'B': batch, 'T': frames, 'T_padded': int(b.shape[0]),
+           'lanes': int(b.shape[1]), 'bandwidth': bandwidth, 'launches': launched,
+           'max_abs_err_vs_plain': err, 'max_rel_err_vs_plain': rel, 'rtol': MLPG_RTOL,
+           'mlpg_vs_cpu_rel_err': vs_cpu, 'kernel_ms': kernel_ms, 'plain_ms': plain_ms,
+           'us_per_frame': kernel_ms * 1e3 / (2 * int(b.shape[0])),
+           'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
+           'mlpg_ms': mlpg_ms, 'mlpg_loop_ms': system_ms + plain_ms, 'system_ms': system_ms}
+    emit(dict({'phase': 'mlpg_kernel'}, **out))
+    return out
+
+
+def mlpg_timer(torch):
+    """A context whose value accumulates the host milliseconds of every
+    viz.synthesis.mlpg call made inside it, synchronised around each (the
+    MLPG of the models' predict)."""
+    from morgana_tpu_torch.viz import synthesis
+
+    @contextlib.contextmanager
+    def timer():
+        real, spent = synthesis.mlpg, [0.0]
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += (time.perf_counter() - t0) * 1e3
+            return out
+        synthesis.mlpg = timed
+        try:
+            yield spent
+        finally:
+            synthesis.mlpg = real
+    return timer()
+
+
 def write_normalisers(root, rng):
     """Seeded statistics in the {name}_mvn.json / {name}_minmax.json layout."""
     norm_dir = os.path.join(root, 'train')
@@ -1288,6 +1428,7 @@ def _serving_phase(torch, root, phase, store):
     from morgana_tpu_torch import data
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
     from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
     from morgana_tpu_torch.serve import InferenceEngine
     from morgana_tpu_torch.viz.synthesis import MLPG_streams
 
@@ -1308,11 +1449,13 @@ def _serving_phase(torch, root, phase, store):
     torch.cuda.reset_peak_memory_stats()
 
     lstm_ops.launches = lstm_ops.bf16_launches = 0
+    solves = mlpg_ops.launches
     start = time.perf_counter()
     outputs = engine.predict_items(items)      # returns host arrays: ends synchronised
     seconds = time.perf_counter() - start
     launches = lstm_ops.launches
     bf16_launches = lstm_ops.bf16_launches
+    solves = mlpg_ops.launches - solves
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_UTTS // SERVE_BATCH)
 
@@ -1326,9 +1469,11 @@ def _serving_phase(torch, root, phase, store):
             if out[key].shape != (n, dim) or not np.isfinite(out[key]).all():
                 raise AssertionError(f"{item['name']} {key}: shape {out[key].shape}, "
                                      f'expected ({n}, {dim}), finite={np.isfinite(out[key]).all()}')
-    if launches != 8 * n_batches or bf16_launches != (launches if store else 0):
-        raise AssertionError(f'K1 launched {launches} times ({bf16_launches} bf16) for '
-                             f'{n_batches} batches, expected {8 * n_batches}')
+    if launches != 8 * n_batches or bf16_launches != (launches if store else 0) \
+            or solves != n_batches:
+        raise AssertionError(f'K1 launched {launches} times ({bf16_launches} bf16), the MLPG '
+                             f'solve {solves}, for {n_batches} batches, expected '
+                             f'{8 * n_batches} and {n_batches}')
 
     # The same checkpoint on the CPU (plain versions) for the shortest utterances.
     few = sorted(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:4]
@@ -1399,7 +1544,7 @@ def _serving_phase(torch, root, phase, store):
           'ms_per_batch': seconds / n_batches * 1e3,
           'peak_memory_mib': peak_mib,
           'k1_launches': launches, 'k1_bf16_launches': bf16_launches,
-          'k1_launches_expected': 8 * n_batches,
+          'k1_launches_expected': 8 * n_batches, 'mlpg_solve_launches': solves,
           'gpu_vs_cpu_err': errs, 'net_tol': net_tol, 'traj_rtol': traj_rtol,
           **({'f32_storage_err': control} if store else {})})
     emit(dict({'phase': 'batch_breakdown' + ('_bf16' if store else ''), 'B': SERVE_BATCH,
@@ -1676,6 +1821,7 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
     and none of its backward, agreement with the CPU engine, throughput,
     peak memory and where a batch's time goes."""
     from morgana_tpu_torch import data
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
     from morgana_tpu_torch.serve import InferenceEngine
 
     serve_root = os.path.join(root, phase)
@@ -1691,10 +1837,12 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
     torch.cuda.reset_peak_memory_stats()
 
     ops.launches = ops.bwd_launches = 0
+    solves = mlpg_ops.launches
     start = time.perf_counter()
     outputs = engine.predict_items(items)      # returns host arrays: ends synchronised
     seconds = time.perf_counter() - start
     launches = ops.launches
+    solves = mlpg_ops.launches - solves
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_UTTS // SERVE_BATCH)
 
@@ -1708,9 +1856,10 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
                 raise AssertionError(f"{item['name']} {key}: shape {out[key].shape}, "
                                      f'expected ({n}, {dim}), finite={np.isfinite(out[key]).all()}')
     expected = layers * n_batches
-    if launches != expected or ops.bwd_launches:
-        raise AssertionError(f'{name} launched {launches} times (backward {ops.bwd_launches}) '
-                             f'for {n_batches} batches, expected {expected} (backward 0)')
+    if launches != expected or ops.bwd_launches or solves != n_batches:
+        raise AssertionError(f'{name} launched {launches} times (backward {ops.bwd_launches}), '
+                             f'the MLPG solve {solves}, for {n_batches} batches, expected '
+                             f'{expected} (backward 0) and {n_batches}')
 
     # The same checkpoint on the CPU (plain versions) for the shortest utterances.
     few = sorted(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:4]
@@ -1734,15 +1883,22 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
         for item in items[:SERVE_BATCH]])
     batch = data.device_features(features, engine.device)
     with torch.inference_mode():
+        engine.model.predict(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mlpg_timer(torch) as mlpg_ms:
+            engine.model.predict(batch)
+        predict_ms = (time.perf_counter() - t0) * 1e3
         profile = profile_step(torch, lambda: engine.model.predict(batch))
     emit(dict({'phase': phase, 'model': label,
                'utterances': N_UTTS, 'frames': frames, 'batch_size': SERVE_BATCH,
                'batches': n_batches, 'seconds': seconds, 'utterances_per_s': N_UTTS / seconds,
                'frames_per_s': frames / seconds, 'ms_per_batch': seconds / n_batches * 1e3,
                'peak_memory_mib': peak_mib, f'{name}_launches': launches,
-               f'{name}_launches_expected': expected, 'gpu_vs_cpu_err': errs, 'net_tol': NET_TOL,
-               'traj_rtol': TRAJ_RTOL,
-               'profiled_batch_T': int(features['normalised_counters'].shape[1])},
+               f'{name}_launches_expected': expected, 'mlpg_solve_launches': solves,
+               'gpu_vs_cpu_err': errs, 'net_tol': NET_TOL, 'traj_rtol': TRAJ_RTOL,
+               'profiled_batch_T': int(features['normalised_counters'].shape[1]),
+               'predict_ms': predict_ms, 'mlpg_ms': mlpg_ms[0]},
               **profile))
     return launches
 
@@ -3355,6 +3511,224 @@ def quantize_serve_phase(torch, served, smi):
     return launches
 
 
+EXPORT_RUN = r'''
+import json, sys, time
+start = time.perf_counter()
+import numpy as np
+import torch
+from morgana_tpu_torch.export import ExportedVoice
+from morgana_tpu_torch.ops import flash_attention, gru, lstm, mlpg
+
+COUNTERS = {'k1': lstm, 'k3': gru, 'attn_fwd': flash_attention, 'mlpg_solve': mlpg}
+report = {'voices': {}}
+for spec in json.loads(sys.argv[1]):
+    before = {k: m.launches for k, m in COUNTERS.items()}
+    t0 = time.perf_counter()
+    voice = ExportedVoice(spec['dir'])
+    with np.load(spec['batches']) as data:
+        batches = {}
+        for key in data.files:
+            i, name = key.split('__', 1)
+            batches.setdefault(int(i), {})[name] = data[key]
+    outs, run_ms = {}, []
+    for i in sorted(batches):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        staged, out = voice.run(batches[i])
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            first_ms = (time.perf_counter() - t0) * 1e3
+        outs.update({f'{i}__{k}': v.cpu().numpy() for k, v in out.items()})
+    launches = {k: m.launches - before[k] for k, m in COUNTERS.items()}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    voice.run(batches[0])
+    torch.cuda.synchronize()
+    np.savez(spec['out'], **outs)
+    report['voices'][spec['name']] = {
+        'first_call_ms': first_ms, 'run_ms': run_ms,
+        'again_ms': (time.perf_counter() - t1) * 1e3, 'launches': launches, 'staged': staged}
+report['models_imported'] = sorted(m for m in sys.modules if '.models' in m)
+report['jax_imported'] = any(m == 'jax' or m.startswith('morgana_tpu.') for m in sys.modules)
+report['process_s'] = time.perf_counter() - start
+print(json.dumps(report))
+'''
+
+ENGINE_FIRST = r'''
+import json, sys, time
+start = time.perf_counter()
+import numpy as np
+import torch
+from morgana_tpu_torch.serve import InferenceEngine, load_model_class
+spec, ckpt, root, batch_file = sys.argv[1:]
+t0 = time.perf_counter()
+engine = InferenceEngine(load_model_class(spec), ckpt, data_root=root, batch_size=16)
+with np.load(batch_file) as data:
+    batch = {k.split('__', 1)[1]: data[k] for k in data.files if k.startswith('0__')}
+out = engine.predict_batch(batch)
+torch.cuda.synchronize()
+first_ms = (time.perf_counter() - t0) * 1e3
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+engine.predict_batch(batch)
+torch.cuda.synchronize()
+print(json.dumps({'first_call_ms': first_ms, 'again_ms': (time.perf_counter() - t1) * 1e3,
+                  'process_s': time.perf_counter() - start}))
+'''
+
+
+def run_script(label, script, *argv, timeout=600):
+    """Runs `script` with `argv` in a fresh Python process from the repo
+    root; its last stdout line, parsed as JSON."""
+    proc = subprocess.run([sys.executable, '-c', script, *argv], capture_output=True, text=True,
+                          timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f'{label}: exited {proc.returncode}\n{proc.stderr[-4000:]}')
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def export_voice(torch, name, model_class, ckpt, root, items, spec, out_dir):
+    """Exports `items` (written as a split of `root`) through an engine of
+    `model_class` at B16 with export_bundle; returns the bundle's numbers
+    and what the subprocess needs: the batches and the engine's outputs on
+    them, as .npz files beside the bundle."""
+    from morgana_tpu_torch.export import export_bundle
+    from morgana_tpu_torch.serve import InferenceEngine, numeric_features
+
+    engine = InferenceEngine(model_class, ckpt, data_root=root, batch_size=SERVE_BATCH)
+    id_list = write_items(root, f'export_{name}', items, engine.model.test_data_sources())
+    engine.predict_items(items[:2])            # warm-up, as the serving phases
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    manifest = export_bundle(engine, out_dir, data_dir=f'export_{name}', id_list=id_list,
+                             model_spec=spec)
+    export_s = time.perf_counter() - start
+    batches, want = {}, {}
+    for i, features in enumerate(engine._loader(f'export_{name}', id_list=id_list)):
+        batches.update({f'{i}__{k}': v for k, v in numeric_features(features).items()})
+        want.update({f'{i}__{k}': v.cpu().numpy()
+                     for k, v in engine.predict_batch(features).items()})
+    np.savez(out_dir + '.batches.npz', **batches)
+    files = {f: os.path.getsize(os.path.join(out_dir, f)) for f in os.listdir(out_dir)}
+    return {'name': name, 'dir': out_dir, 'batches': out_dir + '.batches.npz',
+            'out': out_dir + '.out.npz'}, want, {
+        'export_s': export_s, 'programs': [(p['batch'], p['max_frames'])
+                                           for p in manifest['programs']],
+        'program_bytes': sum(v for f, v in files.items() if f.endswith('.pt2')),
+        'params_bytes': files['params.npz'], 'batches': len({k.split('__')[0] for k in want})}
+
+
+def export_phase(torch, served, smi):
+    """The deployment bundle on the card: LSTMAcousticModel at full width
+    (the serving phase's checkpoint) at B16 over the 32 utterances, one
+    program a bucket, and one bucket each of seeded TransformerAcousticModel
+    (K5) and F0Model (K3) voices. A fresh process that imports no model
+    module (nor JAX) runs the bundles with ExportedVoice: its outputs equal
+    the engine's within EXPORT_RTOL, and its launch counters show K1, K3,
+    the attention forward and the MLPG solve inside the loaded programs.
+    Export seconds, bytes, and the first-call latency of a fresh process,
+    the bundle's against the engine's. Returns the subprocess's launches."""
+    from morgana_tpu_torch.models.f0_test_model import F0Model
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
+
+    base = os.path.join(served['root'], 'export')
+    os.makedirs(base)
+    specs, wants, numbers = [], {}, {}
+    lstm_spec = 'morgana_tpu_torch.models.rnn_spss:LSTMAcousticModel'
+    voices = [('lstm', LSTMAcousticModel, served['ckpt'], served['root'], served['items'],
+               lstm_spec)]
+    for name, cls, make, seed in (('transformer', TransformerAcousticModel, make_items, 61),
+                                  ('f0', F0Model, f0_items, 62)):
+        root = os.path.join(base, f'{name}_voice')
+        os.makedirs(root)
+        rng = np.random.default_rng(seed)
+        ckpt = seeded_checkpoint(torch, cls, os.path.join(root, 'epoch_1.npz'), seed)
+        write_normalisers(root, rng)
+        voices.append((name, cls, ckpt, root, make(rng)[:SERVE_BATCH],
+                       f'{cls.__module__}:{cls.__name__}'))
+    for name, cls, ckpt, root, items, spec in voices:
+        entry, wants[name], numbers[name] = export_voice(
+            torch, name, cls, ckpt, root, items, spec, os.path.join(base, name))
+        specs.append(entry)
+
+    report = run_script('export: ExportedVoice', EXPORT_RUN, json.dumps(specs))
+    if report['models_imported'] or report['jax_imported']:
+        raise AssertionError(f'export: the bundle process imported {report["models_imported"]} '
+                             f'(JAX: {report["jax_imported"]})')
+    layers = {'lstm': ('k1', 8), 'transformer': ('attn_fwd', TRANSFORMER_BLOCKS),
+              'f0': ('k3', F0_LAYERS)}
+    for spec in specs:
+        name, got = spec['name'], report['voices'][spec['name']]
+        kernel, per_batch = layers[name]
+        n = numbers[name]['batches']
+        if got['launches'][kernel] != per_batch * n or got['launches']['mlpg_solve'] != n:
+            raise AssertionError(f'export {name}: launches {got["launches"]} for {n} batches')
+        errs = {}
+        with np.load(spec['out']) as out:
+            if sorted(out.files) != sorted(wants[name]):
+                raise AssertionError(f'export {name}: outputs {sorted(out.files)}')
+            for key, want in wants[name].items():
+                errs[key] = float(np.abs(out[key] - want).max()) / max(
+                    float(np.abs(want).max()), 1e-30)
+        worst = max(errs.values())
+        if worst > EXPORT_RTOL:
+            raise AssertionError(f'export {name}: {worst} from the engine (bar {EXPORT_RTOL})')
+        numbers[name].update(bundle=got, max_rel_err_vs_engine=worst)
+    engine_first = run_script('export: engine first call', ENGINE_FIRST, lstm_spec,
+                              served['ckpt'], served['root'], specs[0]['batches'])
+    emit({'phase': 'export', 'card': smi, 'batch_size': SERVE_BATCH, 'rtol': EXPORT_RTOL,
+          'voices': numbers, 'bundle_process_s': report['process_s'],
+          'lstm_engine_fresh_process': engine_first})
+    return {kernel: sum(report['voices'][name]['launches'][kernel] for name in numbers)
+            for kernel in ('k1', 'k3', 'attn_fwd', 'mlpg_solve')}
+
+
+CACHE_RUN = r'''
+import json, sys, time
+start = time.perf_counter()
+from morgana_tpu_torch import _build, serve
+from morgana_tpu_torch.ops import lstm, mlpg
+serve.main(sys.argv[1:])
+print(json.dumps({'nvcc_runs': _build.nvcc_runs, 'cxx_runs': _build.cxx_runs,
+                  'build_dir': _build.BUILD_DIR, 'k1': lstm.launches,
+                  'mlpg_solve': mlpg.launches, 'seconds': time.perf_counter() - start}))
+'''
+
+
+def compilation_cache_phase(torch, served, smi):
+    """--compilation_cache_dir: the serving command line (generation of the
+    2 shortest served utterances) twice, each a fresh process, pointed at a
+    new directory. The first builds the kernels its path loads (K1, the
+    MLPG solve) and the vocoder's library there; the second finds them and
+    runs no compiler. Both launch the kernels and write the wavs."""
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+
+    root = served['root']
+    few = sorted(served['items'], key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:2]
+    with torch.device('meta'):
+        sources = LSTMAcousticModel().test_data_sources()
+    id_list = write_items(root, 'cache', few, sources)
+    cache = os.path.join(root, 'kernel_cache')
+    runs = []
+    for i in range(2):
+        runs.append(run_script(f'compilation_cache run {i}', CACHE_RUN, '--model',
+                               'morgana_tpu_torch.models.rnn_spss:LSTMAcousticModel',
+                               '--checkpoint_path', served['ckpt'], '--data_root', root,
+                               '--data_dir', 'cache', '--id_list', id_list, '--out_dir',
+                               os.path.join(root, f'cache_gen{i}'), '--batch_size',
+                               str(SERVE_BATCH), '--compilation_cache_dir', cache))
+        wavs = os.listdir(os.path.join(root, f'cache_gen{i}', 'synth'))
+        if len(wavs) != len(few) or runs[-1]['k1'] != 8 or runs[-1]['mlpg_solve'] != 1:
+            raise AssertionError(f'compilation_cache run {i}: {runs[-1]}, wavs {wavs}')
+    if runs[0]['nvcc_runs'] != 2 or runs[0]['cxx_runs'] != 1 \
+            or runs[1]['nvcc_runs'] or runs[1]['cxx_runs']:
+        raise AssertionError(f'compilation_cache: compilers run {runs}')
+    emit({'phase': 'compilation_cache', 'card': smi, 'dir_files': sorted(os.listdir(cache)),
+          'runs': runs})
+
+
 def rel_l2(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
@@ -3507,6 +3881,13 @@ def main(argv=None):
         k5_bwd_case(torch, dev, batch, 4, steps, head_dim, causal, window, 60, timed=False,
                     empty_row=empty)
 
+    # MLPG's solve against its plain loop at the serving batch's shapes: the
+    # LSTM's three streams (66 static features) and F0Model's one.
+    mlpg_shape = mlpg_case(torch, dev, 'lstm', SERVE_BATCH, MLPG_FEATS['lstm'], 71)
+    mlpg_case(torch, dev, 'f0', SERVE_BATCH, MLPG_FEATS['f0'], 72)
+
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
+    mlpg_ops.launches = 0
     with tempfile.TemporaryDirectory() as root:
         serve_launches, _, served = serving_phase(torch, root)
         vocoder_batch_phase(torch, dev, served, smi)
@@ -3516,6 +3897,8 @@ def main(argv=None):
         stream_attn_launches = stream_transformer_phase(torch, dev, served, smi)
         http_launches = http_serve_phase(torch, served, smi)
         quantize_launches = quantize_serve_phase(torch, served, smi)
+        export_launches = export_phase(torch, served, smi)
+        compilation_cache_phase(torch, served, smi)
         train_launches = train_phase(torch, root)
         test_launches = builder_test_phase(torch, root, smi)
         _, bf16_serve_launches, _ = serving_phase(torch, root, 'serve_bf16', 'bfloat16')
@@ -3530,7 +3913,9 @@ def main(argv=None):
         train_parity_phase(torch, root, TransformerAcousticModel, 'transformer_train_parity', 24,
                            '--learning_rate', TRANSFORMER_LR)
         transformer_dropout_phase(torch, root)
-    if not (serve_launches and generate_launches and test_launches
+    mlpg_launches = mlpg_ops.launches + export_launches['mlpg_solve']
+    if not (serve_launches and generate_launches and test_launches and mlpg_launches
+            and export_launches['k1'] and export_launches['k3'] and export_launches['attn_fwd']
             and pipeline_launches['k1'] and pipeline_launches['k3'] and stream_launches['k1']
             and stream_launches['k3'] and stream_attn_launches and http_launches['k1']
             and http_launches['k3'] and http_launches['attn'] and quantize_launches
@@ -3550,16 +3935,17 @@ def main(argv=None):
     # pipeline_lstm and stream_lstm for the GRU kernels;
     # TransformerAcousticModel serving and training and stream_transformer's
     # batch for the attention kernels; and http_serve's requests (K1, K3 and
-    # the attention forward) and quantize_serve's batches (K1). The forward
-    # kernels' numbers are at
-    # the serving shape (B=16), the backward ones' at the training one
-    # (B=32).
+    # the attention forward), quantize_serve's batches (K1), and export's
+    # loaded programs (K1, K3, the attention forward, in their own process);
+    # the MLPG solve's over every one of these paths. The forward kernels'
+    # numbers are at the serving shape (B=16), the backward ones' at the
+    # training one (B=32), the solve's at the LSTM's B16 batch.
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
         'launches': serve_launches + generate_launches + test_launches + train_launches['k1']
         + pipeline_launches['k1'] + stream_launches['k1'] + http_launches['k1']
-        + quantize_launches,
+        + quantize_launches + export_launches['k1'],
         'max_abs_err': main_shape['max_abs_err_vs_plain'], 'ms': main_shape['kernel_ms'],
         'plain_ms': main_shape['plain_ms'], 'bound_ms': main_shape['bound_ms'],
         'bound_by': main_shape['bound_by'], 'library_ms': main_shape['library_ms']}, {
@@ -3584,7 +3970,8 @@ def main(argv=None):
         'name': 'gru_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/gru_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_gru.py:35',
         'launches': f0_serve_launches + f0_train_launches['k3'] + duration_launches['k3']
-        + pipeline_launches['k3'] + stream_launches['k3'] + http_launches['k3'],
+        + pipeline_launches['k3'] + stream_launches['k3'] + http_launches['k3']
+        + export_launches['k3'],
         'max_abs_err': gru_fwd_shape['max_abs_err_vs_plain'], 'ms': gru_fwd_shape['kernel_ms'],
         'plain_ms': gru_fwd_shape['plain_ms'], 'bound_ms': gru_fwd_shape['bound_ms'],
         'bound_by': gru_fwd_shape['bound_by'], 'library_ms': gru_fwd_shape['library_ms']}, {
@@ -3599,7 +3986,7 @@ def main(argv=None):
         'name': 'attn_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/attn_fwd.cu',
         'replaces': 'morgana_tpu/nn.py:1001', 'also_replaces': 'morgana_tpu/nn.py:1055',
         'launches': attn_serve_launches + attn_train_launches['attn_fwd'] + stream_attn_launches
-        + http_launches['attn'],
+        + http_launches['attn'] + export_launches['attn_fwd'],
         'max_abs_err': attn_fwd_shape['max_abs_err_vs_plain'], 'ms': attn_fwd_shape['kernel_ms'],
         'plain_ms': attn_fwd_shape['plain_ms'], 'bound_ms': attn_fwd_shape['bound_ms'],
         'bound_by': attn_fwd_shape['bound_by'], 'library_ms': attn_fwd_shape['library_ms'],
@@ -3610,7 +3997,12 @@ def main(argv=None):
         'max_abs_err': attn_bwd_shape['bwd_max_abs_err'], 'ms': attn_bwd_shape['kernel_ms'],
         'plain_ms': attn_bwd_shape['plain_ms'], 'bound_ms': attn_bwd_shape['bound_ms'],
         'bound_by': attn_bwd_shape['bound_by'], 'library_ms': attn_bwd_shape['library_ms'],
-        'simt_bound_ms': attn_bwd_shape['simt_bound_ms']}]})
+        'simt_bound_ms': attn_bwd_shape['simt_bound_ms']}, {
+        'name': 'mlpg_solve', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/mlpg.cu',
+        'replaces': 'morgana_tpu/ops/mlpg.py:88', 'launches': mlpg_launches,
+        'max_abs_err': mlpg_shape['max_abs_err_vs_plain'], 'ms': mlpg_shape['kernel_ms'],
+        'plain_ms': mlpg_shape['plain_ms'], 'bound_ms': mlpg_shape['bound_ms'],
+        'bound_by': mlpg_shape['bound_by'], 'library_ms': None}]})
     print(nvidia_smi(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -14,6 +14,13 @@ the g++ route, :func:`build_cxx`: ``g++ -O3 -march=native`` into
 ``build/<name>.<hash>.so``, the hash also covering the host's CPU (model and
 flags), since ``-march=native`` builds for it.
 
+The build directory is a cache: ``--compilation_cache_dir`` (the serving
+command line, :func:`set_build_dir`) names another, shared between
+processes, so that a new process finds the libraries there and runs no
+``nvcc`` (the port's counterpart of the JAX package's persistent XLA
+compilation cache). :data:`nvcc_runs` and :data:`cxx_runs` count the
+compilers this process started.
+
 A *variant* is the same source built with extra defines into a library of
 its own (``<name>-<variant>.<hash>.so``): ``step_split`` compiles the LSTM
 kernels' per-step clock records, which the main path's libraries never
@@ -29,7 +36,7 @@ import subprocess
 import threading
 
 __all__ = ['CSRC_DIR', 'BUILD_DIR', 'VARIANTS', 'build', 'build_cxx', 'kernel_names',
-           'load']
+           'load', 'set_build_dir', 'nvcc_runs', 'cxx_runs']
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
@@ -44,6 +51,19 @@ VARIANTS = {'step_split': ('-DMORGANA_STEP_SPLIT=1',)}
 
 _LOCK = threading.Lock()
 _LIBS = {}
+
+# The nvcc and g++ processes this process started.
+nvcc_runs = 0
+cxx_runs = 0
+
+
+def set_build_dir(path):
+    """Builds and finds the libraries in ``path`` from now on (created when
+    missing); a library already loaded stays in use."""
+    global BUILD_DIR
+    with _LOCK:
+        BUILD_DIR = os.path.abspath(path)
+        os.makedirs(BUILD_DIR, exist_ok=True)
 
 
 def _nvcc():
@@ -86,6 +106,7 @@ def build(names=None, variant=None):
     whose library is missing, one ``nvcc`` each, all started together, with
     ``variant``'s flags if one is named. Returns ``{name: library path}``;
     raises with the compiler's output if any build fails."""
+    global nvcc_runs
     names = kernel_names() if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths, running = {}, []
@@ -98,6 +119,7 @@ def build(names=None, variant=None):
         cmd = [_nvcc(), *_flags(variant), '-o', tmp, source]
         running.append((name, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        nvcc_runs += 1
     failures = []
     for name, target, tmp, proc in running:
         log, _ = proc.communicate()
@@ -151,8 +173,10 @@ def build_cxx(name, source):
     target = os.path.join(BUILD_DIR, f'{name}.{digest.hexdigest()[:16]}.so')
     if os.path.exists(target):
         return target
+    global cxx_runs
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{target}.{os.getpid()}.tmp'
+    cxx_runs += 1
     try:
         proc = subprocess.run(['g++', *CXX_FLAGS, source, '-o', tmp], capture_output=True,
                               text=True, timeout=300)

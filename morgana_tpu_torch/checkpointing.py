@@ -7,7 +7,9 @@ The JAX package also writes an ``epoch_{N}.train.pkl`` sidecar beside each
 checkpoint (``checkpointing.py:66``): a plain pickle of the optimiser state
 (optax's named tuples of numpy arrays), the EMA parameters, the step count
 and the LR-schedule state, for exact resume. :func:`load_training_state`
-reads it without optax or JAX; the port does not write one."""
+reads it without optax or JAX, and :func:`save_training_state` writes the
+port's in the same layout, optax's state classes named by their module
+paths, so that the JAX builder resumes from it as from its own."""
 import collections
 import io
 import os
@@ -16,7 +18,7 @@ import pickle
 import numpy as np
 
 __all__ = ['save_state_dict', 'load_state_dict', 'read_npz', 'training_state_path_for',
-           'load_training_state', 'AdamState', 'EmptyState']
+           'save_training_state', 'load_training_state', 'AdamState', 'EmptyState']
 
 # optax's state classes, as plain named tuples with the same fields: the
 # unpickler builds these in their place.
@@ -24,6 +26,9 @@ AdamState = collections.namedtuple('ScaleByAdamState', ['count', 'mu', 'nu'])
 EmptyState = collections.namedtuple('EmptyState', [])
 
 _OPTAX_STATES = {'ScaleByAdamState': AdamState, 'EmptyState': EmptyState}
+# Where optax defines them: a sidecar the port writes names these.
+_OPTAX_PATHS = {AdamState: ('optax._src.transform', 'ScaleByAdamState'),
+                EmptyState: ('optax._src.base', 'EmptyState')}
 # What a sidecar's numpy arrays and scalars unpickle through, under numpy 1's
 # module names and numpy 2's.
 _NUMPY_GLOBALS = {(module, name) for prefix in ('numpy.core', 'numpy._core')
@@ -71,6 +76,39 @@ def training_state_path_for(checkpoint_path):
     """The sidecar of a parameter checkpoint: ``epoch_N.npz`` ->
     ``epoch_N.train.pkl`` (``checkpointing.py:60``)."""
     return os.path.splitext(str(checkpoint_path))[0] + '.train.pkl'
+
+
+class _SidecarPickler(pickle._Pickler):
+    """Pickles :data:`AdamState` and :data:`EmptyState` as optax's classes,
+    by module path (optax need not be importable), and everything else as
+    :mod:`pickle` does. It is the Python pickler, whose ``save_global`` can
+    be given other names; the C one looks each class up in its module."""
+
+    def save_global(self, obj, name=None):
+        path = _OPTAX_PATHS.get(obj)
+        if path is None:
+            return super().save_global(obj, name)
+        for part in path:
+            self.save(part)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def save_training_state(path, params, opt_state=None, ema_params=None, step=0, extra=None):
+    """Writes the ``.train.pkl`` sidecar (``checkpointing.py:66``) that
+    :func:`load_training_state` and the JAX package read: ``{'params',
+    'opt_state', 'ema_params', 'step', 'extra'}``, with numpy arrays, the
+    optimiser state a tuple of :data:`AdamState` / :data:`EmptyState` (as
+    optax's ``chain`` keeps it). Written to a temporary file and renamed
+    into place. Returns the path."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    state = {'params': params, 'opt_state': opt_state, 'ema_params': ema_params,
+             'step': int(step), 'extra': extra}
+    target = str(path)
+    with open(target + '.tmp', 'wb') as f:
+        _SidecarPickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(state)
+    os.replace(target + '.tmp', target)
+    return target
 
 
 class _SidecarUnpickler(pickle.Unpickler):

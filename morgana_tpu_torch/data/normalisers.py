@@ -89,6 +89,12 @@ class _FeatureNormaliser(object):
         if not isinstance(like, torch.Tensor):
             return params
         key = (deltas, like.device, like.dtype)
+        if torch.compiler.is_compiling() and key not in self._on_device:
+            # Traced (torch.export) before any real call: the tensors are the
+            # tracer's, so they are not kept. (Kept ones, made by a real
+            # call, become the program's constants on their device.)
+            return {k: torch.as_tensor(v, dtype=like.dtype, device=like.device)
+                    for k, v in params.items()}
         if key not in self._on_device:
             self._on_device[key] = {k: torch.as_tensor(v, dtype=like.dtype, device=like.device)
                                     for k, v in params.items()}

@@ -7,9 +7,10 @@ on the device: on the GPU every LSTM layer runs kernel K1 forward (writing
 its gate trace) and kernel K2 backward, every GRU layer kernels K3 and K4.
 Outputs keep the JAX package's layout under
 ``{experiments_base}/{experiment_name}``: ``config.json``,
-``checkpoints/epoch_{N}.npz`` (which the JAX package loads),
-``train/epoch_{N}/metrics.json`` (with ``epoch_duration_s``, ``ms_per_step``
-and ``frames_per_sec``), ``valid/epoch_{N}/metrics.json`` and ``log/``. Every
+``checkpoints/epoch_{N}.npz`` (which the JAX package loads) with its
+``epoch_{N}.train.pkl`` sidecar (Adam, EMA, step and LR schedule, from which
+either package's builder resumes), ``train/epoch_{N}/metrics.json`` (with
+``epoch_duration_s``, ``ms_per_step`` and ``frames_per_sec``), ``valid/epoch_{N}/metrics.json`` and ``log/``. Every
 ``--valid_output_interval`` epochs the validation runs the model's analysis
 hooks (the acoustic models synthesise ``valid/epoch_{N}/synth/*.wav``);
 ``--test`` predicts the test set every ``--test_output_interval`` epochs, or
@@ -128,8 +129,8 @@ class ExperimentBuilder(object):
         parser.add_argument('--checkpoint_path', dest='checkpoint_path', type=str, default=None,
                             help='Initialise the parameters from this epoch_{N}.npz (written '
                                  'by either package); when training, the optimiser, EMA, '
-                                 'step and LR-schedule state too, from the JAX package\'s '
-                                 'epoch_{N}.train.pkl beside it.')
+                                 'step and LR-schedule state too, from the '
+                                 'epoch_{N}.train.pkl beside it (written by either package).')
 
         parser.add_argument('--batch_size', dest='batch_size', type=int, default=32,
                             help='Utterances per training/validation batch.')
@@ -315,8 +316,8 @@ class ExperimentBuilder(object):
         return model.to(self.device)
 
     def restore_training_state(self, checkpoint_path):
-        r"""Exact resume (``experiment_builder.py:756-778``): when the JAX
-        package's ``.train.pkl`` sidecar sits beside ``checkpoint_path``, Adam's
+        r"""Exact resume (``experiment_builder.py:756-778``): when a
+        ``.train.pkl`` sidecar of either package sits beside ``checkpoint_path``, Adam's
         state, the EMA parameters and the step count are taken from it, and
         the LR-schedule state at :meth:`run_train`. Without one, Adam starts
         afresh, as in the JAX package."""
@@ -421,6 +422,9 @@ class ExperimentBuilder(object):
 
             if self.epoch % self.model_checkpoint_interval == 0:
                 path = self.model.save_parameters(self.experiment_dir, self.epoch)
+                checkpointing.save_training_state(
+                    checkpointing.training_state_path_for(path), **self.loop.jax_state(),
+                    extra={'lr_schedule': lr_schedule.state_dict()})
                 self.logger.info('epoch %2d: saved %s', self.epoch, path)
                 if self.ema_decay:
                     self.loop.ema_model.save_parameters(self.experiment_dir, f'{self.epoch}_ema')

@@ -35,11 +35,20 @@ Codes: 400 for a malformed body, duplicate names or a missing feature; 404
 for an unknown path or voice; 500 for a server fault or non-finite outputs.
 One lock serialises the device work of every handler, batcher and voice: the
 whole of a ``/predict`` engine call, and one model chunk of a ``/stream``.
-A checkpoint reload takes no lock: it builds the new version beside the one
-served and swaps the engine's reference, and every call and stream keeps
-the version it started with (``serve.InferenceEngine.reload_checkpoint``).
+A checkpoint reload takes no device lock: it builds the new version beside
+the one served and swaps the engine's reference, and every call and stream
+keeps the version it started with (``serve.InferenceEngine.reload_checkpoint``).
+Converting and encoding a large JSON body holds the interpreter lock for
+tens of milliseconds at a time, and under a few concurrent clients the
+threads that did so took turns with it almost without a break: a health
+check or a reload that waited for it after each of its steps took
+seconds. So the handlers' large conversions take turns on a
+:class:`_HostGate` instead, and a reload, once the watcher has found a
+newer checkpoint, goes next: new work waits for the build (a fraction of a
+second) while the device keeps serving.
 """
 import base64
+import contextlib
 import json
 import logging
 import threading
@@ -85,6 +94,43 @@ class _Stats(object):
         return out
 
 
+class _HostGate(object):
+    """Lets the handlers' large JSON and array conversions run one at a
+    time, and a checkpoint reload in ahead of the handlers waiting. Under
+    the interpreter lock they could not run side by side anyway; queued
+    here instead of on the lock, they leave it to the other threads (a
+    health check, the checkpoint watcher) between sections. Sections are
+    never nested."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._busy = False
+        self._reloads = 0   # reloads waiting
+
+    @contextlib.contextmanager
+    def _hold(self, reload):
+        with self._cv:
+            self._reloads += reload
+            while self._busy or (self._reloads and not reload):
+                self._cv.wait()
+            self._reloads -= reload
+            self._busy = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._busy = False
+                self._cv.notify_all()
+
+    def work(self):
+        """A handler's section."""
+        return self._hold(False)
+
+    def reload(self):
+        """A reload's section, next after the one in flight."""
+        return self._hold(True)
+
+
 def _to_arrays(item):
     """A JSON item as a feature dict: integer lists stay integral, floats
     become float32."""
@@ -98,6 +144,23 @@ def _to_arrays(item):
             arr = arr.astype(np.float32)
         out[key] = arr
     return out
+
+
+_ENCODE_ROWS = 64   # rows of a frame-level output encoded by one json.dumps call
+
+
+def _encode(obj):
+    """``json.dumps(obj, allow_nan=False)``, byte for byte, made a dict
+    entry and a block of ``_ENCODE_ROWS`` list rows at a time: one call over
+    a whole reply holds the interpreter lock for ~0.1 s, and every other
+    thread of the server (a ``/healthz``, the checkpoint watcher) waits that
+    long behind it; a block of 64 rows of 180 floats, a few milliseconds."""
+    if isinstance(obj, dict) and all(isinstance(k, str) for k in obj):
+        return '{' + ', '.join(f'{json.dumps(k)}: {_encode(v)}' for k, v in obj.items()) + '}'
+    if isinstance(obj, list) and len(obj) > _ENCODE_ROWS:
+        return '[' + ', '.join(json.dumps(obj[i:i + _ENCODE_ROWS], allow_nan=False)[1:-1]
+                               for i in range(0, len(obj), _ENCODE_ROWS)) + ']'
+    return json.dumps(obj, allow_nan=False)
 
 
 def _to_lists(outputs):
@@ -116,11 +179,12 @@ def make_server(engine, host='127.0.0.1', port=0, dynamic_batch_ms=0.0, watch_ch
     :class:`~morgana_tpu_torch.serve.DynamicBatcher` (``server.batchers``;
     the default voice's is ``server.batcher``). ``watch_checkpoints > 0``
     polls every that many seconds for a higher-epoch checkpoint beside each
-    voice's (:meth:`~morgana_tpu_torch.serve.InferenceEngine.maybe_reload_newer_checkpoint`);
+    voice's (:meth:`~morgana_tpu_torch.serve.InferenceEngine.newer_checkpoint`);
     the new version is built while the old one serves, without the device
     lock, which the JAX package's reload needs because it writes the
-    module's parameters in place. A failure is logged and tried again at
-    the next poll. ``server.server_close()`` stops the watcher and the
+    module's parameters in place, but ahead of the handlers' waiting host
+    work (:class:`_HostGate`). A failure is logged and tried again at the
+    next poll. ``server.server_close()`` stops the watcher and the
     batchers."""
     engines = dict(engine) if isinstance(engine, dict) else {'default': engine}
     if not engines:
@@ -128,6 +192,7 @@ def make_server(engine, host='127.0.0.1', port=0, dynamic_batch_ms=0.0, watch_ch
     default_name = next(iter(engines))
 
     lock = threading.Lock()   # one device: one engine call or model chunk at a time
+    gate = _HostGate()        # the handlers' JSON work against a reload
     stats = _Stats()
     batchers = {}
     if dynamic_batch_ms and float(dynamic_batch_ms) > 0:
@@ -155,10 +220,11 @@ def make_server(engine, host='127.0.0.1', port=0, dynamic_batch_ms=0.0, watch_ch
         # an exact Content-Length.
         protocol_version = 'HTTP/1.1'
 
-        def _reply(self, code, payload, headers=None):
+        def _reply(self, code, payload, headers=None, large=False):
             try:
                 # Python's default writes NaN and Infinity, which are not JSON.
-                body = json.dumps(payload, allow_nan=False).encode()
+                with gate.work() if large else contextlib.nullcontext():
+                    body = _encode(payload).encode()
             except ValueError:
                 code = 500
                 body = json.dumps({'error': 'model output contains non-finite values'}).encode()
@@ -171,7 +237,9 @@ def make_server(engine, host='127.0.0.1', port=0, dynamic_batch_ms=0.0, watch_ch
             self.wfile.write(body)
 
         def _read_json(self):
-            return json.loads(self.rfile.read(int(self.headers.get('Content-Length', 0))))
+            body = self.rfile.read(int(self.headers.get('Content-Length', 0)))
+            with gate.work():
+                return json.loads(body)
 
         def do_GET(self):
             if self.path == '/healthz':
@@ -216,7 +284,8 @@ def make_server(engine, host='127.0.0.1', port=0, dynamic_batch_ms=0.0, watch_ch
                 if err is not None:
                     self._reply(404, err)
                     return
-                item = _to_arrays(request['item'])
+                with gate.work():
+                    item = _to_arrays(request['item'])
                 kwargs = {k: int(request[k]) for k in ('chunk_frames', 'context', 'lookahead')
                           if k in request}
                 config = (kwargs.get('chunk_frames', 64), kwargs.get('context', 32),
@@ -311,7 +380,8 @@ def make_server(engine, host='127.0.0.1', port=0, dynamic_batch_ms=0.0, watch_ch
                 if err is not None:
                     self._reply(404, err)
                     return
-                items = [_to_arrays(item) for item in request['items']]
+                with gate.work():
+                    items = [_to_arrays(item) for item in request['items']]
                 names = [item.get('name', str(i)) for i, item in enumerate(items)]
                 if len(set(names)) != len(names):
                     self._reply(400, {'error': 'duplicate item names'})
@@ -326,8 +396,9 @@ def make_server(engine, host='127.0.0.1', port=0, dynamic_batch_ms=0.0, watch_ch
                 else:
                     with lock:
                         results = engine.predict_items(items)
-                payload = {'results': {name: _to_lists(outputs)
-                                       for name, outputs in results.items()}}
+                with gate.work():
+                    payload = {'results': {name: _to_lists(outputs)
+                                           for name, outputs in results.items()}}
                 stats.record(time.perf_counter() - start, ok=True)
             except Overloaded as exc:
                 stats.record(time.perf_counter() - start, ok=False)
@@ -344,7 +415,7 @@ def make_server(engine, host='127.0.0.1', port=0, dynamic_batch_ms=0.0, watch_ch
             # Outside the compute try: an OSError here is the client gone
             # after a good prediction, not a server error.
             try:
-                self._reply(200, payload)
+                self._reply(200, payload, large=True)
             except OSError:
                 self.close_connection = True
 
@@ -372,9 +443,11 @@ def make_server(engine, host='127.0.0.1', port=0, dynamic_batch_ms=0.0, watch_ch
             while not watcher_stop.wait(interval):
                 for name, eng in engines.items():
                     try:
-                        reloaded = eng.maybe_reload_newer_checkpoint()
-                        if reloaded:
-                            log.info('hot-reloaded %s -> %s', name, reloaded)
+                        newer = eng.newer_checkpoint()
+                        if newer:
+                            with gate.reload():
+                                eng.reload_checkpoint(newer)
+                            log.info('hot-reloaded %s -> %s', name, newer)
                     except Exception as exc:   # noqa: BLE001 - tried again at the next poll
                         log.warning('checkpoint watch for %s failed (%s: %s); retrying next '
                                     'poll', name, type(exc).__name__, exc)

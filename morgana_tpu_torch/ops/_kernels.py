@@ -1,17 +1,32 @@
 """What the kernel wrappers share (``ops/lstm.py``, ``ops/gru.py``,
-``ops/flash_attention.py``): the operand checks made before any launch,
-loading a kernel's ``ctypes`` library and turning a returned ``cudaError_t``
-into an exception; and, for the recurrent layers, the padding semantics
+``ops/flash_attention.py``, ``ops/mlpg.py``): the operand checks made before
+any launch, loading a kernel's ``ctypes`` library and turning a returned
+``cudaError_t`` into an exception; the outputs of a custom op, which may not
+alias its inputs; and, for the recurrent layers, the padding semantics
 around a recurrence that runs on through padded frames
-(``pallas_rnn.py:298-347``)."""
+(``pallas_rnn.py:298-347``).
+
+Every kernel is a ``torch.library`` custom op of the ``morgana`` namespace
+(``torch.ops.morgana.*``): its ``cuda`` implementation launches the kernel,
+its ``cpu`` one is the plain version, and a fake implementation gives the
+output shapes, so that ``torch.export`` holds one op node for each kernel
+call. Importing the module that defines an op registers it.
+"""
 import ctypes
 
 import torch
 
 from morgana_tpu_torch import _build
 
-__all__ = ['check_operands', 'load_library', 'raise_on_error', 'mask_past_seq_len',
-           'state_at_seq_len']
+__all__ = ['check_device', 'check_operands', 'load_library', 'raise_on_error', 'no_alias',
+           'mask_past_seq_len', 'state_at_seq_len']
+
+
+def check_device(what, tensor):
+    """Raises ``ValueError`` unless ``tensor`` lies on the CPU (the plain
+    version) or a CUDA device (the kernel): no other device has ``what``."""
+    if tensor.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no {what} for device {tensor.device}')
 
 
 def check_operands(kernel, operands, device, dtypes=(torch.float32,)):
@@ -56,6 +71,21 @@ def raise_on_error(lib, err, what, hint):
     if err != 0:
         raise RuntimeError(f'{what} failed: {lib.morgana_cuda_error_string(err).decode()} '
                            f'(cudaError {err}); {hint}')
+
+
+def no_alias(outputs, inputs):
+    """``outputs`` as a tuple, each one that shares memory with one of
+    ``inputs`` or with an earlier output (or is empty) replaced by a copy:
+    a custom op returns tensors of its own, and a plain version may hand
+    back an input unchanged (an empty sequence's state)."""
+    seen = {t.untyped_storage().data_ptr() for t in inputs if t is not None and t.numel()}
+    out = []
+    for t in outputs:
+        if not t.numel() or t.untyped_storage().data_ptr() in seen:
+            t = t.clone()
+        seen.add(t.untyped_storage().data_ptr())
+        out.append(t)
+    return tuple(out)
 
 
 def mask_past_seq_len(y, seq_len):

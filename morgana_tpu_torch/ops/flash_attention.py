@@ -13,7 +13,12 @@ also ``j <= i``; with ``window`` also ``i - j < window``) times v:
   :class:`torch.autograd.Function`, or an error: there is no fallback;
 * for CPU tensors, in its plain version, :func:`flash_attention_reference`
   (the additive biases of ``ops/attention.py`` and
-  ``scaled_dot_product_attention``), differentiated by autograd.
+  ``scaled_dot_product_attention``), differentiated by autograd when a
+  gradient is needed.
+
+The kernels are the custom ops ``morgana::attn_fwd`` and ``morgana::attn_bwd``
+(:func:`attn_fwd`, :func:`attn_bwd`; their ``cuda`` implementations launch
+the kernels, their ``cpu`` ones are the plain version and its backward).
 
 The two agree on every row that sees a key. A row that sees none (a batch
 row of length 0, a padded row past a window) is 0 from the kernel and a
@@ -34,14 +39,17 @@ through a two-stage ``cp.async`` ring, and skip key tiles that no row of a
 query tile sees, so windowed attention is linear in T.
 """
 import ctypes
+import math
+from typing import Optional
 
 import torch
 
 from morgana_tpu_torch.ops import attention as attention_ops
-from morgana_tpu_torch.ops._kernels import check_operands, load_library, raise_on_error
+from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
+                                            no_alias, raise_on_error)
 
 __all__ = ['flash_attention', 'flash_attention_reference', 'attention_bias', 'attention_forward',
-           'attention_backward', 'launches', 'bwd_launches', 'HEAD_DIMS']
+           'attention_backward', 'attn_fwd', 'attn_bwd', 'launches', 'bwd_launches', 'HEAD_DIMS']
 
 # Launches of the forward kernel and of the backward (its two kernels count
 # once), each counted where its wrapper launches and nowhere else.
@@ -166,21 +174,78 @@ def attention_backward(q, k, v, o, lse, do, seq_len=None, causal=False, window=N
     return dq, dk, dv
 
 
+@torch.library.custom_op('morgana::attn_fwd', mutates_args=(), device_types='cpu')
+def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_len: Optional[torch.Tensor],
+             causal: bool, window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``morgana::attn_fwd``, the forward of K5/K6: ``(o, lse)`` with the
+    masks of ``seq_len`` (int32 (B,) or None), ``causal`` and ``window`` (0
+    for none). This is its ``cpu`` implementation: the plain version, and
+    the log-sum-exp of its biased logits."""
+    window = window or None
+    o = flash_attention_reference(q, k, v, seq_len, causal, window)
+    bias = attention_bias(seq_len, q.shape[2], causal, window, device=q.device)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    lse = torch.logsumexp(logits if bias is None else logits + bias, dim=-1)
+    return no_alias((o, lse), (q, k, v, seq_len))
+
+
+@attn_fwd.register_kernel('cuda')
+def _attn_fwd_op_cuda(q, k, v, seq_len, causal, window):
+    return attention_forward(q, k, v, seq_len, causal, window or None)
+
+
+@attn_fwd.register_fake
+def _attn_fwd_fake(q, k, v, seq_len, causal, window):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op('morgana::attn_bwd', mutates_args=(), device_types='cpu')
+def attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+             lse: torch.Tensor, do: torch.Tensor, seq_len: Optional[torch.Tensor], causal: bool,
+             window: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``morgana::attn_bwd``, the backward of K5/K6: ``(dq, dk, dv)`` for the
+    cotangent ``do``. This is its ``cpu`` implementation: the backward of
+    the plain version written out, step for step as autograd takes it
+    (``o`` and ``lse`` are not read)."""
+    window = window or None
+    scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    bias = attention_bias(seq_len, q.shape[2], causal, window, device=q.device)
+    probs = torch.softmax(logits if bias is None else logits + bias.float(), dim=-1)
+    dv = torch.matmul(probs.transpose(-1, -2), do.float())
+    dprobs = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    dlogits = torch._softmax_backward_data(dprobs, probs, -1, torch.float32) * scale
+    dq = torch.matmul(dlogits, k.float())
+    dk = torch.matmul(dlogits.transpose(-1, -2), q.float())
+    return no_alias((dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)),
+                    (q, k, v, o, lse, do, seq_len))
+
+
+@attn_bwd.register_kernel('cuda')
+def _attn_bwd_op_cuda(q, k, v, o, lse, do, seq_len, causal, window):
+    return attention_backward(q, k, v, o, lse, do, seq_len, causal, window or None)
+
+
+@attn_bwd.register_fake
+def _attn_bwd_fake(q, k, v, o, lse, do, seq_len, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """``(q, k, v) -> o`` with the forward kernel, and the backward kernel
-    over the saved q, k, v, o and log-sum-exp."""
+    """``(q, k, v) -> o`` with :func:`attn_fwd`, and :func:`attn_bwd` over
+    the saved q, k, v, o and log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seq_len, causal, window):
-        o, lse = attention_forward(q, k, v, seq_len, causal, window)
+    def forward(ctx, q, k, v, lengths, causal, window):
+        o, lse = torch.ops.morgana.attn_fwd(q, k, v, lengths, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = (seq_len, causal, window)
+        ctx.mask = (lengths, causal, window)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, o, lse, do.contiguous(), *ctx.mask)
+        dq, dk, dv = torch.ops.morgana.attn_bwd(q, k, v, o, lse, do.contiguous(), *ctx.mask)
         return dq, dk, dv, None, None, None
 
 
@@ -201,10 +266,11 @@ def flash_attention(q, k, v, seq_len=None, causal=False, window=None):
     -------
     o : (batch, heads, T, head_dim); rows at or past ``seq_len`` are padding.
     """
-    if q.device.type == 'cuda':
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            return _FlashAttention.apply(q, k, v, seq_len, causal, window)
-        return attention_forward(q, k, v, seq_len, causal, window)[0]
-    if q.device.type == 'cpu':
-        return flash_attention_reference(q, k, v, seq_len, causal, window)
-    raise ValueError(f'no attention for device {q.device}')
+    check_device('attention', q)
+    _check_window(causal, window)
+    lengths = _lengths(seq_len, q.shape[0], q.device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == 'cpu':
+            return flash_attention_reference(q, k, v, seq_len, causal, window)
+        return _FlashAttention.apply(q, k, v, lengths, causal, int(window or 0))
+    return torch.ops.morgana.attn_fwd(q, k, v, lengths, causal, int(window or 0))[0]

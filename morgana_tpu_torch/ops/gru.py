@@ -22,21 +22,27 @@ in one ``torch.matmul`` (:func:`hidden_gates`, the product
 ``w_hh^T``, or its plain version for CPU tensors. K4 writes dxg and
 ``da_n * r``; ``dW_hh`` and ``db_hh`` read dxg's r and z columns and that.
 
+K3 and K4 are the custom ops ``morgana::gru_fwd`` and ``morgana::gru_bwd``
+(:func:`gru_fwd`, :func:`gru_bwd`; their ``cuda`` implementations launch the
+kernels, their ``cpu`` ones are the plain versions).
+
 Both kernels take the layer's batch-major layout and ``seq_len``: K3 zeroes
 the outputs past ``seq_len`` and gathers the final ``h`` at ``seq_len - 1``
 (``h0`` for empty rows), for a GRU ``y`` being the state trace
 (``pallas_gru.py:221-225``); K4 is the backward of that.
 """
 import ctypes
+from typing import Optional
 
 import torch
 
-from morgana_tpu_torch.ops._kernels import (check_operands, load_library,
-                                            mask_past_seq_len, raise_on_error,
+from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
+                                            mask_past_seq_len, no_alias, raise_on_error,
                                             state_at_seq_len)
 
 __all__ = ['gru_layer', 'gru_layer_reference', 'gru_recurrence', 'gru_recurrence_reference',
            'gru_backward', 'gru_backward_reference', 'layer_backward_reference', 'hidden_gates',
+           'gru_fwd', 'gru_bwd',
            'launches', 'bwd_launches']
 
 # Launches of K3 and of K4, each counted where its wrapper launches the
@@ -215,38 +221,6 @@ def gru_backward_reference(xg, hg, w_hh, h0, y, dy, dhn):
     return torch.stack(dxg), dh
 
 
-def gru_recurrence(xg, w_hh, b_hh, h0):
-    """The recurrence over a time-major (T, B, 3H) ``xg``, through padding:
-    kernel K3 for CUDA tensors, on a batch-major copy (the kernel takes the
-    layer's layout; ``xg`` is checked as given first), the plain version for
-    CPU tensors. Returns ``(y, hn)``, y (T, B, H)."""
-    if xg.device.type == 'cuda':
-        _sizes('K3', xg, time_major=True)
-        check_operands('K3', {'xg': (xg, tuple(xg.shape))}, xg.device)
-        y, hn = _gru_fwd_cuda(xg.transpose(0, 1).contiguous(), w_hh, b_hh, h0)
-        return y.transpose(0, 1).contiguous(), hn
-    if xg.device.type == 'cpu':
-        return gru_recurrence_reference(xg, w_hh, b_hh, h0)
-    raise ValueError(f'no GRU recurrence for device {xg.device}')
-
-
-def gru_backward(xg, w_hh, b_hh, h0, y, dy, dhn):
-    """The backward of :func:`gru_recurrence` (time-major): ``hg`` by
-    :func:`hidden_gates`, then kernel K4 for CUDA tensors, on batch-major
-    copies once the operands have been checked as given, or
-    :func:`gru_backward_reference` for CPU tensors. Returns ``(dxg, dh0)``."""
-    if xg.device.type == 'cuda':
-        _check_bwd_operands(xg, w_hh, h0, y, dy, dhn, time_major=True)
-        xg, y, dy = (t.transpose(0, 1).contiguous() for t in (xg, y, dy))
-        _, hg = hidden_gates(w_hh, b_hh, h0, y, batch_first=True)
-        dxg, _, dh0 = _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn)
-        return dxg.transpose(0, 1).contiguous(), dh0
-    if xg.device.type == 'cpu':
-        _, hg = hidden_gates(w_hh, b_hh, h0, y)
-        return gru_backward_reference(xg, hg, w_hh, h0, y, dy, dhn)
-    raise ValueError(f'no GRU backward for device {xg.device}')
-
-
 def _mask(y, hn, seq_len, h0):
     """(y zero past seq_len, the state at seq_len) of a (B, T, H) trace."""
     if seq_len is None:
@@ -277,27 +251,98 @@ def layer_backward_reference(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None):
     return dxg, dxg[..., 2 * hidden:] * r, dh0 + empty
 
 
-def _layer_forward(xg, w_hh, b_hh, h0, seq_len):
-    """``(y, hn)`` of a batch-major ``xg`` (B, T, 3H): y (B, T, H) zero past
-    ``seq_len``, hn the state at ``seq_len``. K3 for CUDA tensors (masking
-    and gather in the kernel); for CPU tensors the plain loop, then the
-    masking and gather of ``pallas_gru.py:221-225``."""
+@torch.library.custom_op('morgana::gru_fwd', mutates_args=(), device_types='cpu')
+def gru_fwd(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, h0: torch.Tensor,
+            seq_len: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """``morgana::gru_fwd``, K3: ``(y, hn)`` of a batch-major ``xg`` (B, T,
+    3H), y (B, T, H) zero past ``seq_len`` (an int64 (B,) tensor or None)
+    and hn the state there. This is its ``cpu`` implementation: the plain
+    loop, then the masking and gather of ``pallas_gru.py:221-225``."""
+    y, hn = _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len)
+    return no_alias((y.contiguous(), hn), (xg, w_hh, b_hh, h0, seq_len))
+
+
+def _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len):
+    y, hn = gru_recurrence_reference(xg.transpose(0, 1), w_hh, b_hh, h0)
+    return _mask(y.transpose(0, 1), hn, seq_len, h0)
+
+
+@gru_fwd.register_kernel('cuda')
+def _gru_fwd_op_cuda(xg, w_hh, b_hh, h0, seq_len):
+    return _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len)
+
+
+@gru_fwd.register_fake
+def _gru_fwd_fake(xg, w_hh, b_hh, h0, seq_len):
+    batch, time, gates3 = xg.shape
+    return (xg.new_empty((batch, time, gates3 // 3), dtype=torch.float32),
+            xg.new_empty((batch, gates3 // 3), dtype=torch.float32))
+
+
+@torch.library.custom_op('morgana::gru_bwd', mutates_args=(), device_types='cpu')
+def gru_bwd(xg: torch.Tensor, hg: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
+            y: torch.Tensor, dy: torch.Tensor, dhn: torch.Tensor,
+            seq_len: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``morgana::gru_bwd``, K4: ``(dxg, dnr, dh0)`` of :func:`gru_fwd`,
+    batch-major. This is its ``cpu`` implementation,
+    :func:`layer_backward_reference`."""
+    inputs = (xg, hg, w_hh, h0, y, dy, dhn, seq_len)
+    return no_alias(tuple(t.contiguous() for t in layer_backward_reference(*inputs)), inputs)
+
+
+@gru_bwd.register_kernel('cuda')
+def _gru_bwd_op_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len):
+    return _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len)
+
+
+@gru_bwd.register_fake
+def _gru_bwd_fake(xg, hg, w_hh, h0, y, dy, dhn, seq_len):
+    return (xg.new_empty(xg.shape, dtype=torch.float32), y.new_empty(y.shape, dtype=torch.float32),
+            dhn.new_empty(dhn.shape, dtype=torch.float32))
+
+
+def gru_recurrence(xg, w_hh, b_hh, h0):
+    """The recurrence over a time-major (T, B, 3H) ``xg``, through padding:
+    :func:`gru_fwd` (kernel K3 for CUDA tensors, the plain version for CPU
+    tensors) on a batch-major copy, ``xg`` checked as given first. Returns
+    ``(y, hn)``, y (T, B, H)."""
+    check_device('GRU recurrence', xg)
     if xg.device.type == 'cuda':
-        return _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len)
-    if xg.device.type == 'cpu':
-        y, hn = gru_recurrence_reference(xg.transpose(0, 1), w_hh, b_hh, h0)
-        return _mask(y.transpose(0, 1), hn, seq_len, h0)
-    raise ValueError(f'no GRU recurrence for device {xg.device}')
+        _sizes('K3', xg, time_major=True)
+        check_operands('K3', {'xg': (xg, tuple(xg.shape))}, xg.device)
+    y, hn = torch.ops.morgana.gru_fwd(xg.transpose(0, 1).contiguous(), w_hh, b_hh, h0, None)
+    return y.transpose(0, 1).contiguous(), hn
+
+
+def gru_backward(xg, w_hh, b_hh, h0, y, dy, dhn):
+    """The backward of :func:`gru_recurrence` (time-major): ``hg`` by
+    :func:`hidden_gates`, then :func:`gru_bwd` (kernel K4 for CUDA tensors,
+    the plain version for CPU tensors) on batch-major copies, the operands
+    checked as given first. Returns ``(dxg, dh0)``."""
+    check_device('GRU backward', xg)
+    if xg.device.type == 'cuda':
+        _check_bwd_operands(xg, w_hh, h0, y, dy, dhn, time_major=True)
+    _, hg = hidden_gates(w_hh, b_hh, h0, y)
+    xg, hg, y, dy = (t.transpose(0, 1).contiguous() for t in (xg, hg, y, dy))
+    dxg, _, dh0 = torch.ops.morgana.gru_bwd(xg, hg, w_hh, h0, y, dy, dhn, None)
+    return dxg.transpose(0, 1).contiguous(), dh0
+
+
+def _layer_forward(xg, w_hh, b_hh, h0, seq_len):
+    """``(y, hn)`` of a batch-major ``xg`` (B, T, 3H): :func:`gru_fwd`; for
+    CPU tensors that need a gradient, its plain version itself, which
+    autograd differentiates through the loop."""
+    check_device('GRU recurrence', xg)
+    if xg.device.type == 'cpu' and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in (xg, w_hh, b_hh, h0)):
+        return _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len)
+    return torch.ops.morgana.gru_fwd(xg, w_hh, b_hh, h0, seq_len)
 
 
 def _layer_backward(xg, hg, w_hh, h0, y, dy, dhn, seq_len):
-    """``(dxg, dnr, dh0)`` of :func:`_layer_forward`, batch-major: K4 for
-    CUDA tensors, :func:`layer_backward_reference` for CPU tensors."""
-    if xg.device.type == 'cuda':
-        return _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len)
-    if xg.device.type == 'cpu':
-        return layer_backward_reference(xg, hg, w_hh, h0, y, dy, dhn, seq_len)
-    raise ValueError(f'no GRU backward for device {xg.device}')
+    """``(dxg, dnr, dh0)`` of :func:`_layer_forward`: :func:`gru_bwd`."""
+    check_device('GRU backward', xg)
+    return torch.ops.morgana.gru_bwd(xg, hg, w_hh, h0, y, dy, dhn, seq_len)
 
 
 class _Recurrence(torch.autograd.Function):

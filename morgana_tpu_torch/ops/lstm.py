@@ -15,6 +15,10 @@ through padded frames over ``xg``:
 * for a CPU tensor, in its plain version, :func:`lstm_recurrence_reference`
   (a Python loop over time with ``torch.matmul``).
 
+K1 and K2 are the custom ops ``morgana::lstm_fwd`` and ``morgana::lstm_bwd``
+(:func:`lstm_fwd`, :func:`lstm_bwd`; their ``cuda`` implementations launch
+the kernels, their ``cpu`` ones are the plain versions).
+
 When a gradient is needed, the recurrence is a :class:`torch.autograd.Function`
 (the counterpart of ``_lstm_layer_core``'s ``custom_vjp``): the forward runs
 K1 with its gate trace ``g_all`` and the backward runs kernel K2
@@ -41,12 +45,13 @@ import os
 
 import torch
 
-from morgana_tpu_torch.ops._kernels import (check_operands, load_library,
-                                            mask_past_seq_len, raise_on_error,
+from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
+                                            mask_past_seq_len, no_alias, raise_on_error,
                                             state_at_seq_len)
 
 __all__ = ['lstm_layer', 'lstm_layer_reference', 'lstm_recurrence',
            'lstm_recurrence_reference', 'lstm_backward', 'lstm_backward_reference',
+           'lstm_fwd', 'lstm_bwd',
            'STORE_DTYPE', 'launches', 'gate_launches', 'bwd_launches',
            'bf16_launches', 'bf16_bwd_launches']
 
@@ -281,27 +286,68 @@ def lstm_backward_reference(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
     return torch.stack(dxg), dh, dc_carry
 
 
+@torch.library.custom_op('morgana::lstm_fwd', mutates_args=(), device_types='cpu')
+def lstm_fwd(xg: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+             with_gates: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """``morgana::lstm_fwd``, K1: ``(y, c_all, g_all, hn, cn)`` of the
+    recurrence over ``xg`` (T, B, 4H), ``g_all`` empty (0,) unless
+    ``with_gates``. This is its ``cpu`` implementation, the plain version."""
+    y, c_all, g_all, hn, cn = lstm_recurrence_reference(xg, w_hh, h0, c0)
+    return no_alias((y, c_all, g_all if with_gates else xg.new_empty((0,)), hn, cn),
+                    (xg, w_hh, h0, c0))
+
+
+@lstm_fwd.register_kernel('cuda')
+def _lstm_fwd_op_cuda(xg, w_hh, h0, c0, with_gates):
+    y, c_all, g_all, hn, cn = _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates)
+    return y, c_all, xg.new_empty((0,)) if g_all is None else g_all, hn, cn
+
+
+@lstm_fwd.register_fake
+def _lstm_fwd_fake(xg, w_hh, h0, c0, with_gates):
+    time, batch, gates4 = xg.shape
+    state = h0.new_empty((batch, gates4 // 4), dtype=torch.float32)
+    y = xg.new_empty((time, batch, gates4 // 4))
+    return (y, torch.empty_like(y), xg.new_empty(xg.shape if with_gates else (0,)), state,
+            torch.empty_like(state))
+
+
+@torch.library.custom_op('morgana::lstm_bwd', mutates_args=(), device_types='cpu')
+def lstm_bwd(g_all: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor, c_all: torch.Tensor,
+             dy: torch.Tensor, dc_all: torch.Tensor, dhn: torch.Tensor,
+             dcn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``morgana::lstm_bwd``, K2: ``(dxg, dh0, dc0)``. This is its ``cpu``
+    implementation, the plain version."""
+    inputs = (g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn)
+    return no_alias(lstm_backward_reference(*inputs), inputs)
+
+
+@lstm_bwd.register_kernel('cuda')
+def _lstm_bwd_op_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
+    return _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn)
+
+
+@lstm_bwd.register_fake
+def _lstm_bwd_fake(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
+    state = dhn.new_empty(dhn.shape, dtype=torch.float32)
+    return torch.empty_like(g_all), state, torch.empty_like(state)
+
+
 def lstm_recurrence(xg, w_hh, h0, c0, with_gates=False):
-    """The recurrence over ``xg``: kernel K1 for CUDA tensors, the plain
-    version for CPU tensors. Returns ``(y, c_all, g_all, hn, cn)``; ``g_all``
-    is None unless ``with_gates``."""
-    if xg.device.type == 'cuda':
-        return _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates)
-    if xg.device.type == 'cpu':
-        y, c_all, g_all, hn, cn = lstm_recurrence_reference(xg, w_hh, h0, c0)
-        return y, c_all, g_all if with_gates else None, hn, cn
-    raise ValueError(f'no LSTM recurrence for device {xg.device}')
+    """The recurrence over ``xg``, :func:`lstm_fwd`: kernel K1 for CUDA
+    tensors, the plain version for CPU tensors. Returns ``(y, c_all, g_all,
+    hn, cn)``; ``g_all`` is None unless ``with_gates``."""
+    check_device('LSTM recurrence', xg)
+    y, c_all, g_all, hn, cn = torch.ops.morgana.lstm_fwd(xg, w_hh, h0, c0, with_gates)
+    return y, c_all, g_all if with_gates else None, hn, cn
 
 
 def lstm_backward(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
-    """The backward of the recurrence: kernel K2 for CUDA tensors, the plain
-    version for CPU tensors. Returns ``(dxg, dh0, dc0)``."""
-    args = (g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn)
-    if g_all.device.type == 'cuda':
-        return _lstm_bwd_cuda(*args)
-    if g_all.device.type == 'cpu':
-        return lstm_backward_reference(*args)
-    raise ValueError(f'no LSTM backward for device {g_all.device}')
+    """The backward of the recurrence, :func:`lstm_bwd`: kernel K2 for CUDA
+    tensors, the plain version for CPU tensors. Returns ``(dxg, dh0, dc0)``."""
+    check_device('LSTM backward', g_all)
+    return torch.ops.morgana.lstm_bwd(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn)
 
 
 def _gates_recurrence(xg, w_hh, h0, c0):

@@ -8,15 +8,31 @@ passes over frames (factorise, forward and back substitution), each step an
 elementwise op over the lanes. The arithmetic follows the JAX version step
 for step, in float32.
 
-The passes are Python loops of small PyTorch ops, so on the GPU they cost
-thousands of launches per batch; the JAX package runs them as ``lax.scan``
-with no Pallas kernel, and they stay plain PyTorch here.
+The solve is the custom op ``morgana::mlpg_solve`` (:func:`mlpg_solve`):
+for CUDA tensors one launch of ``csrc/mlpg.cu`` (one thread a lane, the
+factorisation fused with the forward substitution, then the back
+substitution; the JAX package runs the passes as ``lax.scan`` with no
+Pallas kernel), or an error: there is no fallback; for CPU tensors its
+plain version, :func:`_banded_cholesky_solve`, Python loops of small
+PyTorch ops with the kernel's arithmetic, rounding for rounding.
 """
+import ctypes
+
 import torch
 
+from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
+                                            no_alias, raise_on_error)
 from morgana_tpu_torch.ops.deltas import DEFAULT_WINDOWS
 
-__all__ = ['mlpg', 'DEFAULT_WINDOWS']
+__all__ = ['mlpg', 'mlpg_solve', 'banded_system', 'DEFAULT_WINDOWS', 'MAX_BANDWIDTH',
+           'launches']
+
+# Launches of the solve kernel, counted where its wrapper launches it and
+# nowhere else.
+launches = 0
+
+#: The bandwidths the kernel is built for (a template each): 0 to 4.
+MAX_BANDWIDTH = 4
 
 
 def _shifted(x, s):
@@ -106,26 +122,62 @@ def _banded_cholesky_solve(b, p_band, bandwidth):
     return torch.stack(xs)
 
 
-def mlpg(means, variances, windows=DEFAULT_WINDOWS, padding_size=0, seq_len=None):
-    r"""Batched MLPG on the device of ``means`` (``ops/mlpg.py:201``).
+def _mlpg_solve_cuda(b, bands):
+    """Launches ``csrc/mlpg.cu`` on PyTorch's current stream; raises on
+    anything it does not take, and on a refused or failed launch. Returns
+    x (T', lanes)."""
+    global launches
+    if b.ndim != 2 or bands.ndim != 3:
+        raise ValueError(f'mlpg_solve: b must be (T\', lanes) and bands (BW + 1, T\', lanes), '
+                         f'got {tuple(b.shape)} and {tuple(bands.shape)}')
+    frames, lanes = b.shape
+    bandwidth = bands.shape[0] - 1
+    if bandwidth > MAX_BANDWIDTH:
+        raise ValueError(f'mlpg_solve: the kernel takes bandwidths up to {MAX_BANDWIDTH}, got '
+                         f'{bandwidth}')
+    check_operands('mlpg_solve', {'b': (b, (frames, lanes)),
+                                  'bands': (bands, (bandwidth + 1, frames, lanes))}, b.device)
+    x = torch.empty_like(b)
+    if not x.numel():
+        return x
+    lrows = torch.empty_like(bands)
+    ys = torch.empty_like(b)
+    lib, fn = load_library('mlpg', 'morgana_mlpg_solve',
+                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(b.device):
+        err = fn(b.data_ptr(), bands.data_ptr(), lrows.data_ptr(), ys.data_ptr(), x.data_ptr(),
+                 frames, lanes, bandwidth, b.device.index,
+                 torch.cuda.current_stream(b.device).cuda_stream)
+    raise_on_error(lib, err, f'MLPG solve kernel launch at T\'={frames} lanes={lanes} '
+                   f'BW={bandwidth}', 'one thread a lane, 32 a block')
+    launches += 1
+    return x
 
-    Parameters
-    ----------
-    means : torch.Tensor, shape (batch, time, num_windows * feat_dim)
-        Window-ordered ``[static | delta | delta-delta]`` means.
-    variances : broadcastable to ``means``: (batch, time, W*D), (time, W*D)
-        or (W*D,).
-    windows : tuple of (l, u, coeffs)
-    padding_size : int
-        Edge burn-in frames replicating the first and last valid frame.
-    seq_len : (batch,), optional
-        Valid lengths: each item solves exactly its own cropped system (rows
-        past it are decoupled identity rows) and frames past it are zero.
 
-    Returns
-    -------
-    torch.Tensor, shape (batch, time, feat_dim)
-    """
+@torch.library.custom_op('morgana::mlpg_solve', mutates_args=(), device_types='cpu')
+def mlpg_solve(b: torch.Tensor, bands: torch.Tensor) -> torch.Tensor:
+    """``morgana::mlpg_solve``: x (T', lanes) with ``P x = b`` in every lane,
+    ``bands[m][i] = P[i, i + m]`` (BW + 1, T', lanes). This is its ``cpu``
+    implementation, the plain version."""
+    x = _banded_cholesky_solve(b, list(bands.unbind(0)), bands.shape[0] - 1)
+    return no_alias((x,), (b, bands))[0]
+
+
+@mlpg_solve.register_kernel('cuda')
+def _mlpg_solve_op_cuda(b, bands):
+    return _mlpg_solve_cuda(b, bands)
+
+
+@mlpg_solve.register_fake
+def _mlpg_solve_fake(b, bands):
+    return torch.empty_like(b)
+
+
+def banded_system(means, variances, windows=DEFAULT_WINDOWS, padding_size=0, seq_len=None):
+    """The banded systems that :func:`mlpg` solves, one a (batch x feature)
+    lane: ``(b, bands, seq_len)``, b (T', B*D) and bands (BW + 1, T', B*D)
+    as :func:`mlpg_solve` takes them, T' = T + 2 * ``padding_size``, and
+    ``seq_len`` as a (B,) int64 tensor."""
     batch, num_frames, total_dim = means.shape
     num_windows = len(windows)
     feat_dim = total_dim // num_windows
@@ -169,8 +221,36 @@ def mlpg(means, variances, windows=DEFAULT_WINDOWS, padding_size=0, seq_len=None
     bands = [torch.where(inside, p_band[0], 1.)]
     for m in range(1, bandwidth + 1):
         bands.append(torch.where(pos_t + m < valid[None, :], p_band[m], 0.))
-    traj = _banded_cholesky_solve(b, bands, bandwidth)                 # (T', B*D)
+    return b.contiguous(), torch.stack(bands), seq_len
 
-    traj = traj.reshape(tp, batch, feat_dim).permute(1, 0, 2)[:, pad:pad + num_frames]
-    mask = (torch.arange(num_frames, device=device)[None, :] < seq_len[:, None])[:, :, None]
+
+def mlpg(means, variances, windows=DEFAULT_WINDOWS, padding_size=0, seq_len=None):
+    r"""Batched MLPG on the device of ``means`` (``ops/mlpg.py:201``).
+
+    Parameters
+    ----------
+    means : torch.Tensor, shape (batch, time, num_windows * feat_dim)
+        Window-ordered ``[static | delta | delta-delta]`` means.
+    variances : broadcastable to ``means``: (batch, time, W*D), (time, W*D)
+        or (W*D,).
+    windows : tuple of (l, u, coeffs)
+    padding_size : int
+        Edge burn-in frames replicating the first and last valid frame.
+    seq_len : (batch,), optional
+        Valid lengths: each item solves exactly its own cropped system (rows
+        past it are decoupled identity rows) and frames past it are zero.
+
+    Returns
+    -------
+    torch.Tensor, shape (batch, time, feat_dim)
+    """
+    batch, num_frames, total_dim = means.shape
+    feat_dim = total_dim // len(windows)
+    check_device('MLPG solve', means)
+    b, bands, seq_len = banded_system(means, variances, windows, padding_size, seq_len)
+    traj = torch.ops.morgana.mlpg_solve(b, bands)                      # (T', B*D)
+
+    pad = int(padding_size)
+    traj = traj.reshape(-1, batch, feat_dim).permute(1, 0, 2)[:, pad:pad + num_frames]
+    mask = (torch.arange(num_frames, device=means.device)[None, :] < seq_len[:, None])[:, :, None]
     return torch.where(mask, traj, 0.).to(means.dtype)

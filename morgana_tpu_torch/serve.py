@@ -50,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from morgana_tpu_torch import _build
 from morgana_tpu_torch import checkpointing
 from morgana_tpu_torch import data
 from morgana_tpu_torch import quantize as quantize_mod
@@ -59,13 +60,124 @@ from morgana_tpu_torch.streaming import StreamingMLPG
 from morgana_tpu_torch.utils import to_numpy
 
 __all__ = ['InferenceEngine', 'StreamingSession', 'DynamicBatcher', 'Overloaded',
-           'load_model_class', 'main']
+           'load_model_class', 'load_exported_program', 'numeric_features', 'program_inputs',
+           'main']
 
 
 class Overloaded(RuntimeError):
     """Raised by :class:`DynamicBatcher` when its queue of pending requests is
     full (``serve.py:46``): backpressure, which the HTTP layer answers with
     503."""
+
+
+def numeric_features(features):
+    """The numeric (and boolean) arrays of a collated batch, by sorted key
+    (``training.py:178``): what a predict program takes. Names and other
+    host values are left out."""
+    return {key: value for key, value in sorted(features.items())
+            if isinstance(value, torch.Tensor)
+            or isinstance(value, np.ndarray) and value.dtype.kind in 'fiub'}
+
+
+def program_inputs(params):
+    """A ``{name: tensor | QuantizedArray | Int4QuantizedArray}`` dict as
+    the tensors a predict program takes, by sorted key, each named as the
+    JAX package's checkpoint files name it: a float leaf by its name, a
+    quantized one as ``{name}.q`` (int8) or ``{name}.q4`` (packed int4) and
+    ``{name}.scale``."""
+    return _program_layout(params)[0]
+
+
+def _program_layout(params):
+    """``(program_inputs(params), {input name: the model's parameter
+    name})``: a quantized weight's two tensors are its parametrization's
+    ``original0`` and ``original1``."""
+    inputs, names = {}, {}
+    for name, value in params.items():
+        if isinstance(value, (quantize_mod.QuantizedArray, quantize_mod.Int4QuantizedArray)):
+            owner, _, attr = name.rpartition('.')
+            base = f'{owner}.parametrizations.{attr}' if owner else f'parametrizations.{attr}'
+            packed = 'q4' if isinstance(value, quantize_mod.Int4QuantizedArray) else 'q'
+            for suffix, tensor, original in ((packed, value.tensors()[0], 'original0'),
+                                             ('scale', value.tensors()[1], 'original1')):
+                inputs[f'{name}.{suffix}'] = tensor
+                names[f'{name}.{suffix}'] = f'{base}.{original}'
+        else:
+            inputs[name], names[name] = value, name
+    return dict(sorted(inputs.items())), names
+
+
+def _served_params(model):
+    """The served version's parameters by JAX name: a float tensor, or the
+    :class:`~morgana_tpu_torch.quantize.QuantizedArray` (or int4) that a
+    quantized weight's parametrization holds (its tensors, not copies)."""
+    out = {}
+    for name, value in model.named_parameters():
+        parts = name.split('.')
+        if 'parametrizations' not in parts:
+            out[name] = value
+            continue
+        at = parts.index('parametrizations')
+        owner, attr = '.'.join(parts[:at]), parts[at + 1]
+        weight = f'{owner}.{attr}' if owner else attr
+        if weight in out:
+            continue
+        originals = model.get_submodule(owner).parametrizations[attr]
+        deq = originals[0]
+        q, scale = originals.original0, originals.original1
+        out[weight] = (quantize_mod.Int4QuantizedArray(q, scale, deq.rows, deq.group_size,
+                                                       deq.float_dtype) if deq.int4
+                       else quantize_mod.QuantizedArray(q, scale, deq.float_dtype))
+    return out
+
+
+class _Predict(torch.nn.Module):
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch):
+        return self.model.predict(batch)
+
+
+class _PredictStep(torch.nn.Module):
+    """The engine's predict step as a function of ``(params, batch)``, the
+    model's parameters taken from ``params`` (by :func:`program_inputs`'
+    names) through ``torch.func.functional_call``: the module holds no
+    tensor of its own, so an exported program holds no parameter and takes
+    them as inputs. Returns ``(staged, outputs)``; ``staged`` is the JAX
+    step's staged metric partials, and the port's models stage none in
+    ``predict`` (their metrics accumulate in ``loss``), so it is ``{}``."""
+
+    def __init__(self, model, names):
+        super().__init__()
+        self.__dict__['_predict'] = _Predict(model)   # not a submodule
+        self._names = names
+
+    def forward(self, params, batch):
+        outputs = torch.func.functional_call(
+            self._predict, {f'model.{self._names[key]}': value for key, value in params.items()},
+            (batch,))
+        return {}, outputs
+
+
+def load_exported_program(path):
+    """Loads an :meth:`InferenceEngine.export_program` artifact
+    (``serve.py:51``) and returns it as a callable ``fn(params, batch,
+    rng=None) -> (staged, outputs)``: ``params`` as :func:`program_inputs`
+    gives them and ``batch`` the numeric features, both tensors on the
+    device the program was exported on. No model class, data source or
+    normaliser is needed, only this package for the kernels' custom ops;
+    ``rng`` is accepted for the JAX signature and not read (the port's
+    predict step draws no noise)."""
+    from morgana_tpu_torch.ops import flash_attention, gru, lstm, mlpg  # noqa: F401 - the ops
+
+    program = torch.export.load(path).module()
+
+    def run(params, batch, rng=None):
+        with torch.no_grad():
+            return program(dict(sorted(params.items())), dict(sorted(batch.items())))
+    return run
 
 
 def load_model_class(spec):
@@ -127,6 +239,11 @@ class InferenceEngine(object):
         picks quantized: per-channel int8, or packed int4 with group-wise
         scales. Only the quantized tensors stay on the device; each layer
         reads its weight dequantised at each call.
+    compilation_cache_dir : str, optional
+        Where the kernels' libraries are built and found
+        (:func:`morgana_tpu_torch._build.set_build_dir`), for every engine
+        of the process: a new process that finds them there runs no
+        compiler (``serve.py:166``, the JAX package's persistent XLA cache).
 
     Attributes
     ----------
@@ -138,9 +255,11 @@ class InferenceEngine(object):
 
     def __init__(self, model_class, checkpoint_path, data_root='.', normalisation_dir='train',
                  model_kwargs=None, device=None, batch_size=8, analysis_kwargs=None,
-                 stream_configs=None, quantize=None):
+                 stream_configs=None, quantize=None, compilation_cache_dir=None):
         if quantize not in (None, 'int8', 'int4'):
             raise ValueError(f"quantize must be None, 'int8' or 'int4', got {quantize!r}")
+        if compilation_cache_dir:
+            _build.set_build_dir(compilation_cache_dir)
         self.device = resolve_device(device)
         self.data_root = data_root
         self.batch_size = int(batch_size)
@@ -177,7 +296,24 @@ class InferenceEngine(object):
             params = quantize_mod.quantize_params(params,
                                                   bits={'int8': 8, 'int4': 4}[self._quantize])
         quantize_mod.load_params(model, params)
-        return model.to(self.device).eval()
+        return self._to_device(model).eval()
+
+    def _to_device(self, model):
+        """``model`` on the engine's device. On the GPU its copies run on a
+        stream of their own: a copy from pageable memory waits for the
+        earlier work of its stream, and on the served calls' stream a reload
+        under load would wait behind every batch in flight, a copy at a
+        time. The tensors are then marked as used on the served stream."""
+        if self.device.type != 'cuda':
+            return model.to(self.device)
+        side = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(side):
+            model = model.to(self.device)
+        side.synchronize()
+        served = torch.cuda.current_stream(self.device)
+        for tensor in list(model.parameters()) + list(model.buffers()):
+            tensor.record_stream(served)
+        return model
 
     @property
     def quantized(self):
@@ -202,6 +338,12 @@ class InferenceEngine(object):
         same ``epoch_{N}`` file name pattern (``serve.py:241-266``; an
         ``epoch_9_ema.npz`` does not match ``epoch_1.npz``). Returns the path
         reloaded, or None when nothing newer is there."""
+        newer = self.newer_checkpoint()
+        return None if newer is None else self.reload_checkpoint(newer)
+
+    def newer_checkpoint(self):
+        """The highest-epoch sibling of the served checkpoint that
+        :meth:`maybe_reload_newer_checkpoint` would reload, or None."""
         match = re.match(r'^(.*epoch_)(\d+)(\D.*\.npz|\.npz)$',
                          os.path.basename(self.checkpoint_path))
         if not match:
@@ -217,9 +359,7 @@ class InferenceEngine(object):
             m = re.match(rf'^{re.escape(prefix)}(\d+){re.escape(suffix)}$', name)
             if m and int(m.group(1)) > best_epoch:
                 best_epoch, best = int(m.group(1)), os.path.join(ckpt_dir, name)
-        if best is None:
-            return None
-        return self.reload_checkpoint(best)
+        return best
 
     def predict_batch(self, features):
         """Runs ``predict`` on one collated (padded) batch: its numeric arrays
@@ -229,6 +369,43 @@ class InferenceEngine(object):
     def _predict(self, model, features):
         with torch.inference_mode():
             return model.predict(data.device_features(features, self.device))
+
+    def served_params(self):
+        """The served version's parameters by JAX name: float tensors, and
+        the :class:`~morgana_tpu_torch.quantize.QuantizedArray` (or int4)
+        of each quantized weight; on the engine's device."""
+        return _served_params(self.model)
+
+    def program_params(self):
+        """The served version's parameters as a predict program's inputs
+        (:func:`program_inputs`), on the engine's device."""
+        return program_inputs(self.served_params())
+
+    def export_program(self, features, path):
+        """Exports the predict step for this batch's padded shapes
+        (``serve.py:298``) as a ``torch.export`` program, saved to ``path``:
+        the network, the staged metrics and MLPG, each kernel one
+        ``morgana::`` custom-op node, with the parameters as inputs (never
+        baked in). :func:`load_exported_program` runs it without the
+        model's class, data sources or normalisers, on the engine's device
+        (a program is specific to it, as a JAX one to its platform), given
+        :meth:`program_params` and batches of the same shapes and types.
+        ``features`` is one collated batch; its values are not kept.
+        Returns ``path``."""
+        model = self.model
+        inputs, names = _program_layout(_served_params(model))
+        step = _PredictStep(model, names)
+        batch = {key: torch.as_tensor(value).to(self.device)
+                 for key, value in numeric_features(features).items()}
+        # One real call first: the normalisers' statistics it puts on the
+        # device become the program's constants there, not copies made at
+        # each call.
+        self._predict(model, features)
+        with torch.no_grad():
+            program = torch.export.export(step, (inputs, batch), strict=False)
+        program.example_inputs = None   # else saved with it: the weights and a batch
+        torch.export.save(program, path)
+        return path
 
     def _unpad(self, features, outputs):
         """Every (B, T_pad, D) output becomes a list of (t_i, D) numpy arrays
@@ -711,10 +888,15 @@ class DynamicBatcher(object):
 
 
 class _Unported(argparse.Action):
-    """A JAX flag the port lacks: an argparse error that says so."""
+    """A JAX flag the port lacks: an argparse error that says so, naming
+    where ROADMAP.md places it (``const``, when given)."""
 
     def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f'{option_string} is not ported yet (ROADMAP.md)')
+        parser.error(f'{option_string} is not ported yet ({self.const or "ROADMAP.md"})')
+
+
+#: Where ``--compute_dtype`` waits.
+BF16_SLICE = 'the bf16 slice, ROADMAP.md Queue 1 item 3'
 
 
 def main(argv=None):
@@ -725,9 +907,10 @@ def main(argv=None):
     (:func:`morgana_tpu_torch.http_serve.serve_forever`, with
     ``--dynamic_batch_ms`` batching and ``--watch_checkpoints`` hot reload);
     otherwise it runs :meth:`InferenceEngine.generate` over ``--data_dir``
-    and prints the stats as one JSON line. ``--data_parallel``,
-    ``--compute_dtype``, ``--compilation_cache_dir`` and
-    ``--num_data_threads`` are not ported: each is an argparse error."""
+    and prints the stats as one JSON line. ``--compilation_cache_dir`` is
+    where the kernels are built and found (:func:`morgana_tpu_torch._build.set_build_dir`).
+    ``--data_parallel``, ``--compute_dtype`` and ``--num_data_threads`` are
+    not ported: each is an argparse error."""
     parser = argparse.ArgumentParser(
         description='Serve a trained checkpoint with the PyTorch/CUDA port of morgana_tpu: '
                     'generate wavs, or answer HTTP requests.')
@@ -775,10 +958,16 @@ def main(argv=None):
                         help='Coalesce concurrent /predict requests into shared batches, each '
                              'waiting at most this long for company once two are pending (0 '
                              'serves each request alone). A lone request never waits.')
-    for flag, nargs in (('--data_parallel', 0), ('--compute_dtype', 1),
-                        ('--compilation_cache_dir', 1), ('--num_data_threads', 1)):
+    parser.add_argument('--compilation_cache_dir', default=None,
+                        help='Build and find the CUDA kernels (and the vocoder library) in this '
+                             'directory: a new process that finds them there runs no compiler.')
+    parser.add_argument('--compute_dtype', nargs=1, action=_Unported, const=BF16_SLICE,
+                        help=f'Not ported yet ({BF16_SLICE}).')
+    for flag, nargs in (('--data_parallel', 0), ('--num_data_threads', 1)):
         parser.add_argument(flag, nargs=nargs, action=_Unported, help='Not ported yet.')
     args = parser.parse_args(argv)
+    if args.compilation_cache_dir:
+        _build.set_build_dir(args.compilation_cache_dir)
 
     if args.fleet is None and (args.model is None or args.checkpoint_path is None):
         parser.error('--model and --checkpoint_path are required (or pass --fleet)')

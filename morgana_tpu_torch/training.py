@@ -150,6 +150,31 @@ class TrainLoop(object):
                     value.copy_(torch.from_numpy(np.array(ema_params[name])))
         self.step_count = int(state.get('step', 0))
 
+    def jax_state(self):
+        """The training state as the JAX loop keeps it, the inverse of
+        :meth:`restore_jax_state`: ``{params, opt_state, ema_params, step}``
+        by parameter name in numpy, the optimiser state optax's chain of
+        ``clip_by_global_norm`` (when clipping), ``add_decayed_weights``
+        (with an L2 term) and ``scale_by_adam`` (``training.py:115``), the
+        first two stateless. Adam's ``count`` is the steps it has taken,
+        ``mu`` and ``nu`` its moments (zero before a parameter's first
+        step)."""
+        state = self.opt_state.state
+        mu, nu, count = {}, {}, 0
+        for name, param in self.params.items():
+            moments = state.get(param, {})
+            count = int(moments['step']) if 'step' in moments else count
+            for out, key in ((mu, 'exp_avg'), (nu, 'exp_avg_sq')):
+                value = moments.get(key)
+                out[name] = (np.zeros(tuple(param.shape), np.float32) if value is None
+                             else value.detach().cpu().numpy())
+        stateless = bool(self.optimizer.grad_clip_norm) + bool(self.optimizer.weight_decay)
+        chain = [ckpt.EmptyState()] * stateless
+        chain.append(ckpt.AdamState(np.asarray(count, np.int32), mu, nu))
+        return {'params': mnn.state_dict(self.model), 'opt_state': tuple(chain),
+                'ema_params': None if self.ema_params is None else mnn.state_dict(self.ema_model),
+                'step': self.step_count}
+
     def _set_dropout_generators(self):
         seed = int(np.random.SeedSequence([self.seed, self.step_count]).generate_state(1)[0])
         generator = torch.Generator(device=self.device).manual_seed(seed)

@@ -180,10 +180,22 @@ UNPORTED_FLAGS = [['--data_parallel'], ['--compute_dtype', 'bfloat16'],
 
 
 @pytest.mark.parametrize('flag', UNPORTED_FLAGS, ids=[f[0][2:] for f in UNPORTED_FLAGS])
-def test_serving_cli_refuses_the_flags_it_lacks(flag, capsys):
+def test_serving_cli_refuses_the_flags_it_lacks(flag, capsys, monkeypatch, tmp_path):
+    """Each flag the port lacks is an argparse error naming ROADMAP.md.
+    --compilation_cache_dir is ported now: it is not refused, and names the
+    directory where the kernels are built and found (the command then stops
+    at its missing --id_list)."""
+    from morgana_tpu_torch import _build
+    monkeypatch.setattr(_build, 'BUILD_DIR', _build.BUILD_DIR)
+    if flag[0] == '--compilation_cache_dir':
+        flag = [flag[0], str(tmp_path / flag[1])]
     with pytest.raises(SystemExit) as exc:
         tserve.main(['--model', 'm:C', '--checkpoint_path', 'c.npz', *flag])
     err = capsys.readouterr().err
+    if flag[0] == '--compilation_cache_dir':
+        assert exc.value.code == 2 and 'not ported' not in err and '--id_list' in err
+        assert _build.BUILD_DIR == flag[1] and os.path.isdir(flag[1])
+        return
     assert exc.value.code == 2 and flag[0] in err and 'ROADMAP.md' in err
 
 

@@ -728,9 +728,21 @@ UNPORTED = [['--data_parallel'], ['--compute_dtype', 'bfloat16'], ['--num_data_t
 
 
 @pytest.mark.parametrize('flag', UNPORTED, ids=[f[0][2:] for f in UNPORTED])
-def test_main_unported_flags_are_argparse_errors(flag, capsys):
+def test_main_unported_flags_are_argparse_errors(flag, capsys, monkeypatch, tmp_path):
+    """Each flag the port lacks is an argparse error naming ROADMAP.md.
+    --compilation_cache_dir is ported now: it is accepted and names the
+    directory where the kernels are built and found (the command then fails
+    to import its model, m:C)."""
+    from morgana_tpu_torch import _build
+    monkeypatch.setattr(_build, 'BUILD_DIR', _build.BUILD_DIR)
+    argv = ['--model', 'm:C', '--checkpoint_path', 'c.npz', '--http_port', '1']
+    if flag[0] == '--compilation_cache_dir':
+        with pytest.raises(ModuleNotFoundError):
+            tserve.main(argv + [flag[0], str(tmp_path / flag[1])])
+        assert _build.BUILD_DIR == str(tmp_path / flag[1])
+        return
     with pytest.raises(SystemExit) as exc:
-        tserve.main(['--model', 'm:C', '--checkpoint_path', 'c.npz', '--http_port', '1', *flag])
+        tserve.main(argv + flag)
     err = capsys.readouterr().err
     assert exc.value.code == 2 and flag[0] in err and 'ROADMAP.md' in err
 
@@ -770,3 +782,63 @@ def test_main_needs_a_gpu_unless_asked_for_the_cpu(served, monkeypatch):
     with pytest.raises(DeviceError, match="device='cpu'"):
         tserve.main(['--model', LSTM_SPEC, '--checkpoint_path', served['ckpt'], '--data_root',
                      served['root'], '--model_kwargs', repr(AC_KWARGS), '--http_port', '0'])
+
+
+def test_a_reload_holds_the_handlers_host_work_back():
+    """The handlers' large host work takes turns on the gate, and the
+    watcher's reload goes next: it waits for the section in flight, and a
+    section that arrives meanwhile waits for it."""
+    gate = thttp._HostGate()
+    events = []
+    in_flight, reload_waiting = threading.Event(), threading.Event()
+
+    def handler(name, hold):
+        with gate.work():
+            events.append(f'{name} in')
+            in_flight.set()
+            hold.wait(5)
+            events.append(f'{name} out')
+
+    first_done = threading.Event()
+    first = threading.Thread(target=handler, args=('first', first_done))
+    first.start()
+    in_flight.wait(5)
+
+    def reload():
+        reload_waiting.set()
+        with gate.reload():
+            events.append('reload')
+
+    reloader = threading.Thread(target=reload)
+    reloader.start()
+    reload_waiting.wait(5)
+    time.sleep(0.05)
+    go = threading.Event()
+    go.set()
+    late = threading.Thread(target=handler, args=('late', go))
+    late.start()
+    time.sleep(0.05)
+    assert events == ['first in']          # the reload waits, and so does new work
+    first_done.set()
+    for t in (first, reloader, late):
+        t.join(5)
+    assert events == ['first in', 'first out', 'reload', 'late in', 'late out']
+
+
+@pytest.mark.parametrize('payload', [
+    {'results': {'u0': {'lf0': [[5.1], [5.2]], 'mcep': [[0.1, -0.25], [1e-300, 3.0]],
+                        'empty': [], 'nested': [[]]}}},
+    {'status': 'ok', 'n': 3, 'flag': True, 'none': None, 'ü': 'é', 'd': {}, 'mixed': [[1], 2]},
+    {1: 'an int key'}, [[{'a': 1.5}], [{'b': [0.1]}]], 'text',
+    {'results': {'u0': {'mcep': np.random.default_rng(0).normal(size=(200, 7)).tolist(),
+                        'lf0': [[float(i)] for i in range(129)], 'n': list(range(65))}}}],
+    ids=['results', 'scalars', 'int_key', 'lists_of_dicts', 'string', 'blocks'])
+def test_replies_encode_as_json_dumps_does(payload):
+    """The handlers encode a reply a dict entry and a block of rows at a
+    time, into json.dumps(payload, allow_nan=False)'s bytes; a non-finite
+    value raises as there."""
+    assert thttp._encode(payload) == json.dumps(payload, allow_nan=False)
+    with pytest.raises(ValueError):
+        thttp._encode({'results': {'u0': {'lf0': [[float('nan')]]}}})
+    with pytest.raises(ValueError):
+        thttp._encode({'results': {'u0': {'lf0': [[0.0]] * 100 + [[float('inf')]]}}})

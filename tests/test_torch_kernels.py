@@ -1,9 +1,9 @@
 """The port's hand-written CUDA kernels (K1, the LSTM layer forward with and
 without its gate trace, K2, its backward, K3, the GRU layer forward, K4, its
-backward, and K5/K6, attention forward and backward) against their plain
-PyTorch versions, and the batched vocoder's determinism on the card, on the
-GPU only (a CUDA kernel has no CPU mode): every test here is marked
-``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
+backward, K5/K6, attention forward and backward, and MLPG's banded solve)
+against their plain PyTorch versions, and the batched vocoder's determinism
+on the card, on the GPU only (a CUDA kernel has no CPU mode): every test
+here is marked ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed::
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda -q
@@ -591,3 +591,31 @@ def test_batched_vocoder_is_deterministic_and_matches_the_cpu(cuda_device):
     for i in range(3):
         rel = float((runs[0][i] - cpu[i]).norm() / cpu[i].norm())
         assert rel < 1e-5, (i, rel)
+
+
+MLPG_SHAPES = [(16, 1024, 66, 2), (16, 1024, 1, 2), (3, 17, 4, 0), (2, 40, 5, 4)]
+
+
+@pytest.mark.parametrize('batch,frames,feats,bandwidth', MLPG_SHAPES)
+def test_mlpg_solve_kernel_is_its_plain_version(cuda_device, batch, frames, feats, bandwidth):
+    """csrc/mlpg.cu on (T', lanes) systems of MLPG's sizes, T' = T + 200
+    (padding 100): the LSTM's three streams at B16 (1,056 lanes), F0's one,
+    and small ones at bandwidths 0 and 4; diagonally dominant, so SPD. The
+    kernel rounds each operation as the plain loop does, so the two agree
+    bit for bit; one launch."""
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
+    rng = np.random.default_rng(frames + feats)
+    lanes, tp = batch * feats, frames + 200
+    bands = rng.normal(scale=0.05, size=(bandwidth + 1, tp, lanes))
+    bands[0] = rng.uniform(2.0, 3.0, size=(tp, lanes))
+    for m in range(1, bandwidth + 1):
+        bands[m, tp - m:] = 0.0
+    bands = torch.from_numpy(bands.astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.normal(size=(tp, lanes)).astype(np.float32)).to(cuda_device)
+    before = mlpg_ops.launches
+    got = torch.ops.morgana.mlpg_solve(b, bands)
+    torch.cuda.synchronize()
+    assert mlpg_ops.launches == before + 1
+    want = mlpg_ops._banded_cholesky_solve(b, list(bands.unbind(0)), bandwidth)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
