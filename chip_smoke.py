@@ -170,6 +170,25 @@ code and without the final line:
     with --compilation_cache_dir: the first runs nvcc for K1 and the solve
     and g++ for the vocoder into the directory, the second runs no
     compiler; both launch the kernels and write the wavs.
+23. bf16_kernels (after mlpg_kernel): the bf16-compute kernels (the serving
+    path of --compute_dtype bfloat16) against their plain versions with the
+    same rounding, on the card: K1c (f32 storage, bf16 products) at B16
+    T1024 H512 and at B1 T64 with the carried state of a stream, K3c at H64
+    B16 T1024 and H128 B32 T128, K5b (bf16 q, k and v, f32 o) at B16 H4
+    T1024 dh 96 with full, causal, windowed and empty-row masks, and edge
+    shapes: each output within BF16_ULPS bf16 ulps and closer in mean to
+    the bf16 plain version than to the f32 one (hold_bf16); times beside
+    the plain versions, cuDNN's LSTM and GRU in bf16, SDPA on bf16 q, k, v
+    and the bounds (bf16 tensor-core peak, 3.35 TB/s).
+24. bf16_serving (last): LSTMAcousticModel (the serving phase's
+    checkpoint), F0Model, TransformerAcousticModel and its causal form
+    served by an f32 and a bf16 engine in turns: K1c, K3c or K5b on every
+    bf16 batch and no f32 kernel, the bf16 card engine against the bf16
+    CPU engine (and closer to it than the f32 card engine), frames/s, ms a
+    batch, peak memory, device busy time and idle share beside the f32
+    engine's; the LSTM and causal Transformer streams in bf16; one LSTM
+    bundle exported in bf16 and run in a fresh process; the pipeline's
+    command line with --compute_dtype bfloat16 and the card's vocoder.
 
 Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -372,13 +391,15 @@ def closer(got, want, control):
     return near, far, far > 0 and near * BF16_CLOSER <= far
 
 
-def k1_bound(batch, time_steps, hidden, gates=False, store=None):
+def k1_bound(batch, time_steps, hidden, gates=False, store=None, compute=None):
     """Least time for the recurrence: 2*B*H*4H flops per step against the
     peak of the inputs' type (f32, or bf16's tensor-core rate with bf16
-    storage), and xg read plus y and c_all written (with w_hh read; with
-    `gates`, g_all (T, B, 4H) written too) in the storage type, h0, c0 read
-    and hn, cn written in f32, against the memory rate."""
-    size, peak = (2, BF16_PEAK_FLOPS) if store == 'bfloat16' else (4, F32_PEAK_FLOPS)
+    storage or a bf16 `compute` type, K1c), and xg read plus y and c_all
+    written (with w_hh read; with `gates`, g_all (T, B, 4H) written too) in
+    the storage type, h0, c0 read and hn, cn written in f32, against the
+    memory rate."""
+    size = 2 if store == 'bfloat16' else 4
+    peak = BF16_PEAK_FLOPS if 'bfloat16' in (store, compute) else F32_PEAK_FLOPS
     flops = 2.0 * batch * hidden * 4 * hidden * time_steps
     nbytes = size * ((2 if gates else 1) * time_steps * batch * 4 * hidden
                      + 2 * time_steps * batch * hidden + hidden * 4 * hidden) \
@@ -401,14 +422,16 @@ def k2_bound(batch, time_steps, hidden, store=None):
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
-def k3_bound(batch, time_steps, hidden):
+def k3_bound(batch, time_steps, hidden, compute=None):
     """Least time for the GRU recurrence: 2*B*H*3H flops per step against the
-    float32 peak, and xg (T, B, 3H) read plus y written (with w_hh, b_hh and
-    h0 read and hn written) against the memory rate."""
+    float32 peak (the bf16 tensor-core peak with a bf16 `compute` type,
+    K3c), and xg (T, B, 3H) read plus y written (with w_hh, b_hh and h0 read
+    and hn written) in f32 against the memory rate."""
     flops = 2.0 * batch * hidden * 3 * hidden * time_steps
     nbytes = 4.0 * (time_steps * batch * 3 * hidden + time_steps * batch * hidden
                     + hidden * 3 * hidden + 3 * hidden + 2 * batch * hidden)
-    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_PEAK_FLOPS if compute == 'bfloat16' else F32_PEAK_FLOPS
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
@@ -509,7 +532,7 @@ def k1_case(torch, dev, batch, time_steps, with_state, seed, timed, store=None):
             out['layer_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_layer(
                 x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype=store), 20)
             if bf16:   # cuDNN with its weights, input and state in bf16
-                cudnn, x_l = cudnn.to(dtype), x.to(dtype)
+                cudnn, x_l = cudnn_in(cudnn, dtype), x.to(dtype)
                 hx = None if hx is None else tuple(t.to(dtype) for t in hx)
             else:
                 x_l = x
@@ -631,7 +654,7 @@ def k2_case(torch, dev, batch, time_steps, with_state, seed, timed, store=None):
                                                                       store)
         out['layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: layer_grads(
             torch, layer(False), x, weights, seq_len, h0, c0, loss_weights), 5)
-        cudnn = cudnn_layer(torch, dev, *weights).to(dtype)
+        cudnn = cudnn_in(cudnn_layer(torch, dev, *weights), dtype)
         hx = None if h0 is None else (h0[None].to(dtype).contiguous(),
                                       c0[None].to(dtype).contiguous())
         x_l, wy = x.to(dtype), loss_weights[0].to(dtype)
@@ -735,6 +758,14 @@ def gru_inputs(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed):
     if with_state:
         h0 = torch.from_numpy(0.5 * rng.normal(size=(batch, hidden)).astype(np.float32)).to(dev)
     return x, weights, seq_len, h0
+
+
+def cudnn_in(module, dtype):
+    """A cuDNN RNN `module` cast to `dtype` with its weights flattened into
+    one buffer again (after a cast cuDNN would copy them at every call)."""
+    module = module.to(dtype)
+    module.flatten_parameters()
+    return module
 
 
 def cudnn_gru(torch, dev, w_ih, w_hh, b_ih, b_hh):
@@ -1763,7 +1794,7 @@ def kernel_kind(name):
         if key in name:
             return kind
     lower = name.lower()
-    if 'gemm' in lower:
+    if 'gemm' in lower or 'nvjet' in lower:   # cuBLAS's Hopper GEMMs include nvjet_* kernels
         return 'gemm'
     if 'multi_tensor_apply' in lower or 'adam' in lower:
         return 'adam'
@@ -3520,9 +3551,12 @@ from morgana_tpu_torch.export import ExportedVoice
 from morgana_tpu_torch.ops import flash_attention, gru, lstm, mlpg
 
 COUNTERS = {'k1': lstm, 'k3': gru, 'attn_fwd': flash_attention, 'mlpg_solve': mlpg}
+BF16 = {'k1c': (lstm, 'bf16_compute_launches'), 'k3c': (gru, 'bf16_compute_launches'),
+        'k5b': (flash_attention, 'bf16_launches')}
 report = {'voices': {}}
 for spec in json.loads(sys.argv[1]):
     before = {k: m.launches for k, m in COUNTERS.items()}
+    before_bf16 = {k: getattr(m, a) for k, (m, a) in BF16.items()}
     t0 = time.perf_counter()
     voice = ExportedVoice(spec['dir'])
     with np.load(spec['batches']) as data:
@@ -3541,6 +3575,7 @@ for spec in json.loads(sys.argv[1]):
             first_ms = (time.perf_counter() - t0) * 1e3
         outs.update({f'{i}__{k}': v.cpu().numpy() for k, v in out.items()})
     launches = {k: m.launches - before[k] for k, m in COUNTERS.items()}
+    launches.update({k: getattr(m, a) - before_bf16[k] for k, (m, a) in BF16.items()})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     voice.run(batches[0])
@@ -3740,6 +3775,525 @@ def rel_max(a, b):
     return float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max()))) if b.size else 0.0
 
 
+# ------------------------------------------------------------------ bf16
+
+# K5b rounds the unnormalised probabilities of its online softmax where its
+# plain version (the exact path) rounds the normalised ones: an independent
+# rounding of the same size. So K5b is held to be closer in mean |error| to
+# its bf16 plain version than to the f32 one by K5B_CLOSER (1), not by
+# BF16_CLOSER (K1c and K3c round where their plain versions do).
+K5B_CLOSER = 1
+
+
+@contextlib.contextmanager
+def compute_dtype(name):
+    """The process's compute dtype (nn.set_default_compute_dtype) `name`
+    inside, what it was after: engines read it at each call."""
+    from morgana_tpu_torch import nn
+
+    saved = nn.default_compute_dtype()
+    nn.set_default_compute_dtype(name)
+    try:
+        yield
+    finally:
+        nn.set_default_compute_dtype(saved)
+
+
+def attention_bf16_bound(batch, heads, time_steps, head_dim, pairs):
+    """Least time for K5b: 4 * P * dh flops (q.k and p.v) at the bf16
+    tensor-core peak and P exp at the SFU rate, against bf16 q, k and v read
+    and f32 o and lse written at the memory rate."""
+    width = heads * head_dim
+    ops_ms = max(4.0 * pairs * head_dim / BF16_PEAK_FLOPS, pairs / SFU_EXP_PER_S) * 1e3
+    nbytes = 2.0 * 3 * batch * time_steps * width + 4.0 * (batch * time_steps * width
+                                                         + batch * heads * time_steps)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
+
+
+def hold_bf16(label, got, want, f32, closer_by=BF16_CLOSER):
+    """The tensors `got` (a kernel's bf16-compute outputs) against `want`
+    (its plain version's): each within bf16_tol, and `closer_by` times
+    closer in mean |error| to them than to `f32` (the f32 plain version's).
+    Returns the numbers."""
+    err = max(max_abs(a - b) for a, b in zip(got, want))
+    within = all(max_abs(a - b) <= bf16_tol(b) for a, b in zip(got, want))
+    near, far = mean_abs_err(zip(got, want)), mean_abs_err(zip(got, f32))
+    out = {'max_abs_err_vs_plain': err, 'mean_err_vs_plain': near, 'mean_err_vs_f32': far,
+           'tolerance': f'{BF16_ULPS} bf16 ulps at each output\'s max, mean {closer_by}x '
+                        'closer to the bf16 plain version than to the f32 one'}
+    if not (within and far > 0 and near * closer_by <= far and (closer_by > 1 or near < far)):
+        raise AssertionError(f'{label} disagrees with its plain version: {out}')
+    return out
+
+
+def k1c_case(torch, dev, batch, time_steps, with_state, seed, timed):
+    """K1c (f32 storage, bf16 products: the scan backend under
+    --compute_dtype bfloat16) through lstm_layer(compute_dtype='bfloat16')
+    against lstm_layer_reference with the same compute dtype on the card
+    (hold_bf16: y, hn, cn), one K1c launch and no other. With `timed`, K1c
+    alone, its plain version, the layer, cuDNN's LSTM in bf16 (weights,
+    input and state) and the bound."""
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.ops import precision
+
+    x, (w_ih, w_hh, b_ih, b_hh), seq_len, h0, c0 = layer_inputs(
+        torch, dev, batch, time_steps, with_state, seed)
+    weights, state = (w_ih, w_hh, b_ih, b_hh), dict(seq_len=seq_len, h0=h0, c0=c0)
+    with torch.inference_mode():
+        before = (lstm_ops.launches, lstm_ops.bf16_compute_launches)
+        y, (hn, cn) = lstm_ops.lstm_layer(x, *weights, compute_dtype='bfloat16', **state)
+        torch.cuda.synchronize()
+        launched = (lstm_ops.launches - before[0], lstm_ops.bf16_compute_launches - before[1])
+        wy, (wh, wc) = lstm_ops.lstm_layer_reference(x, *weights, compute_dtype='bfloat16',
+                                                     **state)
+        fy, (fh, fc) = lstm_ops.lstm_layer_reference(x, *weights, **state)
+        out = {'phase': 'k1c', 'B': batch, 'T': time_steps, 'H': H, 'initial_state': with_state,
+               'launches': launched[0], 'k1c_launches': launched[1],
+               **hold_bf16(f'K1c B={batch} T={time_steps}', [y, hn, cn], [wy, wh, wc],
+                           [fy, fh, fc])}
+        if timed:
+            xg = (precision.matmul(x, w_ih, torch.bfloat16) + (b_ih + b_hh)).transpose(0, 1) \
+                .contiguous()
+            zeros = torch.zeros((batch, H), device=dev)
+            hs, cs = (zeros, zeros) if h0 is None else (h0, c0)
+            out['kernel_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence(
+                xg, w_hh, hs, cs, compute_bf16=True), 10)
+            out['plain_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence_reference(
+                xg, w_hh, hs, cs, compute_bf16=True), 2)
+            out['layer_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_layer(
+                x, *weights, compute_dtype='bfloat16', **state), 10)
+            cudnn = cudnn_in(cudnn_layer(torch, dev, *weights), torch.bfloat16)
+            x_l = x.to(torch.bfloat16)
+            hx = None if h0 is None else (h0[None].bfloat16(), c0[None].bfloat16())
+            out['library_ms'] = cuda_ms(torch, lambda: cudnn(x_l, hx), 20)
+            out['bound_ms'], out['bound_by'] = k1_bound(batch, time_steps, H, compute='bfloat16')
+            out['us_per_step'] = out['kernel_ms'] * 1e3 / time_steps
+    emit(out)
+    if launched != (1, 1):
+        raise AssertionError(f'K1c: launches {launched}, expected one K1c launch')
+    return out
+
+
+def k3c_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, timed):
+    """K3c (the GRU recurrence with bf16 products) through
+    gru_layer(compute_dtype='bfloat16') against gru_layer_reference with the
+    same compute dtype (hold_bf16: y, hn), one K3c launch; with `timed`, K3c
+    alone as the layer launches it, its plain version, the layer, cuDNN's
+    GRU in bf16 and the bound."""
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.ops import precision
+
+    x, (w_ih, w_hh, b_ih, b_hh), seq_len, h0 = gru_inputs(
+        torch, dev, batch, time_steps, hidden, in_dim, with_state, seed)
+    args = (x, w_ih, w_hh, b_ih, b_hh, seq_len, h0)
+    with torch.inference_mode():
+        before = (gru_ops.launches, gru_ops.bf16_compute_launches)
+        y, hn = gru_ops.gru_layer(*args, compute_dtype='bfloat16')
+        torch.cuda.synchronize()
+        launched = (gru_ops.launches - before[0], gru_ops.bf16_compute_launches - before[1])
+        wy, wh = gru_ops.gru_layer_reference(*args, compute_dtype='bfloat16')
+        fy, fh = gru_ops.gru_layer_reference(*args)
+        out = {'phase': 'k3c', 'B': batch, 'T': time_steps, 'H': hidden, 'in_dim': in_dim,
+               'initial_state': with_state, 'launches': launched[0], 'k3c_launches': launched[1],
+               **hold_bf16(f'K3c B={batch} T={time_steps} H={hidden}', [y, hn], [wy, wh],
+                           [fy, fh])}
+        if timed:
+            xg = precision.matmul(x, w_ih, torch.bfloat16) + b_ih
+            xg_t = xg.transpose(0, 1).contiguous()
+            hs = torch.zeros((batch, hidden), device=dev) if h0 is None else h0
+            out['kernel_ms'] = cuda_ms(torch, lambda: gru_ops._gru_fwd_cuda(
+                xg, w_hh, b_hh, hs, seq_len, compute_bf16=True), 50)
+            out['plain_ms'] = cuda_ms(torch, lambda: gru_ops.gru_recurrence_reference(
+                xg_t, w_hh, b_hh, hs, compute_bf16=True), 2)
+            out['layer_ms'] = cuda_ms(torch, lambda: gru_ops.gru_layer(
+                *args, compute_dtype='bfloat16'), 50)
+            cudnn = cudnn_in(cudnn_gru(torch, dev, w_ih, w_hh, b_ih, b_hh), torch.bfloat16)
+            x_l = x.to(torch.bfloat16)
+            hx = None if h0 is None else h0[None].bfloat16()
+            out['library_ms'] = cuda_ms(torch, lambda: cudnn(x_l, hx), 50)
+            out['bound_ms'], out['bound_by'] = k3_bound(batch, time_steps, hidden, 'bfloat16')
+            out['us_per_step'] = out['kernel_ms'] * 1e3 / time_steps
+    emit(out)
+    if launched != (1, 1):
+        raise AssertionError(f'K3c: launches {launched}, expected one K3c launch')
+    return out
+
+
+def k5b_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, seed, timed,
+             empty_row=False):
+    """K5b (the attention forward on bf16 q, k and v) through
+    flash_attention(compute_dtype=bf16) against the plain bf16 attention on
+    the rows below seq_len (hold_bf16 with K5B_CLOSER); o in f32, rows that
+    see no key 0, one K5b launch. With `timed`, K5b alone, its plain
+    version, torch's SDPA on the same bf16 q, k and v and the bound."""
+    from morgana_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seq_len = attention_inputs(torch, dev, batch, heads, time_steps, head_dim, seed,
+                                        empty_row)
+    mask = dict(seq_len=seq_len, causal=causal, window=window)
+    with torch.inference_mode():
+        before = (fa.launches, fa.bf16_launches)
+        got = fa.flash_attention(q, k, v, compute_dtype=torch.bfloat16, **mask)
+        torch.cuda.synchronize()
+        launched = (fa.launches - before[0], fa.bf16_launches - before[1])
+        want = fa.flash_attention_reference(q, k, v, compute_dtype=torch.bfloat16, **mask)
+        f32 = fa.flash_attention_reference(q, k, v, **mask)
+        valid = valid_rows(torch, seq_len, time_steps)
+        pairs = attention_pairs(seq_len.tolist(), time_steps, heads, causal, window)
+        out = {'phase': 'k5b', 'B': batch, 'H': heads, 'T': time_steps, 'dh': head_dim,
+               'causal': causal, 'window': window, 'seq_len_min': int(seq_len.min()),
+               'visible_pairs': pairs, 'o_dtype': str(got.dtype).replace('torch.', ''),
+               'finite': bool(torch.isfinite(got).all()),
+               'empty_row_zero': not empty_row or bool((got[-1] == 0).all()),
+               'launches': launched[0], 'k5b_launches': launched[1],
+               **hold_bf16(f'K5b B={batch} T={time_steps} dh={head_dim}', [got * valid],
+                           [want * valid], [f32 * valid], K5B_CLOSER)}
+        if timed:
+            qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+            out['kernel_ms'] = cuda_ms(torch, lambda: fa.attention_forward(qb, kb, vb, **mask), 20)
+            out['plain_ms'] = cuda_ms(torch, lambda: fa.flash_attention_reference(
+                q, k, v, compute_dtype=torch.bfloat16, **mask), 5)
+            out['library_ms'] = cuda_ms(torch, lambda: sdpa(torch, qb, kb, vb, **mask), 20)
+            out['bound_ms'], out['bound_by'] = attention_bf16_bound(batch, heads, time_steps,
+                                                                    head_dim, pairs)
+    emit(out)
+    if not (launched == (1, 1) and out['finite'] and out['empty_row_zero']
+            and got.dtype == torch.float32):
+        raise AssertionError(f'K5b: {out}')
+    return out
+
+
+def bf16_kernels_phase(torch, dev):
+    """The bf16-compute kernels against their plain versions on the card, at
+    the shapes the bf16 serving paths give them and at edge shapes: K1c at
+    B16 T1024 H512 (the LSTM's serving batch) and B1 T64 with the carried
+    state (a streamed chunk); K3c at H64 B16 T1024 (F0Model) and H128 B32
+    T128 (DurationModel); K5b at B16 H4 T1024 dh 96 with full, causal,
+    windowed (256) masks and ragged seq_len with an empty row. Returns the
+    main shapes' numbers."""
+    main = {'k1c': k1c_case(torch, dev, SERVE_BATCH, 1024, False, 101, timed=True)}
+    k1c_case(torch, dev, 1, STREAM_CONFIG[0], True, 102, timed=True)
+    for batch, steps in ((5, 1), (40, 33), (256, 9)):
+        k1c_case(torch, dev, batch, steps, True, 103, timed=False)
+    main['k3c'] = k3c_case(torch, dev, SERVE_BATCH, 1024, 64, 256, False, 104, timed=True)
+    k3c_case(torch, dev, TRAIN_BATCH, 128, 128, 128, True, 105, timed=True)
+    for hidden in (64, 128):
+        for batch, steps in ((1, 17), (5, 1), (40, 33)):
+            k3c_case(torch, dev, batch, steps, hidden, hidden, True, 106, timed=False)
+    main['k5b'] = k5b_case(torch, dev, SERVE_BATCH, 4, 1024, 96, False, None, 107, timed=True)
+    for causal, window, empty in ((True, None, False), (True, 256, False), (False, None, True)):
+        k5b_case(torch, dev, SERVE_BATCH, 4, 1024, 96, causal, window, 108, timed=True,
+                 empty_row=empty)
+    for batch, steps, head_dim, causal, window, empty in (
+            (4, 1, 96, False, None, False), (3, 77, 96, True, 8, True),
+            (2, 200, 64, True, 16, True), (3, 130, 128, False, None, True)):
+        k5b_case(torch, dev, batch, 4, steps, head_dim, causal, window, 109, timed=False,
+                 empty_row=empty)
+    return main
+
+
+def hold_engines(label, got, want, control, keys):
+    """A bf16 card engine's outputs `got` against the bf16 CPU engine's
+    `want` (both {name: outputs}): each key within BF16_ULPS bf16 ulps of its
+    largest |value| over the utterances, and closer in mean |error| to them
+    than the f32 card engine's `control` is. Returns the numbers."""
+    errs = {}
+    for key in keys:
+        scale = max(float(np.abs(want[n][key]).max()) for n in want)
+        errs[key] = max(float(np.abs(got[n][key] - want[n][key]).max()) for n in want)
+        if errs[key] > BF16_ULPS * 2.0 ** -7 * scale:
+            raise AssertionError(f'{label} {key}: {errs[key]} from the CPU engine, beyond '
+                                 f'{BF16_ULPS} bf16 ulps at {scale}')
+
+    def mean_err(outputs):
+        return float(np.mean(np.concatenate([np.abs(outputs[n][k] - want[n][k]).ravel()
+                                             for n in want for k in keys])))
+    near, far = mean_err(got), mean_err(control)
+    if not near < far:
+        raise AssertionError(f'{label}: the bf16 card engine is not closer to the bf16 CPU '
+                             f'engine ({near}) than the f32 card engine ({far})')
+    return {'max_abs_err': errs, 'mean_err_bf16': near, 'mean_err_f32_engine': far,
+            'tolerance': f'{BF16_ULPS} bf16 ulps at each output\'s max; mean below the f32 '
+                         "engine's"}
+
+
+def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, attr, layers, label):
+    """`model_class` served by an f32 engine and a bf16 engine
+    (compute_dtype='bfloat16') on the card over `items` at B16, in turns
+    (f32, bf16, bf16, f32; the process's compute dtype set for each call):
+    every bf16 batch launches `layers` kernels of `ops`, all of them its bf16
+    build (`attr`), and every f32 batch none; shapes and finiteness; the 4
+    shortest utterances against the bf16 CPU engine (hold_engines); frames/s,
+    ms a batch, peak memory and, profiled on one batch, device busy time and
+    idle share, each beside the f32 engine's. Returns the bf16 launches, the
+    bf16 engine and its outputs."""
+    from morgana_tpu_torch import data
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    common = dict(data_root=root, batch_size=SERVE_BATCH)
+    engines = {'float32': InferenceEngine(model_class, ckpt, **common),
+               'bfloat16': InferenceEngine(model_class, ckpt, compute_dtype='bfloat16', **common)}
+    for tag, engine in engines.items():
+        with compute_dtype(tag):
+            engine.predict_items(items[:2])   # warm-up: cuBLAS handles, allocator
+    n_batches = -(-len(items) // SERVE_BATCH)
+    expected = layers * n_batches
+    runs, outputs, bf16_launches = {tag: [] for tag in engines}, {}, 0
+    frames = sum(int(it['n_frames'].reshape(-1)[0]) for it in items)
+    for tag in ('float32', 'bfloat16', 'bfloat16', 'float32'):
+        with compute_dtype(tag):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.launches = 0
+            setattr(ops, attr, 0)
+            start = time.perf_counter()
+            outputs[tag] = engines[tag].predict_items(items)   # host arrays: synchronised
+            seconds = time.perf_counter() - start
+            launched = (ops.launches, getattr(ops, attr))
+        if launched != (expected, expected if tag == 'bfloat16' else 0):
+            raise AssertionError(f'bf16_serving {name} {tag}: launches {launched} for '
+                                 f'{n_batches} batches of {layers} layers')
+        bf16_launches += launched[1]
+        runs[tag].append({'seconds': seconds, 'frames_per_s': frames / seconds,
+                          'ms_per_batch': seconds / n_batches * 1e3,
+                          'peak_memory_mib': torch.cuda.max_memory_allocated() / 2 ** 20})
+    for item in items:
+        n = int(item['n_frames'].reshape(-1)[0])
+        out = outputs['bfloat16'][item['name']]
+        for key, dim in dims.items():
+            if out[key].shape != (n, dim) or not np.isfinite(out[key]).all():
+                raise AssertionError(f"bf16_serving {name} {item['name']} {key}: shape "
+                                     f'{out[key].shape}, expected ({n}, {dim})')
+    few = sorted(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:4]
+    with compute_dtype('bfloat16'):
+        cpu = InferenceEngine(model_class, ckpt, device='cpu', **common).predict_items(few)
+    check = hold_engines(f'bf16_serving {name}', {it['name']: outputs['bfloat16'][it['name']]
+                                                  for it in few}, cpu,
+                         {it['name']: outputs['float32'][it['name']] for it in few}, dims)
+    features = data.collate([data.assemble_item(
+        engines['bfloat16'].model.test_data_sources(), engines['bfloat16'].model.normalisers,
+        lambda key, source, item=item: source.package(item[key]), item['name'])
+        for item in items[:SERVE_BATCH]])
+    profiles = {}
+    for tag, engine in engines.items():
+        batch = data.device_features(features, engine.device)
+        with compute_dtype(tag), torch.inference_mode():
+            engine.model.predict(batch)
+            profiles[tag] = profile_step(torch, lambda: engine.model.predict(batch))
+    summary = {tag: {key: float(np.mean([r[key] for r in runs[tag]])) for key in runs[tag][0]}
+               for tag in runs}
+    for tag in summary:
+        summary[tag].update({key: profiles[tag][key] for key in (
+            'profiled_wall_ms', 'device_busy_ms', 'device_idle_share', 'gemm_device_ms',
+            'k1_device_ms', 'k3_device_ms', 'attn_fwd_device_ms', 'other_device_ms',
+            'kernels_launched')})
+    emit({'phase': f'bf16_serving_{name}', 'model': label, 'utterances': len(items),
+          'frames': frames, 'batch_size': SERVE_BATCH, 'batches': n_batches,
+          'runs_in_turns': runs, 'float32': summary['float32'], 'bfloat16': summary['bfloat16'],
+          'frames_per_s_ratio': summary['bfloat16']['frames_per_s']
+          / summary['float32']['frames_per_s'],
+          f'{attr}_per_bf16_run': expected, 'cpu_check': check,
+          'profiled_batch_T': int(features['normalised_counters'].shape[1])})
+    return bf16_launches, engines['bfloat16'], outputs['bfloat16']
+
+
+def bf16_stream_case(torch, name, engine, items, batch, ops, attr, per_chunk):
+    """Each of `items` streamed at STREAM_CONFIG by the bf16 engine `engine`:
+    `per_chunk` launches of `ops` a chunk, all of them its bf16 build
+    (`attr`), or with per_chunk 0 none at all (the Transformer's plain
+    attention step); every chunk's network outputs against the engine's
+    batch predict `batch` within BF16_ULPS bf16 ulps of each output's
+    largest |value|. Returns the numbers and the bf16 launches."""
+    from morgana_tpu_torch.pipeline import TTSPipeline
+
+    sources = {k: v for k, v in engine.model.test_data_sources().items()
+               if k in TTSPipeline.ACOUSTIC_INPUTS}
+    per_utt, errs, launches = [], {}, 0
+    for item in items:
+        n_frames = int(item['n_frames'].reshape(-1)[0])
+        chunks = -(-n_frames // STREAM_CONFIG[0])
+        with compute_dtype('bfloat16'), stream_timers(torch, engine.model, NET_OUTPUTS) as rec:
+            torch.cuda.synchronize()
+            ops.launches = 0
+            setattr(ops, attr, 0)
+            start = time.perf_counter()
+            list(engine.stream_item(item, *STREAM_CONFIG, sources=sources))
+            seconds = time.perf_counter() - start
+            launched = (ops.launches, getattr(ops, attr))
+        if launched != (per_chunk * chunks,) * 2:
+            raise AssertionError(f'bf16 stream {name}: launches {launched} for {chunks} chunks')
+        launches += launched[1]
+        got = streamed(torch, rec['outputs'], n_frames, NET_OUTPUTS)
+        for key in NET_OUTPUTS:
+            want = batch[item['name']][key]
+            err = float(np.abs(got[key] - want).max())
+            errs[key] = max(errs.get(key, 0.0), err)
+            if err > BF16_ULPS * 2.0 ** -7 * float(np.abs(want).max()):
+                raise AssertionError(f'bf16 stream {name} {key}: {err} from the batch')
+        per_utt.append({'utterance': item['name'], 'frames': n_frames, 'chunks': chunks,
+                        'seconds': seconds, 'ms_per_chunk': chunk_ms(rec, chunks, ('model',)),
+                        'launches': launched[1]})
+    return {'utterances': per_utt, 'network_vs_batch': errs,
+            'tolerance': f'{BF16_ULPS} bf16 ulps at each output\'s max'}, launches
+
+
+PIPELINE_RUN = r'''
+import contextlib, io, json, sys, time
+start = time.perf_counter()
+from morgana_tpu_torch import nn, pipeline
+from morgana_tpu_torch.ops import gru, lstm
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    pipeline.main(sys.argv[1:])
+print(json.dumps({'stats': json.loads(printed.getvalue().strip().splitlines()[-1]),
+                  'k1': lstm.launches, 'k1c': lstm.bf16_compute_launches, 'k3': gru.launches,
+                  'k3c': gru.bf16_compute_launches,
+                  'compute_dtype': str(nn.default_compute_dtype()),
+                  'seconds': time.perf_counter() - start}))
+'''
+
+
+def bf16_serving_phase(torch, served, smi):
+    """bf16 serving on the card (--compute_dtype bfloat16): the serving
+    phase's LSTMAcousticModel, a seeded F0Model and TransformerAcousticModel
+    through bf16_engine_case (K1c 8, K3c 3 and K5b 6 launches a batch); the
+    LSTM's 2 longest utterances streamed (8 K1c launches a chunk, with the
+    carried state) and a seeded causal Transformer's (the plain bf16
+    attention step; their batch 6 K5b launches) through bf16_stream_case;
+    one LSTM
+    bundle exported under bf16 (B16, one program) and run by ExportedVoice
+    in a fresh process (its K1c launches, its outputs against the bf16
+    engine's within EXPORT_RTOL); and python -m morgana_tpu_torch.pipeline
+    --compute_dtype bfloat16 --device_vocoder --evaluate_against over
+    pipeline_lstm's split (its K1c and K3c launches, all of its K1 and K3).
+    Returns the bf16 kernels' launches."""
+    from morgana_tpu_torch.models.f0_test_model import F0Model
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
+    from morgana_tpu_torch.ops import flash_attention as fa
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    base = os.path.join(served['root'], 'bf16')
+    os.makedirs(base)
+    launches = {'k1c': 0, 'k3c': 0, 'k5b': 0}
+    seconds, start = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal start
+        seconds[name] = time.perf_counter() - start
+        start = time.perf_counter()
+
+    n, lstm_engine, lstm_out = bf16_engine_case(
+        torch, 'lstm', LSTMAcousticModel, served['ckpt'], served['root'], served['items'],
+        ACOUSTIC_DIMS, lstm_ops, 'bf16_compute_launches', 8,
+        'LSTMAcousticModel 609-8xLSTM(512)-199')
+    launches['k1c'] += n
+    lap('lstm')
+    for name, cls, make, dims, ops, attr, layers, label, seed in (
+            ('f0', F0Model, f0_items, {'normalised_lf0_deltas': 3, 'lf0': 1}, gru_ops,
+             'bf16_compute_launches', F0_LAYERS, 'F0Model 609-3xGRU(64)-3', 111),
+            ('transformer', TransformerAcousticModel, make_items, ACOUSTIC_DIMS, fa,
+             'bf16_launches', TRANSFORMER_BLOCKS,
+             'TransformerAcousticModel 609-6x(384, 4 heads, 1536)-199', 112)):
+        root = os.path.join(base, name)
+        os.makedirs(root)
+        rng = np.random.default_rng(seed)
+        ckpt = seeded_checkpoint(torch, cls, os.path.join(root, 'epoch_1.npz'), seed)
+        write_normalisers(root, rng)
+        n, _, _ = bf16_engine_case(torch, name, cls, ckpt, root, make(rng), dims, ops, attr,
+                                   layers, label)
+        launches['k3c' if ops is gru_ops else 'k5b'] += n
+        lap(name)
+
+    # The streams: the LSTM's 2 longest utterances (K1c with the carried
+    # state), and the causal Transformer's (window 256): its bf16 batch of
+    # them (6 K5b launches), then their streams (the plain bf16 attention
+    # step over the KV caches).
+    longest = sorted(served['items'], key=lambda it: -int(it['n_frames'].reshape(-1)[0]))[:2]
+    lstm_stream, n = bf16_stream_case(torch, 'lstm', lstm_engine, longest, lstm_out, lstm_ops,
+                                      'bf16_compute_launches', 8)
+    launches['k1c'] += n
+    root = os.path.join(base, 'causal_transformer')
+    os.makedirs(root)
+    rng = np.random.default_rng(113)
+    kwargs = {'causal': True}
+    ckpt = seeded_checkpoint(torch, TransformerAcousticModel, os.path.join(root, 'epoch_1.npz'),
+                             113, **kwargs)
+    write_normalisers(root, rng)
+    items = sorted(make_items(rng), key=lambda it: -int(it['n_frames'].reshape(-1)[0]))[:2]
+    engine = InferenceEngine(TransformerAcousticModel, ckpt, data_root=root,
+                             batch_size=SERVE_BATCH, model_kwargs=kwargs, compute_dtype='bfloat16')
+    with compute_dtype('bfloat16'):
+        engine.predict_items(items[:1])   # warm-up
+        fa.launches = fa.bf16_launches = 0
+        batch = engine.predict_items(items)
+        launched = (fa.launches, fa.bf16_launches)
+    if launched != (TRANSFORMER_BLOCKS,) * 2:
+        raise AssertionError(f'bf16_serving causal_transformer: launches {launched}')
+    launches['k5b'] += launched[1]
+    transformer_stream, _ = bf16_stream_case(torch, 'causal_transformer', engine, items, batch, fa,
+                                             'bf16_launches', 0)
+    lap('streams')
+
+    # One LSTM bundle exported under bf16, run in a fresh process (f32 there:
+    # the programs carry their dtype).
+    spec = 'morgana_tpu_torch.models.rnn_spss:LSTMAcousticModel'
+    with compute_dtype('bfloat16'):
+        entry, want, numbers = export_voice(torch, 'lstm_bf16', LSTMAcousticModel, served['ckpt'],
+                                            served['root'], served['items'][:SERVE_BATCH], spec,
+                                            os.path.join(base, 'bundle'))
+    report = run_script('bf16_serving: ExportedVoice', EXPORT_RUN, json.dumps([entry]))
+    got = report['voices']['lstm_bf16']
+    if report['models_imported'] or got['launches']['k1'] != got['launches']['k1c'] \
+            or got['launches']['k1c'] != 8 * numbers['batches']:
+        raise AssertionError(f'bf16_serving export: {report}')
+    with np.load(entry['out']) as out:
+        export_err = max(float(np.abs(out[key] - value).max())
+                         / max(float(np.abs(value).max()), 1e-30) for key, value in want.items())
+    if export_err > EXPORT_RTOL:
+        raise AssertionError(f'bf16_serving export: {export_err} from the bf16 engine')
+    launches['k1c'] += got['launches']['k1c']
+    lap('export')
+
+    # The pipeline's command line in bf16, with the card's vocoder, over the
+    # split pipeline_lstm wrote.
+    root, norm = served['root'], 'pipeline_norm'
+    cli_dir = os.path.join(base, 'pipeline_cli')
+    cli = run_script('bf16_serving: pipeline CLI', PIPELINE_RUN, '--duration_model',
+                     'morgana_tpu_torch.models.duration_model:DurationModel',
+                     '--duration_checkpoint', os.path.join(root, norm, 'duration_epoch_0.npz'),
+                     '--acoustic_model', spec, '--acoustic_checkpoint', served['ckpt'],
+                     '--data_root', root, '--normalisation_dir', norm, '--data_dir', 'pipeline',
+                     '--out_dir', cli_dir, '--batch_size', str(SERVE_BATCH), '--device_vocoder',
+                     '--evaluate_against', os.path.join(root, 'pipeline'),
+                     '--compute_dtype', 'bfloat16')
+    stats = cli['stats']
+    if stats['utterances'] != N_UTTS or stats['wavs'] != N_UTTS or 'evaluation' not in stats \
+            or not cli['k1c'] or cli['k1c'] != cli['k1'] or not cli['k3c'] \
+            or cli['k3c'] != cli['k3'] or cli['compute_dtype'] != 'torch.bfloat16':
+        raise AssertionError(f'bf16_serving: the pipeline CLI gave {cli}')
+    check_wavs('bf16 pipeline cli', os.path.join(cli_dir, 'synth'),
+               {name: int(np.load(os.path.join(cli_dir, 'feats', 'dur', f'{name}.npy')).sum())
+                for name in (it['name'] for it in served['items'])})
+    launches['k1c'] += cli['k1c']
+    launches['k3c'] += cli['k3c']
+    lap('pipeline_cli')
+    emit({'phase': 'bf16_serving', 'card': smi, 'seconds': seconds, 'stream_lstm': lstm_stream,
+          'stream_causal_transformer': transformer_stream,
+          'export': dict(numbers, bundle=got, max_rel_err_vs_engine=export_err,
+                         rtol=EXPORT_RTOL),
+          'pipeline_cli': {'seconds': cli['seconds'], 'seconds_inside': stats['seconds'],
+                           'frames_per_sec_inside': stats['frames_per_sec'],
+                           'evaluation': stats['evaluation'], 'k1c_launches': cli['k1c'],
+                           'k3c_launches': cli['k3c']},
+          'launches': launches})
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description='Smoke test of the port on one NVIDIA GPU; '
                                      'with no arguments, every phase.')
@@ -3886,6 +4440,9 @@ def main(argv=None):
     mlpg_shape = mlpg_case(torch, dev, 'lstm', SERVE_BATCH, MLPG_FEATS['lstm'], 71)
     mlpg_case(torch, dev, 'f0', SERVE_BATCH, MLPG_FEATS['f0'], 72)
 
+    # The bf16-compute kernels K1c, K3c and K5b against their plain versions.
+    bf16_shapes = bf16_kernels_phase(torch, dev)
+
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
     mlpg_ops.launches = 0
     with tempfile.TemporaryDirectory() as root:
@@ -3913,6 +4470,7 @@ def main(argv=None):
         train_parity_phase(torch, root, TransformerAcousticModel, 'transformer_train_parity', 24,
                            '--learning_rate', TRANSFORMER_LR)
         transformer_dropout_phase(torch, root)
+        bf16_launches = bf16_serving_phase(torch, served, smi)
     mlpg_launches = mlpg_ops.launches + export_launches['mlpg_solve']
     if not (serve_launches and generate_launches and test_launches and mlpg_launches
             and export_launches['k1'] and export_launches['k3'] and export_launches['attn_fwd']
@@ -3925,7 +4483,8 @@ def main(argv=None):
             and f0_serve_launches and f0_train_launches['k3'] and f0_train_launches['k4']
             and duration_launches['k3'] and duration_launches['k4']
             and attn_serve_launches and attn_train_launches['attn_fwd']
-            and attn_train_launches['attn_bwd']):
+            and attn_train_launches['attn_bwd'] and bf16_launches['k1c']
+            and bf16_launches['k3c'] and bf16_launches['k5b']):
         raise AssertionError('a kernel of the main path was not launched')
 
     # launches: the main paths' runs, each counted from 0: serving,
@@ -3937,9 +4496,11 @@ def main(argv=None):
     # batch for the attention kernels; and http_serve's requests (K1, K3 and
     # the attention forward), quantize_serve's batches (K1), and export's
     # loaded programs (K1, K3, the attention forward, in their own process);
-    # the MLPG solve's over every one of these paths. The forward kernels'
-    # numbers are at the serving shape (B=16), the backward ones' at the
-    # training one (B=32), the solve's at the LSTM's B16 batch.
+    # the MLPG solve's over every one of these paths; bf16_serving's engines,
+    # streams, bundle process and pipeline command line for K1c, K3c and
+    # K5b. The forward kernels' numbers are at the serving shape (B=16), the
+    # backward ones' at the training one (B=32), the solve's at the LSTM's
+    # B16 batch.
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
@@ -4002,7 +4563,20 @@ def main(argv=None):
         'replaces': 'morgana_tpu/ops/mlpg.py:88', 'launches': mlpg_launches,
         'max_abs_err': mlpg_shape['max_abs_err_vs_plain'], 'ms': mlpg_shape['kernel_ms'],
         'plain_ms': mlpg_shape['plain_ms'], 'bound_ms': mlpg_shape['bound_ms'],
-        'bound_by': mlpg_shape['bound_by'], 'library_ms': None}]})
+        'bound_by': mlpg_shape['bound_by'], 'library_ms': None}] + [{
+        'name': name, 'route': 'cuda', 'source': f'morgana_tpu_torch/csrc/{source}',
+        'replaces': replaces, 'also_replaces': also, 'launches': bf16_launches[key],
+        'max_abs_err': bf16_shapes[key]['max_abs_err_vs_plain'],
+        'ms': bf16_shapes[key]['kernel_ms'], 'plain_ms': bf16_shapes[key]['plain_ms'],
+        'bound_ms': bf16_shapes[key]['bound_ms'], 'bound_by': bf16_shapes[key]['bound_by'],
+        'library_ms': bf16_shapes[key]['library_ms']}
+        for name, key, source, replaces, also in (
+            ('lstm_fwd_bf16_compute', 'k1c', 'lstm_fwd.cu', 'morgana_tpu/ops/pallas_rnn.py:77',
+             'morgana_tpu/ops/rnn.py:113'),
+            ('gru_fwd_bf16_compute', 'k3c', 'gru_fwd.cu', 'morgana_tpu/ops/pallas_gru.py:35',
+             'morgana_tpu/ops/rnn.py:347'),
+            ('attn_fwd_bf16', 'k5b', 'attn_fwd.cu', 'morgana_tpu/nn.py:1001',
+             'morgana_tpu/nn.py:1055'))]})
     print(nvidia_smi(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -24,13 +24,19 @@
 // read conflict-free (kRowStride, kColStride).
 //
 // Elem is the element type of q, k, v, o and the gradients in device memory
-// and shared memory (IoOps<Elem> reads and writes it); every product and sum
-// is f32. Only Elem = float is built.
+// and shared memory (IoOps<Elem> reads and writes it); every sum is f32.
+// Elem = float is built for both kernels. Elem = __nv_bfloat16 is built for
+// the forward only (K5b, attn_fwd.cu): its products are one
+// mma.sync.m16n8k16 in bf16 each (mma_bf16 below), with f32 sums, and its o
+// and lse stay f32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace attn {
 
@@ -65,6 +71,17 @@ template <int DH>
 constexpr int kRowStride = DH + 16;
 template <int DH>
 constexpr int kColStride = DH + 4;
+
+// The forward's k and v tile strides in elements of Elem: f32 as above. In
+// bf16, k is read 16 bytes a lane along its rows (lanes 4g + t: row g, bytes
+// 16t of a 64-byte run), conflict-free when a row is 64 bytes mod 128; v
+// is read by ldmatrix.trans, eight 16-byte rows at a time, conflict-free
+// when a row is an odd number of 16 bytes mod 128.
+template <typename Elem, int DH>
+constexpr int kKStride =
+    std::is_same_v<Elem, float> ? kRowStride<DH> : (DH % 64 == 32 ? DH : DH + 32);
+template <typename Elem, int DH>
+constexpr int kVStride = std::is_same_v<Elem, float> ? kColStride<DH> : DH + 8;
 
 // Whether query i sees key j of a batch row of length len (<= T): both below
 // len (a padded query row sees no key), and j <= i when causal, i - j <
@@ -190,6 +207,42 @@ __device__ __forceinline__ void store_c4(Elem* row, float (*acc)[4], int c, int 
   IoOps<Elem>::store4(row + 32 * c + 8 * t + 4,
                       make_float4(acc[0][2 * r + 1] * scale, acc[1][2 * r + 1] * scale,
                                   acc[2][2 * r + 1] * scale, acc[3][2 * r + 1] * scale));
+}
+
+// ---- bf16 on mma.sync.m16n8k16 (K5b) ----
+//
+// Lane = 4 g + t holds A (16 x 16) as a0 = row g, columns 2t, 2t + 1; a1 =
+// row g + 8, the same columns; a2, a3 = rows g, g + 8, columns 2t + 8,
+// 2t + 9; B (16 x 8) as b0 = rows 2t, 2t + 1 of column g, b1 = rows 2t + 8,
+// 2t + 9; C as for m16n8k8. Each 32-bit register holds two bf16, the lower
+// column (or row) in its low half.
+
+// d += a . b, bf16 inputs, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 (to nearest even) in one register, lo in
+// the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i .. 8i + 7
+// give the addresses of matrix i's eight 16-byte rows, and r[i] of lane
+// 4g + t holds its elements (2t, g) and (2t + 1, g), a B fragment register
+// when the rows are 8 keys of v and the columns 8 of its features.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
 }
 
 // 2^x on the SFU (MUFU.EX2), 2^-inf = 0.

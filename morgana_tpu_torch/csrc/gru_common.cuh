@@ -28,6 +28,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace gru {
@@ -51,6 +52,17 @@ __device__ __forceinline__ float sigmoid_fast(float x) {
 // tanh(x) = 2 sigmoid(2x) - 1: exp2 and a reciprocal, within ~1e-7 abs.
 __device__ __forceinline__ float tanh_fast(float x) {
   return __fdividef(2.f, 1.f + __expf(-2.f * x)) - 1.f;
+}
+
+// An operand of the product: v, or with kBf16 (K3c) v rounded to bf16 (to
+// nearest even, as XLA's astype), held as f32.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (kBf16) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
 }
 
 // Sum of v over the 4 slices of a unit (lanes 8 apart); every lane gets it.

@@ -17,7 +17,12 @@
 // Storage. Store is float or __nv_bfloat16 (MORGANA_PALLAS_STORE, the
 // storage type of morgana_tpu/ops/pallas_rnn.py::_store_dtype): the
 // streamed tensors and w_hh are read and written as Store, every product
-// and sum, the carried state and the exchanged partials are f32.
+// and sum, the carried state and the exchanged partials are f32. K1 has a
+// second type, Compute, that of the operands of its product: w_hh in
+// registers and the staged h are rounded to it (rounded<Compute>, round to
+// nearest even as XLA's astype), and held as f32 or, K1s's staged h, as
+// bf16. K1 is <float, float>, K1s <bf16, bf16>, K1c <float, bf16> (the
+// scan backend's bf16 compute dtype).
 //
 // StepClock: the per-step clock records of the step_split build
 // (-DMORGANA_STEP_SPLIT, _build.VARIANTS), which the main path's libraries
@@ -32,6 +37,8 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace lstm {
 
@@ -63,6 +70,12 @@ __device__ __forceinline__ Store from_f32(float v) {
   } else {
     return v;
   }
+}
+
+// v rounded to Compute and back to f32 (v itself for float).
+template <typename Compute>
+__device__ __forceinline__ float rounded(float v) {
+  return to_f32(from_f32<Compute>(v));
 }
 
 // N consecutive Store values at p (aligned to their size, 16 bytes where N

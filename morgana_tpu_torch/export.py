@@ -21,6 +21,10 @@ self-contained bundle:
 or normaliser files: it needs this package, for the kernels' custom ops, as
 the JAX bundle needs jax. A program is specific to the device it was exported
 on (``--device``, ``cuda`` by default), as a JAX one to its platform.
+``--compute_dtype bfloat16`` exports the bf16 programs: their op nodes are
+the bf16 kernels' (``compute_bf16`` set, bf16 q, k and v) and their GEMMs
+round their inputs, whatever the compute dtype of the process that runs
+them. The manifest records no dtype, as the JAX bundle's does not.
 
 Callers feed :meth:`ExportedVoice.run` batches collated to one of the
 manifest's signatures; outputs come back padded (cut each item at its
@@ -37,9 +41,8 @@ import torch
 
 from morgana_tpu_torch import checkpointing
 from morgana_tpu_torch import quantize as quantize_mod
-from morgana_tpu_torch.serve import (BF16_SLICE, InferenceEngine, _Unported,
-                                     load_exported_program, load_model_class, numeric_features,
-                                     program_inputs)
+from morgana_tpu_torch.serve import (InferenceEngine, compute_dtype_arg, load_exported_program,
+                                     load_model_class, numeric_features, program_inputs)
 
 __all__ = ['export_bundle', 'ExportedVoice', 'main']
 
@@ -207,8 +210,9 @@ def main(argv=None):
     parser.add_argument('--batch_size', type=int, default=8)
     parser.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
                         help="Device to export FOR: the programs are specific to it.")
-    parser.add_argument('--compute_dtype', nargs=1, action=_Unported, const=BF16_SLICE,
-                        help=f'Not ported yet ({BF16_SLICE}).')
+    parser.add_argument('--compute_dtype', default=None, type=compute_dtype_arg,
+                        help="'bfloat16': export programs with bf16 products (the bf16 kernels' "
+                             'op nodes) and f32 sums.')
     parser.add_argument('--quantize', default=None, choices=('int8', 'int4'),
                         help='Bake weight-only quantization into the bundle (params.npz holds '
                              'the int8/int4 leaves).')
@@ -218,7 +222,7 @@ def main(argv=None):
         load_model_class(args.model), args.checkpoint_path, data_root=args.data_root,
         normalisation_dir=args.normalisation_dir,
         model_kwargs=ast.literal_eval(args.model_kwargs), device=args.device,
-        batch_size=args.batch_size, quantize=args.quantize)
+        batch_size=args.batch_size, quantize=args.quantize, compute_dtype=args.compute_dtype)
     id_list = args.id_list or os.path.join(args.data_dir, f'{args.data_dir}_file_id_list.scp')
     manifest = export_bundle(engine, args.out_dir, data_dir=args.data_dir, id_list=id_list,
                              model_spec=args.model)

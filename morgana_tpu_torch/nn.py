@@ -7,6 +7,16 @@ Weights are stored as the JAX package stores them, ``(in, out)`` for
 :func:`load_jax_params` copies an ``epoch_{N}.npz`` (or
 ``morgana_tpu.nn.state_dict``) into these modules by name, unchanged, and
 :func:`state_dict` writes one back.
+
+The compute dtype (``nn.py:92-121``): :func:`set_default_compute_dtype`
+('bfloat16') makes every dense product (``Linear``, the attention
+projections, the recurrences' input GEMMs and, on the 'scan' backend, their
+``h @ w_hh``) and both products of attention read their inputs rounded to
+bf16 and sum in float32 (``ops/precision.py``); everything else stays
+float32. It is a process global, read at each call, as the JAX package
+reads its own while it traces. A 'pallas' ``Recurrent`` ignores it (f32, or
+its storage type), as the JAX package's Pallas kernels do; a layer's own
+``compute_dtype`` overrides it.
 """
 import math
 
@@ -17,15 +27,51 @@ from torch import nn
 from torch.nn.utils import parametrize
 
 from morgana_tpu_torch.ops import attention as attention_ops
+from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.ops.flash_attention import attention_bias, flash_attention
 from morgana_tpu_torch.ops.gru import gru_layer
 from morgana_tpu_torch.ops import lstm as lstm_ops
 
 __all__ = ['Linear', 'Sigmoid', 'Dropout', 'LayerNorm', 'GELU', 'ModuleList', 'Recurrent', 'GRU',
            'MultiHeadAttention', 'TransformerEncoderLayer', 'TransformerEncoder',
-           'SequentialWithRecurrent', 'load_jax_params', 'state_dict', 'ema_update']
+           'SequentialWithRecurrent', 'load_jax_params', 'state_dict', 'ema_update',
+           'set_default_compute_dtype', 'default_compute_dtype']
 
 _NOT_PORTED = 'is not ported yet (ROADMAP.md)'
+
+_DEFAULT_COMPUTE_DTYPE = None
+
+
+def set_default_compute_dtype(dtype):
+    """Sets the process's compute dtype (``nn.py:92``): None, 'float32',
+    'f32' or 'none' for float32 products, 'bfloat16' for bf16 ones (or the
+    torch dtypes). Another dtype raises ``ValueError`` naming ROADMAP.md."""
+    global _DEFAULT_COMPUTE_DTYPE
+    _DEFAULT_COMPUTE_DTYPE = precision.as_compute_dtype(dtype)
+
+
+def default_compute_dtype():
+    """The process's compute dtype: None (float32) or ``torch.bfloat16``."""
+    return _DEFAULT_COMPUTE_DTYPE
+
+
+def _matmul(x, w):
+    """The dense product of every projection (``nn.py:110``): inputs
+    rounded to the global compute dtype, sums and output in ``x.dtype``."""
+    return precision.matmul(x, w, _DEFAULT_COMPUTE_DTYPE)
+
+
+def _weight(module, name, compute_dtype):
+    """``module``'s weight ``name`` as a product in ``compute_dtype`` reads
+    it. A quantized weight (``quantize.Dequantize``) is dequantised in that
+    dtype, q and scale each rounded and their product rounded, as the JAX
+    package's ``QuantizedArray.astype`` does (``quantize.py:123-128``); held
+    in float32, which holds those values exactly."""
+    if compute_dtype is not None and parametrize.is_parametrized(module, name):
+        param = module.parametrizations[name]
+        return param[0].dequantize(param.original0, param.original1,
+                                   compute_dtype).to(torch.float32)
+    return getattr(module, name)
 
 Sigmoid = nn.Sigmoid
 
@@ -72,7 +118,7 @@ class Linear(nn.Module):
         self.bias = _uniform((out_features,), bound, generator)
 
     def forward(self, x):
-        return torch.matmul(x, self.weight) + self.bias
+        return _matmul(x, _weight(self, 'weight', _DEFAULT_COMPUTE_DTYPE)) + self.bias
 
 
 class LayerNorm(nn.Module):
@@ -121,6 +167,10 @@ class Recurrent(nn.Module):
     ``b_hh_l{i}`` (G*H,), with G = 4 gates i, f, g, o for an LSTM and G = 3
     gates r, z, n for a GRU; dropout between layers.
 
+    ``compute_dtype`` (None, 'float32' or 'bfloat16'; ``nn.py:580``)
+    overrides the global compute dtype on the 'scan' backend; the 'pallas'
+    backend ignores both (``nn.py:659-664``).
+
     ``backend`` 'scan' and 'pallas' name the JAX package's two layer
     implementations, which compute the same function; here both run
     :func:`morgana_tpu_torch.ops.lstm.lstm_layer` (kernels K1 and K2 on the
@@ -134,8 +184,9 @@ class Recurrent(nn.Module):
     """
 
     def __init__(self, mode, input_size, hidden_size, num_layers=1, dropout=0.0,
-                 backend='scan', bidirectional=False, generator=None):
+                 backend='scan', bidirectional=False, compute_dtype=None, generator=None):
         super().__init__()
+        precision.as_compute_dtype(compute_dtype)   # raises on a dtype the port lacks
         mode = mode.lower()
         if mode not in ('lstm', 'gru'):
             raise ValueError(f'Unsupported recurrent mode {mode!r}')
@@ -147,6 +198,7 @@ class Recurrent(nn.Module):
             raise ValueError(f'Unsupported backend {backend!r}')
         self.mode = mode
         self.backend = backend
+        self.compute_dtype = compute_dtype
         self.num_layers = num_layers
         self.dropout = Dropout(dropout) if dropout else None  # between layers
         gates = (4 if mode == 'lstm' else 3) * hidden_size
@@ -170,18 +222,29 @@ class Recurrent(nn.Module):
         elif self.num_layers == 1 and not isinstance(hidden, list):
             hidden = [hidden]
 
+        # The dispatch of nn.py:641-664: the layer's own compute dtype, else
+        # the global one, on the 'scan' backend; f32 (or the storage type)
+        # on the 'pallas' one, quantized or not.
+        if self.backend == 'pallas':
+            compute = None
+        elif self.compute_dtype is not None:
+            compute = precision.as_compute_dtype(self.compute_dtype)
+        else:
+            compute = _DEFAULT_COMPUTE_DTYPE
         x = inputs
         new_hidden = []
         for i in range(self.num_layers):
-            weights = [getattr(self, f'{name}_l{i}') for name in ('w_ih', 'w_hh', 'b_ih', 'b_hh')]
+            weights = [_weight(self, f'{name}_l{i}', compute)
+                       for name in ('w_ih', 'w_hh', 'b_ih', 'b_hh')]
             if self.mode == 'lstm':
                 h0, c0 = (None, None) if hidden[i] is None else hidden[i]
                 store = lstm_ops.STORE_DTYPE if self.backend == 'pallas' \
                     and not parametrize.is_parametrized(self) else None
                 x, state = lstm_ops.lstm_layer(x, *weights, seq_len=seq_len, h0=h0, c0=c0,
-                                               store_dtype=store)
+                                               store_dtype=store, compute_dtype=compute)
             else:
-                x, state = gru_layer(x, *weights, seq_len=seq_len, h0=hidden[i])
+                x, state = gru_layer(x, *weights, seq_len=seq_len, h0=hidden[i],
+                                     compute_dtype=compute)
             new_hidden.append(state)
             if self.dropout is not None and i < self.num_layers - 1:
                 x = self.dropout(x)
@@ -238,8 +301,12 @@ class MultiHeadAttention(nn.Module):
         if kv is not None or kv_seq_len is not None:
             raise NotImplementedError(f'cross-attention (kv=) {_NOT_PORTED}')
         batch, time, _ = x.shape
-        q, k, v = (t.reshape(batch, time, self.num_heads, self.head_dim).transpose(1, 2).contiguous()
+        compute = _DEFAULT_COMPUTE_DTYPE
+        # bf16 heads are made contiguous by their cast (flash_attention).
+        q, k, v = (t.reshape(batch, time, self.num_heads, self.head_dim).transpose(1, 2)
                    for t in self.in_proj(x).split(self.embed_dim, dim=-1))
+        if compute is None:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         # As the JAX package dispatches (nn.py:913-941): active probability
         # dropout takes the exact plain path on any device (the kernels have
         # no dropout hook); otherwise the kernel on the GPU.
@@ -247,9 +314,10 @@ class MultiHeadAttention(nn.Module):
         if dropout_p > 0.0:
             out = attention_ops.scaled_dot_product_attention(
                 q, k, v, bias=attention_bias(seq_len, time, causal, window, device=x.device),
-                dropout_p=dropout_p, generator=self.generator)
+                dropout_p=dropout_p, generator=self.generator, compute_dtype=compute)
         else:
-            out = flash_attention(q, k, v, seq_len=seq_len, causal=causal, window=window)
+            out = flash_attention(q, k, v, seq_len=seq_len, causal=causal, window=window,
+                                  compute_dtype=compute)
         return self.out_proj(out.transpose(1, 2).reshape(batch, time, self.embed_dim))
 
     def step(self, x, cache_k, cache_v, pos, window):
@@ -272,7 +340,8 @@ class MultiHeadAttention(nn.Module):
 
         bias = attention_ops.streaming_bias(pos, chunk, window, device=x.device)
         out = attention_ops.scaled_dot_product_attention(to_heads(q), to_heads(k_full),
-                                                         to_heads(v_full), bias=bias)
+                                                         to_heads(v_full), bias=bias,
+                                                         compute_dtype=_DEFAULT_COMPUTE_DTYPE)
         out = out.transpose(1, 2).reshape(batch, chunk, self.embed_dim)
         # The cache keeps the latest `window` frames.
         return self.out_proj(out), k_full[:, -cache_k.shape[1]:], v_full[:, -cache_v.shape[1]:]

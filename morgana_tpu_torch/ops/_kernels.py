@@ -19,7 +19,10 @@ import torch
 from morgana_tpu_torch import _build
 
 __all__ = ['check_device', 'check_operands', 'load_library', 'raise_on_error', 'no_alias',
-           'mask_past_seq_len', 'state_at_seq_len']
+           'mask_past_seq_len', 'state_at_seq_len', 'refuse_bf16_gradient', 'BF16_TRAINING']
+
+#: Where the backward of the bf16-compute kernels waits.
+BF16_TRAINING = 'training in bf16, ROADMAP.md Queue 1 item 4'
 
 
 def check_device(what, tensor):
@@ -32,8 +35,9 @@ def check_device(what, tensor):
 def check_operands(kernel, operands, device, dtypes=(torch.float32,)):
     """Raises, before any launch, on what ``kernel`` does not take: each
     operand of ``{name: (tensor, shape[, dtype])}`` must have its shape, lie
-    on ``device``, have its dtype (float32 when none is named), one of the
-    ``dtypes`` the kernel is built for, and be contiguous."""
+    on ``device``, have its own dtype (float32 when none is named), which
+    must be one of the ``dtypes`` the kernel is built for, and be
+    contiguous."""
     for name, (tensor, shape, *dtype) in operands.items():
         want = dtype[0] if dtype else torch.float32
         if tuple(tensor.shape) != shape:
@@ -48,6 +52,17 @@ def check_operands(kernel, operands, device, dtypes=(torch.float32,)):
 
 
 _ENTRIES = {}  # (name, entry, variant) -> (lib, fn), set up once
+
+
+def refuse_bf16_gradient(kernel, compute_dtype, *tensors):
+    """Raises ``NotImplementedError`` when a call with a ``compute_dtype``
+    on CUDA tensors needs a gradient: ``kernel``, the bf16-compute build,
+    has no backward, and an f32 gradient in its place would be another
+    function's."""
+    live = [t for t in tensors if t is not None]
+    if compute_dtype is not None and live and live[0].device.type == 'cuda' and \
+            torch.is_grad_enabled() and any(t.requires_grad for t in live):
+        raise NotImplementedError(f'{kernel} has no backward ({BF16_TRAINING})')
 
 
 def load_library(name, entry, argtypes, variant=None):

@@ -59,13 +59,19 @@ def streaming_bias(pos, chunk, window, dtype=torch.float32, device=None):
     return _where_allowed(allowed, dtype)[None, None]
 
 
-def scaled_dot_product_attention(q, k, v, bias=None, dropout_p=0.0, generator=None):
+def scaled_dot_product_attention(q, k, v, bias=None, dropout_p=0.0, generator=None,
+                                 compute_dtype=None):
     """Attention over batched heads, ``q, k, v`` (batch, heads, T, head_dim)
     (``k`` and ``v`` may have another T). Logits ``q k^T / sqrt(head_dim)``
     plus ``bias`` and the softmax in float32; with ``dropout_p`` the
     probabilities are dropped with noise from ``generator`` and rescaled.
-    Returns (batch, heads, Tq, head_dim) in ``q``'s dtype."""
+    With ``compute_dtype`` bf16 (``attention.py:100-143``) q, k and v are
+    rounded to it before the products and the probabilities before P.V;
+    both products sum in float32. Returns (batch, heads, Tq, head_dim) in
+    ``q``'s dtype."""
     out_dtype = q.dtype
+    if compute_dtype is not None:
+        q, k, v = (t.to(compute_dtype) for t in (q, k, v))
     scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale.to(q.device)
     if bias is not None:
@@ -75,7 +81,9 @@ def scaled_dot_product_attention(q, k, v, bias=None, dropout_p=0.0, generator=No
         keep = 1.0 - dropout_p
         noise = torch.rand(probs.shape, generator=generator, device=probs.device)
         probs = torch.where(noise < keep, probs / keep, torch.zeros((), device=probs.device))
-    return torch.matmul(probs.to(v.dtype), v).to(out_dtype)
+    if v.dtype == torch.float32:
+        return torch.matmul(probs, v).to(out_dtype)
+    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(out_dtype)
 
 
 def sinusoidal_positions(max_len, dim, dtype=torch.float32, device=None):

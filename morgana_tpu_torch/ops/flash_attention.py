@@ -16,6 +16,17 @@ also ``j <= i``; with ``window`` also ``i - j < window``) times v:
   ``scaled_dot_product_attention``), differentiated by autograd when a
   gradient is needed.
 
+With ``compute_dtype`` bf16 (the splash and flash calls on bf16 operands,
+``nn.py:1018-1019``, :1063-1064) q, k and v go to the kernel as bf16, and
+the forward runs in K5b, the kernel's bf16 build: both products are one
+``mma.sync`` m16n8k16 in bf16 with f32 sums, the unnormalised probabilities
+rounded to bf16 before P.V, the softmax statistics and o in float32. o
+stays float32, as the JAX package's exact path returns it (its splash
+kernel rounds o to bf16; the tests hold the port to the exact path). Its
+plain version is ``scaled_dot_product_attention(compute_dtype=bf16)``. The
+bf16 backward is not ported: a bf16 call on the GPU that needs a gradient
+raises (training in bf16, ROADMAP.md).
+
 The kernels are the custom ops ``morgana::attn_fwd`` and ``morgana::attn_bwd``
 (:func:`attn_fwd`, :func:`attn_bwd`; their ``cuda`` implementations launch
 the kernels, their ``cpu`` ones are the plain version and its backward).
@@ -46,18 +57,22 @@ import torch
 
 from morgana_tpu_torch.ops import attention as attention_ops
 from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
-                                            no_alias, raise_on_error)
+                                            no_alias, raise_on_error, refuse_bf16_gradient)
 
 __all__ = ['flash_attention', 'flash_attention_reference', 'attention_bias', 'attention_forward',
-           'attention_backward', 'attn_fwd', 'attn_bwd', 'launches', 'bwd_launches', 'HEAD_DIMS']
+           'attention_backward', 'attn_fwd', 'attn_bwd', 'launches', 'bwd_launches',
+           'bf16_launches', 'HEAD_DIMS']
 
 # Launches of the forward kernel and of the backward (its two kernels count
-# once), each counted where its wrapper launches and nowhere else.
+# once), each counted where its wrapper launches and nowhere else; among the
+# forward's, bf16_launches are those of its bf16 build K5b.
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
 
 #: The head widths the kernels are built for (a template each).
 HEAD_DIMS = (64, 96, 128)
+
 _MAX_BATCH_HEADS = 65535  # the grid's y dimension
 
 
@@ -75,13 +90,15 @@ def attention_bias(seq_len, max_len, causal=False, window=None, device=None):
     return bias
 
 
-def flash_attention_reference(q, k, v, seq_len=None, causal=False, window=None):
+def flash_attention_reference(q, k, v, seq_len=None, causal=False, window=None,
+                              compute_dtype=None):
     """Plain version of the kernel: the biases plus
-    :func:`~morgana_tpu_torch.ops.attention.scaled_dot_product_attention`,
-    on any device."""
+    :func:`~morgana_tpu_torch.ops.attention.scaled_dot_product_attention`
+    (with ``compute_dtype``), on any device."""
     _check_window(causal, window)
     bias = attention_bias(seq_len, q.shape[2], causal, window, device=q.device)
-    return attention_ops.scaled_dot_product_attention(q, k, v, bias=bias)
+    return attention_ops.scaled_dot_product_attention(q, k, v, bias=bias,
+                                                      compute_dtype=compute_dtype)
 
 
 def _check_window(causal, window):
@@ -96,9 +113,10 @@ def _lengths(seq_len, batch, device):
     return torch.as_tensor(seq_len, device=device).reshape(batch).to(torch.int32).contiguous()
 
 
-def _check(kernel, tensors, device):
-    """Raises, before any launch, on what the kernels do not take; returns
-    ``(B, H, T, dh)``."""
+def _check(kernel, tensors, device, dtype=torch.float32):
+    """Raises, before any launch, on what the kernels do not take: q, k and v
+    in ``dtype`` (float32, or bf16 for K5b's forward), every other operand
+    float32; returns ``(B, H, T, dh)``."""
     q = tensors['q']
     if q.ndim != 4:
         raise ValueError(f'{kernel}: q must be (B, H, T, dh), got {tuple(q.shape)}')
@@ -108,39 +126,47 @@ def _check(kernel, tensors, device):
     if batch * heads > _MAX_BATCH_HEADS:
         raise ValueError(f'{kernel}: B * H must be at most {_MAX_BATCH_HEADS}, got {batch * heads}')
     shapes = {'lse': (batch, heads, time)}
-    check_operands(kernel, {name: (t, shapes.get(name, tuple(q.shape)))
-                            for name, t in tensors.items()}, device)
+    check_operands(kernel, {name: (t, shapes.get(name, tuple(q.shape)),
+                                   dtype if name in 'qkv' else torch.float32)
+                            for name, t in tensors.items()}, device,
+                   dtypes=(torch.float32, torch.bfloat16))
     for name, t in tensors.items():
         if t.data_ptr() % 16:
-            raise ValueError(f'{kernel}: {name} must be 16-byte aligned (the kernels read float4)')
+            raise ValueError(f'{kernel}: {name} must be 16-byte aligned (the kernels read 16 '
+                             'bytes at a time)')
     return batch, heads, time, head_dim
 
 
 def attention_forward(q, k, v, seq_len=None, causal=False, window=None):
-    """Launches the forward kernel on PyTorch's current stream; raises on
-    anything it does not take, and on a refused or failed launch. Returns
-    ``(o, lse)``, lse (B, H, T) the log-sum-exp of each row's scaled
-    logits (+inf for a row that sees no key)."""
-    global launches
+    """Launches the forward kernel on PyTorch's current stream: K5 for f32
+    q, k and v, K5b for bf16 ones; raises on anything it does not take, and
+    on a refused or failed launch. Returns ``(o, lse)``, both float32, lse
+    (B, H, T) the log-sum-exp of each row's scaled logits (+inf for a row
+    that sees no key)."""
+    global launches, bf16_launches
     _check_window(causal, window)
-    batch, heads, time, head_dim = _check('K5/K6 forward', {'q': q, 'k': k, 'v': v}, q.device)
-    o = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16
+    name = 'K5b forward' if bf16 else 'K5/K6 forward'
+    batch, heads, time, head_dim = _check(name, {'q': q, 'k': k, 'v': v}, q.device,
+                                          torch.bfloat16 if bf16 else torch.float32)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((batch, heads, time), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse.fill_(float('inf'))
     lengths = _lengths(seq_len, batch, q.device)
     lib, fn = load_library('attn_fwd', 'morgana_attn_fwd',
-                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if lengths is None else lengths.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), batch, heads, time, head_dim, int(causal),
-                 int(window or 0), q.device.index, stream)
-    raise_on_error(lib, err, f'attention kernel K5/K6 forward at B={batch} H={heads} T={time} '
-                   f'dh={head_dim}', 'a block keeps two stages of a 64 x (dh + 16) k and a '
-                   '64 x (dh + 4) v f32 tile in shared memory (106 KB at dh 96)')
+                 int(window or 0), int(bf16), q.device.index, stream)
+    raise_on_error(lib, err, f'attention kernel {name} at B={batch} H={heads} T={time} '
+                   f'dh={head_dim}', 'a block keeps two stages of a 64-row k and v tile in '
+                   'shared memory (106 KB at dh 96 in f32, 50 KB in bf16)')
     launches += 1
+    bf16_launches += bf16
     return o, lse
 
 
@@ -179,10 +205,13 @@ def attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seq_len: Optiona
              causal: bool, window: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``morgana::attn_fwd``, the forward of K5/K6: ``(o, lse)`` with the
     masks of ``seq_len`` (int32 (B,) or None), ``causal`` and ``window`` (0
-    for none). This is its ``cpu`` implementation: the plain version, and
-    the log-sum-exp of its biased logits."""
+    for none); q, k and v all float32 (K5) or all bf16 (K5b), o and lse
+    float32. This is its ``cpu`` implementation: the plain version, and the
+    log-sum-exp of its biased logits."""
     window = window or None
-    o = flash_attention_reference(q, k, v, seq_len, causal, window)
+    compute = torch.bfloat16 if q.dtype == torch.bfloat16 else None
+    o = flash_attention_reference(q.float(), k.float(), v.float(), seq_len, causal, window,
+                                  compute)
     bias = attention_bias(seq_len, q.shape[2], causal, window, device=q.device)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
     lse = torch.logsumexp(logits if bias is None else logits + bias, dim=-1)
@@ -196,7 +225,7 @@ def _attn_fwd_op_cuda(q, k, v, seq_len, causal, window):
 
 @attn_fwd.register_fake
 def _attn_fwd_fake(q, k, v, seq_len, causal, window):
-    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+    return torch.empty_like(q, dtype=torch.float32), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 @torch.library.custom_op('morgana::attn_bwd', mutates_args=(), device_types='cpu')
@@ -249,7 +278,7 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, seq_len=None, causal=False, window=None):
+def flash_attention(q, k, v, seq_len=None, causal=False, window=None, compute_dtype=None):
     r"""Exact attention over batched heads with the JAX package's masks.
 
     Parameters
@@ -261,16 +290,23 @@ def flash_attention(q, k, v, seq_len=None, causal=False, window=None):
     causal : bool
     window : int, optional
         With ``causal``, query ``i`` sees keys ``i - window < j <= i``.
+    compute_dtype : None or torch.bfloat16
+        bf16: q, k and v rounded to it, and the probabilities before P.V
+        (K5b on the GPU; forward only there).
 
     Returns
     -------
-    o : (batch, heads, T, head_dim); rows at or past ``seq_len`` are padding.
+    o : (batch, heads, T, head_dim), float32; rows at or past ``seq_len``
+        are padding.
     """
     check_device('attention', q)
     _check_window(causal, window)
+    refuse_bf16_gradient('K5b', compute_dtype, q, k, v)
     lengths = _lengths(seq_len, q.shape[0], q.device)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q.device.type == 'cpu':
-            return flash_attention_reference(q, k, v, seq_len, causal, window)
+            return flash_attention_reference(q, k, v, seq_len, causal, window, compute_dtype)
         return _FlashAttention.apply(q, k, v, lengths, causal, int(window or 0))
+    if compute_dtype is not None:
+        q, k, v = (t.to(compute_dtype, memory_format=torch.contiguous_format) for t in (q, k, v))
     return torch.ops.morgana.attn_fwd(q, k, v, lengths, causal, int(window or 0))[0]

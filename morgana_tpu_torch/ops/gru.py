@@ -26,6 +26,14 @@ K3 and K4 are the custom ops ``morgana::gru_fwd`` and ``morgana::gru_bwd``
 (:func:`gru_fwd`, :func:`gru_bwd`; their ``cuda`` implementations launch the
 kernels, their ``cpu`` ones are the plain versions).
 
+Compute type (``compute_dtype`` bf16, the scan backend under
+``--compute_dtype bfloat16``, ``ops/rnn.py:347-361``, "K3c"): the input GEMM
+rounds x and w_ih to bf16 (:func:`~morgana_tpu_torch.ops.precision.matmul`),
+and the recurrence rounds w_hh and each step's h to bf16 for ``h @ w_hh``,
+whose sums, the bias, the gate math, the carried h and the outputs stay
+f32. Only the forward is built: a K3c call on the GPU that needs a gradient
+raises (training in bf16, ROADMAP.md).
+
 Both kernels take the layer's batch-major layout and ``seq_len``: K3 zeroes
 the outputs past ``seq_len`` and gathers the final ``h`` at ``seq_len - 1``
 (``h0`` for empty rows), for a GRU ``y`` being the state trace
@@ -36,19 +44,22 @@ from typing import Optional
 
 import torch
 
+from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
                                             mask_past_seq_len, no_alias, raise_on_error,
-                                            state_at_seq_len)
+                                            refuse_bf16_gradient, state_at_seq_len)
 
 __all__ = ['gru_layer', 'gru_layer_reference', 'gru_recurrence', 'gru_recurrence_reference',
            'gru_backward', 'gru_backward_reference', 'layer_backward_reference', 'hidden_gates',
            'gru_fwd', 'gru_bwd',
-           'launches', 'bwd_launches']
+           'launches', 'bwd_launches', 'bf16_compute_launches']
 
 # Launches of K3 and of K4, each counted where its wrapper launches the
 # kernel and nowhere else; a run reads them to show which path it took.
+# bf16_compute_launches are those of K3c among K3's.
 launches = 0
 bwd_launches = 0
+bf16_compute_launches = 0
 
 # The kernels are built for H = 32, 64, 96 and 128: 4H threads a row, each
 # with 3H/4 floats of w_hh, in one CTA up to H = 96 and in two above.
@@ -76,18 +87,20 @@ def _sizes(kernel, xg, time_major=False):
     return time, batch, gates3 // 3
 
 
-def _launch(kernel, name, entry, pointers, time, batch, hidden, device):
+def _launch(kernel, name, entry, pointers, time, batch, hidden, device, flags=()):
     """Loads kernel ``name`` and calls its C entry on PyTorch's current
     stream of ``device`` with the device pointers (None for a null one), T,
-    B, H and the device's index; raises on a refused or failed launch."""
-    lib, fn = load_library(name, entry, [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p])
+    B, H, the int ``flags`` and the device's index; raises on a refused or
+    failed launch."""
+    ints = (time, batch, hidden, *flags, device.index)
+    lib, fn = load_library(name, entry, [ctypes.c_void_p] * len(pointers)
+                           + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index == torch.cuda.current_device():
-        err = fn(*pointers, time, batch, hidden, device.index, stream)
+        err = fn(*pointers, *ints, stream)
     else:   # the entry sets the device; the context restores the caller's
         with torch.cuda.device(device):
-            err = fn(*pointers, time, batch, hidden, device.index, stream)
+            err = fn(*pointers, *ints, stream)
     raise_on_error(lib, err, f'GRU kernel {kernel} launch at T={time} B={batch} H={hidden}',
                    '4H threads a row keep w_hh in registers, in two CTAs above H = 96')
 
@@ -102,12 +115,13 @@ def _seq_len_pointer(kernel, seq_len, batch, device):
     return seq_len.data_ptr()
 
 
-def _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len=None):
-    """Launches K3 on a batch-major ``xg`` (B, T, 3H) on PyTorch's current
-    stream; raises on anything it does not take, and on a refused or failed
-    launch. Returns ``(y, hn)``, y (B, T, H); with ``seq_len``, y is 0 past
-    each row's length and hn the state there."""
-    global launches
+def _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len=None, compute_bf16=False):
+    """Launches K3 (K3c with ``compute_bf16``: w_hh and the h each step's
+    product reads rounded to bf16) on a batch-major ``xg`` (B, T, 3H) on
+    PyTorch's current stream; raises on anything it does not take, and on a
+    refused or failed launch. Returns ``(y, hn)``, y (B, T, H); with
+    ``seq_len``, y is 0 past each row's length and hn the state there."""
+    global launches, bf16_compute_launches
     time, batch, hidden = _sizes('K3', xg)
     check_operands('K3', {'xg': (xg, tuple(xg.shape)), 'w_hh': (w_hh, (hidden, 3 * hidden)),
                           'b_hh': (b_hh, (3 * hidden,)), 'h0': (h0, (batch, hidden))}, xg.device)
@@ -115,10 +129,11 @@ def _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len=None):
     seq = _seq_len_pointer('K3', seq_len, batch, xg.device)
     y = torch.empty((batch, time, hidden), dtype=torch.float32, device=xg.device)
     hn = torch.empty((batch, hidden), dtype=torch.float32, device=xg.device)
-    _launch('K3', 'gru_fwd', 'morgana_gru_fwd',
+    _launch('K3c' if compute_bf16 else 'K3', 'gru_fwd', 'morgana_gru_fwd',
             (xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), seq, y.data_ptr(),
-             hn.data_ptr()), time, batch, hidden, xg.device)
+             hn.data_ptr()), time, batch, hidden, xg.device, (int(compute_bf16),))
     launches += 1
+    bf16_compute_launches += bool(compute_bf16)
     return y, hn
 
 
@@ -161,15 +176,18 @@ def _gates(xg_t, hg, hidden):
     return r, z, n
 
 
-def gru_recurrence_reference(xg, w_hh, b_hh, h0):
+def gru_recurrence_reference(xg, w_hh, b_hh, h0, compute_bf16=False):
     """Plain version of K3: ``(xg (T, B, 3H), w_hh, b_hh, h0) -> (y, hn)`` by
-    a Python loop over time, the state carried in float32."""
+    a Python loop over time, the state carried in float32. With
+    ``compute_bf16`` (K3c) w_hh and h are rounded to bf16 for the product."""
     time, batch, _ = xg.shape
     hidden = w_hh.shape[0]
+    compute = torch.bfloat16 if compute_bf16 else None
+    w = precision.rounded(w_hh.float(), compute)
     h = h0.float()
     ys = []
     for t in range(time):
-        hg = torch.matmul(h, w_hh.float()) + b_hh.float()
+        hg = torch.matmul(precision.rounded(h, compute), w) + b_hh.float()
         r, z, n = _gates(xg[t].float(), hg, hidden)
         h = (1.0 - z) * n + z * h
         ys.append(h)
@@ -253,27 +271,29 @@ def layer_backward_reference(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None):
 
 @torch.library.custom_op('morgana::gru_fwd', mutates_args=(), device_types='cpu')
 def gru_fwd(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, h0: torch.Tensor,
-            seq_len: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
-    """``morgana::gru_fwd``, K3: ``(y, hn)`` of a batch-major ``xg`` (B, T,
-    3H), y (B, T, H) zero past ``seq_len`` (an int64 (B,) tensor or None)
-    and hn the state there. This is its ``cpu`` implementation: the plain
-    loop, then the masking and gather of ``pallas_gru.py:221-225``."""
-    y, hn = _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len)
+            seq_len: Optional[torch.Tensor],
+            compute_bf16: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``morgana::gru_fwd``, K3 (K3c with ``compute_bf16``): ``(y, hn)`` of a
+    batch-major ``xg`` (B, T, 3H), y (B, T, H) zero past ``seq_len`` (an
+    int64 (B,) tensor or None) and hn the state there. This is its ``cpu``
+    implementation: the plain loop, then the masking and gather of
+    ``pallas_gru.py:221-225``."""
+    y, hn = _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len, compute_bf16)
     return no_alias((y.contiguous(), hn), (xg, w_hh, b_hh, h0, seq_len))
 
 
-def _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len):
-    y, hn = gru_recurrence_reference(xg.transpose(0, 1), w_hh, b_hh, h0)
+def _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len, compute_bf16=False):
+    y, hn = gru_recurrence_reference(xg.transpose(0, 1), w_hh, b_hh, h0, compute_bf16)
     return _mask(y.transpose(0, 1), hn, seq_len, h0)
 
 
 @gru_fwd.register_kernel('cuda')
-def _gru_fwd_op_cuda(xg, w_hh, b_hh, h0, seq_len):
-    return _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len)
+def _gru_fwd_op_cuda(xg, w_hh, b_hh, h0, seq_len, compute_bf16=False):
+    return _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len, compute_bf16)
 
 
 @gru_fwd.register_fake
-def _gru_fwd_fake(xg, w_hh, b_hh, h0, seq_len):
+def _gru_fwd_fake(xg, w_hh, b_hh, h0, seq_len, compute_bf16=False):
     batch, time, gates3 = xg.shape
     return (xg.new_empty((batch, time, gates3 // 3), dtype=torch.float32),
             xg.new_empty((batch, gates3 // 3), dtype=torch.float32))
@@ -328,15 +348,15 @@ def gru_backward(xg, w_hh, b_hh, h0, y, dy, dhn):
     return dxg.transpose(0, 1).contiguous(), dh0
 
 
-def _layer_forward(xg, w_hh, b_hh, h0, seq_len):
+def _layer_forward(xg, w_hh, b_hh, h0, seq_len, compute_bf16=False):
     """``(y, hn)`` of a batch-major ``xg`` (B, T, 3H): :func:`gru_fwd`; for
     CPU tensors that need a gradient, its plain version itself, which
     autograd differentiates through the loop."""
     check_device('GRU recurrence', xg)
     if xg.device.type == 'cpu' and torch.is_grad_enabled() and \
             any(t.requires_grad for t in (xg, w_hh, b_hh, h0)):
-        return _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len)
-    return torch.ops.morgana.gru_fwd(xg, w_hh, b_hh, h0, seq_len)
+        return _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len, compute_bf16)
+    return torch.ops.morgana.gru_fwd(xg, w_hh, b_hh, h0, seq_len, compute_bf16)
 
 
 def _layer_backward(xg, hg, w_hh, h0, y, dy, dhn, seq_len):
@@ -376,14 +396,15 @@ class _Recurrence(torch.autograd.Function):
         return dxg, dw_hh, torch.cat([d_rz.sum(0), dnr.sum(0)]), dh0, None
 
 
-def _input_gates(x, w_ih, b_ih):
-    """``xg = x @ w_ih + b_ih`` (B, T, 3H): one large GEMM. (``torch.addmm``
-    would save the add's launch but costs the host more than both on the
-    card: cuBLASLt's bias epilogue is chosen anew at every call.)"""
-    return torch.matmul(x, w_ih) + b_ih
+def _input_gates(x, w_ih, b_ih, compute=None):
+    """``xg = x @ w_ih + b_ih`` (B, T, 3H): one large GEMM, its inputs rounded
+    to ``compute``. (``torch.addmm`` would save the add's launch but costs
+    the host more than both on the card: cuBLASLt's bias epilogue is chosen
+    anew at every call.)"""
+    return precision.matmul(x, w_ih, compute) + b_ih
 
 
-def gru_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None):
+def gru_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, compute_dtype=None):
     r"""Single-layer GRU over a padded batch, with the semantics of
     ``morgana_tpu.ops.pallas_gru.gru_layer`` and ``ops/rnn.py::gru``,
     differentiable in all six inputs.
@@ -395,6 +416,8 @@ def gru_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None):
         Gate order r, z, n (torch's), weights stored (in, gates).
     seq_len : (batch,), optional
     h0 : (batch, H), optional; zeros when absent.
+    compute_dtype : None, 'bfloat16', ... (``precision.as_compute_dtype``)
+        The products' input type (``ops/rnn.py::gru``'s ``compute_dtype``).
 
     Returns
     -------
@@ -402,24 +425,30 @@ def gru_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None):
     hn : the state at ``seq_len`` (at ``time`` without ``seq_len``)
     """
     batch, dtype = x.shape[0], x.dtype
-    xg = _input_gates(x, w_ih, b_ih)
+    compute = precision.as_compute_dtype(compute_dtype)
+    refuse_bf16_gradient('K3c', compute, x, w_ih, w_hh, b_ih, b_hh, h0)
+    xg = _input_gates(x, w_ih, b_ih, compute)
     h0 = x.new_zeros((batch, w_hh.shape[0])) if h0 is None else h0.contiguous()
     if seq_len is not None:
         seq_len = torch.as_tensor(seq_len, device=x.device).reshape(batch).long().contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xg, w_hh, b_hh, h0)):
-        y, hn = _Recurrence.apply(xg, w_hh, b_hh, h0, seq_len)
+        if compute is None:
+            y, hn = _Recurrence.apply(xg, w_hh, b_hh, h0, seq_len)
+        else:   # on the CPU: autograd through the plain loop
+            y, hn = _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len, True)
     else:
-        y, hn = _layer_forward(xg, w_hh, b_hh, h0, seq_len)
+        y, hn = _layer_forward(xg, w_hh, b_hh, h0, seq_len, compute is not None)
     return y.to(dtype), hn.to(dtype)
 
 
-def gru_layer_reference(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None):
+def gru_layer_reference(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, compute_dtype=None):
     """:func:`gru_layer` through the plain recurrence on any device, its
     gradient by autograd through the loop: what the kernels are held
     against."""
     batch, dtype = x.shape[0], x.dtype
-    xg = _input_gates(x, w_ih, b_ih).transpose(0, 1).contiguous()    # (T, B, 3H)
+    compute = precision.as_compute_dtype(compute_dtype)
+    xg = _input_gates(x, w_ih, b_ih, compute).transpose(0, 1).contiguous()    # (T, B, 3H)
     h0 = x.new_zeros((batch, w_hh.shape[0])) if h0 is None else h0
-    y, hn = gru_recurrence_reference(xg, w_hh, b_hh, h0.contiguous())
+    y, hn = gru_recurrence_reference(xg, w_hh, b_hh, h0.contiguous(), compute is not None)
     y, hn = _mask(y.transpose(0, 1).to(dtype), hn, seq_len, h0)
     return y, hn.to(dtype)

@@ -36,6 +36,14 @@ passes :data:`STORE_DTYPE` (``MORGANA_PALLAS_STORE``, read at import, read
 again at each call) for its ``'pallas'`` backend only, as the JAX package's
 scan path never reads it.
 
+Compute type (``compute_dtype`` bf16, the scan backend under
+``--compute_dtype bfloat16``, ``ops/rnn.py:113-135``, "K1c"): the input GEMM
+rounds x and w_ih to bf16 (:func:`~morgana_tpu_torch.ops.precision.matmul`),
+and the recurrence rounds w_hh and each step's h to bf16 for ``h @ w_hh``,
+whose sums stay f32; xg, the gate math, the carried h and c and every
+stored trace stay f32. Only the forward is built: a K1c call on the GPU
+that needs a gradient raises (training in bf16, ROADMAP.md).
+
 Outputs past ``seq_len`` are zeroed and the final ``(h, c)`` is gathered at
 ``seq_len - 1`` (``h0``/``c0`` for empty rows), which is exactly the state a
 recurrence stopped at ``seq_len`` would hold (``pallas_rnn.py:298-347``).
@@ -45,15 +53,17 @@ import os
 
 import torch
 
-from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
-                                            mask_past_seq_len, no_alias, raise_on_error,
+from morgana_tpu_torch.ops import precision
+from morgana_tpu_torch.ops._kernels import (BF16_TRAINING, check_device, check_operands,
+                                            load_library, mask_past_seq_len, no_alias,
+                                            raise_on_error, refuse_bf16_gradient,
                                             state_at_seq_len)
 
 __all__ = ['lstm_layer', 'lstm_layer_reference', 'lstm_recurrence',
            'lstm_recurrence_reference', 'lstm_backward', 'lstm_backward_reference',
            'lstm_fwd', 'lstm_bwd',
            'STORE_DTYPE', 'launches', 'gate_launches', 'bwd_launches',
-           'bf16_launches', 'bf16_bwd_launches']
+           'bf16_launches', 'bf16_bwd_launches', 'bf16_compute_launches']
 
 # The storage type of the 'pallas' backend's LSTM layers, e.g. 'bfloat16'
 # (pallas_rnn.py:59); None is the input's type, f32.
@@ -62,12 +72,14 @@ STORE_DTYPE = os.environ.get('MORGANA_PALLAS_STORE', None)
 # Launches of K1 (all, and those that wrote the gate trace) and of K2, each
 # counted where its wrapper launches the kernel and nowhere else; a run reads
 # them to show which path it took. The bf16_ counts are those of the kernels
-# built for bf16 storage, among the others.
+# built for bf16 storage (K1s), among the others, and bf16_compute_launches
+# those of K1c, f32 storage with bf16 products.
 launches = 0
 gate_launches = 0
 bwd_launches = 0
 bf16_launches = 0
 bf16_bwd_launches = 0
+bf16_compute_launches = 0
 
 _MAX_BATCH = 256
 _WIDTHS = (64, 128, 256, 512, 1024)  # the widths the kernels are built for
@@ -135,13 +147,16 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None):
+def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None, compute_bf16=False):
     """Launches K1 on PyTorch's current stream, at H padded to the next built
     width; raises on anything it does not take, and on a refused or failed
     launch. ``xg`` and ``w_hh`` are f32 or bf16, the storage type of the
-    traces; ``h0`` and ``c0`` f32. Returns ``(y, c_all, g_all, hn, cn)``,
-    ``g_all`` None unless ``with_gates``. ``split``: see :func:`_entry`."""
-    global launches, gate_launches, bf16_launches
+    traces; ``h0`` and ``c0`` f32. With ``compute_bf16`` and f32 storage it
+    launches K1c, which rounds w_hh and the staged h to bf16 for the product
+    (bf16 storage rounds them so already). Returns ``(y, c_all, g_all, hn,
+    cn)``, ``g_all`` None unless ``with_gates``. ``split``: see
+    :func:`_entry`."""
+    global launches, gate_launches, bf16_launches, bf16_compute_launches
     if xg.ndim != 3 or xg.shape[2] % 4:
         raise ValueError(f'K1: xg must be (T, B, 4H), got {tuple(xg.shape)}')
     time, batch, gates4 = xg.shape
@@ -152,10 +167,14 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None):
                           'h0': (h0, (batch, hidden)), 'c0': (c0, (batch, hidden))}, xg.device,
                    dtypes=(torch.float32, torch.bfloat16))
     width = _width('K1', batch, hidden)
+    k1c = compute_bf16 and store == torch.float32
+    if k1c and with_gates:
+        raise NotImplementedError(f'K1c writes no gate trace: its backward is not ported '
+                                  f'({BF16_TRAINING})')
 
     variant, entry, extra_types, extra = _entry('lstm_fwd', split)
     lib, fn = load_library('lstm_fwd', entry,
-                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
                            + extra_types, variant)
     xg, w_hh = _pad_units(xg, width, 4), _pad_w_hh(w_hh, width)
     h0, c0 = _pad_units(h0, width), _pad_units(c0, width)
@@ -167,13 +186,15 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None):
     with torch.cuda.device(xg.device):
         err = fn(xg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(), y.data_ptr(),
                  c_all.data_ptr(), None if g_all is None else g_all.data_ptr(), hn.data_ptr(),
-                 cn.data_ptr(), time, batch, width, int(store == torch.bfloat16), xg.device.index,
-                 _stream(xg.device), *extra)
-    raise_on_error(lib, err, f'LSTM kernel K1 launch at T={time} B={batch} H={width}',
+                 cn.data_ptr(), time, batch, width, int(store == torch.bfloat16), int(k1c),
+                 xg.device.index, _stream(xg.device), *extra)
+    raise_on_error(lib, err, f'LSTM kernel {"K1c" if k1c else "K1"} launch at T={time} '
+                   f'B={batch} H={width}',
                    'one block of 256 threads a SM must fit, for every block of the layer')
     launches += 1
     gate_launches += with_gates
     bf16_launches += store == torch.bfloat16
+    bf16_compute_launches += k1c
     if g_all is not None:
         g_all = _unpad_units(g_all, hidden, 4)
     return (_unpad_units(y, hidden), _unpad_units(c_all, hidden), g_all,
@@ -232,20 +253,23 @@ def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, split=None):
     return _unpad_units(dxg, hidden, 4), _unpad_units(dh0, hidden), _unpad_units(dc0, hidden)
 
 
-def lstm_recurrence_reference(xg, w_hh, h0, c0):
+def lstm_recurrence_reference(xg, w_hh, h0, c0, compute_bf16=False):
     """Plain version of K1: ``(xg (T, B, 4H), w_hh, h0, c0) -> (y, c_all,
     g_all, hn, cn)`` by a Python loop over time, state carried in float32;
     ``g_all`` holds the activated gates i, f, g, o of every step. The
     storage type is xg's: y, c_all and g_all are stored in it, and h is
     rounded to it before ``h @ w_hh`` (f32 sums of exact products); hn and
-    cn are the f32 state."""
+    cn are the f32 state. With ``compute_bf16`` (K1c) w_hh and h are rounded
+    to bf16 for the product whatever the storage type."""
     time, batch, _ = xg.shape
     hidden = w_hh.shape[0]
     store = xg.dtype
+    compute = torch.bfloat16 if compute_bf16 else store
+    w = w_hh.to(compute).float()
     h, c = h0.float(), c0.float()
     ys, cs, gs = [], [], []
     for t in range(time):
-        gates = xg[t].float() + torch.matmul(h.to(store).float(), w_hh.float())
+        gates = xg[t].float() + torch.matmul(h.to(compute).float(), w)
         i, f, g, o = gates.split(hidden, dim=-1)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
         c = f * c + i * g
@@ -288,24 +312,26 @@ def lstm_backward_reference(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
 
 @torch.library.custom_op('morgana::lstm_fwd', mutates_args=(), device_types='cpu')
 def lstm_fwd(xg: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-             with_gates: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
-    """``morgana::lstm_fwd``, K1: ``(y, c_all, g_all, hn, cn)`` of the
-    recurrence over ``xg`` (T, B, 4H), ``g_all`` empty (0,) unless
-    ``with_gates``. This is its ``cpu`` implementation, the plain version."""
-    y, c_all, g_all, hn, cn = lstm_recurrence_reference(xg, w_hh, h0, c0)
+             with_gates: bool, compute_bf16: bool = False) -> tuple[
+                 torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``morgana::lstm_fwd``, K1 (K1c with ``compute_bf16``): ``(y, c_all,
+    g_all, hn, cn)`` of the recurrence over ``xg`` (T, B, 4H), ``g_all``
+    empty (0,) unless ``with_gates``. This is its ``cpu`` implementation,
+    the plain version."""
+    y, c_all, g_all, hn, cn = lstm_recurrence_reference(xg, w_hh, h0, c0, compute_bf16)
     return no_alias((y, c_all, g_all if with_gates else xg.new_empty((0,)), hn, cn),
                     (xg, w_hh, h0, c0))
 
 
 @lstm_fwd.register_kernel('cuda')
-def _lstm_fwd_op_cuda(xg, w_hh, h0, c0, with_gates):
-    y, c_all, g_all, hn, cn = _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates)
+def _lstm_fwd_op_cuda(xg, w_hh, h0, c0, with_gates, compute_bf16=False):
+    y, c_all, g_all, hn, cn = _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates,
+                                             compute_bf16=compute_bf16)
     return y, c_all, xg.new_empty((0,)) if g_all is None else g_all, hn, cn
 
 
 @lstm_fwd.register_fake
-def _lstm_fwd_fake(xg, w_hh, h0, c0, with_gates):
+def _lstm_fwd_fake(xg, w_hh, h0, c0, with_gates, compute_bf16=False):
     time, batch, gates4 = xg.shape
     state = h0.new_empty((batch, gates4 // 4), dtype=torch.float32)
     y = xg.new_empty((time, batch, gates4 // 4))
@@ -334,12 +360,14 @@ def _lstm_bwd_fake(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
     return torch.empty_like(g_all), state, torch.empty_like(state)
 
 
-def lstm_recurrence(xg, w_hh, h0, c0, with_gates=False):
-    """The recurrence over ``xg``, :func:`lstm_fwd`: kernel K1 for CUDA
-    tensors, the plain version for CPU tensors. Returns ``(y, c_all, g_all,
-    hn, cn)``; ``g_all`` is None unless ``with_gates``."""
+def lstm_recurrence(xg, w_hh, h0, c0, with_gates=False, compute_bf16=False):
+    """The recurrence over ``xg``, :func:`lstm_fwd`: kernel K1 (K1c with
+    ``compute_bf16``) for CUDA tensors, the plain version for CPU tensors.
+    Returns ``(y, c_all, g_all, hn, cn)``; ``g_all`` is None unless
+    ``with_gates``."""
     check_device('LSTM recurrence', xg)
-    y, c_all, g_all, hn, cn = torch.ops.morgana.lstm_fwd(xg, w_hh, h0, c0, with_gates)
+    y, c_all, g_all, hn, cn = torch.ops.morgana.lstm_fwd(xg, w_hh, h0, c0, with_gates,
+                                                         compute_bf16)
     return y, c_all, g_all if with_gates else None, hn, cn
 
 
@@ -390,37 +418,48 @@ class _Recurrence(torch.autograd.Function):
         return dxg.float(), dw_hh, dh0.to(store).float(), dc0.to(store).float(), None, None
 
 
-def _recurrence(xg, w_hh, h0, c0, store):
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _recurrence(xg, w_hh, h0, c0, store, compute):
     """The autograd Function when a gradient is needed (the gate-writing K1
-    and K2), else the recurrence alone."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (xg, w_hh, h0, c0)):
-        return _Recurrence.apply(xg, w_hh, h0, c0, store, False)
-    y, c_all, _, hn, cn = lstm_recurrence(xg.to(store), w_hh.to(store), h0, c0)
+    and K2), else the recurrence alone. A bf16-compute recurrence that needs
+    a gradient runs the plain loop (on the CPU: :func:`lstm_layer` refuses it
+    on the GPU)."""
+    if _needs_grad(xg, w_hh, h0, c0):
+        if compute is None:
+            return _Recurrence.apply(xg, w_hh, h0, c0, store, False)
+        return _plain_recurrence(xg, w_hh, h0, c0, store, compute)
+    y, c_all, _, hn, cn = lstm_recurrence(xg.to(store), w_hh.to(store), h0, c0,
+                                          compute_bf16=compute is not None)
     return y, c_all, hn, cn
 
 
-def _plain_recurrence(xg, w_hh, h0, c0, store):
-    """The plain recurrence: in f32, autograd through its loop; in another
-    storage type, the plain versions of K1 and K2 as the Function, since the
-    rounding has a VJP of its own (``_core_bwd``)."""
-    if store != torch.float32 and torch.is_grad_enabled() and \
-            any(t.requires_grad for t in (xg, w_hh, h0, c0)):
+def _plain_recurrence(xg, w_hh, h0, c0, store, compute):
+    """The plain recurrence: in f32 (bf16 products or not), autograd through
+    its loop; in another storage type, the plain versions of K1 and K2 as
+    the Function, since the rounding has a VJP of its own (``_core_bwd``)."""
+    if store != torch.float32 and _needs_grad(xg, w_hh, h0, c0):
         return _Recurrence.apply(xg, w_hh, h0, c0, store, True)
-    y, c_all, _, hn, cn = lstm_recurrence_reference(xg.to(store), w_hh.to(store), h0, c0)
+    y, c_all, _, hn, cn = lstm_recurrence_reference(xg.to(store), w_hh.to(store), h0, c0,
+                                                    compute_bf16=compute is not None)
     return y, c_all, hn, cn
 
 
-def _layer(recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype):
+def _layer(recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype, compute_dtype):
     batch = x.shape[0]
     hidden = w_hh.shape[0]
     dtype = x.dtype
+    compute = precision.as_compute_dtype(compute_dtype)
 
-    xg = torch.matmul(x, w_ih) + (b_ih + b_hh)          # one large matmul
-    xg = xg.transpose(0, 1).contiguous()                 # (T, B, 4H)
+    xg = precision.matmul(x, w_ih, compute) + (b_ih + b_hh)   # one large matmul
+    xg = xg.transpose(0, 1).contiguous()                       # (T, B, 4H)
     h0 = x.new_zeros((batch, hidden)) if h0 is None else h0
     c0 = x.new_zeros((batch, hidden)) if c0 is None else c0
 
-    y, c_all, hn, cn = recurrence(xg, w_hh, h0.contiguous(), c0.contiguous(), _store(store_dtype))
+    y, c_all, hn, cn = recurrence(xg, w_hh, h0.contiguous(), c0.contiguous(), _store(store_dtype),
+                                  compute)
     y = y.transpose(0, 1).to(dtype)                      # (B, T, H)
     if seq_len is not None:
         y, seq_len = mask_past_seq_len(y, seq_len)
@@ -430,7 +469,8 @@ def _layer(recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype):
     return y, (hn.to(dtype), cn.to(dtype))
 
 
-def lstm_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, c0=None, store_dtype=None):
+def lstm_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, c0=None, store_dtype=None,
+               compute_dtype=None):
     r"""Single-layer LSTM over a padded batch, with the semantics of
     ``morgana_tpu.ops.pallas_rnn.lstm_layer``, differentiable in all seven
     inputs.
@@ -444,18 +484,24 @@ def lstm_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, c0=None, store_
     h0, c0 : (batch, H), optional; zeros when absent.
     store_dtype : None, 'float32' or 'bfloat16'
         The storage type of the recurrence (``pallas_rnn.STORE_DTYPE``).
+    compute_dtype : None, 'bfloat16', ... (``precision.as_compute_dtype``)
+        The products' input type (``ops/rnn.py::lstm``'s ``compute_dtype``).
 
     Returns
     -------
     y : (batch, time, H), zero past ``seq_len``
     (hn, cn) : the state at ``seq_len`` (at ``time`` without ``seq_len``)
     """
-    return _layer(_recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype)
+    refuse_bf16_gradient('K1c', precision.as_compute_dtype(compute_dtype), x, w_ih, w_hh, b_ih,
+                         b_hh, h0, c0)
+    return _layer(_recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype,
+                  compute_dtype)
 
 
 def lstm_layer_reference(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, c0=None,
-                         store_dtype=None):
+                         store_dtype=None, compute_dtype=None):
     """:func:`lstm_layer` through the plain recurrence on any device, its
     gradient by autograd through the loop (in f32) or by the plain K2: what
     the kernels are held against."""
-    return _layer(_plain_recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype)
+    return _layer(_plain_recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype,
+                  compute_dtype)

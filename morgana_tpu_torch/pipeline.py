@@ -47,7 +47,7 @@ import torch
 from morgana_tpu_torch import vocoder
 from morgana_tpu_torch.data import bucket_size, file_io
 from morgana_tpu_torch.data.prepare import _frame_counters
-from morgana_tpu_torch.serve import InferenceEngine, _Unported, load_model_class
+from morgana_tpu_torch.serve import InferenceEngine, _Unported, compute_dtype_arg, load_model_class
 from morgana_tpu_torch.vocoder import torch_world
 
 __all__ = ['TTSPipeline', 'durations_to_int', 'main']
@@ -286,8 +286,9 @@ def main(argv=None):
     line: ``utterances``, ``frames``, ``wavs``, ``seconds``,
     ``frames_per_sec``, ``out_dir`` and, with ``--evaluate_against``, the
     scores of ``evaluate.evaluate_dirs``. ``--quantize int8|int4`` serves
-    both stages quantized. ``--data_parallel`` and ``--compute_dtype`` are
-    argparse errors."""
+    both stages quantized, ``--compute_dtype bfloat16`` both in bf16 (the
+    duration engine sets it for the process, ``pipeline.py:404``).
+    ``--data_parallel`` is an argparse error."""
     parser = argparse.ArgumentParser(
         description='Two-stage TTS generation with the PyTorch/CUDA port of morgana_tpu: '
                     'duration model -> acoustic model -> WORLD vocoder, from phone-level '
@@ -322,8 +323,9 @@ def main(argv=None):
     parser.add_argument('--quantize', default=None, choices=['int8', 'int4'],
                         help='Serve both stages with weight-only quantized parameters (int8, '
                              'or packed group-wise int4).')
-    for flag, nargs in (('--data_parallel', 0), ('--compute_dtype', 1)):
-        parser.add_argument(flag, nargs=nargs, action=_Unported, help='Not ported yet.')
+    parser.add_argument('--compute_dtype', default=None, type=compute_dtype_arg,
+                        help="'bfloat16': serve both stages with bf16 products and f32 sums.")
+    parser.add_argument('--data_parallel', nargs=0, action=_Unported, help='Not ported yet.')
     args = parser.parse_args(argv)
 
     if args.id_list is None:
@@ -335,7 +337,8 @@ def main(argv=None):
                   device=args.device, batch_size=args.batch_size, quantize=args.quantize)
     duration_engine = InferenceEngine(
         load_model_class(args.duration_model), args.duration_checkpoint,
-        model_kwargs=ast.literal_eval(args.duration_model_kwargs), **common)
+        model_kwargs=ast.literal_eval(args.duration_model_kwargs),
+        compute_dtype=args.compute_dtype, **common)
     acoustic_engine = InferenceEngine(
         load_model_class(args.acoustic_model), args.acoustic_checkpoint,
         model_kwargs=ast.literal_eval(args.acoustic_model_kwargs), **common)

@@ -267,9 +267,15 @@ class Dequantize(nn.Module):
         self.float_dtype = value.float_dtype
 
     def forward(self, q, scale):
+        return self.dequantize(q, scale, self.float_dtype)
+
+    def dequantize(self, q, scale, dtype):
+        """The weight in ``dtype``: q and the scales each cast to it, and
+        their product (``QuantizedArray.dequantize(dtype)``,
+        ``quantize.py:123``)."""
         if self.int4:
-            return _dequantize_int4(q, scale, self.rows, self.group_size, self.float_dtype)
-        return _dequantize_int8(q, scale, self.float_dtype)
+            return _dequantize_int4(q, scale, self.rows, self.group_size, dtype)
+        return _dequantize_int8(q, scale, dtype)
 
     def right_inverse(self, weight):
         if self.int4:

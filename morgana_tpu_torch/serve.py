@@ -22,6 +22,9 @@ float checkpoint quantized. Batches are padded to the same length buckets as
 the training loader's. The engine runs on the GPU unless built with
 ``device='cpu'``; on the GPU every LSTM layer of a batch is one launch of
 kernel K1, every GRU layer one launch of K3, every attention block one of K5.
+``compute_dtype='bfloat16'`` serves in bf16 (``nn.set_default_compute_dtype``):
+the dense products as bf16 GEMMs with f32 sums, and the same kernels in their
+bf16-compute builds, K1c, K3c and K5b.
 Generation synthesises on the host, one utterance at a time, after the
 batch's features are copied back.
 
@@ -53,15 +56,17 @@ import torch
 from morgana_tpu_torch import _build
 from morgana_tpu_torch import checkpointing
 from morgana_tpu_torch import data
+from morgana_tpu_torch import nn
 from morgana_tpu_torch import quantize as quantize_mod
 from morgana_tpu_torch.device import resolve_device
+from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.ops.deltas import DEFAULT_WINDOWS
 from morgana_tpu_torch.streaming import StreamingMLPG
 from morgana_tpu_torch.utils import to_numpy
 
 __all__ = ['InferenceEngine', 'StreamingSession', 'DynamicBatcher', 'Overloaded',
            'load_model_class', 'load_exported_program', 'numeric_features', 'program_inputs',
-           'main']
+           'compute_dtype_arg', 'main']
 
 
 class Overloaded(RuntimeError):
@@ -244,6 +249,13 @@ class InferenceEngine(object):
         (:func:`morgana_tpu_torch._build.set_build_dir`), for every engine
         of the process: a new process that finds them there runs no
         compiler (``serve.py:166``, the JAX package's persistent XLA cache).
+    compute_dtype : {None, 'float32', 'bfloat16'}
+        When given, sets the process's compute dtype
+        (:func:`morgana_tpu_torch.nn.set_default_compute_dtype`,
+        ``serve.py:143-144``), which every engine of the process then
+        serves in: 'bfloat16' rounds the inputs of every product to bf16,
+        with f32 sums; the stored parameters do not change. None leaves it
+        as it is.
 
     Attributes
     ----------
@@ -255,9 +267,12 @@ class InferenceEngine(object):
 
     def __init__(self, model_class, checkpoint_path, data_root='.', normalisation_dir='train',
                  model_kwargs=None, device=None, batch_size=8, analysis_kwargs=None,
-                 stream_configs=None, quantize=None, compilation_cache_dir=None):
+                 stream_configs=None, quantize=None, compilation_cache_dir=None,
+                 compute_dtype=None):
         if quantize not in (None, 'int8', 'int4'):
             raise ValueError(f"quantize must be None, 'int8' or 'int4', got {quantize!r}")
+        if compute_dtype:
+            nn.set_default_compute_dtype(compute_dtype)
         if compilation_cache_dir:
             _build.set_build_dir(compilation_cache_dir)
         self.device = resolve_device(device)
@@ -622,9 +637,9 @@ class StreamingSession(object):
     that share a burn-in are fused into one
     :class:`~morgana_tpu_torch.streaming.StreamingMLPG` windowed solve a
     chunk. Emission is aligned across the outputs, ``lookahead`` frames
-    behind. On the GPU every LSTM layer of a chunk is one launch of K1 with
-    the carried state, every GRU layer one of K3; the attention step is the
-    plain attention over the cache, as in JAX.
+    behind. On the GPU every LSTM layer of a chunk is one launch of K1 (K1c
+    in bf16) with the carried state, every GRU layer one of K3; the
+    attention step is the plain attention over the cache, as in JAX.
 
     Each :meth:`stream` call is an independent generator. A session runs on
     ``model``, the engine's version when it was made by default, to the end
@@ -895,8 +910,15 @@ class _Unported(argparse.Action):
         parser.error(f'{option_string} is not ported yet ({self.const or "ROADMAP.md"})')
 
 
-#: Where ``--compute_dtype`` waits.
-BF16_SLICE = 'the bf16 slice, ROADMAP.md Queue 1 item 3'
+def compute_dtype_arg(value):
+    """The argparse type of ``--compute_dtype``: a name
+    :func:`morgana_tpu_torch.nn.set_default_compute_dtype` takes, else an
+    argparse error naming ROADMAP.md."""
+    try:
+        precision.as_compute_dtype(value)
+    except ValueError as exc:
+        raise argparse.ArgumentTypeError(str(exc)) from None
+    return value
 
 
 def main(argv=None):
@@ -909,8 +931,9 @@ def main(argv=None):
     otherwise it runs :meth:`InferenceEngine.generate` over ``--data_dir``
     and prints the stats as one JSON line. ``--compilation_cache_dir`` is
     where the kernels are built and found (:func:`morgana_tpu_torch._build.set_build_dir`).
-    ``--data_parallel``, ``--compute_dtype`` and ``--num_data_threads`` are
-    not ported: each is an argparse error."""
+    ``--compute_dtype bfloat16`` serves in bf16; the first engine of a fleet
+    sets it for the process (``serve.py:1047``). ``--data_parallel`` and
+    ``--num_data_threads`` are not ported: each is an argparse error."""
     parser = argparse.ArgumentParser(
         description='Serve a trained checkpoint with the PyTorch/CUDA port of morgana_tpu: '
                     'generate wavs, or answer HTTP requests.')
@@ -961,8 +984,9 @@ def main(argv=None):
     parser.add_argument('--compilation_cache_dir', default=None,
                         help='Build and find the CUDA kernels (and the vocoder library) in this '
                              'directory: a new process that finds them there runs no compiler.')
-    parser.add_argument('--compute_dtype', nargs=1, action=_Unported, const=BF16_SLICE,
-                        help=f'Not ported yet ({BF16_SLICE}).')
+    parser.add_argument('--compute_dtype', default=None, type=compute_dtype_arg,
+                        help="'bfloat16': serve with bf16 products and f32 sums ('float32', the "
+                             'default, leaves the products in f32).')
     for flag, nargs in (('--data_parallel', 0), ('--num_data_threads', 1)):
         parser.add_argument(flag, nargs=nargs, action=_Unported, help='Not ported yet.')
     args = parser.parse_args(argv)
@@ -984,7 +1008,7 @@ def main(argv=None):
     stream_configs = [tuple(int(v) for v in cfg.split(','))
                       for cfg in args.stream_configs.split(';') if cfg]
 
-    def build_engine(spec):
+    def build_engine(spec, first=True):
         model_kwargs = spec.get('model_kwargs')
         analysis_kwargs = spec.get('analysis_kwargs')
         return InferenceEngine(
@@ -997,7 +1021,9 @@ def main(argv=None):
             device=args.device, batch_size=int(spec.get('batch_size', args.batch_size)),
             analysis_kwargs=ast.literal_eval(args.analysis_kwargs) if analysis_kwargs is None
             else analysis_kwargs,
-            stream_configs=stream_configs, quantize=spec.get('quantize', args.quantize))
+            stream_configs=stream_configs, quantize=spec.get('quantize', args.quantize),
+            # The compute dtype is the process's: the first engine sets it.
+            compute_dtype=args.compute_dtype if first else None)
 
     if args.fleet is not None:
         with open(args.fleet) as f:
@@ -1013,7 +1039,8 @@ def main(argv=None):
                 parser.error(f"--fleet entry {name!r} needs 'checkpoint_path'")
             if 'model' not in spec and args.model is None:
                 parser.error(f"--fleet entry {name!r} needs 'model' (or pass a shared --model)")
-        engine = {name: build_engine(spec) for name, spec in fleet.items()}
+        engine = {name: build_engine(spec, first=i == 0)
+                  for i, (name, spec) in enumerate(fleet.items())}
     else:
         engine = build_engine({})
 

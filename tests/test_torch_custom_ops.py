@@ -112,6 +112,46 @@ def test_attention_ops_are_their_plain_versions(causal, window):
     _opcheck(torch.ops.morgana.attn_bwd.default, args)
 
 
+@pytest.mark.parametrize('op', ['lstm', 'gru', 'attention'])
+def test_bf16_compute_ops_are_their_plain_versions(op):
+    """The ops' bf16-compute forms (K1c and K3c: ``compute_bf16``; K5b: bf16
+    q, k and v): equal to the plain versions with bf16 products, bit for
+    bit, and other than the f32 forms; opcheck holds the changed schemas and
+    fakes (f32 outputs of every form)."""
+    rng = np.random.default_rng(6)
+    if op == 'lstm':
+        args = (_arr(rng, T, B, 4 * H), _arr(rng, H, 4 * H, scale=0.3), _arr(rng, B, H),
+                _arr(rng, B, H), False)
+        got = torch.ops.morgana.lstm_fwd(*args, True)
+        want = lstm_ops.lstm_recurrence_reference(*args[:4], compute_bf16=True)
+        want = want[:2] + (torch.empty(0),) + want[3:]
+        f32 = torch.ops.morgana.lstm_fwd(*args)
+        target, args = torch.ops.morgana.lstm_fwd.default, args + (True,)
+    elif op == 'gru':
+        args = (_arr(rng, B, T, 3 * H), _arr(rng, H, 3 * H, scale=0.3), _arr(rng, 3 * H),
+                _arr(rng, B, H), torch.tensor([T, 4, 0]))
+        got = torch.ops.morgana.gru_fwd(*args, True)
+        want = gru_ops._plain_layer_forward(*args, True)
+        f32 = torch.ops.morgana.gru_fwd(*args)
+        target, args = torch.ops.morgana.gru_fwd.default, args + (True,)
+    else:
+        q, k, v = (_arr(rng, 2, 2, T, 16) for _ in range(3))
+        seq_len = torch.tensor([T, 4], dtype=torch.int32)
+        args = (q.bfloat16(), k.bfloat16(), v.bfloat16(), seq_len, True, 0)
+        got = torch.ops.morgana.attn_fwd(*args)
+        o = fa.flash_attention_reference(q, k, v, seq_len, True, None,
+                                         compute_dtype=torch.bfloat16)
+        bias = fa.attention_bias(seq_len, T, True, None)
+        logits = args[0].float() @ args[1].float().transpose(-1, -2) / 4.0 + bias
+        want = (o, torch.logsumexp(logits, -1))
+        f32 = torch.ops.morgana.attn_fwd(q, k, v, seq_len, True, 0)
+        target = torch.ops.morgana.attn_fwd.default
+    assert all(t.dtype == torch.float32 for t in got)
+    _equal(got, want)
+    assert not torch.equal(got[0], f32[0])
+    _opcheck(target, args)
+
+
 class _Lstm(torch.nn.Module):
     def forward(self, x, w_ih, w_hh, b, seq_len):
         y, _ = lstm_ops.lstm_layer(x, w_ih, w_hh, b, b, seq_len=seq_len)

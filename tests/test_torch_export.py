@@ -140,6 +140,47 @@ def test_bundle_matches_engine(bundle):
     assert runs == len(bundle['manifest']['programs'])
 
 
+# The op nodes a bf16 bundle holds: the recurrences with compute_bf16 set,
+# attention on bf16 q, k and v.
+BF16_NODE = {'lstm_fwd': lambda node: node.args[5] is True,
+             'gru_fwd': lambda node: node.args[5] is True,
+             'attn_fwd': lambda node: node.args[0].meta['val'].dtype == torch.bfloat16}
+
+
+@pytest.mark.parametrize('name', list(VOICES))
+def test_bf16_bundle_matches_the_bf16_engine(name, voice_data, checkpoints, tmp_path):
+    """A bundle exported under --compute_dtype bfloat16 holds the bf16 op
+    nodes and, run by ExportedVoice in f32 (the program carries its dtype),
+    gives the bf16 engine's outputs exactly on every exported shape, which
+    differ from the f32 engine's."""
+    from morgana_tpu_torch import nn as tnn
+    f32 = _engine(voice_data, checkpoints, name)
+    try:
+        cls, kwargs, _ = VOICES[name]
+        engine = InferenceEngine(cls, checkpoints[name], data_root=voice_data['data_root'],
+                                 model_kwargs=kwargs, device='cpu', batch_size=2,
+                                 compute_dtype='bfloat16')
+        manifest = export_bundle(engine, str(tmp_path), data_dir='test', id_list=ID_LIST)
+        batches = list(engine._loader('test', id_list=ID_LIST))
+        wants = [engine.predict_batch(features) for features in batches]
+    finally:
+        tnn.set_default_compute_dtype(None)
+    for prog in manifest['programs']:
+        graph = torch.export.load(str(tmp_path / prog['file'])).graph
+        nodes = [n for n in graph.nodes if str(n.target).startswith('morgana.')]
+        kernels = [n for n in nodes if str(n.target).split('.')[1] in BF16_NODE]
+        assert kernels and all(BF16_NODE[str(n.target).split('.')[1]](n) for n in kernels)
+    voice = ExportedVoice(str(tmp_path), device='cpu')
+    for features, want in zip(batches, wants):
+        _, got = voice.run(features)
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+        assert not torch.equal(got['vuv'] if 'vuv' in want else got[sorted(want)[0]],
+                               f32.predict_batch(features)['vuv' if 'vuv' in want
+                                                           else sorted(want)[0]])
+    assert len(batches) == len(manifest['programs'])
+
+
 def test_params_npz_holds_the_served_leaves(bundle, checkpoints):
     """params.npz: the checkpoint's arrays by the JAX names, or for an int8
     voice the quantize module's checkpoint format (the .q and .scale
@@ -267,12 +308,21 @@ def test_cli_end_to_end(voice_data, checkpoints, tmp_path):
 
 
 @pytest.mark.parametrize('argv,message', [
-    (['--compute_dtype', 'bfloat16'], 'bf16 slice'),
+    (['--compute_dtype', 'bfloat16'], 'ROADMAP.md'),
     (['--device', 'tpu'], 'invalid choice')], ids=['compute_dtype', 'device'])
 def test_cli_refuses(argv, message, capsys):
+    """--device tpu is an argparse error. --compute_dtype is ported now:
+    'bfloat16' is accepted (the command then fails to import its model,
+    m:C), and a dtype the port lacks (float16) is an argparse error naming
+    ROADMAP.md."""
     from morgana_tpu_torch.export import main
+    base = ['--model', 'm:C', '--checkpoint_path', 'c.npz', '--out_dir', 'o']
+    if argv[0] == '--compute_dtype':
+        with pytest.raises(ModuleNotFoundError):
+            main(base + argv)
+        argv = [argv[0], 'float16']
     with pytest.raises(SystemExit) as exc:
-        main(['--model', 'm:C', '--checkpoint_path', 'c.npz', '--out_dir', 'o', *argv])
+        main(base + argv)
     assert exc.value.code == 2 and message in capsys.readouterr().err
 
 

@@ -182,9 +182,11 @@ UNPORTED_FLAGS = [['--data_parallel'], ['--compute_dtype', 'bfloat16'],
 @pytest.mark.parametrize('flag', UNPORTED_FLAGS, ids=[f[0][2:] for f in UNPORTED_FLAGS])
 def test_serving_cli_refuses_the_flags_it_lacks(flag, capsys, monkeypatch, tmp_path):
     """Each flag the port lacks is an argparse error naming ROADMAP.md.
-    --compilation_cache_dir is ported now: it is not refused, and names the
-    directory where the kernels are built and found (the command then stops
-    at its missing --id_list)."""
+    --compilation_cache_dir and --compute_dtype are ported now: neither is
+    refused (the command then stops at its missing --id_list);
+    --compilation_cache_dir names the directory where the kernels are built
+    and found, and a compute dtype the port lacks (float16) is an argparse
+    error naming ROADMAP.md."""
     from morgana_tpu_torch import _build
     monkeypatch.setattr(_build, 'BUILD_DIR', _build.BUILD_DIR)
     if flag[0] == '--compilation_cache_dir':
@@ -192,9 +194,15 @@ def test_serving_cli_refuses_the_flags_it_lacks(flag, capsys, monkeypatch, tmp_p
     with pytest.raises(SystemExit) as exc:
         tserve.main(['--model', 'm:C', '--checkpoint_path', 'c.npz', *flag])
     err = capsys.readouterr().err
-    if flag[0] == '--compilation_cache_dir':
+    if flag[0] in ('--compilation_cache_dir', '--compute_dtype'):
         assert exc.value.code == 2 and 'not ported' not in err and '--id_list' in err
-        assert _build.BUILD_DIR == flag[1] and os.path.isdir(flag[1])
+        if flag[0] == '--compilation_cache_dir':
+            assert _build.BUILD_DIR == flag[1] and os.path.isdir(flag[1])
+        else:
+            with pytest.raises(SystemExit) as exc:
+                tserve.main(['--model', 'm:C', '--checkpoint_path', 'c.npz', flag[0], 'float16'])
+            err = capsys.readouterr().err
+            assert exc.value.code == 2 and flag[0] in err and 'ROADMAP.md' in err
         return
     assert exc.value.code == 2 and flag[0] in err and 'ROADMAP.md' in err
 

@@ -730,9 +730,11 @@ UNPORTED = [['--data_parallel'], ['--compute_dtype', 'bfloat16'], ['--num_data_t
 @pytest.mark.parametrize('flag', UNPORTED, ids=[f[0][2:] for f in UNPORTED])
 def test_main_unported_flags_are_argparse_errors(flag, capsys, monkeypatch, tmp_path):
     """Each flag the port lacks is an argparse error naming ROADMAP.md.
-    --compilation_cache_dir is ported now: it is accepted and names the
-    directory where the kernels are built and found (the command then fails
-    to import its model, m:C)."""
+    --compilation_cache_dir and --compute_dtype are ported now: each is
+    accepted (the command then fails to import its model, m:C);
+    --compilation_cache_dir names the directory where the kernels are built
+    and found, and a compute dtype the port lacks (float16) is an argparse
+    error naming ROADMAP.md."""
     from morgana_tpu_torch import _build
     monkeypatch.setattr(_build, 'BUILD_DIR', _build.BUILD_DIR)
     argv = ['--model', 'm:C', '--checkpoint_path', 'c.npz', '--http_port', '1']
@@ -741,6 +743,10 @@ def test_main_unported_flags_are_argparse_errors(flag, capsys, monkeypatch, tmp_
             tserve.main(argv + [flag[0], str(tmp_path / flag[1])])
         assert _build.BUILD_DIR == str(tmp_path / flag[1])
         return
+    if flag[0] == '--compute_dtype':
+        with pytest.raises(ModuleNotFoundError):
+            tserve.main(argv + flag)
+        flag = [flag[0], 'float16']
     with pytest.raises(SystemExit) as exc:
         tserve.main(argv + flag)
     err = capsys.readouterr().err
@@ -774,6 +780,44 @@ def test_main_http_port_builds_the_server(served, fleet, tmp_path, monkeypatch):
         assert eng.quantized is (name != 'b')
         assert eng.batch_size == (3 if name == 'a' else 8)
         assert eng.device == torch.device('cpu')
+
+
+@pytest.mark.parametrize('fleet', [False, True], ids=['one-voice', 'fleet'])
+def test_main_http_port_serves_in_bf16(served, fleet, tmp_path, monkeypatch):
+    """``serve.main --http_port --compute_dtype bfloat16``, one voice or a
+    fleet (whose first engine sets the process's compute dtype,
+    ``serve.py:1047``): every engine built serves in bf16, as an engine
+    built with compute_dtype='bfloat16' does, unlike the f32 engine."""
+    from morgana_tpu_torch import nn as tnn
+    calls = []
+    monkeypatch.setattr(thttp, 'serve_forever', lambda engine, **kwargs: calls.append(engine))
+    flags = ['--data_root', served['root'], '--device', 'cpu', '--http_port', '0',
+             '--model_kwargs', repr(AC_KWARGS), '--model', LSTM_SPEC, '--compute_dtype',
+             'bfloat16']
+    if fleet:
+        spec = {'a': {'checkpoint_path': served['ckpt']}, 'b': {'checkpoint_path': served['ckpt']}}
+        (tmp_path / 'fleet.json').write_text(json.dumps(spec))
+        flags += ['--fleet', str(tmp_path / 'fleet.json')]
+    else:
+        flags += ['--checkpoint_path', served['ckpt']]
+    utt = _ids(served['root'], 'test')[0]
+    common = dict(data_root=served['root'], device='cpu', model_kwargs=AC_KWARGS)
+    f32 = TEngine(trnn.LSTMAcousticModel, served['ckpt'], **common).predict_ids([utt])[utt]
+    try:
+        tserve.main(flags)
+        assert tnn.default_compute_dtype() is torch.bfloat16
+        engine, = calls
+        engines = engine if fleet else {'default': engine}
+        got = {name: eng.predict_ids([utt])[utt] for name, eng in engines.items()}
+        want = TEngine(trnn.LSTMAcousticModel, served['ckpt'], compute_dtype='bfloat16',
+                       **common).predict_ids([utt])[utt]
+    finally:
+        tnn.set_default_compute_dtype(None)
+    assert list(got) == (['a', 'b'] if fleet else ['default'])
+    for outputs in got.values():
+        for key, value in want.items():
+            np.testing.assert_array_equal(outputs[key], value, err_msg=key)
+        assert not np.array_equal(outputs['vuv'], f32['vuv'])
 
 
 def test_main_needs_a_gpu_unless_asked_for_the_cpu(served, monkeypatch):

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (K1, the LSTM layer forward with and
 without its gate trace, K2, its backward, K3, the GRU layer forward, K4, its
-backward, K5/K6, attention forward and backward, and MLPG's banded solve)
+backward, K5/K6, attention forward and backward, their bf16-compute builds
+K1c, K3c and K5b, and MLPG's banded solve)
 against their plain PyTorch versions, and the batched vocoder's determinism
 on the card, on the GPU only (a CUDA kernel has no CPU mode): every test
 here is marked ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
@@ -529,6 +530,122 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     empty = torch.zeros(2, 2, 0, 96, device=cuda_device)
     assert fa.flash_attention(empty, empty, empty).shape == (2, 2, 0, 96)
     assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1])
+
+
+# bf16 compute (K1c, K3c, K5b: the scan backend's and the attention's bf16
+# products under --compute_dtype bfloat16) against the plain versions with
+# the same rounding, on the same GPU tensors: within BF16_ULPS bf16 ulps of
+# each output's largest |value| (a sum in another order may round h, or a
+# probability, to the other bf16 neighbour), and closer in mean |error| to
+# that plain version than to the f32 one: BF16_CLOSER times for K1c and K3c;
+# for K5b merely closer (K5B_CLOSER), since it rounds the unnormalised
+# probabilities of its online softmax where the plain version rounds the
+# normalised ones, an independent rounding of the same size (measured on the
+# H100: 0.68 of the error against f32 at every shape).
+K5B_CLOSER = 1
+
+
+def _assert_bf16_compute(got, want, f32, closer=BF16_CLOSER):
+    for g, w in zip(got, want):
+        _assert_bf16_close(g, w)
+    if closer == BF16_CLOSER:
+        _assert_closer(got, want, f32)
+        return
+    near = sum(float((g - w).abs().sum()) for g, w in zip(got, want))
+    far = sum(float((g - o).abs().sum()) for g, o in zip(got, f32))
+    assert far > 0 and near * closer < far, (near, far)
+
+
+@pytest.mark.parametrize('batch,steps,with_state', [(16, 64, False), (1, 64, True),
+                                                    (40, 33, True), (5, 1, False),
+                                                    (16, 0, False), (256, 5, True)])
+def test_k1c_matches_plain_version(cuda_device, batch, steps, with_state):
+    """lstm_layer(compute_dtype='bfloat16') (the bf16 input GEMM, then K1c)
+    against lstm_layer_reference with the same compute dtype: y, hn and cn,
+    ragged seq_len, with and without the carried state of a stream; one K1c
+    launch."""
+    x, weights, seq_len, (h0, c0) = _layer_inputs(cuda_device, batch, steps)
+    state = {'h0': h0, 'c0': c0} if with_state else {}
+    seq_len = seq_len if steps else None
+    before = (lstm_ops.launches, lstm_ops.bf16_compute_launches)
+    with torch.no_grad():
+        y, (hn, cn) = lstm_ops.lstm_layer(x, *weights, seq_len=seq_len, compute_dtype='bfloat16',
+                                          **state)
+        torch.cuda.synchronize()
+        assert (lstm_ops.launches, lstm_ops.bf16_compute_launches) == \
+            (before[0] + 1, before[1] + 1)
+        wy, (wh, wc) = lstm_ops.lstm_layer_reference(x, *weights, seq_len=seq_len,
+                                                     compute_dtype='bfloat16', **state)
+        fy, (fh, fc) = lstm_ops.lstm_layer_reference(x, *weights, seq_len=seq_len, **state)
+    if steps > 1:
+        _assert_bf16_compute([y, hn, cn], [wy, wh, wc], [fy, fh, fc])
+    else:
+        for g, w in ((y, wy), (hn, wh), (cn, wc)):
+            _assert_bf16_close(g, w)
+
+
+@pytest.mark.parametrize('hidden,batch,steps', [(64, 16, 1024), (128, 32, 128), (64, 5, 1),
+                                                (128, 1, 17), (32, 40, 33), (96, 40, 33),
+                                                (64, 16, 0), (128, 256, 9)])
+def test_k3c_matches_plain_version(cuda_device, hidden, batch, steps):
+    """gru_layer(compute_dtype='bfloat16') (the bf16 input GEMM, then K3c)
+    against gru_layer_reference with the same compute dtype: y and hn,
+    ragged seq_len with rows of length 1 and 0, a given h0; one K3c launch."""
+    x, weights, seq_len, h0 = _gru_inputs(cuda_device, batch, steps, hidden)
+    before = (gru_ops.launches, gru_ops.bf16_compute_launches)
+    with torch.no_grad():
+        y, hn = gru_ops.gru_layer(x, *weights, seq_len=seq_len, h0=h0, compute_dtype='bfloat16')
+        torch.cuda.synchronize()
+        assert (gru_ops.launches, gru_ops.bf16_compute_launches) == (before[0] + 1, before[1] + 1)
+        wy, wh = gru_ops.gru_layer_reference(x, *weights, seq_len=seq_len, h0=h0,
+                                             compute_dtype='bfloat16')
+        fy, fh = gru_ops.gru_layer_reference(x, *weights, seq_len=seq_len, h0=h0)
+    if steps > 1:
+        _assert_bf16_compute([y, hn], [wy, wh], [fy, fh])
+    else:
+        _assert_bf16_close(y, wy)
+        _assert_bf16_close(hn, wh)
+
+
+@pytest.mark.parametrize('batch,heads,steps,head_dim,causal,window', ATTN_SHAPES)
+def test_k5b_matches_plain_version(cuda_device, batch, heads, steps, head_dim, causal, window):
+    """flash_attention(compute_dtype=bf16) (K5b on bf16 q, k and v) against
+    the plain bf16 attention on the rows below seq_len; o in f32; rows that
+    see no key are 0; one K5b launch."""
+    q, k, v, seq_len = _attn_inputs(cuda_device, batch, heads, steps, head_dim)
+    mask = {'seq_len': seq_len, 'causal': causal, 'window': window}
+    before = (fa.launches, fa.bf16_launches)
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, compute_dtype=torch.bfloat16, **mask)
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.bf16_launches) == (before[0] + 1, before[1] + 1)
+        want = fa.flash_attention_reference(q, k, v, compute_dtype=torch.bfloat16, **mask)
+        f32 = fa.flash_attention_reference(q, k, v, **mask)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    valid = _valid_rows(seq_len, steps)
+    _assert_bf16_compute([got * valid], [want * valid], [f32 * valid],
+                         BF16_CLOSER if steps == 1 else K5B_CLOSER)
+    if batch > 2:
+        assert (got[-1] == 0).all()
+
+
+def test_bf16_compute_kernels_refuse_a_gradient(cuda_device):
+    """K1c, K3c and K5b have no backward (training in bf16 is the next
+    slice): a bf16 call that needs a gradient raises NotImplementedError
+    naming ROADMAP.md, and launches nothing."""
+    x, weights, seq_len, _ = _layer_inputs(cuda_device, 4, 6)
+    gx, gweights, gseq_len, _ = _gru_inputs(cuda_device, 4, 6, 64)
+    q, k, v, _ = _attn_inputs(cuda_device, 2, 2, 9, 64)
+    before = (lstm_ops.launches, gru_ops.launches, fa.launches)
+    for call in (lambda: lstm_ops.lstm_layer(x.requires_grad_(True), *weights,
+                                             compute_dtype='bfloat16'),
+                 lambda: gru_ops.gru_layer(gx.requires_grad_(True), *gweights,
+                                           compute_dtype='bfloat16'),
+                 lambda: fa.flash_attention(q.requires_grad_(True), k, v,
+                                            compute_dtype=torch.bfloat16)):
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            call()
+    assert (lstm_ops.launches, gru_ops.launches, fa.launches) == before
 
 
 def test_attention_dropout_takes_the_plain_path_in_training(cuda_device):

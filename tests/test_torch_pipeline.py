@@ -439,6 +439,23 @@ def test_pipeline_cli_writes_wavs_and_prints_stats(stages, device_vocoder):
 @pytest.mark.parametrize('flag', [['--data_parallel'], ['--compute_dtype', 'bfloat16']],
                          ids=['data_parallel', 'compute_dtype'])
 def test_pipeline_cli_refuses_the_flags_it_lacks(stages, flag, capsys):
+    """--data_parallel is an argparse error naming ROADMAP.md. --compute_dtype
+    is ported now: 'bfloat16' runs both stages in bf16 (the process's
+    compute dtype, set by the duration engine) and writes every wav; a dtype
+    the port lacks (float16) is an argparse error naming ROADMAP.md."""
+    from morgana_tpu_torch import nn as tnn
+    if flag[0] == '--compute_dtype':
+        out_dir = stages['base'] / 'bf16_cli'
+        try:
+            tpipeline.main(_cli(stages, *flag, '--device', 'cpu', '--out_dir', str(out_dir)))
+            assert tnn.default_compute_dtype() is torch.bfloat16
+        finally:
+            tnn.set_default_compute_dtype(None)
+        stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        ids = _ids(stages['root'], 'test')
+        assert stats['utterances'] == stats['wavs'] == len(ids)
+        assert sorted(os.listdir(out_dir / 'synth')) == sorted(f'{u}.wav' for u in ids)
+        flag = [flag[0], 'float16']
     with pytest.raises(SystemExit) as exc:
         tpipeline.main(_cli(stages, *flag))
     err = capsys.readouterr().err
