@@ -180,7 +180,7 @@ code and without the final line:
     the bf16 plain version than to the f32 one (hold_bf16); times beside
     the plain versions, cuDNN's LSTM and GRU in bf16, SDPA on bf16 q, k, v
     and the bounds (bf16 tensor-core peak, 3.35 TB/s).
-24. bf16_serving (last): LSTMAcousticModel (the serving phase's
+24. bf16_serving (after the other main paths): LSTMAcousticModel (the serving phase's
     checkpoint), F0Model, TransformerAcousticModel and its causal form
     served by an f32 and a bf16 engine in turns: K1c, K3c or K5b on every
     bf16 batch and no f32 kernel, the bf16 card engine against the bf16
@@ -189,6 +189,27 @@ code and without the final line:
     engine's; the LSTM and causal Transformer streams in bf16; one LSTM
     bundle exported in bf16 and run in a fresh process; the pipeline's
     command line with --compute_dtype bfloat16 and the card's vocoder.
+25. bf16_backward (after bf16_kernels): the backward kernels of
+    --compute_dtype bfloat16 training against their plain versions on the
+    card: the LSTM layer's gradient path (K1c with its f32 gate trace, K2c,
+    the bf16 weight-gradient carry) at B32 T1024 H512 (k2c), the GRU's (K3c,
+    K4c, the carry) at H64 B32 T1024 and H128 B32 T128 (k4c), and K5b's
+    backward at B32 H4 T1024 dh 96, full, causal and windowed (k5b_bwd),
+    with edge shapes: every gradient and each kernel alone within BF16_ULPS
+    bf16 ulps and closer in the mean to the bf16 plain version than to the
+    f32 one; times beside the plain versions, the f32 kernels, the bounds,
+    cuDNN's LSTM and GRU forward+backward in bf16 and SDPA's forward+backward
+    on bf16 q, k and v.
+26. bf16_training (last): LSTMAcousticModel (scan backend, full width),
+    F0Model, DurationModel and TransformerAcousticModel (lr 0.001) trained
+    for 2 epochs (B=32) through the ExperimentBuilder in f32 and then with
+    --compute_dtype bfloat16, one turn each: the bf16 run launches only the
+    bf16 builds, as many as its layers and steps give, and writes
+    compute_dtype to config.json; ms a step, frames/s, peak memory, device
+    busy time and idle share of both runs (bf16_train_<model> lines); then
+    3 steps of B=4 on the card against the CPU bf16 trainer
+    (bf16_train_parity_<model>: losses within TRAIN_LOSS_RTOL, the first
+    step's gradients within BF16_ULPS bf16 ulps of each one's max).
 
 Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -408,17 +429,28 @@ def k1_bound(batch, time_steps, hidden, gates=False, store=None, compute=None):
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
-def k2_bound(batch, time_steps, hidden, store=None):
+def mixed_product_ms(flops):
+    """Least time for products of a bf16 operand and an f32 one with f32
+    sums: two TF32 passes on the tensor cores (the f32 operand's high and
+    low parts; a bf16 value is exact in TF32) at the TF32 peak. The bounds
+    of K2c, K4c, the carry and K5b's backward count such products so."""
+    return 2.0 * flops / TF32_PEAK_FLOPS * 1e3
+
+
+def k2_bound(batch, time_steps, hidden, store=None, compute=None):
     """Least time for the backward recurrence: 2*B*4H*H flops per step
     (dh = dxg @ w_hh^T) against the peak of the inputs' type, and g_all read
     plus dxg written, c_all, dy and dc_all read (with w_hh and c0 read) in
     the storage type, dhn, dcn read and dh0, dc0 written in f32, against the
-    memory rate."""
+    memory rate. With a bf16 `compute` type (K2c) w_hh is read as bf16 and
+    the product, whose gate gradients are f32, counts as mixed_product_ms."""
     size, peak = (2, BF16_PEAK_FLOPS) if store == 'bfloat16' else (4, F32_PEAK_FLOPS)
     flops = 2.0 * batch * 4 * hidden * hidden * time_steps
+    w_size = 2 if compute == 'bfloat16' else size
     nbytes = size * (2 * time_steps * batch * 4 * hidden + 3 * time_steps * batch * hidden
-                     + hidden * 4 * hidden + batch * hidden) + 4.0 * 4 * batch * hidden
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+                     + batch * hidden) + w_size * hidden * 4 * hidden + 4.0 * 4 * batch * hidden
+    ops_ms = mixed_product_ms(flops) if compute == 'bfloat16' else flops / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
@@ -435,16 +467,32 @@ def k3_bound(batch, time_steps, hidden, compute=None):
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
-def k4_bound(batch, time_steps, hidden):
+def k4_bound(batch, time_steps, hidden, compute=None):
     """Least time for the GRU backward recurrence given hg: one product of
     2*B*3H*H flops per step (the carry through w_hh^T) against the float32
     peak, and xg and hg read plus dxg written, y and dy read plus dnr
     (da_n * r) written (with w_hh, h0 and dhn read and dh0 written) against
-    the memory rate. The hg GEMM is timed apart (hg_gemm_ms)."""
+    the memory rate. The hg GEMM is timed apart (hg_gemm_ms). With a bf16
+    `compute` type (K4c) w_hh is read as bf16 and the product, whose gate
+    gradients are f32, counts as mixed_product_ms."""
     flops = 2.0 * batch * hidden * 3 * hidden * time_steps
     nbytes = 4.0 * (3 * time_steps * batch * 3 * hidden + 3 * time_steps * batch * hidden
-                    + hidden * 3 * hidden + 3 * batch * hidden)
-    ops_ms, bytes_ms = flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+                    + 3 * batch * hidden) \
+        + (2 if compute == 'bfloat16' else 4) * hidden * 3 * hidden
+    ops_ms = mixed_product_ms(flops) if compute == 'bfloat16' else flops / F32_PEAK_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
+
+
+def carry_bound(batch, time_steps, hidden, gates):
+    """Least time for the bf16 weight-gradient carry: H*G*T*B multiply-adds
+    (2 flops each) of f32 gate gradients by bf16 states, summed in f32, as
+    mixed_product_ms (each step's product of depth B on the tensor cores,
+    rounded before it joins the carry), against h_prev (T, B, H) and dg (T,
+    B, G) read and dW (H, G) written in f32 at the memory rate."""
+    flops = 2.0 * hidden * gates * time_steps * batch
+    nbytes = 4.0 * (time_steps * batch * (hidden + gates) + hidden * gates)
+    ops_ms, bytes_ms = mixed_product_ms(flops), nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
@@ -1742,9 +1790,11 @@ def time_train_steps(torch, exp):
     return features, step_ms, profile
 
 
-def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12, *flags):
+def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12, *flags,
+                       loss_rtol=TRAIN_LOSS_RTOL, grad_rtol=TRAIN_GRAD_RTOL):
     """The same trainer on the GPU and on the CPU, from one init and one
-    corpus: per-step losses and the first step's gradients. `flags` go to
+    corpus: per-step losses within `loss_rtol` and the first step's
+    gradients within `grad_rtol` of each one's max |value|. `flags` go to
     both builders."""
     from morgana_tpu_torch.data.synthetic import generate_voice_data
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
@@ -1765,7 +1815,9 @@ def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12, 
         losses, grads, frames = [], None, []
         for _ in range(3):
             features = next(iter(exp.train_loader))
-            frames.append(int(features['normalised_counters'].shape[1]))
+            # The padded length: frames, or phones for DurationModel.
+            key = 'normalised_counters' if 'normalised_counters' in features else 'normalised_lab'
+            frames.append(int(features[key].shape[1]))
             loss, _ = exp.loop.train_step(features, exp.learning_rate)
             losses.append(float(loss))
             if grads is None:
@@ -1778,14 +1830,15 @@ def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12, 
     worst = max(grad_rel, key=grad_rel.get)
     emit({'phase': phase, 'model': model_class.__name__, 'B': 4, 'padded_T': frames,
           'gpu_losses': gpu_losses, 'cpu_losses': cpu_losses, 'loss_rel_err': loss_rel,
-          'loss_rtol': TRAIN_LOSS_RTOL, 'max_grad_rel_err': grad_rel[worst],
-          'worst_param': worst, 'grad_rtol': TRAIN_GRAD_RTOL})
-    if max(loss_rel) > TRAIN_LOSS_RTOL or grad_rel[worst] > TRAIN_GRAD_RTOL:
+          'loss_rtol': loss_rtol, 'max_grad_rel_err': grad_rel[worst],
+          'worst_param': worst, 'grad_rtol': grad_rtol, 'flags': list(flags)})
+    if max(loss_rel) > loss_rtol or grad_rel[worst] > grad_rtol:
         raise AssertionError(f'{phase}: GPU trainer disagrees with the CPU trainer')
 
 
 KERNEL_KINDS = (('lstm_fwd_kernel', 'k1'), ('lstm_bwd_kernel', 'k2'), ('gru_fwd_kernel', 'k3'),
-                ('gru_bwd_kernel', 'k4'), ('attn_fwd_kernel', 'attn_fwd'), ('attn_bwd', 'attn_bwd'))
+                ('gru_bwd_kernel', 'k4'), ('attn_fwd_kernel', 'attn_fwd'), ('attn_bwd', 'attn_bwd'),
+                ('rnn_dw_bf16_kernel', 'carry'))
 
 
 def kernel_kind(name):
@@ -1803,7 +1856,8 @@ def kernel_kind(name):
 
 def profile_step(torch, fn):
     """One profiled call: device time by kernel (K1-K4, the attention forward
-    and backward, GEMMs, Adam's multi-tensor kernels, the rest), the number of kernels, and the host ops
+    and backward, the bf16 carry, GEMMs, Adam's multi-tensor kernels, the
+    rest), the number of kernels, and the host ops
     that took the most time. The table by device time goes to stderr."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3811,13 +3865,17 @@ def attention_bf16_bound(batch, heads, time_steps, head_dim, pairs):
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
-def hold_bf16(label, got, want, f32, closer_by=BF16_CLOSER):
+def hold_bf16(label, got, want, f32, closer_by=BF16_CLOSER, common_scale=False):
     """The tensors `got` (a kernel's bf16-compute outputs) against `want`
-    (its plain version's): each within bf16_tol, and `closer_by` times
-    closer in mean |error| to them than to `f32` (the f32 plain version's).
-    Returns the numbers."""
-    err = max(max_abs(a - b) for a, b in zip(got, want))
-    within = all(max_abs(a - b) <= bf16_tol(b) for a, b in zip(got, want))
+    (its plain version's): each within bf16_tol (with `common_scale`, of the
+    largest |value| of them all), and `closer_by` times closer in mean
+    |error| to them than to `f32` (the f32 plain version's). Returns the
+    numbers."""
+    err = max(max_abs(a.float() - b.float()) for a, b in zip(got, want))
+    top = max(max_abs(b.float()) for b in want)
+    within = all(max_abs(a.float() - b.float())
+                 <= (BF16_ULPS * 2.0 ** -7 * top if common_scale else bf16_tol(b))
+                 for a, b in zip(got, want))
     near, far = mean_abs_err(zip(got, want)), mean_abs_err(zip(got, f32))
     out = {'max_abs_err_vs_plain': err, 'mean_err_vs_plain': near, 'mean_err_vs_f32': far,
            'tolerance': f'{BF16_ULPS} bf16 ulps at each output\'s max, mean {closer_by}x '
@@ -3991,6 +4049,470 @@ def bf16_kernels_phase(torch, dev):
         k5b_case(torch, dev, batch, 4, steps, head_dim, causal, window, 109, timed=False,
                  empty_row=empty)
     return main
+
+
+# ---------------------------------------------------------- bf16 training
+
+def attention_bf16_bwd_bound(batch, heads, time_steps, head_dim, pairs):
+    """Least time for K5b's backward on the route it takes: q.k^T (2 * P *
+    dh flops on bf16 operands) at the bf16 tensor-core peak, and the four
+    products with an f32 operand (do.v^T, P^T.do, dS.k, dS^T.q: 8 * P * dh)
+    as two TF32 passes (the f32 operand's high and low parts; the bf16 one
+    is exact in TF32) at the TF32 peak; 2 * P exp at the SFU rate; bf16 q,
+    k, v and f32 do and lse read and bf16 dq, dk, dv written at the memory
+    rate. Returns (bound_ms, bound_by, simt_bound_ms), the last the flops
+    once at the f32 peak, or the bytes."""
+    width = heads * head_dim
+    flops = 10.0 * pairs * head_dim
+    ops_ms = max(2.0 * pairs * head_dim / BF16_PEAK_FLOPS * 1e3
+                 + mixed_product_ms(8.0 * pairs * head_dim), 2 * pairs / SFU_EXP_PER_S * 1e3)
+    nbytes = 2.0 * 6 * batch * time_steps * width + 4.0 * (batch * time_steps * width
+                                                         + batch * heads * time_steps)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms), 'operations' if ops_ms >= bytes_ms else 'bytes',
+            max(flops / F32_PEAK_FLOPS * 1e3, bytes_ms))
+
+
+def hold_within(label, got, want):
+    """hold_bf16's bound alone, where the bf16 roundings have no step to act
+    on (T <= 1) and the f32 plain version may agree with the bf16 one."""
+    out = {'max_abs_err_vs_plain': max((max_abs(a - b) for a, b in zip(got, want)), default=0.0)}
+    if not all(max_abs(a - b) <= bf16_tol(b) for a, b in zip(got, want)):
+        raise AssertionError(f'{label} disagrees with its plain version: {out}')
+    return out
+
+
+def carry_case(torch, h_prev, dg, label, timed):
+    """The bf16 weight-gradient carry on `h_prev` (T, B, H) and `dg` (T, B,
+    G) against its plain version (hold_bf16, closer to it than to the f32
+    sum rounded once); with `timed`, the kernel, its plain version, the one
+    f32 GEMM of the f32 path and the bound."""
+    from morgana_tpu_torch.ops import weight_grad
+
+    time_steps, batch, hidden = h_prev.shape
+    gates = dg.shape[2]
+    got = weight_grad.bf16_weight_grad(h_prev, dg)
+    want = weight_grad.bf16_weight_grad_reference(h_prev, dg)
+    gemm = lambda: torch.einsum('tbh,tbg->hg', h_prev, dg)  # noqa: E731
+    once = torch.einsum('tbh,tbg->hg', h_prev.to(torch.bfloat16).float(), dg)
+    if torch.equal(want, once.to(torch.bfloat16).float()):
+        # One step contributes (T = 1, or every row of length 1): the carry
+        # is the f32 sum rounded once, and the bound alone holds it.
+        held = hold_within(f'bf16 carry {label}', [got], [want])
+    else:
+        held = hold_bf16(f'bf16 carry {label}', [got], [want], [once.to(torch.bfloat16)], 1)
+    out = {'T': time_steps, 'B': batch, 'H': hidden, 'G': gates, **held}
+    if timed:
+        out['kernel_ms'] = cuda_ms(torch, lambda: weight_grad.bf16_weight_grad(h_prev, dg), 5)
+        out['plain_ms'] = cuda_ms(
+            torch, lambda: weight_grad.bf16_weight_grad_reference(h_prev, dg), 2)
+        out['f32_gemm_ms'] = cuda_ms(torch, gemm, 5)
+        out['bound_ms'], out['bound_by'] = carry_bound(batch, time_steps, hidden, gates)
+        out['library_ms'] = None
+    return out
+
+
+def k2c_case(torch, dev, batch, time_steps, with_state, seed, timed):
+    """The bf16 gradient path of lstm_layer (the bf16 input GEMM and its
+    gradient, K1c writing its gate trace, K2c, the bf16 carry of dW_hh)
+    against the plain versions in the same autograd Function
+    (lstm_layer_reference with compute_dtype bf16): hold_bf16, closer to
+    them than to the f32 plain gradients; K1c's gate trace, K2c alone and
+    the carry alone against their plain versions on the same inputs
+    likewise. With `timed`, times of K1c with gates, K2c and the carry
+    beside their plain versions and bounds, the layer forward+backward and
+    cuDNN's LSTM forward+backward in bf16. Returns the kernels' numbers."""
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.ops import precision
+    from morgana_tpu_torch.ops import weight_grad
+
+    x, weights, seq_len, h0, c0 = layer_inputs(torch, dev, batch, time_steps, with_state, seed)
+    rng = np.random.default_rng(seed + 100)
+    loss_weights = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+                    for shape in ((batch, time_steps, H), (batch, H), (batch, H))]
+
+    def bf16(fn):
+        return lambda *a, **k: fn(*a, compute_dtype='bfloat16', **k)
+
+    counts = [(lstm_ops, 'bf16_compute_gate_launches'), (lstm_ops, 'bf16_compute_bwd_launches'),
+              (weight_grad, 'launches')]
+    before = [getattr(m, c) for m, c in counts]
+    got = layer_grads(torch, bf16(lstm_ops.lstm_layer), x, weights, seq_len, h0, c0, loss_weights)
+    torch.cuda.synchronize()
+    launched = [getattr(m, c) - b for (m, c), b in zip(counts, before)]
+    want = layer_grads(torch, bf16(lstm_ops.lstm_layer_reference), x, weights, seq_len, h0, c0,
+                       loss_weights)
+    f32 = layer_grads(torch, lstm_ops.lstm_layer_reference, x, weights, seq_len, h0, c0,
+                      loss_weights)
+    label = f'B={batch} T={time_steps}'
+    layer = hold_bf16(f'bf16 LSTM gradients {label}', got, want, f32, 1)
+
+    w_ih, w_hh, b_ih, b_hh = weights
+    zeros = torch.zeros((batch, H), device=dev)
+    hs, cs = (zeros, zeros) if h0 is None else (h0, c0)
+    xg = (precision.matmul(x, w_ih, torch.bfloat16) + (b_ih + b_hh)).transpose(0, 1).contiguous()
+    y_k, c_all, g_k, _, _ = lstm_ops.lstm_recurrence(xg, w_hh, hs, cs, with_gates=True,
+                                                     compute_bf16=True)
+    _, _, g_p, _, _ = lstm_ops.lstm_recurrence_reference(xg, w_hh, hs, cs, True)
+    gate_err = max_abs(g_k - g_p)
+    cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+           for shape in ((time_steps, batch, H),) * 2 + ((batch, H),) * 2]
+    bwd_args = (g_k, w_hh, cs, c_all, *cot)
+    k2c = lstm_ops.lstm_backward(*bwd_args, compute_bf16=True)
+    k2c_held = hold_bf16(f'K2c {label}', k2c, lstm_ops.lstm_backward_reference(
+        *bwd_args, compute_bf16=True), lstm_ops.lstm_backward_reference(*bwd_args), 1)
+    h_prev = torch.cat([hs[None], y_k])[:time_steps]
+    carry = carry_case(torch, h_prev, k2c[0], f'LSTM {label}', timed)
+
+    k1c_gates = {'gate_trace_max_abs_err': gate_err, 'gate_tol': bf16_tol(g_p),
+                 'max_abs_err_vs_plain': layer['max_abs_err_vs_plain']}
+    out = {'phase': 'k2c', 'B': batch, 'T': time_steps, 'H': H, 'initial_state': with_state,
+           'layer_grads': layer, 'k2c': k2c_held, 'carry': carry, 'k1c_gates': k1c_gates,
+           'k1c_gate_launches': launched[0], 'k2c_launches': launched[1],
+           'carry_launches': launched[2]}
+    if timed:
+        k2c_held['kernel_ms'] = cuda_ms(
+            torch, lambda: lstm_ops.lstm_backward(*bwd_args, compute_bf16=True), 10)
+        k2c_held['plain_ms'] = cuda_ms(
+            torch, lambda: lstm_ops.lstm_backward_reference(*bwd_args, compute_bf16=True), 2)
+        k2c_held['bound_ms'], k2c_held['bound_by'] = k2_bound(batch, time_steps, H,
+                                                             compute='bfloat16')
+        k2c_held['us_per_step'] = k2c_held['kernel_ms'] * 1e3 / time_steps
+        k2c_held['f32_k2_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_backward(*bwd_args), 10)
+        k1c_gates['kernel_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence(
+            xg, w_hh, hs, cs, with_gates=True, compute_bf16=True), 10)
+        k1c_gates['plain_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence_reference(
+            xg, w_hh, hs, cs, True), 2)
+        k1c_gates['bound_ms'], k1c_gates['bound_by'] = k1_bound(batch, time_steps, H, True,
+                                                                compute='bfloat16')
+        out['layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: layer_grads(
+            torch, bf16(lstm_ops.lstm_layer), x, weights, seq_len, h0, c0, loss_weights), 5)
+        out['f32_layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: layer_grads(
+            torch, lstm_ops.lstm_layer, x, weights, seq_len, h0, c0, loss_weights), 5)
+        cudnn = cudnn_in(cudnn_layer(torch, dev, *weights), torch.bfloat16)
+        hx = None if h0 is None else (h0[None].bfloat16().contiguous(),
+                                      c0[None].bfloat16().contiguous())
+        x_l, wy = x.to(torch.bfloat16), loss_weights[0].to(torch.bfloat16)
+
+        def cudnn_fwd_bwd():
+            y_c, _ = cudnn(x_l, hx)
+            (y_c * wy).sum().backward()
+
+        # cuDNN's backward cannot be timed alone: this includes its forward.
+        library = cuda_ms(torch, cudnn_fwd_bwd, 5)
+        for entry in (k2c_held, k1c_gates):
+            entry['library_ms'] = library
+    emit(out)
+    if not (gate_err <= bf16_tol(g_p) and launched == [1, 1, 1]):
+        raise AssertionError(f'K1c with gates / K2c / carry at {label}: {out}')
+    return {'k1c_gates': k1c_gates, 'k2c': k2c_held, 'carry': carry}
+
+
+def k4c_case(torch, dev, batch, time_steps, hidden, in_dim, with_state, seed, timed):
+    """The bf16 gradient path of gru_layer (K3c, hg on rounded operands, K4c,
+    the bf16 carry of dW_hh) against the plain versions in the same autograd
+    Function (gru_layer_reference with compute_dtype bf16): hold_bf16,
+    closer to them than to the f32 plain gradients; K4c alone as the layer
+    launches it and the carry alone against their plain versions likewise.
+    With `timed`, times of K4c and the carry beside their plain versions
+    and bounds, the layer forward+backward and cuDNN's GRU forward+backward
+    in bf16. Returns the kernels' numbers."""
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.ops import precision
+    from morgana_tpu_torch.ops import weight_grad
+
+    x, weights, seq_len, h0 = gru_inputs(torch, dev, batch, time_steps, hidden, in_dim,
+                                         with_state, seed)
+    rng = np.random.default_rng(seed + 100)
+    loss_weights = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+                    for shape in ((batch, time_steps, hidden), (batch, hidden))]
+
+    def bf16(fn):
+        return lambda *a, **k: fn(*a, compute_dtype='bfloat16', **k)
+
+    before = (gru_ops.bf16_compute_bwd_launches, weight_grad.launches)
+    got = gru_layer_grads(torch, bf16(gru_ops.gru_layer), x, weights, seq_len, h0, loss_weights)
+    torch.cuda.synchronize()
+    launched = (gru_ops.bf16_compute_bwd_launches - before[0], weight_grad.launches - before[1])
+    want = gru_layer_grads(torch, bf16(gru_ops.gru_layer_reference), x, weights, seq_len, h0,
+                           loss_weights)
+    f32 = gru_layer_grads(torch, gru_ops.gru_layer_reference, x, weights, seq_len, h0,
+                          loss_weights)
+    label = f'B={batch} T={time_steps} H={hidden}'
+    steps_act = time_steps > 1   # past T = 1 the roundings have a step to act on
+    if steps_act:
+        layer = hold_bf16(f'bf16 GRU gradients {label}', got, want, f32, 1)
+    else:
+        layer = hold_within(f'bf16 GRU gradients {label}', got, want)
+
+    w_ih, w_hh, b_ih, b_hh = weights
+    hs = torch.zeros((batch, hidden), device=dev) if h0 is None else h0
+    xg = precision.matmul(x, w_ih, torch.bfloat16) + b_ih
+    y, _ = gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, hs, seq_len, compute_bf16=True)
+    cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+           for shape in ((batch, time_steps, hidden), (batch, hidden))]
+    h_prev, hg = gru_ops.hidden_gates(w_hh, b_hh, hs, y, batch_first=True,
+                                      compute=torch.bfloat16)
+    bwd_args = (xg, hg, w_hh, hs, y, *cot, seq_len)
+    k4c = gru_ops._gru_bwd_cuda(*bwd_args, compute_bf16=True)
+    plain = gru_ops.layer_backward_reference(*bwd_args, compute_bf16=True)
+    if steps_act:
+        k4c_held = hold_bf16(f'K4c {label}', k4c, plain,
+                             gru_ops.layer_backward_reference(*bwd_args), 1)
+    else:
+        k4c_held = hold_within(f'K4c {label}', k4c, plain)
+    dg = torch.cat([k4c[0][..., :2 * hidden], k4c[1]], dim=-1)
+    carry = carry_case(torch, h_prev.reshape(batch, time_steps, hidden).transpose(0, 1),
+                       dg.transpose(0, 1), f'GRU {label}', timed) if steps_act else None
+
+    out = {'phase': 'k4c', 'B': batch, 'T': time_steps, 'H': hidden, 'in_dim': in_dim,
+           'initial_state': with_state, 'layer_grads': layer, 'k4c': k4c_held, 'carry': carry,
+           'k4c_launches': launched[0], 'carry_launches': launched[1]}
+    if timed:
+        k4c_held['kernel_ms'] = cuda_ms(
+            torch, lambda: gru_ops._gru_bwd_cuda(*bwd_args, compute_bf16=True), 20)
+        k4c_held['plain_ms'] = cuda_ms(
+            torch, lambda: gru_ops.layer_backward_reference(*bwd_args, compute_bf16=True), 2)
+        k4c_held['bound_ms'], k4c_held['bound_by'] = k4_bound(batch, time_steps, hidden,
+                                                             compute='bfloat16')
+        k4c_held['us_per_step'] = k4c_held['kernel_ms'] * 1e3 / time_steps
+        k4c_held['f32_k4_ms'] = cuda_ms(torch, lambda: gru_ops._gru_bwd_cuda(*bwd_args), 20)
+        out['layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: gru_layer_grads(
+            torch, bf16(gru_ops.gru_layer), x, weights, seq_len, h0, loss_weights), 10)
+        out['f32_layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: gru_layer_grads(
+            torch, gru_ops.gru_layer, x, weights, seq_len, h0, loss_weights), 10)
+        cudnn = cudnn_in(cudnn_gru(torch, dev, *weights), torch.bfloat16)
+        hx = None if h0 is None else h0[None].bfloat16().contiguous()
+        x_l, wy = x.to(torch.bfloat16), loss_weights[0].to(torch.bfloat16)
+
+        def cudnn_fwd_bwd():
+            y_c, _ = cudnn(x_l, hx)
+            (y_c * wy).sum().backward()
+
+        # cuDNN's backward cannot be timed alone: this includes its forward.
+        k4c_held['library_ms'] = cuda_ms(torch, cudnn_fwd_bwd, 10)
+    emit(out)
+    if launched != (1, 1):
+        raise AssertionError(f'K4c / carry at {label}: launches {launched}, expected (1, 1)')
+    return {'k4c': k4c_held, 'carry': carry}
+
+
+def k5b_bwd_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, seed, timed,
+                 empty_row=False):
+    """dq, dk, dv of a loss on the rows below seq_len through
+    flash_attention(compute_dtype=bf16) (K5b, then its backward) against
+    autograd through the plain bf16 attention, and K5b's backward alone on
+    bf16 q, k and v against attention_backward_reference: hold_bf16 at the
+    largest |value| of the three (dq and dk are exactly 0 in the plain
+    version where a row sees one key), closer to the bf16 plain version
+    than to the f32 one; one launch of the bf16 backward. With `timed`, its
+    time, its plain version's, the forward+backward, SDPA's forward+backward
+    on bf16 q, k, v and the bound."""
+    from morgana_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, seq_len = attention_inputs(torch, dev, batch, heads, time_steps, head_dim, seed,
+                                        empty_row)
+    mask = dict(seq_len=seq_len, causal=causal, window=window)
+    rng = np.random.default_rng(seed + 100)
+    weight = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(dev)
+    weight = weight * valid_rows(torch, seq_len, time_steps)
+
+    def grads(fn, leaves_of=(q, k, v), **kwargs):
+        leaves = [t.clone().requires_grad_(True) for t in leaves_of]
+        out = fn(*leaves, **mask, **kwargs)
+        return torch.autograd.grad((out.float() * weight).sum(), leaves)
+
+    before = (fa.bf16_launches, fa.bf16_bwd_launches)
+    got = grads(fa.flash_attention, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launched = (fa.bf16_launches - before[0], fa.bf16_bwd_launches - before[1])
+    want = grads(fa.flash_attention_reference, compute_dtype=torch.bfloat16)
+    f32 = grads(fa.flash_attention_reference)
+    label = f'B={batch} T={time_steps} dh={head_dim}'
+    layer = hold_bf16(f'K5b backward path {label}', got, want, f32, 1, common_scale=True)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    o, lse = fa.attention_forward(qb, kb, vb, **mask)
+    alone = fa.attention_backward(qb, kb, vb, o, lse, weight, **mask)
+    held = hold_bf16(f'K5b backward {label}', alone,
+                     fa.attention_backward_reference(qb, kb, vb, weight, **mask), f32, 1,
+                     common_scale=True)
+    pairs = attention_pairs(seq_len.tolist(), time_steps, heads, causal, window)
+    out = {'phase': 'k5b_bwd', 'B': batch, 'H': heads, 'T': time_steps, 'dh': head_dim,
+           'causal': causal, 'window': window, 'visible_pairs': pairs, 'path': layer,
+           'backward': held, 'dtypes': [str(t.dtype).replace('torch.', '') for t in alone],
+           'k5b_launches': launched[0], 'k5b_bwd_launches': launched[1]}
+    if timed:
+        held['kernel_ms'] = cuda_ms(torch, lambda: fa.attention_backward(
+            qb, kb, vb, o, lse, weight, **mask), 10)
+        held['plain_ms'] = cuda_ms(torch, lambda: fa.attention_backward_reference(
+            qb, kb, vb, weight, **mask), 3)
+        o32, lse32 = fa.attention_forward(q, k, v, **mask)
+        held['f32_kernel_ms'] = cuda_ms(torch, lambda: fa.attention_backward(
+            q, k, v, o32, lse32, weight, **mask), 10)
+        out['fwd_bwd_ms'] = cuda_ms(torch, lambda: grads(fa.flash_attention,
+                                                        compute_dtype=torch.bfloat16), 10)
+        held['library_ms'] = cuda_ms(torch, lambda: grads(
+            lambda *a, **m: sdpa(torch, *a, **m), (qb, kb, vb)), 10)
+        held['bound_ms'], held['bound_by'], held['simt_bound_ms'] = attention_bf16_bwd_bound(
+            batch, heads, time_steps, head_dim, pairs)
+    emit(out)
+    if not (launched == (1, 1) and all(t.dtype == torch.bfloat16 for t in alone)):
+        raise AssertionError(f'K5b backward: {out}')
+    return held
+
+
+def bf16_backward_phase(torch, dev):
+    """The backward kernels of --compute_dtype bfloat16 training against
+    their plain versions on the card, at the shapes the training paths give
+    them and at edge shapes: K1c with its gate trace, K2c and the LSTM's
+    carry at B32 T1024 H512; K4c and the GRU's carry at H64 B32 T1024
+    (F0Model) and H128 B32 T128 (DurationModel); K5b's backward at B32 H4
+    T1024 dh 96, full, causal and windowed (256). Returns the main shapes'
+    numbers."""
+    lstm = k2c_case(torch, dev, TRAIN_BATCH, 1024, False, 111, timed=True)
+    for batch, steps in ((5, 1), (1, 17), (40, 33), (88, 17)):
+        k2c_case(torch, dev, batch, steps, True, 112, timed=False)
+    gru = k4c_case(torch, dev, TRAIN_BATCH, 1024, 64, 256, False, 113, timed=True)
+    k4c_case(torch, dev, TRAIN_BATCH, 128, 128, 128, True, 114, timed=True)
+    for hidden in (64, 128):
+        for batch, steps in ((1, 17), (5, 1), (40, 33), (16, 0)):
+            k4c_case(torch, dev, batch, steps, hidden, hidden, True, 115, timed=False)
+    attn = k5b_bwd_case(torch, dev, TRAIN_BATCH, 4, 1024, 96, False, None, 116, timed=True)
+    for causal, window in ((True, None), (True, 256)):
+        k5b_bwd_case(torch, dev, TRAIN_BATCH, 4, 1024, 96, causal, window, 117, timed=True)
+    for batch, steps, head_dim, causal, window, empty in (
+            (4, 1, 96, False, None, False), (3, 77, 96, True, 8, True),
+            (2, 200, 64, True, 16, True), (3, 130, 128, False, None, True)):
+        k5b_bwd_case(torch, dev, batch, 4, steps, head_dim, causal, window, 118, timed=False,
+                     empty_row=empty)
+    return {'k1c_gates': lstm['k1c_gates'], 'k2c': lstm['k2c'], 'carry': lstm['carry'],
+            'carry_gru': gru['carry'], 'k4c': gru['k4c'], 'k5b_bwd': attn}
+
+
+# name: (model module, class, the kernels' counters, layers, seed, flags)
+BF16_TRAIN_MODELS = (
+    ('lstm', 'rnn_spss', 'LSTMAcousticModel', 8, 121, ()),
+    ('f0', 'f0_test_model', 'F0Model', F0_LAYERS, 122, ()),
+    ('duration', 'duration_model', 'DurationModel', 1, 123, ()),
+    ('transformer', 'transformer_spss', 'TransformerAcousticModel', TRANSFORMER_BLOCKS, 124,
+     ('--learning_rate', TRANSFORMER_LR)))
+
+
+def bf16_counters():
+    """The launch counters of the bf16 training path, by name: K1c (all, and
+    those with the gate trace), K2c, K3c, K4c, K5b and its backward, the
+    carry, and every launch of the LSTM, GRU and attention kernels."""
+    from morgana_tpu_torch.ops import flash_attention as fa
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.ops import weight_grad
+
+    return {'k1c': (lstm_ops, 'bf16_compute_launches'),
+            'k1c_gates': (lstm_ops, 'bf16_compute_gate_launches'),
+            'k2c': (lstm_ops, 'bf16_compute_bwd_launches'), 'k1': (lstm_ops, 'launches'),
+            'k2': (lstm_ops, 'bwd_launches'), 'k3c': (gru_ops, 'bf16_compute_launches'),
+            'k4c': (gru_ops, 'bf16_compute_bwd_launches'), 'k3': (gru_ops, 'launches'),
+            'k4': (gru_ops, 'bwd_launches'), 'k5b': (fa, 'bf16_launches'),
+            'k5b_bwd': (fa, 'bf16_bwd_launches'), 'attn_fwd': (fa, 'launches'),
+            'attn_bwd': (fa, 'bwd_launches'), 'carry': (weight_grad, 'launches')}
+
+
+def builder_run(torch, root, model_class, phase, seed, *flags):
+    """Trains `model_class` for 2 epochs with validation through the
+    ExperimentBuilder on the train corpus from a seeded epoch_0.npz, then
+    five steady-state steps on one full batch and one profiled step.
+    Returns the numbers, the launches of the 2-epoch run (every counter set
+    to 0 just before it) and the train steps and valid batches it took."""
+    from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+
+    data_root, _ = train_corpus(root)
+    ckpt = seeded_checkpoint(torch, model_class, os.path.join(root, f'{phase}_init', 'epoch_0.npz'),
+                             seed)
+    exp_base = os.path.join(root, 'experiments')
+    args = ExperimentBuilder.get_experiment_args(
+        builder_argv(data_root, exp_base, phase, ckpt, '--end_epoch', '2', *flags))
+    exp = ExperimentBuilder(model_class, **args)
+    counters = bf16_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for module, name in counters.values():
+        setattr(module, name, 0)
+    start = time.perf_counter()
+    exp.run_experiment()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    launches = {key: getattr(module, name) for key, (module, name) in counters.items()}
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    exp_dir = os.path.join(exp_base, phase)
+    metrics = {}
+    for mode in ('train', 'valid'):
+        for epoch in (1, 2):
+            with open(os.path.join(exp_dir, mode, f'epoch_{epoch}', 'metrics.json')) as f:
+                metrics[f'{mode}_{epoch}'] = json.load(f)
+    step_losses = [x for epoch in (1, 2) for x in exp.train_losses[epoch]]
+    values = step_losses + [v for m in metrics.values() for v in m.values()]
+    if len(step_losses) != 2 * len(exp.train_loader) or not all(math.isfinite(v)
+                                                                 for v in values):
+        raise AssertionError(f'{phase}: non-finite or missing losses/metrics: {step_losses} '
+                             f'{metrics}')
+    with open(os.path.join(exp_dir, 'config.json')) as f:
+        config_dtype = json.load(f)['compute_dtype']
+    _, step_ms, profile = time_train_steps(torch, exp)
+    numbers = {'compute_dtype': config_dtype, 'run_seconds': run_s,
+               'median_step_ms_after_first': float(np.median(step_ms[1:])), 'step_ms': step_ms,
+               'epoch_2_frames_per_s': metrics['train_2'].get('frames_per_sec', 'not measured'),
+               'peak_memory_mib': peak_mib, 'device_busy_ms': profile['device_busy_ms'],
+               'device_idle_share': profile['device_idle_share'],
+               'profiled_wall_ms': profile['profiled_wall_ms'],
+               'device_ms': {k: v for k, v in profile.items() if k.endswith('_device_ms')},
+               'step_losses': step_losses, 'valid_loss_2': metrics['valid_2']['loss']}
+    return numbers, launches, 2 * len(exp.train_loader), len(exp.valid_loader)
+
+
+def bf16_training_phase(torch, root, smi):
+    """The four models the port trains (LSTMAcousticModel with the scan
+    backend at full width, F0Model, DurationModel, TransformerAcousticModel
+    at lr 0.001), each trained for 2 epochs (B=32, Adam) through the
+    ExperimentBuilder in f32 and then with --compute_dtype bfloat16, from
+    one seeded init: ms a step, frames/s, peak memory and the device's idle
+    share of each, side by side (one turn each); the bf16 run launches only
+    the bf16 builds (K1c with and without gates, K2c, K3c, K4c, K5b and its
+    backward, the carry), as many as its layers, steps and valid batches
+    give; then 3 steps of B=4 on the card against the CPU bf16 trainer
+    (train_parity_phase). Returns the bf16 runs' launches, summed."""
+    import importlib
+
+    totals = dict.fromkeys(bf16_counters(), 0)
+    with compute_dtype(None):
+        for name, module, cls, layers, seed, flags in BF16_TRAIN_MODELS:
+            model_class = getattr(importlib.import_module(f'morgana_tpu_torch.models.{module}'),
+                                  cls)
+            f32, _, _, _ = builder_run(torch, root, model_class, f'f32_train_{name}', seed,
+                                       *flags)
+            bf16, launches, steps, valid = builder_run(
+                torch, root, model_class, f'bf16_train_{name}', seed, '--compute_dtype',
+                'bfloat16', *flags)
+            fwd, per = layers * (steps + 2 * valid), layers * steps
+            expected = dict.fromkeys(totals, 0)
+            if name == 'lstm':
+                expected.update(k1c=fwd, k1=fwd, k1c_gates=per, k2c=per, k2=per, carry=per)
+            elif name == 'transformer':
+                expected.update(k5b=fwd, attn_fwd=fwd, k5b_bwd=per, attn_bwd=per)
+            else:
+                expected.update(k3c=fwd, k3=fwd, k4c=per, k4=per, carry=per)
+            emit({'phase': f'bf16_train_{name}', 'model': cls, 'batch_size': TRAIN_BATCH,
+                  'epochs': 2, 'train_steps': steps, 'valid_batches': valid, 'layers': layers,
+                  'f32': f32, 'bf16': bf16, 'launches': launches,
+                  'launches_expected': expected, 'nvidia_smi': smi})
+            if launches != expected or bf16['compute_dtype'] != 'bfloat16':
+                raise AssertionError(f'bf16_train_{name}: launches {launches}, expected '
+                                     f'{expected}; config {bf16["compute_dtype"]}')
+            for key, value in launches.items():
+                totals[key] += value
+            train_parity_phase(torch, root, model_class, f'bf16_train_parity_{name}', seed + 10,
+                               '--compute_dtype', 'bfloat16', *flags,
+                               grad_rtol=BF16_ULPS * 2.0 ** -7)
+    return totals
 
 
 def hold_engines(label, got, want, control, keys):
@@ -4440,8 +4962,10 @@ def main(argv=None):
     mlpg_shape = mlpg_case(torch, dev, 'lstm', SERVE_BATCH, MLPG_FEATS['lstm'], 71)
     mlpg_case(torch, dev, 'f0', SERVE_BATCH, MLPG_FEATS['f0'], 72)
 
-    # The bf16-compute kernels K1c, K3c and K5b against their plain versions.
+    # The bf16-compute kernels K1c, K3c and K5b against their plain versions,
+    # then the backward ones of bf16 training.
     bf16_shapes = bf16_kernels_phase(torch, dev)
+    bf16_bwd_shapes = bf16_backward_phase(torch, dev)
 
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
     mlpg_ops.launches = 0
@@ -4471,6 +4995,7 @@ def main(argv=None):
                            '--learning_rate', TRANSFORMER_LR)
         transformer_dropout_phase(torch, root)
         bf16_launches = bf16_serving_phase(torch, served, smi)
+        bf16_train = bf16_training_phase(torch, root, smi)
     mlpg_launches = mlpg_ops.launches + export_launches['mlpg_solve']
     if not (serve_launches and generate_launches and test_launches and mlpg_launches
             and export_launches['k1'] and export_launches['k3'] and export_launches['attn_fwd']
@@ -4484,7 +5009,9 @@ def main(argv=None):
             and duration_launches['k3'] and duration_launches['k4']
             and attn_serve_launches and attn_train_launches['attn_fwd']
             and attn_train_launches['attn_bwd'] and bf16_launches['k1c']
-            and bf16_launches['k3c'] and bf16_launches['k5b']):
+            and bf16_launches['k3c'] and bf16_launches['k5b'] and bf16_train['k1c_gates']
+            and bf16_train['k2c'] and bf16_train['k4c'] and bf16_train['k5b_bwd']
+            and bf16_train['carry']):
         raise AssertionError('a kernel of the main path was not launched')
 
     # launches: the main paths' runs, each counted from 0: serving,
@@ -4498,9 +5025,11 @@ def main(argv=None):
     # loaded programs (K1, K3, the attention forward, in their own process);
     # the MLPG solve's over every one of these paths; bf16_serving's engines,
     # streams, bundle process and pipeline command line for K1c, K3c and
-    # K5b. The forward kernels' numbers are at the serving shape (B=16), the
-    # backward ones' at the training one (B=32), the solve's at the LSTM's
-    # B16 batch.
+    # K5b; bf16_training's four models for K1c (with and without its gate
+    # trace), K2c, K3c, K4c, K5b and its backward and the carry. The forward
+    # kernels' numbers are at the serving shape (B=16), the backward ones'
+    # (and K1c's with the gate trace) at the training one (B=32), the
+    # solve's at the LSTM's B16 batch.
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
@@ -4565,18 +5094,36 @@ def main(argv=None):
         'plain_ms': mlpg_shape['plain_ms'], 'bound_ms': mlpg_shape['bound_ms'],
         'bound_by': mlpg_shape['bound_by'], 'library_ms': None}] + [{
         'name': name, 'route': 'cuda', 'source': f'morgana_tpu_torch/csrc/{source}',
-        'replaces': replaces, 'also_replaces': also, 'launches': bf16_launches[key],
+        'replaces': replaces, 'also_replaces': also, 'launches': bf16_launches[key] + train,
         'max_abs_err': bf16_shapes[key]['max_abs_err_vs_plain'],
         'ms': bf16_shapes[key]['kernel_ms'], 'plain_ms': bf16_shapes[key]['plain_ms'],
         'bound_ms': bf16_shapes[key]['bound_ms'], 'bound_by': bf16_shapes[key]['bound_by'],
         'library_ms': bf16_shapes[key]['library_ms']}
-        for name, key, source, replaces, also in (
-            ('lstm_fwd_bf16_compute', 'k1c', 'lstm_fwd.cu', 'morgana_tpu/ops/pallas_rnn.py:77',
-             'morgana_tpu/ops/rnn.py:113'),
-            ('gru_fwd_bf16_compute', 'k3c', 'gru_fwd.cu', 'morgana_tpu/ops/pallas_gru.py:35',
-             'morgana_tpu/ops/rnn.py:347'),
-            ('attn_fwd_bf16', 'k5b', 'attn_fwd.cu', 'morgana_tpu/nn.py:1001',
-             'morgana_tpu/nn.py:1055'))]})
+        for name, key, train, source, replaces, also in (
+            ('lstm_fwd_bf16_compute', 'k1c', bf16_train['k1c'] - bf16_train['k1c_gates'],
+             'lstm_fwd.cu', 'morgana_tpu/ops/pallas_rnn.py:77', 'morgana_tpu/ops/rnn.py:113'),
+            ('gru_fwd_bf16_compute', 'k3c', bf16_train['k3c'], 'gru_fwd.cu',
+             'morgana_tpu/ops/pallas_gru.py:35', 'morgana_tpu/ops/rnn.py:347'),
+            ('attn_fwd_bf16', 'k5b', bf16_train['k5b'], 'attn_fwd.cu', 'morgana_tpu/nn.py:1001',
+             'morgana_tpu/nn.py:1055'))] + [{
+        'name': name, 'route': 'cuda', 'source': f'morgana_tpu_torch/csrc/{source}',
+        'replaces': replaces, 'also_replaces': also, 'launches': bf16_train[launches],
+        'max_abs_err': bf16_bwd_shapes[key][err], 'ms': bf16_bwd_shapes[key]['kernel_ms'],
+        'plain_ms': bf16_bwd_shapes[key]['plain_ms'],
+        'bound_ms': bf16_bwd_shapes[key]['bound_ms'],
+        'bound_by': bf16_bwd_shapes[key]['bound_by'],
+        'library_ms': bf16_bwd_shapes[key]['library_ms']}
+        for name, key, launches, err, source, replaces, also in (
+            ('lstm_fwd_bf16_compute_gates', 'k1c_gates', 'k1c_gates', 'gate_trace_max_abs_err',
+             'lstm_fwd.cu', 'morgana_tpu/ops/pallas_rnn.py:77', 'morgana_tpu/ops/rnn.py:113'),
+            ('lstm_bwd_bf16_compute', 'k2c', 'k2c', 'max_abs_err_vs_plain', 'lstm_bwd.cu',
+             'morgana_tpu/ops/pallas_rnn.py:113', 'morgana_tpu/ops/rnn.py:113'),
+            ('gru_bwd_bf16_compute', 'k4c', 'k4c', 'max_abs_err_vs_plain', 'gru_bwd.cu',
+             'morgana_tpu/ops/pallas_gru.py:59', 'morgana_tpu/ops/rnn.py:347'),
+            ('attn_bwd_bf16', 'k5b_bwd', 'k5b_bwd', 'max_abs_err_vs_plain', 'attn_bwd.cu',
+             'morgana_tpu/nn.py:1001', 'morgana_tpu/nn.py:1055'),
+            ('rnn_dw_bf16', 'carry', 'carry', 'max_abs_err_vs_plain', 'rnn_dw_bf16.cu',
+             'morgana_tpu/ops/rnn.py:120', 'morgana_tpu/ops/rnn.py:351'))]})
     print(nvidia_smi(), flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -23,12 +23,13 @@
 // while the current one is computed. Their row strides keep every fragment
 // read conflict-free (kRowStride, kColStride).
 //
-// Elem is the element type of q, k, v, o and the gradients in device memory
-// and shared memory (IoOps<Elem> reads and writes it); every sum is f32.
-// Elem = float is built for both kernels. Elem = __nv_bfloat16 is built for
-// the forward only (K5b, attn_fwd.cu): its products are one
-// mma.sync.m16n8k16 in bf16 each (mma_bf16 below), with f32 sums, and its o
-// and lse stay f32.
+// Elem is the element type of q, k, v and their gradients in device memory
+// (IoOps<Elem> reads and writes it); every sum is f32. Both kernels are
+// built for Elem = float and Elem = __nv_bfloat16. The bf16 forward (K5b,
+// attn_fwd.cu) keeps bf16 in shared memory and runs each product as one
+// mma.sync.m16n8k16 in bf16 (mma_bf16 below), with f32 sums; o and lse stay
+// f32. The bf16 backward (attn_bwd.cu) widens q, k and v to f32 in shared
+// memory and keeps the 3xTF32 products, since do and dS are f32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -232,6 +233,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
 }
+
+// Four f32 values rounded to bf16, to 8 bytes of bf16 memory.
+template <>
+struct IoOps<__nv_bfloat16> {
+  __device__ __forceinline__ static void store4(__nv_bfloat16* p, float4 x) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+  }
+};
 
 // Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i .. 8i + 7
 // give the addresses of matrix i's eight 16-byte rows, and r[i] of lane

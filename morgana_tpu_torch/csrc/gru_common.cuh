@@ -54,7 +54,7 @@ __device__ __forceinline__ float tanh_fast(float x) {
   return __fdividef(2.f, 1.f + __expf(-2.f * x)) - 1.f;
 }
 
-// An operand of the product: v, or with kBf16 (K3c) v rounded to bf16 (to
+// An operand of the product: v, or with kBf16 (K3c, K4c) v rounded to bf16 (to
 // nearest even, as XLA's astype), held as f32.
 template <bool kBf16>
 __device__ __forceinline__ float operand(float v) {

@@ -2,7 +2,9 @@
 // Hopper (sm_90a).
 //
 // Replaces morgana_tpu/ops/pallas_rnn.py::_lstm_bwd_kernel (driven there by
-// _core_bwd), with its storage type (K1s, pallas_rnn.py::_store_dtype). Same
+// _core_bwd), with its storage type (K1s, pallas_rnn.py::_store_dtype), and,
+// as K2c, the autodiff of the scan backend's bf16 recurrence (K1c;
+// morgana_tpu/ops/rnn.py:113-135 under compute_dtype bfloat16). Same
 // function: with the activated gates i, f, g, o that K1 saved (g_all),
 // running t from T-1 down to 0,
 //
@@ -10,15 +12,19 @@
 //     do      = dh * tanh(c_t)
 //     dc      = dh * o * (1 - tanh(c_t)^2) + dc_carry + dc_all[t]
 //     dxg[t]  = [dc * g * i(1-i), dc * c_{t-1} * f(1-f), dc * i(1-g^2), do * o(1-o)]
-//     dh_carry = round(dxg[t]) @ w_hh^T
+//     dh_carry = rc(round(dxg[t]) @ rc(w_hh)^T)
 //     dc_carry = dc * f
 //
 // with the carries (f32) starting from dhn and dcn and ending as dh0 and dc0,
-// and round() the rounding to the storage type Store, in which dxg is
-// stored. Inputs: g_all (T, B, 4H), w_hh (H, 4H), c0 (B, H), c_all, dy and
+// round() the rounding to the storage type Store, in which dxg is stored, and
+// rc() the rounding to Compute: none for K2 <float, float> and K2s <bf16,
+// float>; bf16 for K2c <float, bf16>, where the scan's autodiff rounds
+// w_hh_c and converts the carried product to bf16 and back before it joins
+// dy, while dxg, dh0 and dc0 stay f32 (dxg is not rounded). Inputs: g_all (T, B, 4H), w_hh (H, 4H), c0 (B, H), c_all, dy and
 // dc_all (T, B, H) in Store, dhn and dcn (B, H) in f32. Outputs: dxg (T, B,
 // 4H) in Store, dh0 and dc0 (B, H) in f32. c_{t-1} is read from c_all (c0 at
-// t = 0). dW_hh = h_{t-1}^T dxg is one large GEMM outside (ops/lstm.py).
+// t = 0). dW_hh = h_{t-1}^T dxg is one large GEMM outside (ops/lstm.py), or
+// after K2c the bf16 carry (csrc/rnn_dw_bf16.cu).
 //
 // What bounds it. 2*B*4H*H flops a step and only the step after it: like
 // K1, the step-to-step latency.
@@ -171,9 +177,9 @@ __device__ __forceinline__ void part_sum(float (&v)[N], int lane, int& which) {
 }
 
 // dhs = the sum of the kBlocks partials (B, H) at `in` over this block's
-// units: thread (slice, row) = (tid / B, tid % B) adds the sources of its
-// slice, then the pair owners add the slices.
-template <int H, typename Store>
+// units, rounded to Compute: thread (slice, row) = (tid / B, tid % B) adds
+// the sources of its slice, then the pair owners add the slices.
+template <int H, typename Store, typename Compute>
 __device__ __forceinline__ void reduce_partials(const float* in, float* red, float* dhs, int B,
                                                 int u0) {
   using F = Bwd<H, Store>;
@@ -192,11 +198,11 @@ __device__ __forceinline__ void reduce_partials(const float* in, float* red, flo
   for (int p = tid; p < B * U; p += kThreads) {
     float s = 0.f;
     for (int q = 0; q < slices; ++q) s += red[q * B * U + p];
-    dhs[p] = s;
+    dhs[p] = lstm::rounded<Compute>(s);
   }
 }
 
-template <int H, typename Store, bool kSplit>
+template <int H, typename Store, typename Compute, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const Store* __restrict__ g_all, const Store* __restrict__ w_hh,
                 const Store* __restrict__ c0, const Store* __restrict__ c_all,
@@ -224,7 +230,8 @@ lstm_bwd_kernel(const Store* __restrict__ g_all, const Store* __restrict__ w_hh,
 #pragma unroll
     for (int cc = 0; cc < kCPT; ++cc) {
       const int c = part_idx * kCPT + cc;
-      w[k][cc] = lstm::to_f32(w_hh[size_t(dest * U + k) * G + (c / U) * H + u0 + c % U]);
+      w[k][cc] = lstm::rounded<Compute>(
+          lstm::to_f32(w_hh[size_t(dest * U + k) * G + (c / U) * H + u0 + c % U]));
     }
   for (int p = tid; p < B * U; p += kThreads) {
     const size_t at = size_t(p / U) * H + u0 + p % U;
@@ -250,7 +257,7 @@ lstm_bwd_kernel(const Store* __restrict__ g_all, const Store* __restrict__ w_hh,
   for (int t = T - 1; t >= 0; --t) {
     const int step = T - 1 - t;
     clock.begin();
-    if (step > 0) reduce_partials<H, Store>(part + size_t((step - 1) & 1) * part_size, red, dhs, B, u0);
+    if (step > 0) reduce_partials<H, Store, Compute>(part + size_t((step - 1) & 1) * part_size, red, dhs, B, u0);
     clock.mark(lstm::kReduction);
 
 #pragma unroll
@@ -313,7 +320,7 @@ lstm_bwd_kernel(const Store* __restrict__ g_all, const Store* __restrict__ w_hh,
     clock.end_step(step);
   }
   clock.finish();
-  if (T > 0) reduce_partials<H, Store>(part + size_t((T - 1) & 1) * part_size, red, dhs, B, u0);
+  if (T > 0) reduce_partials<H, Store, Compute>(part + size_t((T - 1) & 1) * part_size, red, dhs, B, u0);
   __syncthreads();
   for (int p = tid; p < B * U; p += kThreads) {
     const size_t at = size_t(p / U) * H + u0 + p % U;
@@ -322,13 +329,13 @@ lstm_bwd_kernel(const Store* __restrict__ g_all, const Store* __restrict__ w_hh,
   }
 }
 
-template <int H, typename Store, bool kSplit>
+template <int H, typename Store, typename Compute, bool kSplit>
 int run(const void* g_all, const void* w_hh, const void* c0, const void* c_all, const void* dy,
         const void* dc_all, const float* dhn, const float* dcn, void* dxg, float* dh0,
         float* dc0, float* part, int T, int B, int device, cudaStream_t stream, long long* split,
         int split_steps) {
   using P = const Store*;
-  return lstm::launch(lstm_bwd_kernel<H, Store, kSplit>, Bwd<H, Store>::kBlocks,
+  return lstm::launch(lstm_bwd_kernel<H, Store, Compute, kSplit>, Bwd<H, Store>::kBlocks,
                       Bwd<H, Store>::smem(B), device, stream, static_cast<P>(g_all),
                       static_cast<P>(w_hh), static_cast<P>(c0), static_cast<P>(c_all),
                       static_cast<P>(dy), static_cast<P>(dc_all), dhn, dcn,
@@ -338,19 +345,20 @@ int run(const void* g_all, const void* w_hh, const void* c0, const void* c_all, 
 template <bool kSplit>
 int dispatch(const void* g_all, const void* w_hh, const void* c0, const void* c_all,
              const void* dy, const void* dc_all, const float* dhn, const float* dcn, void* dxg,
-             float* dh0, float* dc0, float* part, int T, int B, int H, int bf16, int device,
-             void* stream, long long* split, int split_steps) {
+             float* dh0, float* dc0, float* part, int T, int B, int H, int bf16,
+             int compute_bf16, int device, void* stream, long long* split, int split_steps) {
   if (T < 0 || B < 1 || B > lstm::kMaxBatch) return cudaErrorInvalidValue;
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K2_RUN(HH, STORE)                                                                      \
-  return run<HH, STORE, kSplit>(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, dxg, dh0, dc0, \
-                                part, T, B, device, s, split, split_steps)
-#define K2_H(HH)                         \
-  case HH:                               \
-    if (bf16) K2_RUN(HH, __nv_bfloat16); \
-    K2_RUN(HH, float);
+#define K2_RUN(HH, STORE, COMPUTE)                                                     \
+  return run<HH, STORE, COMPUTE, kSplit>(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, dxg, \
+                                         dh0, dc0, part, T, B, device, s, split, split_steps)
+#define K2_H(HH)                                  \
+  case HH:                                        \
+    if (bf16) K2_RUN(HH, __nv_bfloat16, float);   \
+    if (compute_bf16) K2_RUN(HH, float, __nv_bfloat16); \
+    K2_RUN(HH, float, float);
   switch (H) {
     K2_H(64)
     K2_H(128)
@@ -372,13 +380,14 @@ extern "C" {
 // w_hh, c0, c_all, dy, dc_all and dxg in bf16 when `bf16` is non-zero, else
 // f32; dhn, dcn, dh0 and dc0 in f32; `part` f32 scratch of 2 * blocks * B * H
 // floats (two buffers of the blocks' partials; 64 blocks, 128 at H = 1024).
-// H is 64, 128, 256, 512 or 1024 and B at most 256.
+// With f32 storage, a non-zero `compute_bf16` launches K2c. H is 64, 128,
+// 256, 512 or 1024 and B at most 256.
 int morgana_lstm_bwd(const void* g_all, const void* w_hh, const void* c0, const void* c_all,
                      const void* dy, const void* dc_all, const float* dhn, const float* dcn,
                      void* dxg, float* dh0, float* dc0, float* part, int T, int B, int H,
-                     int bf16, int device, void* stream) {
+                     int bf16, int compute_bf16, int device, void* stream) {
   return dispatch<false>(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, dxg, dh0, dc0, part, T, B,
-                         H, bf16, device, stream, nullptr, 0);
+                         H, bf16, compute_bf16, device, stream, nullptr, 0);
 }
 
 #ifdef MORGANA_STEP_SPLIT
@@ -387,10 +396,10 @@ int morgana_lstm_bwd(const void* g_all, const void* w_hh, const void* c0, const 
 int morgana_lstm_bwd_split(const void* g_all, const void* w_hh, const void* c0,
                            const void* c_all, const void* dy, const void* dc_all,
                            const float* dhn, const float* dcn, void* dxg, float* dh0, float* dc0,
-                           float* part, int T, int B, int H, int bf16, int device, void* stream,
-                           long long* split, int split_steps) {
+                           float* part, int T, int B, int H, int bf16, int compute_bf16,
+                           int device, void* stream, long long* split, int split_steps) {
   return dispatch<true>(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, dxg, dh0, dc0, part, T, B,
-                        H, bf16, device, stream, split, split_steps);
+                        H, bf16, compute_bf16, device, stream, split, split_steps);
 }
 #endif
 

@@ -19,10 +19,9 @@
 // Outputs: y = h trace and c_all = c trace (T, B, H) in Store, hn and cn
 // (B, H) in f32 from the carried state. When g_all is given (training), the
 // kernel also writes the activated gates i, f, g, o of every step, (T, B,
-// 4H) in Store, which only its backward K2 (lstm_bwd.cu) reads: a template
-// flag, not a runtime branch. K1c has no backward, so it is built without
-// it. Masking past seq_len and the final-state gather happen outside
-// (ops/lstm.py).
+// 4H) in Store, which only its backward K2 (lstm_bwd.cu, K2c after K1c)
+// reads: a template flag, not a runtime branch. Masking past seq_len and the
+// final-state gather happen outside (ops/lstm.py).
 //
 // What bounds it. 2*B*H*4H flops a step and only a (B, H) vector from the
 // previous step: at serving shapes the step-to-step latency, not the
@@ -304,13 +303,10 @@ int run(const void* xg, const void* w_hh, const float* h0, const float* c0, void
   auto* ys = static_cast<Store*>(y);
   auto* cs = static_cast<Store*>(c_all);
   auto* gs = static_cast<Store*>(g_all);
-  if (g_all != nullptr) {
-    if constexpr (std::is_same_v<Store, Compute>)
-      return lstm::launch(lstm_fwd_kernel<H, Store, Compute, true, kSplit>, F::S::kBlocks, smem,
-                          device, stream, x, w, h0, c0, ys, cs, gs, hn, cn, T, B, split,
-                          split_steps);
-    return cudaErrorInvalidValue;  // K1c writes no gate trace
-  }
+  if (g_all != nullptr)
+    return lstm::launch(lstm_fwd_kernel<H, Store, Compute, true, kSplit>, F::S::kBlocks, smem,
+                        device, stream, x, w, h0, c0, ys, cs, gs, hn, cn, T, B, split,
+                        split_steps);
   return lstm::launch(lstm_fwd_kernel<H, Store, Compute, false, kSplit>, F::S::kBlocks, smem,
                       device, stream, x, w, h0, c0, ys, cs, gs, hn, cn, T, B, split, split_steps);
 }
@@ -352,7 +348,8 @@ extern "C" {
 // w_hh, y, c_all and g_all in bf16 when `bf16` is non-zero (K1s), else f32,
 // with g_all null when the gate trace is not written; h0, c0, hn and cn in
 // f32. With f32 storage, a non-zero `compute_bf16` launches K1c (bf16
-// products, no gate trace). H is 64, 128, 256, 512 or 1024 and B at most 256.
+// products, its gate trace in f32). H is 64, 128, 256, 512 or 1024 and B at
+// most 256.
 int morgana_lstm_fwd(const void* xg, const void* w_hh, const float* h0, const float* c0, void* y,
                      void* c_all, void* g_all, float* hn, float* cn, int T, int B, int H,
                      int bf16, int compute_bf16, int device, void* stream) {

@@ -17,8 +17,14 @@ hooks (the acoustic models synthesise ``valid/epoch_{N}/synth/*.wav``);
 once from ``--checkpoint_path`` without training, through the test hooks
 into ``test/epoch_{N}/``.
 
-The flags are the main path's subset of the JAX package's; any other flag is
-an argparse error. ``--device`` defaults to ``cuda`` and raises
+``--compute_dtype bfloat16`` trains in bf16 (``experiment_builder.py:337``,
+:494): it sets the process's :func:`morgana_tpu_torch.nn.set_default_compute_dtype`,
+so every dense product, attention and scan-backend recurrence reads its
+operands rounded to bf16 and sums in f32, forward and backward (on the GPU
+K1c with its gate trace and K2c, K3c and K4c, K5b and its backward, and the
+bf16 weight-gradient carry); the parameters, Adam, the EMA and the
+checkpoints stay f32. The flags are the main path's subset of the JAX
+package's; any other flag is an argparse error. ``--device`` defaults to ``cuda`` and raises
 :class:`~morgana_tpu_torch.device.DeviceError` without a GPU; ``--device
 cpu`` runs the kernels' plain versions on the CPU.
 """
@@ -36,9 +42,11 @@ import torch
 from morgana_tpu_torch import checkpointing
 from morgana_tpu_torch import data
 from morgana_tpu_torch import lr_schedules
+from morgana_tpu_torch import nn
 from morgana_tpu_torch import utils
 from morgana_tpu_torch.data import file_io
 from morgana_tpu_torch.device import resolve_device
+from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.training import TrainLoop, build_optimizer
 
 __all__ = ['ExperimentBuilder', 'add_boolean_arg', 'DictAction']
@@ -159,6 +167,11 @@ class ExperimentBuilder(object):
                                  "'cpu'.")
         parser.add_argument('--seed', dest='seed', type=int, default=1234567890,
                             help='Seed of the parameter init, the shuffle and dropout.')
+        parser.add_argument('--compute_dtype', dest='compute_dtype',
+                            type=precision.compute_dtype_arg, default='float32',
+                            help="Product compute dtype: 'float32' (default) or 'bfloat16' "
+                                 '(bf16 operands with f32 sums, state, parameters and '
+                                 'optimiser); another dtype is an error.')
 
         parser.add_argument('--model_checkpoint_interval', dest='model_checkpoint_interval',
                             type=int, default=1, help='Save a checkpoint every N epochs.')
@@ -228,6 +241,9 @@ class ExperimentBuilder(object):
             setattr(self, name, settings[name])
 
         self.device = resolve_device(settings['device'])
+        self.compute_dtype = settings['compute_dtype']
+        # A process global, read at each call, as the JAX builder sets it.
+        nn.set_default_compute_dtype(self.compute_dtype)
 
         self.experiment_dir = os.path.join(self.experiments_base, self.experiment_name)
         self.logger = _create_logger(self.experiment_dir)

@@ -41,8 +41,9 @@ import torch
 
 from morgana_tpu_torch import checkpointing
 from morgana_tpu_torch import quantize as quantize_mod
-from morgana_tpu_torch.serve import (InferenceEngine, compute_dtype_arg, load_exported_program,
-                                     load_model_class, numeric_features, program_inputs)
+from morgana_tpu_torch.ops import precision
+from morgana_tpu_torch.serve import (InferenceEngine, load_exported_program, load_model_class,
+                                     numeric_features, program_inputs)
 
 __all__ = ['export_bundle', 'ExportedVoice', 'main']
 
@@ -210,7 +211,7 @@ def main(argv=None):
     parser.add_argument('--batch_size', type=int, default=8)
     parser.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
                         help="Device to export FOR: the programs are specific to it.")
-    parser.add_argument('--compute_dtype', default=None, type=compute_dtype_arg,
+    parser.add_argument('--compute_dtype', default=None, type=precision.compute_dtype_arg,
                         help="'bfloat16': export programs with bf16 products (the bf16 kernels' "
                              'op nodes) and f32 sums.')
     parser.add_argument('--quantize', default=None, choices=('int8', 'int4'),

@@ -1,10 +1,10 @@
 """What the kernel wrappers share (``ops/lstm.py``, ``ops/gru.py``,
-``ops/flash_attention.py``, ``ops/mlpg.py``): the operand checks made before
-any launch, loading a kernel's ``ctypes`` library and turning a returned
-``cudaError_t`` into an exception; the outputs of a custom op, which may not
-alias its inputs; and, for the recurrent layers, the padding semantics
-around a recurrence that runs on through padded frames
-(``pallas_rnn.py:298-347``).
+``ops/flash_attention.py``, ``ops/mlpg.py``, ``ops/weight_grad.py``): the
+operand checks made before any launch, loading a kernel's ``ctypes``
+library and turning a returned ``cudaError_t`` into an exception; the
+outputs of a custom op, which may not alias its inputs; and, for the
+recurrent layers, the padding semantics around a recurrence that runs on
+through padded frames (``pallas_rnn.py:298-347``).
 
 Every kernel is a ``torch.library`` custom op of the ``morgana`` namespace
 (``torch.ops.morgana.*``): its ``cuda`` implementation launches the kernel,
@@ -19,10 +19,7 @@ import torch
 from morgana_tpu_torch import _build
 
 __all__ = ['check_device', 'check_operands', 'load_library', 'raise_on_error', 'no_alias',
-           'mask_past_seq_len', 'state_at_seq_len', 'refuse_bf16_gradient', 'BF16_TRAINING']
-
-#: Where the backward of the bf16-compute kernels waits.
-BF16_TRAINING = 'training in bf16, ROADMAP.md Queue 1 item 4'
+           'mask_past_seq_len', 'state_at_seq_len']
 
 
 def check_device(what, tensor):
@@ -52,17 +49,6 @@ def check_operands(kernel, operands, device, dtypes=(torch.float32,)):
 
 
 _ENTRIES = {}  # (name, entry, variant) -> (lib, fn), set up once
-
-
-def refuse_bf16_gradient(kernel, compute_dtype, *tensors):
-    """Raises ``NotImplementedError`` when a call with a ``compute_dtype``
-    on CUDA tensors needs a gradient: ``kernel``, the bf16-compute build,
-    has no backward, and an f32 gradient in its place would be another
-    function's."""
-    live = [t for t in tensors if t is not None]
-    if compute_dtype is not None and live and live[0].device.type == 'cuda' and \
-            torch.is_grad_enabled() and any(t.requires_grad for t in live):
-        raise NotImplementedError(f'{kernel} has no backward ({BF16_TRAINING})')
 
 
 def load_library(name, entry, argtypes, variant=None):

@@ -23,9 +23,12 @@ the forward runs in K5b, the kernel's bf16 build: both products are one
 rounded to bf16 before P.V, the softmax statistics and o in float32. o
 stays float32, as the JAX package's exact path returns it (its splash
 kernel rounds o to bf16; the tests hold the port to the exact path). Its
-plain version is ``scaled_dot_product_attention(compute_dtype=bf16)``. The
-bf16 backward is not ported: a bf16 call on the GPU that needs a gradient
-raises (training in bf16, ROADMAP.md).
+plain version is ``scaled_dot_product_attention(compute_dtype=bf16)``. Its
+backward is the backward kernel's bf16 build (K5b's backward): the autodiff
+of that plain version, which rounds ``do @ v^T`` and the probabilities
+before ``dv`` to bf16, takes the softmax's row term ``D_i`` as ``sum_j
+P_ij bf16(dP_ij)``, and returns dq, dk and dv rounded to bf16
+(:func:`attention_backward_reference`).
 
 The kernels are the custom ops ``morgana::attn_fwd`` and ``morgana::attn_bwd``
 (:func:`attn_fwd`, :func:`attn_bwd`; their ``cuda`` implementations launch
@@ -56,19 +59,22 @@ from typing import Optional
 import torch
 
 from morgana_tpu_torch.ops import attention as attention_ops
+from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
-                                            no_alias, raise_on_error, refuse_bf16_gradient)
+                                            no_alias, raise_on_error)
 
 __all__ = ['flash_attention', 'flash_attention_reference', 'attention_bias', 'attention_forward',
-           'attention_backward', 'attn_fwd', 'attn_bwd', 'launches', 'bwd_launches',
-           'bf16_launches', 'HEAD_DIMS']
+           'attention_backward', 'attention_backward_reference', 'attn_fwd', 'attn_bwd',
+           'launches', 'bwd_launches', 'bf16_launches', 'bf16_bwd_launches', 'HEAD_DIMS']
 
 # Launches of the forward kernel and of the backward (its two kernels count
-# once), each counted where its wrapper launches and nowhere else; among the
-# forward's, bf16_launches are those of its bf16 build K5b.
+# once), each counted where its wrapper launches and nowhere else; among
+# them, bf16_launches and bf16_bwd_launches are those of their bf16 builds
+# (K5b and its backward).
 launches = 0
 bwd_launches = 0
 bf16_launches = 0
+bf16_bwd_launches = 0
 
 #: The head widths the kernels are built for (a template each).
 HEAD_DIMS = (64, 96, 128)
@@ -115,8 +121,8 @@ def _lengths(seq_len, batch, device):
 
 def _check(kernel, tensors, device, dtype=torch.float32):
     """Raises, before any launch, on what the kernels do not take: q, k and v
-    in ``dtype`` (float32, or bf16 for K5b's forward), every other operand
-    float32; returns ``(B, H, T, dh)``."""
+    in ``dtype`` (float32, or bf16 for K5b and its backward), every other
+    operand float32; returns ``(B, H, T, dh)``."""
     q = tensors['q']
     if q.ndim != 4:
         raise ValueError(f'{kernel}: q must be (B, H, T, dh), got {tuple(q.shape)}')
@@ -171,33 +177,59 @@ def attention_forward(q, k, v, seq_len=None, causal=False, window=None):
 
 
 def attention_backward(q, k, v, o, lse, do, seq_len=None, causal=False, window=None):
-    """Launches the backward (its two kernels) on PyTorch's current stream;
-    raises on anything it does not take, and on a refused or failed launch.
-    Returns ``(dq, dk, dv)``."""
-    global bwd_launches
+    """Launches the backward (its two kernels) on PyTorch's current stream:
+    K5/K6's for f32 q, k and v, K5b's (its bf16 build) for bf16 ones; raises
+    on anything it does not take, and on a refused or failed launch. Returns
+    ``(dq, dk, dv)`` in the type of q, k and v."""
+    global bwd_launches, bf16_bwd_launches
     _check_window(causal, window)
+    bf16 = q.dtype == torch.bfloat16
+    name = 'K5b backward' if bf16 else 'K5/K6 backward'
     batch, heads, time, head_dim = _check(
-        'K5/K6 backward', {'q': q, 'k': k, 'v': v, 'o': o, 'lse': lse, 'do': do}, q.device)
+        name, {'q': q, 'k': k, 'v': v, 'o': o, 'lse': lse, 'do': do}, q.device,
+        torch.bfloat16 if bf16 else torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((batch, heads, time), dtype=torch.float32, device=q.device)
     lengths = _lengths(seq_len, batch, q.device)
     lib, fn = load_library('attn_bwd', 'morgana_attn_bwd',
-                           [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                           [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), None if lengths is None else lengths.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), batch, heads, time, head_dim, int(causal),
-                 int(window or 0), q.device.index, stream)
-    raise_on_error(lib, err, f'attention kernel K5/K6 backward at B={batch} H={heads} T={time} '
+                 int(window or 0), int(bf16), q.device.index, stream)
+    raise_on_error(lib, err, f'attention kernel {name} at B={batch} H={heads} T={time} '
                    f'dh={head_dim}', 'a block of either kernel keeps two 64 x (dh + 16) f32 '
                    'tiles and two stages of two 32-row tiles in shared memory (109 KB at '
                    'dh 96)')
     bwd_launches += 1
+    bf16_bwd_launches += bf16
     return dq, dk, dv
+
+
+def attention_backward_reference(q, k, v, do, seq_len=None, causal=False, window=None):
+    """Plain version of the backward, on any device: ``(dq, dk, dv)`` of the
+    plain version for the cotangent ``do``, written out step for step as
+    autograd takes it (the softmax's backward as
+    ``torch._softmax_backward_data``), in the type of q, k and v. For bf16
+    q, k and v (K5b's backward) JAX's roundings: ``dP = bf16(do @ v^T)``,
+    ``dv = bf16(bf16(P)^T @ do)``, the softmax's backward in f32 with the f32
+    P, and ``dq = bf16(dS @ k)``, ``dk = bf16(dS^T @ q)``."""
+    compute = torch.bfloat16 if q.dtype == torch.bfloat16 else None
+    scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale.to(q.device)
+    bias = attention_bias(seq_len, q.shape[2], causal, window, device=q.device)
+    probs = torch.softmax(logits if bias is None else logits + bias.float(), dim=-1)
+    dv = torch.matmul(precision.rounded(probs, compute).transpose(-1, -2), do.float())
+    dprobs = precision.rounded(torch.matmul(do.float(), v.float().transpose(-1, -2)), compute)
+    dlogits = torch._softmax_backward_data(dprobs, probs, -1, torch.float32) * scale.to(q.device)
+    dq = torch.matmul(dlogits, k.float())
+    dk = torch.matmul(dlogits.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @torch.library.custom_op('morgana::attn_fwd', mutates_args=(), device_types='cpu')
@@ -232,21 +264,11 @@ def _attn_fwd_fake(q, k, v, seq_len, causal, window):
 def attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
              lse: torch.Tensor, do: torch.Tensor, seq_len: Optional[torch.Tensor], causal: bool,
              window: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``morgana::attn_bwd``, the backward of K5/K6: ``(dq, dk, dv)`` for the
-    cotangent ``do``. This is its ``cpu`` implementation: the backward of
-    the plain version written out, step for step as autograd takes it
-    (``o`` and ``lse`` are not read)."""
-    window = window or None
-    scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    bias = attention_bias(seq_len, q.shape[2], causal, window, device=q.device)
-    probs = torch.softmax(logits if bias is None else logits + bias.float(), dim=-1)
-    dv = torch.matmul(probs.transpose(-1, -2), do.float())
-    dprobs = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    dlogits = torch._softmax_backward_data(dprobs, probs, -1, torch.float32) * scale
-    dq = torch.matmul(dlogits, k.float())
-    dk = torch.matmul(dlogits.transpose(-1, -2), q.float())
-    return no_alias((dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)),
+    """``morgana::attn_bwd``, the backward of K5/K6 (K5b's backward for bf16
+    q, k and v): ``(dq, dk, dv)`` for the cotangent ``do``. This is its
+    ``cpu`` implementation, :func:`attention_backward_reference` (``o`` and
+    ``lse`` are not read)."""
+    return no_alias(attention_backward_reference(q, k, v, do, seq_len, causal, window or None),
                     (q, k, v, o, lse, do, seq_len))
 
 
@@ -292,7 +314,7 @@ def flash_attention(q, k, v, seq_len=None, causal=False, window=None, compute_dt
         With ``causal``, query ``i`` sees keys ``i - window < j <= i``.
     compute_dtype : None or torch.bfloat16
         bf16: q, k and v rounded to it, and the probabilities before P.V
-        (K5b on the GPU; forward only there).
+        (K5b and its backward on the GPU).
 
     Returns
     -------
@@ -301,11 +323,13 @@ def flash_attention(q, k, v, seq_len=None, causal=False, window=None, compute_dt
     """
     check_device('attention', q)
     _check_window(causal, window)
-    refuse_bf16_gradient('K5b', compute_dtype, q, k, v)
     lengths = _lengths(seq_len, q.shape[0], q.device)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q.device.type == 'cpu':
             return flash_attention_reference(q, k, v, seq_len, causal, window, compute_dtype)
+        if compute_dtype is not None:   # autograd takes the casts' backward
+            q, k, v = (t.to(compute_dtype, memory_format=torch.contiguous_format)
+                       for t in (q, k, v))
         return _FlashAttention.apply(q, k, v, lengths, causal, int(window or 0))
     if compute_dtype is not None:
         q, k, v = (t.to(compute_dtype, memory_format=torch.contiguous_format) for t in (q, k, v))

@@ -31,8 +31,11 @@ Compute type (``compute_dtype`` bf16, the scan backend under
 rounds x and w_ih to bf16 (:func:`~morgana_tpu_torch.ops.precision.matmul`),
 and the recurrence rounds w_hh and each step's h to bf16 for ``h @ w_hh``,
 whose sums, the bias, the gate math, the carried h and the outputs stay
-f32. Only the forward is built: a K3c call on the GPU that needs a gradient
-raises (training in bf16, ROADMAP.md).
+f32. Its gradient is the JAX scan's autodiff: the backward's hg is computed
+on the rounded operands, K4c (the bf16 build of K4) rounds w_hh and each
+step's carried ``[da_r, da_z, da_n * r] @ w_hh^T`` to bf16, the gate
+gradients and dh0 staying f32, and dW_hh is the bf16 carry of
+``ops/weight_grad.py`` (db_hh an f32 sum, as the scan carries it in f32).
 
 Both kernels take the layer's batch-major layout and ``seq_len``: K3 zeroes
 the outputs past ``seq_len`` and gathers the final ``h`` at ``seq_len - 1``
@@ -47,19 +50,22 @@ import torch
 from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
                                             mask_past_seq_len, no_alias, raise_on_error,
-                                            refuse_bf16_gradient, state_at_seq_len)
+                                            state_at_seq_len)
+from morgana_tpu_torch.ops.weight_grad import bf16_weight_grad, bf16_weight_grad_reference
 
 __all__ = ['gru_layer', 'gru_layer_reference', 'gru_recurrence', 'gru_recurrence_reference',
            'gru_backward', 'gru_backward_reference', 'layer_backward_reference', 'hidden_gates',
            'gru_fwd', 'gru_bwd',
-           'launches', 'bwd_launches', 'bf16_compute_launches']
+           'launches', 'bwd_launches', 'bf16_compute_launches', 'bf16_compute_bwd_launches']
 
 # Launches of K3 and of K4, each counted where its wrapper launches the
 # kernel and nowhere else; a run reads them to show which path it took.
-# bf16_compute_launches are those of K3c among K3's.
+# bf16_compute_launches are those of K3c among K3's, bf16_compute_bwd_launches
+# those of K4c among K4's.
 launches = 0
 bwd_launches = 0
 bf16_compute_launches = 0
+bf16_compute_bwd_launches = 0
 
 # The kernels are built for H = 32, 64, 96 and 128: 4H threads a row, each
 # with 3H/4 floats of w_hh, in one CTA up to H = 96 and in two above.
@@ -149,22 +155,24 @@ def _check_bwd_operands(xg, w_hh, h0, y, dy, dhn, time_major=False):
     return time, batch, hidden
 
 
-def _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None):
-    """Launches K4 on batch-major operands on PyTorch's current stream;
-    raises on anything it does not take, and on a refused or failed launch.
-    Returns ``(dxg, dnr, dh0)``, ``dnr = da_n * r`` (B, T, H)."""
-    global bwd_launches
+def _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None, compute_bf16=False):
+    """Launches K4 (K4c with ``compute_bf16``: w_hh and each step's carried
+    product rounded to bf16) on batch-major operands on PyTorch's current
+    stream; raises on anything it does not take, and on a refused or failed
+    launch. Returns ``(dxg, dnr, dh0)``, ``dnr = da_n * r`` (B, T, H)."""
+    global bwd_launches, bf16_compute_bwd_launches
     time, batch, hidden = _check_bwd_operands(xg, w_hh, h0, y, dy, dhn)
     check_operands('K4', {'hg': (hg, tuple(xg.shape))}, xg.device)
     seq = _seq_len_pointer('K4', seq_len, batch, xg.device)
     dxg = torch.empty_like(xg)
     dnr = torch.empty_like(y)
     dh0 = torch.empty((batch, hidden), dtype=torch.float32, device=xg.device)
-    _launch('K4', 'gru_bwd', 'morgana_gru_bwd',
+    _launch('K4c' if compute_bf16 else 'K4', 'gru_bwd', 'morgana_gru_bwd',
             (xg.data_ptr(), hg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), y.data_ptr(),
              dy.data_ptr(), dhn.data_ptr(), seq, dxg.data_ptr(), dnr.data_ptr(), dh0.data_ptr()),
-            time, batch, hidden, xg.device)
+            time, batch, hidden, xg.device, (int(compute_bf16),))
     bwd_launches += 1
+    bf16_compute_bwd_launches += bool(compute_bf16)
     return dxg, dnr, dh0
 
 
@@ -196,12 +204,13 @@ def gru_recurrence_reference(xg, w_hh, b_hh, h0, compute_bf16=False):
     return torch.stack(ys), h
 
 
-def hidden_gates(w_hh, b_hh, h0, y, batch_first=False):
+def hidden_gates(w_hh, b_hh, h0, y, batch_first=False, compute=None):
     """``(h_prev, hg)``: h_{t-1} for every step as rows of (T * B, H) (``y[t-1]``,
     ``h0`` at t = 0), and ``hg = h_prev @ w_hh + b_hh`` in the layout of
     ``y`` with 3H columns, by one ``torch.matmul`` over all the rows (the
-    product ``pallas_gru.py:183-185`` computes outside its kernel). ``y`` is
-    (T, B, H), or (B, T, H) with ``batch_first``."""
+    product ``pallas_gru.py:183-185`` computes outside its kernel), its
+    operands rounded to ``compute`` as the forward's were. ``y`` is (T, B,
+    H), or (B, T, H) with ``batch_first``."""
     if batch_first:
         batch, time, hidden = y.shape
         h_prev = torch.cat([h0[:, None], y], dim=1)[:, :time]
@@ -209,19 +218,22 @@ def hidden_gates(w_hh, b_hh, h0, y, batch_first=False):
         time, batch, hidden = y.shape
         h_prev = torch.cat([h0[None], y])[:time]
     h_prev = h_prev.reshape(time * batch, hidden)
-    hg = torch.matmul(h_prev, w_hh) + b_hh
+    hg = torch.matmul(precision.rounded(h_prev, compute), precision.rounded(w_hh, compute)) + b_hh
     return h_prev, hg.reshape(tuple(y.shape[:2]) + (3 * hidden,))
 
 
-def gru_backward_reference(xg, hg, w_hh, h0, y, dy, dhn):
+def gru_backward_reference(xg, hg, w_hh, h0, y, dy, dhn, compute_bf16=False):
     """Plain version of K4: the reverse-time loop of ``_gru_bwd_kernel``
     (``pallas_gru.py:68-91``), the gates taken from ``xg`` and the given
     ``hg`` (:func:`hidden_gates`) and ``h_{t-1}`` from ``y[t-1]`` (``h0`` at
-    t = 0); the carry through ``w_hh^T`` is the one product a step. Returns
-    ``(dxg, dh0)``."""
+    t = 0); the carry through ``w_hh^T`` is the one product a step. With
+    ``compute_bf16`` (K4c) w_hh and each step's carried product are rounded
+    to bf16, as the JAX scan's autodiff converts them. Returns ``(dxg,
+    dh0)``."""
     time = xg.shape[0]
     hidden = w_hh.shape[0]
-    w = w_hh.float()
+    compute = torch.bfloat16 if compute_bf16 else None
+    w = precision.rounded(w_hh.float(), compute)
     dh = dhn.float()
     dxg = [None] * time
     for t in range(time - 1, -1, -1):
@@ -233,7 +245,8 @@ def gru_backward_reference(xg, hg, w_hh, h0, y, dy, dhn):
         da_z = dh * (h_prev - n) * z * (1.0 - z)
         da_r = da_n * hg_t[..., 2 * hidden:] * r * (1.0 - r)
         dxg[t] = torch.cat([da_r, da_z, da_n], dim=-1)
-        dh = dh * z + torch.matmul(torch.cat([da_r, da_z, da_n * r], dim=-1), w.t())
+        dh = dh * z + precision.rounded(
+            torch.matmul(torch.cat([da_r, da_z, da_n * r], dim=-1), w.t()), compute)
     if not dxg:
         return xg.new_zeros(xg.shape, dtype=torch.float32), dh
     return torch.stack(dxg), dh
@@ -247,12 +260,12 @@ def _mask(y, hn, seq_len, h0):
     return y, state_at_seq_len(y, seq_len, h0)
 
 
-def layer_backward_reference(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None):
-    """Plain version of K4 as the layer launches it, on any device: on
-    batch-major operands, the cotangents of the masking and gather (dy
-    within seq_len, dhn at seq_len - 1, or at dh0 for an empty row), then
-    :func:`gru_backward_reference`. Returns ``(dxg, dnr, dh0)``, ``dnr =
-    da_n * r`` (B, T, H) with r from ``hg``."""
+def layer_backward_reference(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None, compute_bf16=False):
+    """Plain version of K4 (K4c with ``compute_bf16``) as the layer launches
+    it, on any device: on batch-major operands, the cotangents of the masking
+    and gather (dy within seq_len, dhn at seq_len - 1, or at dh0 for an empty
+    row), then :func:`gru_backward_reference`. Returns ``(dxg, dnr, dh0)``,
+    ``dnr = da_n * r`` (B, T, H) with r from ``hg``."""
     hidden = w_hh.shape[0]
     empty = torch.zeros_like(dhn)
     if seq_len is not None:
@@ -263,7 +276,7 @@ def layer_backward_reference(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None):
         empty = dhn * (lens == 0)[:, None].to(dhn.dtype)
         dhn = torch.zeros_like(dhn)
     dxg, dh0 = gru_backward_reference(xg.transpose(0, 1), hg.transpose(0, 1), w_hh, h0,
-                                      y.transpose(0, 1), dy.transpose(0, 1), dhn)
+                                      y.transpose(0, 1), dy.transpose(0, 1), dhn, compute_bf16)
     dxg = dxg.transpose(0, 1)
     r = torch.sigmoid(xg[..., :hidden] + hg[..., :hidden])
     return dxg, dxg[..., 2 * hidden:] * r, dh0 + empty
@@ -301,22 +314,24 @@ def _gru_fwd_fake(xg, w_hh, b_hh, h0, seq_len, compute_bf16=False):
 
 @torch.library.custom_op('morgana::gru_bwd', mutates_args=(), device_types='cpu')
 def gru_bwd(xg: torch.Tensor, hg: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor,
-            y: torch.Tensor, dy: torch.Tensor, dhn: torch.Tensor,
-            seq_len: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``morgana::gru_bwd``, K4: ``(dxg, dnr, dh0)`` of :func:`gru_fwd`,
-    batch-major. This is its ``cpu`` implementation,
-    :func:`layer_backward_reference`."""
+            y: torch.Tensor, dy: torch.Tensor, dhn: torch.Tensor, seq_len: Optional[torch.Tensor],
+            compute_bf16: bool = False) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``morgana::gru_bwd``, K4 (K4c with ``compute_bf16``): ``(dxg, dnr,
+    dh0)`` of :func:`gru_fwd`, batch-major. This is its ``cpu``
+    implementation, :func:`layer_backward_reference`."""
     inputs = (xg, hg, w_hh, h0, y, dy, dhn, seq_len)
-    return no_alias(tuple(t.contiguous() for t in layer_backward_reference(*inputs)), inputs)
+    return no_alias(tuple(t.contiguous() for t in layer_backward_reference(*inputs,
+                                                                            compute_bf16)),
+                    inputs)
 
 
 @gru_bwd.register_kernel('cuda')
-def _gru_bwd_op_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len):
-    return _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len)
+def _gru_bwd_op_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len, compute_bf16=False):
+    return _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len, compute_bf16)
 
 
 @gru_bwd.register_fake
-def _gru_bwd_fake(xg, hg, w_hh, h0, y, dy, dhn, seq_len):
+def _gru_bwd_fake(xg, hg, w_hh, h0, y, dy, dhn, seq_len, compute_bf16=False):
     return (xg.new_empty(xg.shape, dtype=torch.float32), y.new_empty(y.shape, dtype=torch.float32),
             dhn.new_empty(dhn.shape, dtype=torch.float32))
 
@@ -359,24 +374,28 @@ def _layer_forward(xg, w_hh, b_hh, h0, seq_len, compute_bf16=False):
     return torch.ops.morgana.gru_fwd(xg, w_hh, b_hh, h0, seq_len, compute_bf16)
 
 
-def _layer_backward(xg, hg, w_hh, h0, y, dy, dhn, seq_len):
+def _layer_backward(xg, hg, w_hh, h0, y, dy, dhn, seq_len, compute_bf16=False):
     """``(dxg, dnr, dh0)`` of :func:`_layer_forward`: :func:`gru_bwd`."""
     check_device('GRU backward', xg)
-    return torch.ops.morgana.gru_bwd(xg, hg, w_hh, h0, y, dy, dhn, seq_len)
+    return torch.ops.morgana.gru_bwd(xg, hg, w_hh, h0, y, dy, dhn, seq_len, compute_bf16)
 
 
 class _Recurrence(torch.autograd.Function):
     """``(xg, w_hh, b_hh, h0, seq_len) -> (y, hn)``, batch-major, with K3
     forward and K4 backward (``_core_fwd``/``_core_bwd``,
-    ``pallas_gru.py:139-193``, with the layer's masking and gather inside).
+    ``pallas_gru.py:139-193``, with the layer's masking and gather inside),
+    or with ``plain`` their plain versions on any device. With ``bf16``
+    (bf16 products, the scan backend's autodiff under a bf16 compute dtype)
+    K3c forward, hg on rounded operands, K4c, and dW_hh the bf16 carry.
     Saves ``xg, w_hh, b_hh, h0`` and ``y``. Absent cotangents arrive as zeros
     (autograd materialises them)."""
 
     @staticmethod
-    def forward(ctx, xg, w_hh, b_hh, h0, seq_len):
-        y, hn = _layer_forward(xg, w_hh, b_hh, h0, seq_len)
+    def forward(ctx, xg, w_hh, b_hh, h0, seq_len, plain, bf16):
+        layer_forward = _plain_layer_forward if plain else _layer_forward
+        y, hn = layer_forward(xg, w_hh, b_hh, h0, seq_len, bf16)
         ctx.save_for_backward(xg, w_hh, b_hh, h0, y)
-        ctx.seq_len = seq_len
+        ctx.seq_len, ctx.plain, ctx.bf16 = seq_len, plain, bf16
         return y, hn
 
     @staticmethod
@@ -386,14 +405,24 @@ class _Recurrence(torch.autograd.Function):
         # One GEMM gives hg to K4. The hidden-side gate gradients that dW_hh
         # and db_hh read are [da_r, da_z, da_n * r]: dxg's r and z columns
         # (a strided view, no copy), then K4's dnr.
-        h_prev, hg = hidden_gates(w_hh, b_hh, h0, y, batch_first=True)
-        dxg, dnr, dh0 = _layer_backward(xg, hg, w_hh, h0, y, dy.contiguous(), dhn.contiguous(),
-                                        ctx.seq_len)
+        h_prev, hg = hidden_gates(w_hh, b_hh, h0, y, batch_first=True,
+                                  compute=torch.bfloat16 if ctx.bf16 else None)
+        backward = layer_backward_reference if ctx.plain else _layer_backward
+        dxg, dnr, dh0 = backward(xg, hg, w_hh, h0, y, dy.contiguous(), dhn.contiguous(),
+                                 ctx.seq_len, ctx.bf16)
         d_rz = dxg.reshape(-1, 3 * hidden)[:, :2 * hidden]
         dnr = dnr.reshape(-1, hidden)
-        h_prev_t = h_prev.t()
-        dw_hh = torch.cat([torch.matmul(h_prev_t, d_rz), torch.matmul(h_prev_t, dnr)], dim=1)
-        return dxg, dw_hh, torch.cat([d_rz.sum(0), dnr.sum(0)]), dh0, None
+        if ctx.bf16:
+            # JAX's bf16 carry of w_hh_c's cotangent (ops/weight_grad.py),
+            # over the batch-major rows as (T, B, .) views.
+            batch, time = y.shape[:2]
+            carry = bf16_weight_grad_reference if ctx.plain else bf16_weight_grad
+            dg = torch.cat([d_rz, dnr], dim=1).reshape(batch, time, 3 * hidden)
+            dw_hh = carry(h_prev.reshape(batch, time, hidden).transpose(0, 1), dg.transpose(0, 1))
+        else:
+            h_prev_t = h_prev.t()
+            dw_hh = torch.cat([torch.matmul(h_prev_t, d_rz), torch.matmul(h_prev_t, dnr)], dim=1)
+        return dxg, dw_hh, torch.cat([d_rz.sum(0), dnr.sum(0)]), dh0, None, None, None
 
 
 def _input_gates(x, w_ih, b_ih, compute=None):
@@ -424,31 +453,33 @@ def gru_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, compute_dtype=No
     y : (batch, time, H), zero past ``seq_len``
     hn : the state at ``seq_len`` (at ``time`` without ``seq_len``)
     """
-    batch, dtype = x.shape[0], x.dtype
-    compute = precision.as_compute_dtype(compute_dtype)
-    refuse_bf16_gradient('K3c', compute, x, w_ih, w_hh, b_ih, b_hh, h0)
-    xg = _input_gates(x, w_ih, b_ih, compute)
-    h0 = x.new_zeros((batch, w_hh.shape[0])) if h0 is None else h0.contiguous()
-    if seq_len is not None:
-        seq_len = torch.as_tensor(seq_len, device=x.device).reshape(batch).long().contiguous()
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (xg, w_hh, b_hh, h0)):
-        if compute is None:
-            y, hn = _Recurrence.apply(xg, w_hh, b_hh, h0, seq_len)
-        else:   # on the CPU: autograd through the plain loop
-            y, hn = _plain_layer_forward(xg, w_hh, b_hh, h0, seq_len, True)
-    else:
-        y, hn = _layer_forward(xg, w_hh, b_hh, h0, seq_len, compute is not None)
-    return y.to(dtype), hn.to(dtype)
+    return _layer(x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, compute_dtype, plain=False)
 
 
 def gru_layer_reference(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, compute_dtype=None):
     """:func:`gru_layer` through the plain recurrence on any device, its
-    gradient by autograd through the loop: what the kernels are held
+    gradient by autograd through the loop (in f32) or, with bf16 products,
+    by the plain K4c and the plain bf16 carry: what the kernels are held
     against."""
+    return _layer(x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, compute_dtype, plain=True)
+
+
+def _layer(x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, compute_dtype, plain):
+    """The layer: the input gates, then the recurrence through
+    :class:`_Recurrence` when a gradient is needed (the f32 plain version
+    excepted, which autograd differentiates through the loop), else its
+    forward alone."""
     batch, dtype = x.shape[0], x.dtype
     compute = precision.as_compute_dtype(compute_dtype)
-    xg = _input_gates(x, w_ih, b_ih, compute).transpose(0, 1).contiguous()    # (T, B, 3H)
-    h0 = x.new_zeros((batch, w_hh.shape[0])) if h0 is None else h0
-    y, hn = gru_recurrence_reference(xg, w_hh, b_hh, h0.contiguous(), compute is not None)
-    y, hn = _mask(y.transpose(0, 1).to(dtype), hn, seq_len, h0)
-    return y, hn.to(dtype)
+    bf16 = compute is not None
+    xg = _input_gates(x, w_ih, b_ih, compute)
+    h0 = x.new_zeros((batch, w_hh.shape[0])) if h0 is None else h0.contiguous()
+    if seq_len is not None:
+        seq_len = torch.as_tensor(seq_len, device=x.device).reshape(batch).long().contiguous()
+    if (bf16 or not plain) and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in (xg, w_hh, b_hh, h0)):
+        y, hn = _Recurrence.apply(xg, w_hh, b_hh, h0, seq_len, plain, bf16)
+    else:
+        layer_forward = _plain_layer_forward if plain else _layer_forward
+        y, hn = layer_forward(xg, w_hh, b_hh, h0, seq_len, bf16)
+    return y.to(dtype), hn.to(dtype)

@@ -41,8 +41,11 @@ Compute type (``compute_dtype`` bf16, the scan backend under
 rounds x and w_ih to bf16 (:func:`~morgana_tpu_torch.ops.precision.matmul`),
 and the recurrence rounds w_hh and each step's h to bf16 for ``h @ w_hh``,
 whose sums stay f32; xg, the gate math, the carried h and c and every
-stored trace stay f32. Only the forward is built: a K1c call on the GPU
-that needs a gradient raises (training in bf16, ROADMAP.md).
+stored trace stay f32. Its gradient is the JAX scan's autodiff: K1c writes
+its f32 gate trace, and K2c (the bf16-compute build of K2) rounds w_hh to
+bf16 and each step's carried ``dgates @ w_hh^T`` to bf16 before it joins dy,
+the gate gradients, dxg, dh0 and dc0 staying f32; dW_hh is the bf16 carry of
+``ops/weight_grad.py`` over ``h_{t-1}`` and dxg.
 
 Outputs past ``seq_len`` are zeroed and the final ``(h, c)`` is gathered at
 ``seq_len - 1`` (``h0``/``c0`` for empty rows), which is exactly the state a
@@ -54,16 +57,17 @@ import os
 import torch
 
 from morgana_tpu_torch.ops import precision
-from morgana_tpu_torch.ops._kernels import (BF16_TRAINING, check_device, check_operands,
-                                            load_library, mask_past_seq_len, no_alias,
-                                            raise_on_error, refuse_bf16_gradient,
+from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
+                                            mask_past_seq_len, no_alias, raise_on_error,
                                             state_at_seq_len)
+from morgana_tpu_torch.ops.weight_grad import bf16_weight_grad, bf16_weight_grad_reference
 
 __all__ = ['lstm_layer', 'lstm_layer_reference', 'lstm_recurrence',
            'lstm_recurrence_reference', 'lstm_backward', 'lstm_backward_reference',
            'lstm_fwd', 'lstm_bwd',
            'STORE_DTYPE', 'launches', 'gate_launches', 'bwd_launches',
-           'bf16_launches', 'bf16_bwd_launches', 'bf16_compute_launches']
+           'bf16_launches', 'bf16_bwd_launches', 'bf16_compute_launches',
+           'bf16_compute_gate_launches', 'bf16_compute_bwd_launches']
 
 # The storage type of the 'pallas' backend's LSTM layers, e.g. 'bfloat16'
 # (pallas_rnn.py:59); None is the input's type, f32.
@@ -73,13 +77,17 @@ STORE_DTYPE = os.environ.get('MORGANA_PALLAS_STORE', None)
 # counted where its wrapper launches the kernel and nowhere else; a run reads
 # them to show which path it took. The bf16_ counts are those of the kernels
 # built for bf16 storage (K1s), among the others, and bf16_compute_launches
-# those of K1c, f32 storage with bf16 products.
+# those of K1c, f32 storage with bf16 products (bf16_compute_gate_launches
+# those of them that wrote the gate trace), bf16_compute_bwd_launches those of
+# K2c.
 launches = 0
 gate_launches = 0
 bwd_launches = 0
 bf16_launches = 0
 bf16_bwd_launches = 0
 bf16_compute_launches = 0
+bf16_compute_gate_launches = 0
+bf16_compute_bwd_launches = 0
 
 _MAX_BATCH = 256
 _WIDTHS = (64, 128, 256, 512, 1024)  # the widths the kernels are built for
@@ -156,7 +164,8 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None, compute_bf16=
     (bf16 storage rounds them so already). Returns ``(y, c_all, g_all, hn,
     cn)``, ``g_all`` None unless ``with_gates``. ``split``: see
     :func:`_entry`."""
-    global launches, gate_launches, bf16_launches, bf16_compute_launches
+    global launches, gate_launches, bf16_launches, bf16_compute_launches, \
+        bf16_compute_gate_launches
     if xg.ndim != 3 or xg.shape[2] % 4:
         raise ValueError(f'K1: xg must be (T, B, 4H), got {tuple(xg.shape)}')
     time, batch, gates4 = xg.shape
@@ -168,9 +177,6 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None, compute_bf16=
                    dtypes=(torch.float32, torch.bfloat16))
     width = _width('K1', batch, hidden)
     k1c = compute_bf16 and store == torch.float32
-    if k1c and with_gates:
-        raise NotImplementedError(f'K1c writes no gate trace: its backward is not ported '
-                                  f'({BF16_TRAINING})')
 
     variant, entry, extra_types, extra = _entry('lstm_fwd', split)
     lib, fn = load_library('lstm_fwd', entry,
@@ -195,6 +201,7 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None, compute_bf16=
     gate_launches += with_gates
     bf16_launches += store == torch.bfloat16
     bf16_compute_launches += k1c
+    bf16_compute_gate_launches += k1c and with_gates
     if g_all is not None:
         g_all = _unpad_units(g_all, hidden, 4)
     return (_unpad_units(y, hidden), _unpad_units(c_all, hidden), g_all,
@@ -207,14 +214,17 @@ def _part_floats(batch, width):
     return 2 * (128 if width > 512 else 64) * batch * width
 
 
-def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, split=None):
+def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, split=None,
+                   compute_bf16=False):
     """Launches K2 on PyTorch's current stream, at H padded to the next built
     width; raises on anything it does not take, and on a refused or failed
     launch. ``g_all``, ``w_hh``, ``c0``, ``c_all``, ``dy`` and ``dc_all`` are
     all f32 or all bf16, the storage type; ``dhn`` and ``dcn`` f32. Returns
-    ``(dxg, dh0, dc0)``, dxg in the storage type and dh0, dc0 in f32.
-    ``split``: as :func:`_lstm_fwd_cuda`."""
-    global bwd_launches, bf16_bwd_launches
+    ``(dxg, dh0, dc0)``, dxg in the storage type and dh0, dc0 in f32. With
+    ``compute_bf16`` and f32 storage it launches K2c, which rounds w_hh and
+    each step's carried ``dgates @ w_hh^T`` to bf16. ``split``: as
+    :func:`_lstm_fwd_cuda`."""
+    global bwd_launches, bf16_bwd_launches, bf16_compute_bwd_launches
     if g_all.ndim != 3 or g_all.shape[2] % 4:
         raise ValueError(f'K2: g_all must be (T, B, 4H), got {tuple(g_all.shape)}')
     time, batch, gates4 = g_all.shape
@@ -228,10 +238,11 @@ def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, split=None):
                           'dcn': (dcn, state)},
                    g_all.device, dtypes=(torch.float32, torch.bfloat16))
     width = _width('K2', batch, hidden)
+    k2c = compute_bf16 and store == torch.float32
 
     variant, entry, extra_types, extra = _entry('lstm_bwd', split)
     lib, fn = load_library('lstm_bwd', entry,
-                           [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                           [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
                            + extra_types, variant)
     g_all, w_hh = _pad_units(g_all, width, 4), _pad_w_hh(w_hh, width)
     c0, c_all, dy, dc_all, dhn, dcn = (_pad_units(t, width)
@@ -244,12 +255,14 @@ def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, split=None):
         err = fn(g_all.data_ptr(), w_hh.data_ptr(), c0.data_ptr(), c_all.data_ptr(),
                  dy.data_ptr(), dc_all.data_ptr(), dhn.data_ptr(), dcn.data_ptr(),
                  dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), part.data_ptr(), time, batch,
-                 width, int(store == torch.bfloat16), g_all.device.index, _stream(g_all.device),
-                 *extra)
-    raise_on_error(lib, err, f'LSTM kernel K2 launch at T={time} B={batch} H={width}',
+                 width, int(store == torch.bfloat16), int(k2c), g_all.device.index,
+                 _stream(g_all.device), *extra)
+    raise_on_error(lib, err, f'LSTM kernel {"K2c" if k2c else "K2"} launch at T={time} '
+                   f'B={batch} H={width}',
                    'one block of 256 threads a SM must fit, for every block of the layer')
     bwd_launches += 1
     bf16_bwd_launches += store == torch.bfloat16
+    bf16_compute_bwd_launches += k2c
     return _unpad_units(dxg, hidden, 4), _unpad_units(dh0, hidden), _unpad_units(dc0, hidden)
 
 
@@ -283,14 +296,19 @@ def lstm_recurrence_reference(xg, w_hh, h0, c0, compute_bf16=False):
     return torch.stack(ys), torch.stack(cs), torch.stack(gs), h, c
 
 
-def lstm_backward_reference(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
+def lstm_backward_reference(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, compute_bf16=False):
     """Plain version of K2: the reverse-time loop of ``_lstm_bwd_kernel``
     (``pallas_rnn.py:127-158``) over the saved gates. Returns ``(dxg, dh0,
     dc0)``. The storage type is g_all's: dxg is stored in it and rounded to
-    it before ``dgates @ w_hh^T``; the carries, dh0 and dc0 are f32."""
+    it before ``dgates @ w_hh^T``; the carries, dh0 and dc0 are f32. With
+    ``compute_bf16`` (K2c, the JAX scan's autodiff under a bf16 compute
+    dtype) w_hh is rounded to bf16 and so is each step's ``dgates @ w_hh^T``
+    before it joins dy (``convert`` to bf16 and back)."""
     time = g_all.shape[0]
     hidden = w_hh.shape[0]
     store = g_all.dtype
+    compute = torch.bfloat16 if compute_bf16 else None
+    w = precision.rounded(w_hh.float(), compute)
     dh, dc_carry = dhn.float(), dcn.float()
     dxg = [None] * time
     for t in range(time - 1, -1, -1):
@@ -303,7 +321,7 @@ def lstm_backward_reference(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
         dgates = torch.cat([dc * g * i * (1.0 - i), dc * c_prev.float() * f * (1.0 - f),
                             dc * i * (1.0 - g * g), d_o * o * (1.0 - o)], dim=-1).to(store)
         dxg[t] = dgates
-        dh = torch.matmul(dgates.float(), w_hh.float().t())
+        dh = precision.rounded(torch.matmul(dgates.float(), w.t()), compute)
         dc_carry = dc * f
     if not dxg:
         return g_all.new_zeros(g_all.shape), dh, dc_carry
@@ -341,21 +359,22 @@ def _lstm_fwd_fake(xg, w_hh, h0, c0, with_gates, compute_bf16=False):
 
 @torch.library.custom_op('morgana::lstm_bwd', mutates_args=(), device_types='cpu')
 def lstm_bwd(g_all: torch.Tensor, w_hh: torch.Tensor, c0: torch.Tensor, c_all: torch.Tensor,
-             dy: torch.Tensor, dc_all: torch.Tensor, dhn: torch.Tensor,
-             dcn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``morgana::lstm_bwd``, K2: ``(dxg, dh0, dc0)``. This is its ``cpu``
-    implementation, the plain version."""
+             dy: torch.Tensor, dc_all: torch.Tensor, dhn: torch.Tensor, dcn: torch.Tensor,
+             compute_bf16: bool = False) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``morgana::lstm_bwd``, K2 (K2c with ``compute_bf16``): ``(dxg, dh0,
+    dc0)``. This is its ``cpu`` implementation, the plain version."""
     inputs = (g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn)
-    return no_alias(lstm_backward_reference(*inputs), inputs)
+    return no_alias(lstm_backward_reference(*inputs, compute_bf16), inputs)
 
 
 @lstm_bwd.register_kernel('cuda')
-def _lstm_bwd_op_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
-    return _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn)
+def _lstm_bwd_op_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, compute_bf16=False):
+    return _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn,
+                          compute_bf16=compute_bf16)
 
 
 @lstm_bwd.register_fake
-def _lstm_bwd_fake(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
+def _lstm_bwd_fake(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, compute_bf16=False):
     state = dhn.new_empty(dhn.shape, dtype=torch.float32)
     return torch.empty_like(g_all), state, torch.empty_like(state)
 
@@ -371,15 +390,12 @@ def lstm_recurrence(xg, w_hh, h0, c0, with_gates=False, compute_bf16=False):
     return y, c_all, g_all if with_gates else None, hn, cn
 
 
-def lstm_backward(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
-    """The backward of the recurrence, :func:`lstm_bwd`: kernel K2 for CUDA
-    tensors, the plain version for CPU tensors. Returns ``(dxg, dh0, dc0)``."""
+def lstm_backward(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, compute_bf16=False):
+    """The backward of the recurrence, :func:`lstm_bwd`: kernel K2 (K2c with
+    ``compute_bf16``) for CUDA tensors, the plain version for CPU tensors.
+    Returns ``(dxg, dh0, dc0)``."""
     check_device('LSTM backward', g_all)
-    return torch.ops.morgana.lstm_bwd(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn)
-
-
-def _gates_recurrence(xg, w_hh, h0, c0):
-    return lstm_recurrence(xg, w_hh, h0, c0, with_gates=True)
+    return torch.ops.morgana.lstm_bwd(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, compute_bf16)
 
 
 class _Recurrence(torch.autograd.Function):
@@ -387,15 +403,20 @@ class _Recurrence(torch.autograd.Function):
     forward and K2 backward (``_core_fwd``/``_core_bwd``, ``pallas_rnn.py:226``),
     or with ``plain`` their plain versions on any device. ``xg`` and ``w_hh``
     are stored as ``store`` (a torch dtype); y and c_all come back in it.
-    Saves ``w_hh, h0, c0``, the unmasked ``y``, ``c_all`` and ``g_all``; not
-    ``xg``. Absent cotangents arrive as zeros (autograd materialises them)."""
+    With ``bf16`` (f32 storage, bf16 products) K1c with its gate trace and
+    K2c, and dW_hh the bf16 carry. Saves ``w_hh, h0, c0``, the unmasked
+    ``y``, ``c_all`` and ``g_all``; not ``xg``. Absent cotangents arrive as
+    zeros (autograd materialises them)."""
 
     @staticmethod
-    def forward(ctx, xg, w_hh, h0, c0, store, plain):
-        forward = lstm_recurrence_reference if plain else _gates_recurrence
+    def forward(ctx, xg, w_hh, h0, c0, store, plain, bf16):
         w_s = w_hh.to(store)
-        y, c_all, g_all, hn, cn = forward(xg.to(store), w_s, h0, c0)
-        ctx.plain = plain
+        if plain:
+            y, c_all, g_all, hn, cn = lstm_recurrence_reference(xg.to(store), w_s, h0, c0, bf16)
+        else:
+            y, c_all, g_all, hn, cn = lstm_recurrence(xg.to(store), w_s, h0, c0,
+                                                      with_gates=True, compute_bf16=bf16)
+        ctx.plain, ctx.bf16 = plain, bf16
         ctx.save_for_backward(w_s, h0, c0, y, c_all, g_all)
         return y, c_all, hn, cn
 
@@ -407,15 +428,20 @@ class _Recurrence(torch.autograd.Function):
         backward = lstm_backward_reference if ctx.plain else lstm_backward
         dxg, dh0, dc0 = backward(g_all, w_s, c0.to(store).contiguous(), c_all,
                                  dy.to(store).contiguous(), dc_all.to(store).contiguous(),
-                                 dhn.float().contiguous(), dcn.float().contiguous())
-        # dW_hh = sum_t h_{t-1}^T dxg_t over the flattened (T * B) rows, with
-        # h_{t-1} from the kernel's unmasked y (h0 at t = 0), both as stored:
-        # the f32 product of stored values is exact, its sums f32.
+                                 dhn.float().contiguous(), dcn.float().contiguous(), ctx.bf16)
+        # h_{t-1} from the kernel's unmasked y (h0 at t = 0), as stored.
         h_prev = torch.cat([h0.to(store)[None], y])[:time]
-        dw_hh = torch.matmul(h_prev.reshape(time * batch, hidden).t().float(),
-                             dxg.reshape(time * batch, 4 * hidden).float())
+        if ctx.bf16:
+            # JAX's bf16 carry of w_hh_c's cotangent (ops/weight_grad.py).
+            carry = bf16_weight_grad_reference if ctx.plain else bf16_weight_grad
+            dw_hh = carry(h_prev, dxg)
+        else:
+            # dW_hh = sum_t h_{t-1}^T dxg_t over the flattened (T * B) rows:
+            # the f32 product of stored values is exact, its sums f32.
+            dw_hh = torch.matmul(h_prev.reshape(time * batch, hidden).t().float(),
+                                 dxg.reshape(time * batch, 4 * hidden).float())
         # dh0 and dc0 pass through the storage type (pallas_rnn.py:272-273).
-        return dxg.float(), dw_hh, dh0.to(store).float(), dc0.to(store).float(), None, None
+        return dxg.float(), dw_hh, dh0.to(store).float(), dc0.to(store).float(), None, None, None
 
 
 def _needs_grad(*tensors):
@@ -424,24 +450,24 @@ def _needs_grad(*tensors):
 
 def _recurrence(xg, w_hh, h0, c0, store, compute):
     """The autograd Function when a gradient is needed (the gate-writing K1
-    and K2), else the recurrence alone. A bf16-compute recurrence that needs
-    a gradient runs the plain loop (on the CPU: :func:`lstm_layer` refuses it
-    on the GPU)."""
+    or K1c, and K2 or K2c), else the recurrence alone."""
     if _needs_grad(xg, w_hh, h0, c0):
-        if compute is None:
-            return _Recurrence.apply(xg, w_hh, h0, c0, store, False)
-        return _plain_recurrence(xg, w_hh, h0, c0, store, compute)
+        return _Recurrence.apply(xg, w_hh, h0, c0, store, False,
+                                 compute is not None and store == torch.float32)
     y, c_all, _, hn, cn = lstm_recurrence(xg.to(store), w_hh.to(store), h0, c0,
                                           compute_bf16=compute is not None)
     return y, c_all, hn, cn
 
 
 def _plain_recurrence(xg, w_hh, h0, c0, store, compute):
-    """The plain recurrence: in f32 (bf16 products or not), autograd through
-    its loop; in another storage type, the plain versions of K1 and K2 as
-    the Function, since the rounding has a VJP of its own (``_core_bwd``)."""
-    if store != torch.float32 and _needs_grad(xg, w_hh, h0, c0):
-        return _Recurrence.apply(xg, w_hh, h0, c0, store, True)
+    """The plain recurrence: in f32 with f32 products, autograd through its
+    loop; in another storage type or with bf16 products, the plain versions
+    of K1 and K2 as the Function, since the rounding has a VJP of its own
+    (``_core_bwd``; with bf16 products the scan's autodiff, its bf16 carry
+    of dW_hh included)."""
+    if (store != torch.float32 or compute is not None) and _needs_grad(xg, w_hh, h0, c0):
+        return _Recurrence.apply(xg, w_hh, h0, c0, store, True,
+                                 compute is not None and store == torch.float32)
     y, c_all, _, hn, cn = lstm_recurrence_reference(xg.to(store), w_hh.to(store), h0, c0,
                                                     compute_bf16=compute is not None)
     return y, c_all, hn, cn
@@ -492,8 +518,6 @@ def lstm_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, c0=None, store_
     y : (batch, time, H), zero past ``seq_len``
     (hn, cn) : the state at ``seq_len`` (at ``time`` without ``seq_len``)
     """
-    refuse_bf16_gradient('K1c', precision.as_compute_dtype(compute_dtype), x, w_ih, w_hh, b_ih,
-                         b_hh, h0, c0)
     return _layer(_recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype,
                   compute_dtype)
 
@@ -501,7 +525,8 @@ def lstm_layer(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, c0=None, store_
 def lstm_layer_reference(x, w_ih, w_hh, b_ih, b_hh, seq_len=None, h0=None, c0=None,
                          store_dtype=None, compute_dtype=None):
     """:func:`lstm_layer` through the plain recurrence on any device, its
-    gradient by autograd through the loop (in f32) or by the plain K2: what
-    the kernels are held against."""
+    gradient by autograd through the loop (in f32) or by the plain K2 (and,
+    with bf16 products, the plain bf16 carry): what the kernels are held
+    against."""
     return _layer(_plain_recurrence, x, w_ih, w_hh, b_ih, b_hh, seq_len, h0, c0, store_dtype,
                   compute_dtype)

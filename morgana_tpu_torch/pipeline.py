@@ -47,7 +47,8 @@ import torch
 from morgana_tpu_torch import vocoder
 from morgana_tpu_torch.data import bucket_size, file_io
 from morgana_tpu_torch.data.prepare import _frame_counters
-from morgana_tpu_torch.serve import InferenceEngine, _Unported, compute_dtype_arg, load_model_class
+from morgana_tpu_torch.ops import precision
+from morgana_tpu_torch.serve import InferenceEngine, _Unported, load_model_class
 from morgana_tpu_torch.vocoder import torch_world
 
 __all__ = ['TTSPipeline', 'durations_to_int', 'main']
@@ -323,7 +324,7 @@ def main(argv=None):
     parser.add_argument('--quantize', default=None, choices=['int8', 'int4'],
                         help='Serve both stages with weight-only quantized parameters (int8, '
                              'or packed group-wise int4).')
-    parser.add_argument('--compute_dtype', default=None, type=compute_dtype_arg,
+    parser.add_argument('--compute_dtype', default=None, type=precision.compute_dtype_arg,
                         help="'bfloat16': serve both stages with bf16 products and f32 sums.")
     parser.add_argument('--data_parallel', nargs=0, action=_Unported, help='Not ported yet.')
     args = parser.parse_args(argv)

@@ -66,7 +66,7 @@ from morgana_tpu_torch.utils import to_numpy
 
 __all__ = ['InferenceEngine', 'StreamingSession', 'DynamicBatcher', 'Overloaded',
            'load_model_class', 'load_exported_program', 'numeric_features', 'program_inputs',
-           'compute_dtype_arg', 'main']
+           'main']
 
 
 class Overloaded(RuntimeError):
@@ -910,17 +910,6 @@ class _Unported(argparse.Action):
         parser.error(f'{option_string} is not ported yet ({self.const or "ROADMAP.md"})')
 
 
-def compute_dtype_arg(value):
-    """The argparse type of ``--compute_dtype``: a name
-    :func:`morgana_tpu_torch.nn.set_default_compute_dtype` takes, else an
-    argparse error naming ROADMAP.md."""
-    try:
-        precision.as_compute_dtype(value)
-    except ValueError as exc:
-        raise argparse.ArgumentTypeError(str(exc)) from None
-    return value
-
-
 def main(argv=None):
     """The serving command line (``serve.py:931-1086``): builds an
     :class:`InferenceEngine` (or, with ``--fleet``, one per voice) on
@@ -984,7 +973,7 @@ def main(argv=None):
     parser.add_argument('--compilation_cache_dir', default=None,
                         help='Build and find the CUDA kernels (and the vocoder library) in this '
                              'directory: a new process that finds them there runs no compiler.')
-    parser.add_argument('--compute_dtype', default=None, type=compute_dtype_arg,
+    parser.add_argument('--compute_dtype', default=None, type=precision.compute_dtype_arg,
                         help="'bfloat16': serve with bf16 products and f32 sums ('float32', the "
                              'default, leaves the products in f32).')
     for flag, nargs in (('--data_parallel', 0), ('--num_data_threads', 1)):

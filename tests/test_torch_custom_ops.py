@@ -17,6 +17,7 @@ import torch
 from morgana_tpu_torch.ops import flash_attention as fa
 from morgana_tpu_torch.ops import gru as gru_ops
 from morgana_tpu_torch.ops import lstm as lstm_ops
+from morgana_tpu_torch.ops import weight_grad
 
 B, T, H = 3, 9, 8
 
@@ -149,6 +150,59 @@ def test_bf16_compute_ops_are_their_plain_versions(op):
     assert all(t.dtype == torch.float32 for t in got)
     _equal(got, want)
     assert not torch.equal(got[0], f32[0])
+    _opcheck(target, args)
+
+
+@pytest.mark.parametrize('op', ['lstm', 'gru', 'attention', 'carry'])
+def test_bf16_backward_ops_are_their_plain_versions(op):
+    """The backward ops' bf16 forms (K2c and K4c: ``compute_bf16``; K5b's
+    backward: bf16 q, k and v; the bf16 carry ``morgana::rnn_dw_bf16``):
+    equal to their plain versions bit for bit, other than the f32 forms
+    (the carry: than the f32 sum rounded once), with fresh outputs;
+    opcheck holds the schemas and fakes."""
+    rng = np.random.default_rng(7)
+    if op == 'lstm':
+        xg, w_hh, h0, c0 = _arr(rng, T, B, 4 * H), _arr(rng, H, 4 * H, scale=0.3), \
+            _arr(rng, B, H), _arr(rng, B, H)
+        _, c_all, g_all, _, _ = lstm_ops.lstm_recurrence_reference(xg, w_hh, h0, c0, True)
+        args = (g_all, w_hh, c0, c_all, _arr(rng, T, B, H), _arr(rng, T, B, H),
+                _arr(rng, B, H), _arr(rng, B, H))
+        got = torch.ops.morgana.lstm_bwd(*args, True)
+        want = lstm_ops.lstm_backward_reference(*args, compute_bf16=True)
+        f32 = torch.ops.morgana.lstm_bwd(*args)
+        target, args = torch.ops.morgana.lstm_bwd.default, args + (True,)
+    elif op == 'gru':
+        xg, w_hh, b_hh, h0 = _arr(rng, B, T, 3 * H), _arr(rng, H, 3 * H, scale=0.3), \
+            _arr(rng, 3 * H), _arr(rng, B, H)
+        seq_len = torch.tensor([T, 4, 0])
+        y, _ = gru_ops._plain_layer_forward(xg, w_hh, b_hh, h0, seq_len, True)
+        _, hg = gru_ops.hidden_gates(w_hh, b_hh, h0, y, batch_first=True,
+                                     compute=torch.bfloat16)
+        args = (xg, hg, w_hh, h0, y, _arr(rng, B, T, H), _arr(rng, B, H), seq_len)
+        got = torch.ops.morgana.gru_bwd(*args, True)
+        want = gru_ops.layer_backward_reference(*args, compute_bf16=True)
+        f32 = torch.ops.morgana.gru_bwd(*args)
+        target, args = torch.ops.morgana.gru_bwd.default, args + (True,)
+    elif op == 'attention':
+        q, k, v, do = (_arr(rng, 2, 2, T, 16) for _ in range(4))
+        seq_len = torch.tensor([T, 4], dtype=torch.int32)
+        o, lse = torch.ops.morgana.attn_fwd(q, k, v, seq_len, True, 4)
+        args = (q.bfloat16(), k.bfloat16(), v.bfloat16(), o, lse, do, seq_len, True, 4)
+        got = torch.ops.morgana.attn_bwd(*args)
+        want = fa.attention_backward_reference(*args[:3], do, seq_len, True, 4)
+        f32 = torch.ops.morgana.attn_bwd(q, k, v, o, lse, do, seq_len, True, 4)
+        target = torch.ops.morgana.attn_bwd.default
+        assert all(t.dtype == torch.bfloat16 for t in got)
+    else:
+        args = (_arr(rng, T, B, H), _arr(rng, T, B, 4 * H))
+        got = (torch.ops.morgana.rnn_dw_bf16(*args),)
+        want = (weight_grad.bf16_weight_grad_reference(*args),)
+        f32 = (torch.einsum('tbh,tbg->hg', args[0].bfloat16().float(), args[1])
+               .bfloat16().float(),)
+        target = torch.ops.morgana.rnn_dw_bf16.default
+    _equal(got, want)
+    assert _fresh(got, [a for a in args if isinstance(a, torch.Tensor)])
+    assert not torch.equal(got[0].float(), f32[0].float())
     _opcheck(target, args)
 
 

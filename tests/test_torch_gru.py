@@ -135,8 +135,9 @@ def test_backward_reference_matches_autograd_through_the_plain_loop():
     class Ctx:
         saved_tensors = [t.transpose(0, 1) if t.ndim == 3 else t for t in saved]
         seq_len = None
+        plain = bf16 = False
     got = gru_ops._Recurrence.backward(Ctx(), dy.transpose(0, 1), dhn)
-    assert got[4] is None
+    assert len(got) == 7 and all(g is None for g in got[4:])
     for g, w in zip((got[0].transpose(0, 1), *got[1:4]), want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=ATOL)
 
@@ -424,9 +425,10 @@ def test_backward_computes_hg_once_and_feeds_the_same_tensor_to_k4_and_dw_hh(mon
 
     class Ctx:
         saved_tensors = (xg, w_hh, b_hh, h0, y)
+        plain = bf16 = False
     ctx = Ctx()
     ctx.seq_len = seq_len
-    dxg, dw_hh, db_hh, _, _ = gru_ops._Recurrence.backward(ctx, dy, dhn)
+    dxg, dw_hh, db_hh, _, _, _, _ = gru_ops._Recurrence.backward(ctx, dy, dhn)
     monkeypatch.undo()
 
     assert len(made) == 1 and len(fed) == 2 and fed[0] is made[0][1]

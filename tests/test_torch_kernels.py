@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels (K1, the LSTM layer forward with and
 without its gate trace, K2, its backward, K3, the GRU layer forward, K4, its
 backward, K5/K6, attention forward and backward, their bf16-compute builds
-K1c, K3c and K5b, and MLPG's banded solve)
+K1c (with and without its gate trace), K2c, K3c, K4c, K5b and K5b's
+backward, the bf16 weight-gradient carry, and MLPG's banded solve)
 against their plain PyTorch versions, and the batched vocoder's determinism
 on the card, on the GPU only (a CUDA kernel has no CPU mode): every test
 here is marked ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
@@ -18,6 +19,8 @@ from morgana_tpu_torch.ops import attention as attention_ops
 from morgana_tpu_torch.ops import flash_attention as fa
 from morgana_tpu_torch.ops import gru as gru_ops
 from morgana_tpu_torch.ops import lstm as lstm_ops
+from morgana_tpu_torch.ops import precision
+from morgana_tpu_torch.ops import weight_grad
 from morgana_tpu_torch.vocoder import torch_world
 from morgana_tpu_torch.vocoder import world
 
@@ -629,23 +632,222 @@ def test_k5b_matches_plain_version(cuda_device, batch, heads, steps, head_dim, c
         assert (got[-1] == 0).all()
 
 
-def test_bf16_compute_kernels_refuse_a_gradient(cuda_device):
-    """K1c, K3c and K5b have no backward (training in bf16 is the next
-    slice): a bf16 call that needs a gradient raises NotImplementedError
-    naming ROADMAP.md, and launches nothing."""
+def test_bf16_gradients_launch_the_backward_kernels(cuda_device):
+    """A bf16 gradient on CUDA tensors raises nothing and falls back to
+    nothing: lstm_layer, gru_layer and flash_attention with compute_dtype
+    bf16 launch K1c with its gate trace, K2c and the bf16 carry; K3c, K4c
+    and the carry; K5b and its backward, one each."""
     x, weights, seq_len, _ = _layer_inputs(cuda_device, 4, 6)
     gx, gweights, gseq_len, _ = _gru_inputs(cuda_device, 4, 6, 64)
     q, k, v, _ = _attn_inputs(cuda_device, 2, 2, 9, 64)
-    before = (lstm_ops.launches, gru_ops.launches, fa.launches)
-    for call in (lambda: lstm_ops.lstm_layer(x.requires_grad_(True), *weights,
-                                             compute_dtype='bfloat16'),
-                 lambda: gru_ops.gru_layer(gx.requires_grad_(True), *gweights,
-                                           compute_dtype='bfloat16'),
-                 lambda: fa.flash_attention(q.requires_grad_(True), k, v,
-                                            compute_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            call()
-    assert (lstm_ops.launches, gru_ops.launches, fa.launches) == before
+    counters = ((lstm_ops, 'bf16_compute_gate_launches'), (lstm_ops, 'bf16_compute_bwd_launches'),
+                (gru_ops, 'bf16_compute_launches'), (gru_ops, 'bf16_compute_bwd_launches'),
+                (fa, 'bf16_launches'), (fa, 'bf16_bwd_launches'), (weight_grad, 'launches'))
+    before = [getattr(m, c) for m, c in counters]
+    y, _ = lstm_ops.lstm_layer(x.requires_grad_(True), *weights, seq_len=seq_len,
+                               compute_dtype='bfloat16')
+    y.sum().backward()
+    y, _ = gru_ops.gru_layer(gx.requires_grad_(True), *gweights, seq_len=gseq_len,
+                             compute_dtype='bfloat16')
+    y.sum().backward()
+    o = fa.flash_attention(q.requires_grad_(True), k, v, compute_dtype=torch.bfloat16)
+    o.sum().backward()
+    torch.cuda.synchronize()
+    launched = [getattr(m, c) - b for (m, c), b in zip(counters, before)]
+    assert launched == [1, 1, 1, 1, 1, 1, 2], launched
+    assert all(torch.isfinite(t.grad).all() for t in (x, gx, q))
+
+
+def test_bf16_matmul_gradient_is_the_cpus(cuda_device):
+    """precision.matmul's gradient on the GPU (the bf16 GEMM, then SGEMMs of
+    the upcast operands, each rounded to bf16) against autograd through the
+    roundings on the CPU: dx and dw bf16 values within BF16_ULPS ulps."""
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(3, 37, 96)).astype(np.float32)
+    w = rng.normal(size=(96, 80)).astype(np.float32)
+    dout = rng.normal(size=(3, 37, 80)).astype(np.float32)
+    grads = {}
+    for device in ('cpu', cuda_device):
+        leaves = [torch.from_numpy(a).to(device).requires_grad_(True) for a in (x, w)]
+        out = precision.matmul(*leaves, torch.bfloat16)
+        (out * torch.from_numpy(dout).to(device)).sum().backward()
+        grads[str(device)] = [t.grad.cpu() for t in leaves]
+    for got, want in zip(grads['cuda'], grads['cpu']):
+        torch.testing.assert_close(got, got.to(torch.bfloat16).float(), rtol=0, atol=0)
+        _assert_bf16_close(got, want)
+
+
+def _assert_bf16_grads(got, want, f32, steps, common_scale=False):
+    """A bf16 backward's outputs `got` against its plain version's `want`:
+    within BF16_ULPS ulps at each one's max |value| (with `common_scale`, at
+    the largest of them all: attention's dq and dk are exactly 0 in the
+    plain version where a row sees one key, and the kernel's rounding
+    residue there is held to dv's scale), and, past T = 1, where the bf16
+    roundings have a step to act on, closer in the mean to `want` than to
+    `f32`, the f32 plain version's (K5B_CLOSER)."""
+    scale = max(max((float(w.float().abs().max()) for w in want if w.numel()), default=0.0),
+                1e-30)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        own = float(w.float().abs().max()) if w.numel() else 0.0
+        tol = BF16_ULPS * 2.0 ** -7 * (scale if common_scale else own)
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
+    if steps > 1:
+        near = sum(float((g.float() - w.float()).abs().sum()) for g, w in zip(got, want))
+        far = sum(float((g.float() - o.float()).abs().sum()) for g, o in zip(got, f32))
+        assert far > 0 and near * K5B_CLOSER < far, (near, far)
+
+
+# (B, T, H): the LSTM's training batch, B = 1, T = 1, T = 0, a width padded
+# to the next built one (96 -> 128, 600 -> 1024) and B = 256.
+K2C_SHAPES = [(32, 64, 512), (1, 33, 512), (5, 1, 512), (16, 0, 512), (40, 33, 96),
+              (3, 9, 600), (256, 5, 512)]
+
+
+@pytest.mark.parametrize('batch,steps,hidden', K2C_SHAPES)
+def test_k1c_gates_k2c_and_carry_match_plain_versions(cuda_device, batch, steps, hidden):
+    """The bf16 gradient path of lstm_layer (the bf16 input GEMM, K1c writing
+    its gate trace, K2c, the bf16 carry of dW_hh) against the plain versions
+    in the same autograd Function (lstm_layer_reference with compute_dtype
+    bf16), for dx, the four weights, h0 and c0: within BF16_ULPS ulps at each
+    gradient's max and closer in the mean to them than to the f32 plain
+    gradients (K5B_CLOSER); K1c's gate trace and K2c alone against their
+    plain versions on the same inputs likewise."""
+    x, weights, seq_len, state = _layer_inputs(cuda_device, batch, steps, hidden=hidden)
+    if steps == 0:
+        seq_len = None
+
+    def bf16(fn):
+        return lambda *a, **k: fn(*a, compute_dtype='bfloat16', **k)
+
+    counters = ('bf16_compute_gate_launches', 'bf16_compute_bwd_launches')
+    before = [getattr(lstm_ops, c) for c in counters] + [weight_grad.launches]
+    got = _loss_grads(bf16(lstm_ops.lstm_layer), x, weights, seq_len, state)
+    torch.cuda.synchronize()
+    assert [getattr(lstm_ops, c) for c in counters] + [weight_grad.launches] == \
+        [b + 1 for b in before]
+    want = _loss_grads(bf16(lstm_ops.lstm_layer_reference), x, weights, seq_len, state)
+    f32 = _loss_grads(lstm_ops.lstm_layer_reference, x, weights, seq_len, state)
+    _assert_bf16_grads(got, want, f32, steps)
+
+    w_ih, w_hh, b_ih, b_hh = weights
+    xg = (precision.matmul(x, w_ih, torch.bfloat16) + (b_ih + b_hh)).transpose(0, 1).contiguous()
+    _, c_all, gates, _, _ = lstm_ops.lstm_recurrence(xg, w_hh, *state, with_gates=True,
+                                                     compute_bf16=True)
+    _, _, plain_gates, _, _ = lstm_ops.lstm_recurrence_reference(xg, w_hh, *state, True)
+    _assert_bf16_close(gates, plain_gates)
+    rng = np.random.default_rng(18)
+    cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+           for shape in ((steps, batch, hidden),) * 2 + ((batch, hidden),) * 2]
+    args = (gates, w_hh, state[1], c_all, *cot)
+    _assert_bf16_grads(lstm_ops.lstm_backward(*args, compute_bf16=True),
+                       lstm_ops.lstm_backward_reference(*args, compute_bf16=True),
+                       lstm_ops.lstm_backward_reference(*args), steps)
+
+
+@pytest.mark.parametrize('hidden', [64, 128])
+@pytest.mark.parametrize('batch,steps', [(32, 64), (1, 17), (5, 1), (16, 0), (40, 33)])
+def test_k4c_and_carry_match_plain_versions(cuda_device, batch, steps, hidden):
+    """The bf16 gradient path of gru_layer (K3c, hg on rounded operands, K4c,
+    the bf16 carry of dW_hh) against the plain versions in the same autograd
+    Function (gru_layer_reference with compute_dtype bf16): within
+    BF16_ULPS ulps at each gradient's max and closer in the mean to them
+    than to the f32 plain gradients; K4c alone against its plain version on
+    the layer's operands likewise."""
+    x, weights, seq_len, h0 = _gru_inputs(cuda_device, batch, steps, hidden)
+
+    def bf16(fn):
+        return lambda *a, **k: fn(*a, compute_dtype='bfloat16', **k)
+
+    before = (gru_ops.bf16_compute_bwd_launches, weight_grad.launches)
+    got = _gru_loss_grads(bf16(gru_ops.gru_layer), x, weights, seq_len, h0)
+    torch.cuda.synchronize()
+    assert (gru_ops.bf16_compute_bwd_launches, weight_grad.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = _gru_loss_grads(bf16(gru_ops.gru_layer_reference), x, weights, seq_len, h0)
+    f32 = _gru_loss_grads(gru_ops.gru_layer_reference, x, weights, seq_len, h0)
+    _assert_bf16_grads(got, want, f32, steps)
+
+    w_ih, w_hh, b_ih, b_hh = weights
+    xg = precision.matmul(x, w_ih, torch.bfloat16) + b_ih
+    y, _ = gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len, compute_bf16=True)
+    rng = np.random.default_rng(19)
+    dy, dhn = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+               for shape in (tuple(y.shape), tuple(h0.shape)))
+    _, hg = gru_ops.hidden_gates(w_hh, b_hh, h0, y, batch_first=True, compute=torch.bfloat16)
+    args = (xg, hg, w_hh, h0, y, dy, dhn, seq_len)
+    _assert_bf16_grads(gru_ops._gru_bwd_cuda(*args, compute_bf16=True),
+                       gru_ops.layer_backward_reference(*args, compute_bf16=True),
+                       gru_ops.layer_backward_reference(*args), steps)
+
+
+@pytest.mark.parametrize('batch,heads,steps,head_dim,causal,window', ATTN_SHAPES)
+def test_k5b_backward_matches_plain_version(cuda_device, batch, heads, steps, head_dim, causal,
+                                            window):
+    """dq, dk, dv of a loss on the rows below seq_len through
+    flash_attention(compute_dtype=bf16) (K5b, then its backward) against
+    autograd through the plain bf16 attention, and K5b's backward alone on
+    bf16 q, k and v against attention_backward_reference: within BF16_ULPS
+    ulps at each gradient's max, closer in the mean to the bf16 plain
+    version than to the f32 one; one backward launch of the bf16 build."""
+    q, k, v, seq_len = _attn_inputs(cuda_device, batch, heads, steps, head_dim)
+    mask = {'seq_len': seq_len, 'causal': causal, 'window': window}
+    rng = np.random.default_rng(16)
+    weight = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(cuda_device)
+    weight = weight * _valid_rows(seq_len, steps)
+
+    def grads(fn, **kwargs):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, **mask, **kwargs)
+        return torch.autograd.grad((out * weight).sum(), leaves)
+
+    before = fa.bf16_bwd_launches
+    got = grads(fa.flash_attention, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fa.bf16_bwd_launches == before + 1
+    want = grads(fa.flash_attention_reference, compute_dtype=torch.bfloat16)
+    f32 = grads(fa.flash_attention_reference)
+    _assert_bf16_grads(got, want, f32, steps, common_scale=True)
+
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    o, lse = fa.attention_forward(qb, kb, vb, **mask)
+    alone = fa.attention_backward(qb, kb, vb, o, lse, weight, **mask)
+    plain = fa.attention_backward_reference(qb, kb, vb, weight, **mask)
+    assert all(t.dtype == torch.bfloat16 for t in alone)
+    _assert_bf16_grads(alone, plain, f32, steps, common_scale=True)
+
+
+# (T, B, H, G, batch_major): the LSTM's training shape, the GRU's (G = 3H)
+# as the layer hands it over (batch-major views), B past one staged chunk,
+# T = 0, B = 1 and sizes no tile divides.
+CARRY_SHAPES = [(1024, 32, 512, 2048, False), (1024, 32, 64, 192, True), (9, 40, 33, 99, True),
+                (0, 4, 64, 256, False), (17, 1, 128, 384, False), (5, 70, 20, 60, False)]
+
+
+@pytest.mark.parametrize('steps,batch,hidden,gates,batch_major', CARRY_SHAPES)
+def test_bf16_carry_kernel_matches_plain_version(cuda_device, steps, batch, hidden, gates,
+                                                 batch_major):
+    """The bf16 weight-gradient carry against its plain version (one f32
+    GEMM a step, the carry rounded to bf16): bf16 values within BF16_ULPS
+    ulps at the max, closer in the mean to the plain version than to the
+    f32 sum rounded once; one launch."""
+    rng = np.random.default_rng(20)
+
+    def tensor(*shape):
+        array = rng.normal(size=shape).astype(np.float32)
+        t = torch.from_numpy(array).to(cuda_device)
+        return t.transpose(0, 1).contiguous().transpose(0, 1) if batch_major else t
+
+    h_prev, dg = tensor(steps, batch, hidden), 1e-2 * tensor(steps, batch, gates)
+    before = weight_grad.launches
+    got = weight_grad.bf16_weight_grad(h_prev, dg)
+    torch.cuda.synchronize()
+    assert weight_grad.launches == before + 1
+    want = weight_grad.bf16_weight_grad_reference(h_prev, dg)
+    torch.testing.assert_close(got, got.to(torch.bfloat16).float(), rtol=0, atol=0)
+    once = torch.einsum('tbh,tbg->hg', h_prev.to(torch.bfloat16).float(), dg)
+    once = once.to(torch.bfloat16).float()
+    _assert_bf16_grads([got], [want], [once], steps)
 
 
 def test_attention_dropout_takes_the_plain_path_in_training(cuda_device):
