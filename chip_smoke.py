@@ -218,10 +218,11 @@ entry there; its phases' lines carry the card's name and power limit.
 Needs no network and writes only to a temporary directory. The profiler's
 device-time tables go to stderr.
 
-Two other modes, each after the device and build phases: --attention-parent
-DIR times the attention kernels of another tree (DIR holds its
-morgana_tpu_torch/csrc, e.g. a git archive of the parent commit) beside this
-tree's, in turns, at the k5 / k5_bwd main shapes (attn_parent_compare);
+Two other modes, each after the device and build phases: --kernel-parent
+DIR times the attention kernels and the bf16 carry of another tree (DIR
+holds its morgana_tpu_torch/csrc, e.g. a git archive of the parent commit)
+beside this tree's, in turns, at the k5 / k5_bwd / k5b_bwd main shapes and
+the LSTM, F0 and Duration carries (kernel_parent_compare);
 --transformer-only runs phases 16 and 17 alone: copied into another tree's
 root, it gives that tree's end-to-end numbers.
 """
@@ -431,10 +432,12 @@ def k1_bound(batch, time_steps, hidden, gates=False, store=None, compute=None):
 
 def mixed_product_ms(flops):
     """Least time for products of a bf16 operand and an f32 one with f32
-    sums: two TF32 passes on the tensor cores (the f32 operand's high and
-    low parts; a bf16 value is exact in TF32) at the TF32 peak. The bounds
-    of K2c, K4c, the carry and K5b's backward count such products so."""
-    return 2.0 * flops / TF32_PEAK_FLOPS * 1e3
+    sums: three bf16 passes on the tensor cores (the f32 operand split into
+    three bf16 planes that add back to it exactly; each plane times a bf16
+    value is exact in f32) at the bf16 peak, 3/4 of the time of two TF32
+    passes. The bounds of K2c, K4c, the carry and K5b's backward count such
+    products so."""
+    return 3.0 * flops / BF16_PEAK_FLOPS * 1e3
 
 
 def k2_bound(batch, time_steps, hidden, store=None, compute=None):
@@ -488,8 +491,9 @@ def carry_bound(batch, time_steps, hidden, gates):
     """Least time for the bf16 weight-gradient carry: H*G*T*B multiply-adds
     (2 flops each) of f32 gate gradients by bf16 states, summed in f32, as
     mixed_product_ms (each step's product of depth B on the tensor cores,
-    rounded before it joins the carry), against h_prev (T, B, H) and dg (T,
-    B, G) read and dW (H, G) written in f32 at the memory rate."""
+    three bf16 passes, rounded before it joins the carry), against h_prev
+    (T, B, H) and dg (T, B, G) read and dW (H, G) written in f32 at the
+    memory rate."""
     flops = 2.0 * hidden * gates * time_steps * batch
     nbytes = 4.0 * (time_steps * batch * (hidden + gates) + hidden * gates)
     ops_ms, bytes_ms = mixed_product_ms(flops), nbytes / HBM_BYTES_PER_S * 1e3
@@ -1211,122 +1215,200 @@ def k5_bwd_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, 
     return out
 
 
-@contextlib.contextmanager
-def attention_kernels_of(entries):
-    """The attention wrappers of ops/flash_attention.py launch the kernels
-    of `entries` ({(name, entry, None): (lib, fn)}, as ops/_kernels.py keeps
-    them) instead of this tree's while the context is open."""
-    from morgana_tpu_torch.ops import _kernels
-
-    saved = {key: _kernels._ENTRIES.get(key) for key in entries}
-    _kernels._ENTRIES.update(entries)
-    try:
-        yield
-    finally:
-        for key, value in saved.items():
-            if value is None:
-                _kernels._ENTRIES.pop(key, None)
-            else:
-                _kernels._ENTRIES[key] = value
+# The parent tree's C entries: name -> (entry, argument types), as the tree
+# before K5b's backward had a source of its own: attn_bwd takes a bf16 flag
+# there (its bf16 build was K5b's backward), rnn_dw_bf16 no scratch.
+PARENT_ENTRIES = {
+    'attn_fwd': ('morgana_attn_fwd', ['p'] * 6 + ['i'] * 8 + ['p']),
+    'attn_bwd': ('morgana_attn_bwd', ['p'] * 11 + ['i'] * 8 + ['p']),
+    'rnn_dw_bf16': ('morgana_rnn_dw_bf16', ['p'] * 3 + ['i'] * 4 + ['q'] * 4 + ['i', 'p'])}
 
 
-def build_parent_attention(parent):
-    """The attention kernels of another tree (`parent` holds its
-    morgana_tpu_torch/csrc, e.g. a git archive of the parent commit), built
-    with this tree's nvcc flags into `parent`/build, one nvcc each, both
-    started together, and bound with this tree's entry types (the C entries
-    kept their signatures). Returns the entries for attention_kernels_of and
-    the compiler's register and spill lines."""
+def build_parent_kernels(parent):
+    """The kernels of another tree (`parent` holds its morgana_tpu_torch/csrc,
+    e.g. a git archive of the parent commit) named in PARENT_ENTRIES, built
+    with this tree's nvcc flags into `parent`/build, one nvcc each, all
+    started together. Returns {name: C function} and the compiler's
+    register and spill lines."""
     import ctypes
 
     from morgana_tpu_torch import _build
-    from morgana_tpu_torch.ops import _kernels
 
+    kinds = {'p': ctypes.c_void_p, 'i': ctypes.c_int, 'q': ctypes.c_longlong}
     csrc = os.path.join(parent, 'morgana_tpu_torch', 'csrc')
     out_dir = os.path.join(parent, 'build')
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name in ('attn_fwd', 'attn_bwd'):
+    for name in PARENT_ENTRIES:
         target = os.path.join(out_dir, f'{name}.so')
         procs[name] = target, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, '-o', target, os.path.join(csrc, f'{name}.cu')],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    entries, logs = {}, {}
+    fns, logs = {}, {}
     for name, (target, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f'parent {name}: nvcc exited {proc.returncode}\n{log}')
         logs[name] = [line.strip() for line in log.splitlines() if 'Used' in line or 'spill' in line]
-        entry = f'morgana_{name}'
-        _, ours = _kernels._ENTRIES[name, entry, None]
-        lib = ctypes.CDLL(target)
-        fn = getattr(lib, entry)
-        fn.argtypes, fn.restype = ours.argtypes, ctypes.c_int
-        lib.morgana_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.morgana_cuda_error_string.restype = ctypes.c_char_p
-        entries[name, entry, None] = lib, fn
-    return entries, logs
+        entry, types = PARENT_ENTRIES[name]
+        fn = getattr(ctypes.CDLL(target), entry)
+        fn.argtypes, fn.restype = [kinds[k] for k in types], ctypes.c_int
+        fns[name] = fn
+    return fns, logs
 
 
-def attention_parent_phase(torch, dev, parent):
-    """The parent tree's attention kernels beside this tree's in one process,
-    in turns (parent, this, this, parent), through the same wrappers on the
-    inputs of the timed k5 / k5_bwd cases: the forward at B16 (the serving
-    batch) and B32, the backward at B32 (the training batch), T1024 H4 dh96,
-    full, causal and causal with window 256. Both outputs are held to each
-    other: the forward within KERNEL_TOL abs, the gradients within GRAD_RTOL
-    of their largest |value|."""
+def parent_wrappers(torch, fns):
+    """The parent's attention forward, its backward (f32, or its bf16 build
+    for bf16 q, k, v) and its carry, called as this tree's wrappers are:
+    (attention_forward's o, attention_backward's (dq, dk, dv), the carry's
+    dW)."""
+
+    def launch(name, *args):
+        err = fns[name](*args, torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f'parent {name}: cudaError {err}')
+
+    def lengths(seq_len, batch):
+        return torch.as_tensor(seq_len).reshape(batch).to(torch.int32).contiguous()
+
+    def forward(q, k, v, seq_len, causal, window):
+        batch, heads, time_steps, head_dim = q.shape
+        o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        lens = lengths(seq_len, batch)
+        launch('attn_fwd', q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+               o.data_ptr(), lse.data_ptr(), batch, heads, time_steps, head_dim, int(causal),
+               int(window or 0), int(q.dtype == torch.bfloat16))
+        return o
+
+    def backward(q, k, v, o, lse, do, seq_len, causal, window):
+        batch, heads, time_steps, head_dim = q.shape
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        lens = lengths(seq_len, batch)
+        launch('attn_bwd', *(t.data_ptr() for t in (q, k, v, o, do, lse, lens, delta, *grads)),
+               batch, heads, time_steps, head_dim, int(causal), int(window or 0),
+               int(q.dtype == torch.bfloat16))
+        return grads
+
+    def carry(h_prev, dg):
+        time_steps, batch, hidden = h_prev.shape
+        dw = torch.empty((hidden, dg.shape[2]), dtype=torch.float32, device=h_prev.device)
+        launch('rnn_dw_bf16', h_prev.data_ptr(), dg.data_ptr(), dw.data_ptr(), time_steps, batch,
+               hidden, dg.shape[2], h_prev.stride(0), h_prev.stride(1), dg.stride(0),
+               dg.stride(1))
+        return dw
+
+    return forward, backward, carry
+
+
+# The carry's shapes in the parent comparison: (name, T, B, H, G,
+# batch_major) of the LSTM (B32 T1024), F0Model and DurationModel layers.
+CARRY_PARENT_SHAPES = (('lstm', 1024, TRAIN_BATCH, H, 4 * H, False),
+                       ('f0', 1024, TRAIN_BATCH, 64, 192, True),
+                       ('duration', 128, TRAIN_BATCH, 128, 384, True))
+
+
+def kernel_parent_phase(torch, dev, parent):
+    """The parent tree's attention kernels and carry beside this tree's in
+    one process, in turns (parent, this, this, parent), on the same inputs:
+    the f32 forward at B16 (the serving batch) and B32, the f32 backward and
+    K5b's backward at B32 (the training batch), T1024 H4 dh96, full, causal
+    and causal with window 256, and the carry at CARRY_PARENT_SHAPES. The f32
+    outputs are held to each other as k5 / k5_bwd hold them to the plain
+    version (KERNEL_TOL abs, GRAD_RTOL of the largest |value|), the bf16
+    ones within BF16_ULPS bf16 ulps of the largest |value| (of the three
+    gradients, or of dW). Beside K5b's backward, SDPA's forward+backward on
+    the same bf16 q, k, v; beside the carry, the f32 dW GEMM it replaces."""
     from morgana_tpu_torch.ops import flash_attention as fa
+    from morgana_tpu_torch.ops import weight_grad
 
-    # (B, causal, window, backward, seed): the inputs of main()'s timed k5 and
-    # k5_bwd cases at dh 96.
-    cases = [(SERVE_BATCH, False, None, False, 51)] + [
-        (TRAIN_BATCH, causal, window, False, 52)
-        for causal, window in ((False, None), (True, None), (True, 256))] + [
-        (TRAIN_BATCH, False, None, True, 56), (TRAIN_BATCH, True, None, True, 57),
-        (TRAIN_BATCH, True, 256, True, 58)]
-    # Load this tree's libraries first: the parent's entries take their types.
-    q, k, v, seq_len = attention_inputs(torch, dev, 1, 1, 1, 96, 0)
-    o, lse = fa.attention_forward(q, k, v)
-    fa.attention_backward(q, k, v, o, lse, o)
-    entries, ptxas = build_parent_attention(parent)
+    fns, ptxas = build_parent_kernels(parent)
+    parent_fwd, parent_bwd, parent_carry = parent_wrappers(torch, fns)
+    # (kernel, B, causal, window, seed): the inputs of main()'s timed k5,
+    # k5_bwd and k5b_bwd cases at dh 96.
+    masks = ((False, None), (True, None), (True, 256))
+    cases = ([('attn_fwd', SERVE_BATCH, False, None, 51)]
+             + [('attn_fwd', TRAIN_BATCH, c, w, 52) for c, w in masks]
+             + [('attn_bwd', TRAIN_BATCH, c, w, seed) for (c, w), seed in zip(masks, (56, 57, 58))]
+             + [('attn_bwd_bf16', TRAIN_BATCH, c, w, seed)
+                for (c, w), seed in zip(masks, (116, 117, 117))])
     rows = []
-    for batch, causal, window, backward, seed in cases:
+
+    def compare(row, this, parent_fn, reps, tol_of):
+        times, outs = {'parent': [], 'this': []}, {}
+        for who in ('parent', 'this', 'this', 'parent'):
+            fn = this if who == 'this' else parent_fn
+            times[who].append(cuda_ms(torch, fn, reps))
+            outs[who] = fn()
+        torch.cuda.synchronize()
+        err, tol = tol_of(outs['this'], outs['parent'])
+        row.update(parent_ms=times['parent'], ms=times['this'],
+                   speedup=min(times['parent']) / max(times['this']), err_vs_parent=err,
+                   tolerance=tol)
+        rows.append(row)
+        if not err <= tol:
+            raise AssertionError(f'this tree and the parent disagree: {row}')
+
+    def grads_rel(got, want):
+        scale = max(max(max_abs(w.float()) for w in want), 1e-30)
+        return max(max_abs(a.float() - b.float()) for a, b in zip(got, want)) / scale
+
+    for kernel, batch, causal, window, seed in cases:
         q, k, v, seq_len = attention_inputs(torch, dev, batch, 4, 1024, 96, seed)
         mask = dict(seq_len=seq_len, causal=causal, window=window)
         pairs = attention_pairs(seq_len.tolist(), 1024, 4, causal, window)
-        if backward:
-            o, lse = fa.attention_forward(q, k, v, **mask)
-            rng = np.random.default_rng(seed + 100)
-            weight = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(dev)
-            weight = weight * valid_rows(torch, seq_len, 1024)
-            fn, reps = (lambda: fa.attention_backward(q, k, v, o, lse, weight, **mask)), 10
+        row = {'kernel': kernel, 'B': batch, 'causal': causal, 'window': window,
+               'visible_pairs': pairs}
+        if kernel == 'attn_fwd':
+            row['bound_ms'], row['bound_by'], row['simt_bound_ms'] = attention_bound(
+                batch, 4, 1024, 96, pairs)
+            valid = valid_rows(torch, seq_len, 1024)
+            compare(row, lambda: fa.attention_forward(q, k, v, **mask)[0],
+                    lambda: parent_fwd(q, k, v, **mask), 20,
+                    lambda a, b: (max_abs((a - b) * valid), KERNEL_TOL))
+            continue
+        rng = np.random.default_rng(seed + 100)
+        weight = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32)).to(dev)
+        weight = weight * valid_rows(torch, seq_len, 1024)
+        if kernel == 'attn_bwd_bf16':
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            row['bound_ms'], row['bound_by'], _ = attention_bf16_bwd_bound(batch, 4, 1024, 96,
+                                                                           pairs)
+            tol = BF16_ULPS * 2.0 ** -7
+
+            def sdpa_grads():
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                out = sdpa(torch, *leaves, **mask)
+                return torch.autograd.grad((out.float() * weight).sum(), leaves)
+
+            row['library_ms'] = cuda_ms(torch, sdpa_grads, 10)
         else:
-            fn, reps = (lambda: fa.attention_forward(q, k, v, **mask)[0]), 20
-        times, outs = {'parent': [], 'this': []}, {}
-        for who in ('parent', 'this', 'this', 'parent'):
-            with attention_kernels_of(entries) if who == 'parent' else contextlib.nullcontext():
-                times[who].append(cuda_ms(torch, fn, reps))
-                outs[who] = fn()
-        torch.cuda.synchronize()
-        if backward:
-            scale = max(max(max_abs(g) for g in outs['parent']), 1e-30)
-            err = max(max_abs(a - b) for a, b in zip(outs['this'], outs['parent'])) / scale
+            row['bound_ms'], row['bound_by'], row['simt_bound_ms'] = attention_bound(
+                batch, 4, 1024, 96, pairs, backward=True)
             tol = GRAD_RTOL
-        else:
-            err = max_abs((outs['this'] - outs['parent']) * valid_rows(torch, seq_len, 1024))
-            tol = KERNEL_TOL
-        bound, bound_by, simt = attention_bound(batch, 4, 1024, 96, pairs, backward)
-        rows.append({'kernel': 'attn_bwd' if backward else 'attn_fwd', 'B': batch,
-                     'causal': causal, 'window': window, 'visible_pairs': pairs,
-                     'parent_ms': times['parent'], 'ms': times['this'],
-                     'speedup': min(times['parent']) / max(times['this']),
-                     'bound_ms': bound, 'bound_by': bound_by, 'simt_bound_ms': simt,
-                     'err_vs_parent': err, 'tolerance': tol})
-        if not err <= tol:
-            raise AssertionError(f'this tree and the parent disagree: {rows[-1]}')
-    emit({'phase': 'attn_parent_compare', 'parent': parent, 'parent_ptxas': ptxas,
-          'order': 'parent, this, this, parent', 'rows': rows})
+        o, lse = fa.attention_forward(q, k, v, **mask)
+        compare(row, lambda: fa.attention_backward(q, k, v, o, lse, weight, **mask),
+                lambda: parent_bwd(q, k, v, o, lse, weight, **mask), 10,
+                lambda a, b: (grads_rel(a, b), tol))
+
+    for name, time_steps, batch, hidden, gates, batch_major in CARRY_PARENT_SHAPES:
+        rng = np.random.default_rng(131)
+
+        def tensor(*shape):
+            t = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+            return t.transpose(0, 1).contiguous().transpose(0, 1) if batch_major else t
+
+        h_prev, dg = tensor(time_steps, batch, hidden), 1e-2 * tensor(time_steps, batch, gates)
+        row = {'kernel': 'rnn_dw_bf16', 'model': name, 'T': time_steps, 'B': batch, 'H': hidden,
+               'G': gates, 'batch_major': batch_major,
+               'f32_gemm_ms': cuda_ms(torch, lambda: torch.einsum('tbh,tbg->hg', h_prev, dg), 10)}
+        row['bound_ms'], row['bound_by'] = carry_bound(batch, time_steps, hidden, gates)
+        compare(row, lambda: weight_grad.bf16_weight_grad(h_prev, dg),
+                lambda: parent_carry(h_prev, dg), 5,
+                lambda a, b: (grads_rel([a], [b]), BF16_ULPS * 2.0 ** -7))
+    emit({'phase': 'kernel_parent_compare', 'parent': parent, 'parent_ptxas': ptxas,
+          'order': 'parent, this, this, parent', 'nvidia_smi': nvidia_smi(), 'rows': rows})
     return rows
 
 
@@ -4057,8 +4139,7 @@ def attention_bf16_bwd_bound(batch, heads, time_steps, head_dim, pairs):
     """Least time for K5b's backward on the route it takes: q.k^T (2 * P *
     dh flops on bf16 operands) at the bf16 tensor-core peak, and the four
     products with an f32 operand (do.v^T, P^T.do, dS.k, dS^T.q: 8 * P * dh)
-    as two TF32 passes (the f32 operand's high and low parts; the bf16 one
-    is exact in TF32) at the TF32 peak; 2 * P exp at the SFU rate; bf16 q,
+    as mixed_product_ms (three bf16 passes); 2 * P exp at the SFU rate; bf16 q,
     k, v and f32 do and lse read and bf16 dq, dk, dv written at the memory
     rate. Returns (bound_ms, bound_by, simt_bound_ms), the last the flops
     once at the f32 peak, or the bytes."""
@@ -4819,10 +4900,10 @@ def bf16_serving_phase(torch, served, smi):
 def main(argv=None):
     parser = argparse.ArgumentParser(description='Smoke test of the port on one NVIDIA GPU; '
                                      'with no arguments, every phase.')
-    parser.add_argument('--attention-parent', metavar='DIR',
-                        help='only time the attention kernels of DIR (a tree holding '
-                        'morgana_tpu_torch/csrc, e.g. a git archive of the parent commit) '
-                        "beside this tree's, in turns, and stop")
+    parser.add_argument('--kernel-parent', metavar='DIR',
+                        help='only time the attention kernels and the bf16 carry of DIR (a '
+                        'tree holding morgana_tpu_torch/csrc, e.g. a git archive of the parent '
+                        "commit) beside this tree's, in turns, and stop")
     parser.add_argument('--transformer-only', action='store_true',
                         help='only the Transformer serving and training phases (copied into '
                         "another tree's root, this gives that tree's end-to-end numbers)")
@@ -4848,11 +4929,12 @@ def main(argv=None):
     # Every kernel, and the LSTM kernels' step_split build, one nvcc each, all
     # started together.
     start = time.perf_counter()
-    only = args.attention_parent or args.transformer_only
+    only = args.kernel_parent or args.transformer_only
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         split_build = None if only else pool.submit(_build.build, ['lstm_fwd', 'lstm_bwd'],
                                                     'step_split')
-        paths = _build.build(['attn_fwd', 'attn_bwd'] if only else None)
+        paths = _build.build(None if not only else ['attn_fwd', 'attn_bwd'] + (
+            ['attn_bwd_bf16', 'rnn_dw_bf16'] if args.kernel_parent else []))
         if split_build is not None:
             split_build.result()
     logs = {}
@@ -4866,8 +4948,8 @@ def main(argv=None):
 
     dev = torch.device('cuda')
     if only:
-        if args.attention_parent:
-            attention_parent_phase(torch, dev, args.attention_parent)
+        if args.kernel_parent:
+            kernel_parent_phase(torch, dev, args.kernel_parent)
         else:
             with tempfile.TemporaryDirectory() as root:
                 transformer_serving_phase(torch, root)
@@ -5120,7 +5202,7 @@ def main(argv=None):
              'morgana_tpu/ops/pallas_rnn.py:113', 'morgana_tpu/ops/rnn.py:113'),
             ('gru_bwd_bf16_compute', 'k4c', 'k4c', 'max_abs_err_vs_plain', 'gru_bwd.cu',
              'morgana_tpu/ops/pallas_gru.py:59', 'morgana_tpu/ops/rnn.py:347'),
-            ('attn_bwd_bf16', 'k5b_bwd', 'k5b_bwd', 'max_abs_err_vs_plain', 'attn_bwd.cu',
+            ('attn_bwd_bf16', 'k5b_bwd', 'k5b_bwd', 'max_abs_err_vs_plain', 'attn_bwd_bf16.cu',
              'morgana_tpu/nn.py:1001', 'morgana_tpu/nn.py:1055'),
             ('rnn_dw_bf16', 'carry', 'carry', 'max_abs_err_vs_plain', 'rnn_dw_bf16.cu',
              'morgana_tpu/ops/rnn.py:120', 'morgana_tpu/ops/rnn.py:351'))]})

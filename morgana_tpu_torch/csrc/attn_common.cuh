@@ -1,6 +1,8 @@
-// Shared by the attention kernels K5/K6 (attn_fwd.cu, attn_bwd.cu): the
-// visibility rule of the masks, the products on the tensor cores in 3xTF32,
-// and the asynchronous tile copies.
+// Shared by the attention kernels K5/K6 (attn_fwd.cu, attn_bwd.cu), K5b's
+// backward (attn_bwd_bf16.cu) and the bf16 weight-gradient carry
+// (rnn_dw_bf16.cu): the visibility rule of the masks, the products on the
+// tensor cores (3xTF32, bf16, and bf16 x three bf16 planes of an f32
+// operand), and the asynchronous tile copies.
 //
 // Products. A block is 4 warps; each warp owns a 16-row tile of one side of
 // every product and runs it as mma.sync.m16n8k8 in TF32. Each f32 operand x
@@ -23,13 +25,21 @@
 // while the current one is computed. Their row strides keep every fragment
 // read conflict-free (kRowStride, kColStride).
 //
-// Elem is the element type of q, k, v and their gradients in device memory
-// (IoOps<Elem> reads and writes it); every sum is f32. Both kernels are
-// built for Elem = float and Elem = __nv_bfloat16. The bf16 forward (K5b,
-// attn_fwd.cu) keeps bf16 in shared memory and runs each product as one
-// mma.sync.m16n8k16 in bf16 (mma_bf16 below), with f32 sums; o and lse stay
-// f32. The bf16 backward (attn_bwd.cu) widens q, k and v to f32 in shared
-// memory and keeps the 3xTF32 products, since do and dS are f32.
+// Elem is the element type of q, k, v in device memory (IoOps reads and
+// writes f32); every sum is f32. The forward is built for Elem = float and
+// Elem = __nv_bfloat16: the bf16 forward (K5b, attn_fwd.cu) keeps bf16 in
+// shared memory and runs each product as one mma.sync.m16n8k16 in bf16
+// (mma_bf16 below), with f32 sums; o and lse stay f32.
+//
+// An f32 operand of a product with a bf16 one (do, dS, the gate gradients
+// of the carry) goes to mma.sync.m16n8k16 as three bf16 planes (split3_pack):
+// hi = x truncated to bf16, mid = (x - hi) truncated, lo = x - hi - mid.
+// Each truncation leaves a remainder of at most 16, then 8 significant
+// bits, so hi + mid + lo = x exactly in the normal range, and each plane
+// times a bf16 value is exact in f32: three bf16 products, lo first, give
+// the f32 product up to the order of the f32 sums, for 3/4 of the tensor
+// time of two TF32 passes (tests/test_torch_bf16_kernel_design.py checks
+// the split and emulates both kernels that use it).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -234,14 +244,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// Four f32 values rounded to bf16, to 8 bytes of bf16 memory.
-template <>
-struct IoOps<__nv_bfloat16> {
-  __device__ __forceinline__ static void store4(__nv_bfloat16* p, float4 x) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-  }
-};
-
 // Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i .. 8i + 7
 // give the addresses of matrix i's eight 16-byte rows, and r[i] of lane
 // 4g + t holds its elements (2t, g) and (2t + 1, g), a B fragment register
@@ -252,6 +254,39 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s)
                : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// addresses of matrix i's eight 16-byte rows, and r[i] of lane 4g + t holds
+// its elements (g, 2t) and (g, 2t + 1): an A fragment register of a
+// row-major tile, or a B one when the rows are the product's columns.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// The three bf16 planes of two f32 values x0 (low half) and x1 (high half):
+// hi + mid + lo = x exactly (the head of this file). Truncation keeps the
+// upper 16 bits of an f32, the bf16 it starts with.
+__device__ __forceinline__ void split3_pack(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  const float r0 = x0 - __uint_as_float(u0 & 0xffff0000u);
+  const float r1 = x1 - __uint_as_float(u1 & 0xffff0000u);
+  const uint32_t m0 = __float_as_uint(r0), m1 = __float_as_uint(r1);
+  const float l0 = r0 - __uint_as_float(m0 & 0xffff0000u);
+  const float l1 = r1 - __uint_as_float(m1 & 0xffff0000u);
+  hi = __byte_perm(u0, u1, 0x7632);
+  mid = __byte_perm(m0, m1, 0x7632);
+  lo = __byte_perm(__float_as_uint(l0), __float_as_uint(l1), 0x7632);
+}
+
+// x rounded to bf16 (to nearest even, as XLA's convert), as an f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // 2^x on the SFU (MUFU.EX2), 2^-inf = 0.

@@ -9,8 +9,9 @@ sqrt(dh)`` over the keys ``j`` it sees (``j < seq_len[b]``; with ``causal``
 also ``j <= i``; with ``window`` also ``i - j < window``) times v:
 
 * for CUDA tensors, in kernel K5/K6: ``csrc/attn_fwd.cu`` forward and, when
-  a gradient is needed, ``csrc/attn_bwd.cu`` backward inside a
-  :class:`torch.autograd.Function`, or an error: there is no fallback;
+  a gradient is needed, ``csrc/attn_bwd.cu`` backward (``csrc/attn_bwd_bf16.cu``
+  for bf16 q, k and v) inside a :class:`torch.autograd.Function`, or an
+  error: there is no fallback;
 * for CPU tensors, in its plain version, :func:`flash_attention_reference`
   (the additive biases of ``ops/attention.py`` and
   ``scaled_dot_product_attention``), differentiated by autograd when a
@@ -24,11 +25,14 @@ rounded to bf16 before P.V, the softmax statistics and o in float32. o
 stays float32, as the JAX package's exact path returns it (its splash
 kernel rounds o to bf16; the tests hold the port to the exact path). Its
 plain version is ``scaled_dot_product_attention(compute_dtype=bf16)``. Its
-backward is the backward kernel's bf16 build (K5b's backward): the autodiff
-of that plain version, which rounds ``do @ v^T`` and the probabilities
-before ``dv`` to bf16, takes the softmax's row term ``D_i`` as ``sum_j
-P_ij bf16(dP_ij)``, and returns dq, dk and dv rounded to bf16
-(:func:`attention_backward_reference`).
+backward, K5b's backward (``csrc/attn_bwd_bf16.cu``), is the autodiff of
+that plain version, which rounds ``do @ v^T`` and the probabilities before
+``dv`` to bf16, takes the softmax's row term ``D_i`` as ``sum_j P_ij
+bf16(dP_ij)``, and returns dq, dk and dv rounded to bf16
+(:func:`attention_backward_reference`): bf16 tiles in shared memory, q.k^T
+as one bf16 ``mma.sync`` m16n8k16, and each product with an f32 operand
+(do, dS) as three bf16 passes over the operand's three bf16 planes, which
+add back to it exactly.
 
 The kernels are the custom ops ``morgana::attn_fwd`` and ``morgana::attn_bwd``
 (:func:`attn_fwd`, :func:`attn_bwd`; their ``cuda`` implementations launch
@@ -43,14 +47,14 @@ discard.
 What bounds the kernels: their products, 4 * P * dh flops forward and at
 least 10 * P * dh backward for P visible (query, key) pairs, against
 O(B * T * H * dh) bytes: they are bound by operations. So every product
-runs on the tensor cores, as ``mma.sync`` in TF32 with each f32 operand
-split into a TF32 high part and the low rest and three products summed in
-f32 (3xTF32: within a few 2^-20 of f32, where one TF32 product alone misses
-the 1e-4 the card checks hold them to). The kernels keep the T x T logits out of device
-memory (an online softmax over key tiles of 64, recomputed in the backward
-from the saved log-sum-exp), stream k and v (q and do in the dk/dv pass)
-through a two-stage ``cp.async`` ring, and skip key tiles that no row of a
-query tile sees, so windowed attention is linear in T.
+runs on the tensor cores; in f32 as ``mma.sync`` in TF32 with each f32
+operand split into a TF32 high part and the low rest and three products
+summed in f32 (3xTF32: within a few 2^-20 of f32, where one TF32 product
+alone misses the 1e-4 the card checks hold them to). The kernels keep the
+T x T logits out of device memory (an online softmax over key tiles of 64,
+recomputed in the backward from the saved log-sum-exp), stream k and v (q
+and do in the dk/dv pass) through a ``cp.async`` ring, and skip key tiles
+that no row of a query tile sees, so windowed attention is linear in T.
 """
 import ctypes
 import math
@@ -178,9 +182,9 @@ def attention_forward(q, k, v, seq_len=None, causal=False, window=None):
 
 def attention_backward(q, k, v, o, lse, do, seq_len=None, causal=False, window=None):
     """Launches the backward (its two kernels) on PyTorch's current stream:
-    K5/K6's for f32 q, k and v, K5b's (its bf16 build) for bf16 ones; raises
-    on anything it does not take, and on a refused or failed launch. Returns
-    ``(dq, dk, dv)`` in the type of q, k and v."""
+    K5/K6's for f32 q, k and v, K5b's (``csrc/attn_bwd_bf16.cu``) for bf16
+    ones; raises on anything it does not take, and on a refused or failed
+    launch. Returns ``(dq, dk, dv)`` in the type of q, k and v."""
     global bwd_launches, bf16_bwd_launches
     _check_window(causal, window)
     bf16 = q.dtype == torch.bfloat16
@@ -193,19 +197,28 @@ def attention_backward(q, k, v, o, lse, do, seq_len=None, causal=False, window=N
         return dq, dk, dv
     delta = torch.empty((batch, heads, time), dtype=torch.float32, device=q.device)
     lengths = _lengths(seq_len, batch, q.device)
-    lib, fn = load_library('attn_bwd', 'morgana_attn_bwd',
-                           [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    if bf16:
+        # do's three bf16 planes, written by the dq kernel for the dk/dv one.
+        scratch = torch.empty((3, *q.shape), dtype=torch.bfloat16, device=q.device)
+        lib, fn = load_library('attn_bwd_bf16', 'morgana_attn_bwd_bf16',
+                               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        inputs = (q, k, v, do, lse, lengths, delta, scratch)
+        hint = ('a dq block keeps the three bf16 planes of its 64 do rows and three stages of '
+                'a 32-row k and v tile in shared memory (78 KB at dh 96), a dk/dv block its '
+                "64 k and v rows and three stages of 32 q rows and do's planes (105 KB at dh "
+                '96; two stages at dh 128)')
+    else:
+        lib, fn = load_library('attn_bwd', 'morgana_attn_bwd',
+                               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        inputs = (q, k, v, o, do, lse, lengths, delta)
+        hint = ('a block of either kernel keeps two 64 x (dh + 16) f32 tiles and two stages '
+                'of two 32-row tiles in shared memory (109 KB at dh 96)')
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), None if lengths is None else lengths.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), batch, heads, time, head_dim, int(causal),
-                 int(window or 0), int(bf16), q.device.index, stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in inputs + (dq, dk, dv)),
+                 batch, heads, time, head_dim, int(causal), int(window or 0), q.device.index,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error(lib, err, f'attention kernel {name} at B={batch} H={heads} T={time} '
-                   f'dh={head_dim}', 'a block of either kernel keeps two 64 x (dh + 16) f32 '
-                   'tiles and two stages of two 32-row tiles in shared memory (109 KB at '
-                   'dh 96)')
+                   f'dh={head_dim}', hint)
     bwd_launches += 1
     bf16_bwd_launches += bf16
     return dq, dk, dv

@@ -13,9 +13,17 @@ the largest |value| off, the carry 9.2e-5 (``tests/test_torch_bf16_train.py``
 holds the carry to 5e-3).
 
 :func:`bf16_weight_grad` is the custom op ``morgana::rnn_dw_bf16``: for CUDA
-tensors kernel ``csrc/rnn_dw_bf16.cu`` (each thread the carries of a few
-elements of dW, walking t downwards), or an error; for CPU tensors its plain
-version, :func:`bf16_weight_grad_reference`, one ``torch.matmul`` a step.
+tensors kernel ``csrc/rnn_dw_bf16.cu``, or an error; for CPU tensors its
+plain version, :func:`bf16_weight_grad_reference`, one ``torch.matmul`` a
+step. The kernel takes the products off the chain: each step's product runs
+on the bf16 tensor cores (h rounded to bf16, the f32 gate gradients as
+three bf16 planes that add back to them exactly, so the product is the f32
+one) while the next steps' rows are in flight, and only the rounding add
+into the carry is sequential in t. Where the tiles of dW fill the card (the
+LSTM's widths) a block owns a tile and keeps its carries in registers over
+all T steps; for a small dW (F0Model's, DurationModel's) the products of a
+window of steps run in parallel over tiles and steps into a bf16 scratch,
+and a second kernel chains them, a thread an element.
 """
 import ctypes
 
@@ -69,14 +77,25 @@ def _rnn_dw_cuda(h_prev, dg):
                          f'{hidden}, {gates}')
     dw = torch.empty((hidden, gates), dtype=torch.float32, device=h_prev.device)
     lib, fn = load_library('rnn_dw_bf16', 'morgana_rnn_dw_bf16',
-                           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
                            + [ctypes.c_int, ctypes.c_void_p])
+    device = h_prev.device.index
+    lib.morgana_rnn_dw_bf16_scratch.argtypes = [ctypes.c_int] * 4
+    lib.morgana_rnn_dw_bf16_scratch.restype = ctypes.c_longlong
+    # The rounded step products of a window of steps, where the carry takes
+    # that route (small H * G): bf16 (steps, H, G).
+    size = lib.morgana_rnn_dw_bf16_scratch(time, hidden, gates, device)
+    scratch = torch.empty(size, dtype=torch.bfloat16, device=h_prev.device) if size else None
     with torch.cuda.device(h_prev.device):
-        err = fn(h_prev.data_ptr(), dg.data_ptr(), dw.data_ptr(), time, batch, hidden, gates,
-                 h_prev.stride(0), h_prev.stride(1), dg.stride(0), dg.stride(1),
-                 h_prev.device.index, torch.cuda.current_stream(h_prev.device).cuda_stream)
+        err = fn(h_prev.data_ptr(), dg.data_ptr(), dw.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), time, batch, hidden, gates,
+                 h_prev.stride(0), h_prev.stride(1), dg.stride(0), dg.stride(1), device,
+                 torch.cuda.current_stream(h_prev.device).cuda_stream)
     raise_on_error(lib, err, f'bf16 weight-gradient kernel at T={time} B={batch} H={hidden} '
-                   f'G={gates}', 'a block of 256 threads and 16 KB of shared memory')
+                   f'G={gates}', 'a block of 256 threads with a 64 x 128 tile of dW and three '
+                   'stages of two steps of 32 batch rows of h_prev and dg in shared memory '
+                   '(150 KB), or of 128 threads with a 64 x 64 tile (104 KB); a scratch of '
+                   'at most 2^25 bf16 step products')
     launches += 1
     return dw
 

@@ -781,7 +781,14 @@ def test_k4c_and_carry_match_plain_versions(cuda_device, batch, steps, hidden):
                        gru_ops.layer_backward_reference(*args), steps)
 
 
-@pytest.mark.parametrize('batch,heads,steps,head_dim,causal,window', ATTN_SHAPES)
+# K5b's backward: every ATTN_SHAPES case, then each dh at T no multiple of
+# its 32-row streamed tile, each with an empty batch row (no visible key)
+# and, with a window, padded rows past it.
+K5B_BWD_SHAPES = ATTN_SHAPES + [(3, 2, 45, 64, False, None), (3, 2, 100, 96, True, 20),
+                                (3, 1, 47, 128, True, None), (3, 2, 150, 128, True, 64)]
+
+
+@pytest.mark.parametrize('batch,heads,steps,head_dim,causal,window', K5B_BWD_SHAPES)
 def test_k5b_backward_matches_plain_version(cuda_device, batch, heads, steps, head_dim, causal,
                                             window):
     """dq, dk, dv of a loss on the rows below seq_len through
@@ -819,9 +826,14 @@ def test_k5b_backward_matches_plain_version(cuda_device, batch, heads, steps, he
 
 # (T, B, H, G, batch_major): the LSTM's training shape, the GRU's (G = 3H)
 # as the layer hands it over (batch-major views), B past one staged chunk,
-# T = 0, B = 1 and sizes no tile divides.
+# T = 0, B = 1 and sizes no tile divides; then batches no multiple of the
+# 16-deep k-step (17, 40), G below one 8-column tile, DurationModel's shape
+# (H128 G384 T128, batch-major), T = 1, and T * H * G past the kernel's
+# scratch of step products (two windows of steps).
 CARRY_SHAPES = [(1024, 32, 512, 2048, False), (1024, 32, 64, 192, True), (9, 40, 33, 99, True),
-                (0, 4, 64, 256, False), (17, 1, 128, 384, False), (5, 70, 20, 60, False)]
+                (0, 4, 64, 256, False), (17, 1, 128, 384, False), (5, 70, 20, 60, False),
+                (33, 17, 64, 192, True), (17, 40, 128, 384, False), (9, 8, 20, 6, False),
+                (128, 32, 128, 384, True), (1, 32, 512, 2048, False), (520, 32, 128, 512, False)]
 
 
 @pytest.mark.parametrize('steps,batch,hidden,gates,batch_major', CARRY_SHAPES)
