@@ -149,15 +149,22 @@ code and without the final line:
     steps (probability dropout takes the exact plain path, as in the JAX
     package), the forward kernel in validation; finite losses.
 
-20. mlpg_kernel (before the main paths): MLPG's banded solve
-    (csrc/mlpg.cu, the custom op morgana::mlpg_solve) against its plain
-    loop on the same card inputs, the systems MLPG builds at B16 T1024 with
-    padding 100: the LSTM's three streams (66 static features, 1,056 lanes)
-    and F0Model's one; bit for bit (MLPG_RTOL), one launch, times of the
-    kernel, the loop and the whole mlpg(), against the bound; the whole
-    mlpg() against the CPU. Every serving and training phase's MLPG runs
-    through it: serve, f0_serving and transformer_serving count one solve a
-    batch and report mlpg_ms beside frames/s and the idle share.
+20. mlpg_kernel (before the main paths): MLPG (csrc/mlpg.cu) at B16 T1024
+    with padding 100, the LSTM's three streams (66 static features, 1,056
+    lanes) and F0Model's one: the solve alone (morgana::mlpg_solve) on the
+    systems banded_system builds, against its plain loop on the same card
+    inputs, and the whole of MLPG (morgana::mlpg: the build, the loop's
+    factor, the float64 substitutions partitioned along time and the unpad
+    in one launch) against the plain path; each within
+    MLPG_RTOL and, against a float64 solve of the same systems, within
+    twice the loop's own error plus an ulp; one launch each, and one device
+    kernel in all a mlpg() call (the profiler: only the MLPG kernel in 10
+    calls); device ms beside the bound,
+    the loop, the dense torch.linalg.solve and, by host clock, the whole
+    mlpg() and the old route; mlpg() against the CPU. Every serving and
+    training phase's MLPG runs through morgana::mlpg: the serving phases
+    count one launch a batch, every phase reports its MLPG launches and
+    mlpg_ms a batch beside frames/s and the idle share.
 21. export (after quantize_serve): export_bundle of the serving phase's
     LSTMAcousticModel at B16 over the 32 utterances (a program a bucket)
     and of one bucket each of seeded TransformerAcousticModel and F0Model
@@ -219,10 +226,12 @@ Needs no network and writes only to a temporary directory. The profiler's
 device-time tables go to stderr.
 
 Two other modes, each after the device and build phases: --kernel-parent
-DIR times the attention kernels and the bf16 carry of another tree (DIR
-holds its morgana_tpu_torch/csrc, e.g. a git archive of the parent commit)
-beside this tree's, in turns, at the k5 / k5_bwd / k5b_bwd main shapes and
-the LSTM, F0 and Duration carries (kernel_parent_compare);
+DIR times the attention kernels, the bf16 carry and MLPG's solve of another
+tree (DIR holds its morgana_tpu_torch/csrc, e.g. a git archive of the
+parent commit) beside this tree's, in turns, at the k5 / k5_bwd / k5b_bwd
+main shapes, the LSTM, F0 and Duration carries and mlpg_kernel's systems,
+and this tree's whole mlpg() beside the parent's route to the same
+trajectory (kernel_parent_compare);
 --transformer-only runs phases 16 and 17 alone: copied into another tree's
 root, it gives that tree's end-to-end numbers.
 """
@@ -280,10 +289,11 @@ GRAD_RTOL = 1e-3
 # step's gradients (relative to each parameter's max |grad|).
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_RTOL = 1e-3
-# MLPG's solve (csrc/mlpg.cu) against its plain loop on the card, relative
-# to the largest |x|: the kernel rounds every operation as the loop does, so
-# it gives the loop's bits (0.0 in the first card runs); the bar only leaves
-# room for a card whose division or root rounds otherwise.
+# MLPG (csrc/mlpg.cu) against its plain loop on the card, relative to the
+# largest |x|. The kernel takes the loop's factor but substitutes in
+# float64 (partitioned along time), so it is also held to a float64 solve of
+# the same systems: its max and mean error at most twice the loop's own plus
+# one f32 ulp (mlpg_errors).
 MLPG_RTOL = 1e-6
 MLPG_PADDING = 100          # the acoustic models' burn-in (models/rnn_spss.py:119)
 MLPG_FEATS = {'lstm': 1 + 60 + 5, 'f0': 1}   # static features a stream group solves
@@ -1216,12 +1226,15 @@ def k5_bwd_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, 
 
 
 # The parent tree's C entries: name -> (entry, argument types), as the tree
-# before K5b's backward had a source of its own: attn_bwd takes a bf16 flag
-# there (its bf16 build was K5b's backward), rnn_dw_bf16 no scratch.
+# before MLPG's partition solve has them: K5b's backward a source of its own
+# with do's planes in a scratch, the carry a scratch, and MLPG's solve the
+# loop a thread a lane with its rows of L and y in two scratches.
 PARENT_ENTRIES = {
     'attn_fwd': ('morgana_attn_fwd', ['p'] * 6 + ['i'] * 8 + ['p']),
-    'attn_bwd': ('morgana_attn_bwd', ['p'] * 11 + ['i'] * 8 + ['p']),
-    'rnn_dw_bf16': ('morgana_rnn_dw_bf16', ['p'] * 3 + ['i'] * 4 + ['q'] * 4 + ['i', 'p'])}
+    'attn_bwd': ('morgana_attn_bwd', ['p'] * 11 + ['i'] * 7 + ['p']),
+    'attn_bwd_bf16': ('morgana_attn_bwd_bf16', ['p'] * 11 + ['i'] * 7 + ['p']),
+    'rnn_dw_bf16': ('morgana_rnn_dw_bf16', ['p'] * 4 + ['i'] * 4 + ['q'] * 4 + ['i', 'p']),
+    'mlpg': ('morgana_mlpg_solve', ['p'] * 5 + ['i'] * 4 + ['p'])}
 
 
 def build_parent_kernels(parent):
@@ -1251,17 +1264,22 @@ def build_parent_kernels(parent):
             raise RuntimeError(f'parent {name}: nvcc exited {proc.returncode}\n{log}')
         logs[name] = [line.strip() for line in log.splitlines() if 'Used' in line or 'spill' in line]
         entry, types = PARENT_ENTRIES[name]
-        fn = getattr(ctypes.CDLL(target), entry)
+        lib = ctypes.CDLL(target)
+        fn = getattr(lib, entry)
         fn.argtypes, fn.restype = [kinds[k] for k in types], ctypes.c_int
         fns[name] = fn
+        if name == 'rnn_dw_bf16':
+            fns['rnn_dw_bf16_scratch'] = lib.morgana_rnn_dw_bf16_scratch
+            fns['rnn_dw_bf16_scratch'].argtypes = [ctypes.c_int] * 4
+            fns['rnn_dw_bf16_scratch'].restype = ctypes.c_longlong
     return fns, logs
 
 
 def parent_wrappers(torch, fns):
-    """The parent's attention forward, its backward (f32, or its bf16 build
-    for bf16 q, k, v) and its carry, called as this tree's wrappers are:
-    (attention_forward's o, attention_backward's (dq, dk, dv), the carry's
-    dW)."""
+    """The parent's attention forward, its backward (f32, or K5b's for bf16
+    q, k, v), its carry and MLPG's solve, called as this tree's wrappers
+    are: (attention_forward's o, attention_backward's (dq, dk, dv), the
+    carry's dW, mlpg_solve's x)."""
 
     def launch(name, *args):
         err = fns[name](*args, torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
@@ -1286,20 +1304,33 @@ def parent_wrappers(torch, fns):
         grads = [torch.empty_like(t) for t in (q, k, v)]
         delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
         lens = lengths(seq_len, batch)
-        launch('attn_bwd', *(t.data_ptr() for t in (q, k, v, o, do, lse, lens, delta, *grads)),
-               batch, heads, time_steps, head_dim, int(causal), int(window or 0),
-               int(q.dtype == torch.bfloat16))
+        if q.dtype == torch.bfloat16:
+            planes = torch.empty((3, *q.shape), dtype=torch.bfloat16, device=q.device)
+            inputs, name = (q, k, v, do, lse, lens, delta, planes), 'attn_bwd_bf16'
+        else:
+            inputs, name = (q, k, v, o, do, lse, lens, delta), 'attn_bwd'
+        launch(name, *(t.data_ptr() for t in (*inputs, *grads)), batch, heads, time_steps,
+               head_dim, int(causal), int(window or 0))
         return grads
 
     def carry(h_prev, dg):
         time_steps, batch, hidden = h_prev.shape
         dw = torch.empty((hidden, dg.shape[2]), dtype=torch.float32, device=h_prev.device)
-        launch('rnn_dw_bf16', h_prev.data_ptr(), dg.data_ptr(), dw.data_ptr(), time_steps, batch,
-               hidden, dg.shape[2], h_prev.stride(0), h_prev.stride(1), dg.stride(0),
-               dg.stride(1))
+        size = fns['rnn_dw_bf16_scratch'](time_steps, hidden, dg.shape[2],
+                                          torch.cuda.current_device())
+        scratch = torch.empty(size, dtype=torch.bfloat16, device=h_prev.device) if size else None
+        launch('rnn_dw_bf16', h_prev.data_ptr(), dg.data_ptr(), dw.data_ptr(),
+               None if scratch is None else scratch.data_ptr(), time_steps, batch, hidden,
+               dg.shape[2], h_prev.stride(0), h_prev.stride(1), dg.stride(0), dg.stride(1))
         return dw
 
-    return forward, backward, carry
+    def solve(b, bands):
+        x, ys, lrows = torch.empty_like(b), torch.empty_like(b), torch.empty_like(bands)
+        launch('mlpg', b.data_ptr(), bands.data_ptr(), lrows.data_ptr(), ys.data_ptr(),
+               x.data_ptr(), b.shape[0], b.shape[1], bands.shape[0] - 1)
+        return x
+
+    return forward, backward, carry, solve
 
 
 # The carry's shapes in the parent comparison: (name, T, B, H, G,
@@ -1319,12 +1350,17 @@ def kernel_parent_phase(torch, dev, parent):
     version (KERNEL_TOL abs, GRAD_RTOL of the largest |value|), the bf16
     ones within BF16_ULPS bf16 ulps of the largest |value| (of the three
     gradients, or of dW). Beside K5b's backward, SDPA's forward+backward on
-    the same bf16 q, k, v; beside the carry, the f32 dW GEMM it replaces."""
+    the same bf16 q, k, v; beside the carry, the f32 dW GEMM it replaces.
+    Then MLPG's solve alone and the whole mlpg() against the parent's solve
+    and route at mlpg_case's inputs, within MLPG_RTOL of the largest |x|
+    (the parent's solve gives the plain loop's bits). Every row is measured;
+    the phase fails after its line if any row disagreed."""
     from morgana_tpu_torch.ops import flash_attention as fa
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
     from morgana_tpu_torch.ops import weight_grad
 
     fns, ptxas = build_parent_kernels(parent)
-    parent_fwd, parent_bwd, parent_carry = parent_wrappers(torch, fns)
+    parent_fwd, parent_bwd, parent_carry, parent_solve = parent_wrappers(torch, fns)
     # (kernel, B, causal, window, seed): the inputs of main()'s timed k5,
     # k5_bwd and k5b_bwd cases at dh 96.
     masks = ((False, None), (True, None), (True, 256))
@@ -1333,7 +1369,7 @@ def kernel_parent_phase(torch, dev, parent):
              + [('attn_bwd', TRAIN_BATCH, c, w, seed) for (c, w), seed in zip(masks, (56, 57, 58))]
              + [('attn_bwd_bf16', TRAIN_BATCH, c, w, seed)
                 for (c, w), seed in zip(masks, (116, 117, 117))])
-    rows = []
+    rows, disagree = [], []
 
     def compare(row, this, parent_fn, reps, tol_of):
         times, outs = {'parent': [], 'this': []}, {}
@@ -1348,7 +1384,7 @@ def kernel_parent_phase(torch, dev, parent):
                    tolerance=tol)
         rows.append(row)
         if not err <= tol:
-            raise AssertionError(f'this tree and the parent disagree: {row}')
+            disagree.append(row)
 
     def grads_rel(got, want):
         scale = max(max(max_abs(w.float()) for w in want), 1e-30)
@@ -1407,40 +1443,224 @@ def kernel_parent_phase(torch, dev, parent):
         compare(row, lambda: weight_grad.bf16_weight_grad(h_prev, dg),
                 lambda: parent_carry(h_prev, dg), 5,
                 lambda a, b: (grads_rel([a], [b]), BF16_ULPS * 2.0 ** -7))
+
+    # MLPG at mlpg_case's inputs: the solve alone against the parent's on the
+    # same systems (its bits are the plain loop's), then the whole of mlpg()
+    # against the parent's route (banded_system, its solve, the unpad). The
+    # times are ms a call, launches included (CUDA events); device_ms is the
+    # kernel's alone (the profiler).
+    for label, feats, seed in (('lstm', MLPG_FEATS['lstm'], 71), ('f0', MLPG_FEATS['f0'], 72)):
+        rng = np.random.default_rng(seed)
+        means = torch.from_numpy(rng.normal(size=(SERVE_BATCH, 1024, 3 * feats))
+                                 .astype(np.float32)).to(dev)
+        variances = torch.from_numpy(rng.uniform(0.2, 2.0, size=(3 * feats,))
+                                     .astype(np.float32)).to(dev)
+        seq_len = rng.integers(200, 1025, SERVE_BATCH)
+        seq_len[0] = 1024
+        seq_len = torch.from_numpy(seq_len).to(dev)
+        b, bands, _ = mlpg_ops.banded_system(means, variances, padding_size=MLPG_PADDING,
+                                             seq_len=seq_len)
+
+        def rel(got, want):
+            return max_abs(got - want) / max(max_abs(want), 1e-30), MLPG_RTOL
+
+        row = {'kernel': 'mlpg_solve', 'case': label, 'T_padded': int(b.shape[0]),
+               'lanes': int(b.shape[1]),
+               'device_ms': kernel_device_ms(torch, lambda: torch.ops.morgana.mlpg_solve(
+                   b, bands), 20, 'mlpg_kernel')[0],
+               'parent_device_ms': kernel_device_ms(torch, lambda: parent_solve(b, bands), 20,
+                                                    'mlpg_solve_kernel')[0]}
+        compare(row, lambda: torch.ops.morgana.mlpg_solve(b, bands),
+                lambda: parent_solve(b, bands), 20, rel)
+
+        def parent_mlpg():
+            sys_b, sys_bands, lens = mlpg_ops.banded_system(
+                means, variances, padding_size=MLPG_PADDING, seq_len=seq_len)
+            traj = parent_solve(sys_b, sys_bands)
+            traj = traj.reshape(-1, SERVE_BATCH, feats).permute(1, 0, 2)
+            traj = traj[:, MLPG_PADDING:MLPG_PADDING + 1024]
+            mask = torch.arange(1024, device=dev)[None, :] < lens[:, None]
+            return torch.where(mask[:, :, None], traj, 0.)
+
+        compare({'kernel': 'mlpg', 'case': label},
+                lambda: mlpg_ops.mlpg(means, variances, padding_size=MLPG_PADDING,
+                                      seq_len=seq_len), parent_mlpg, 20, rel)
     emit({'phase': 'kernel_parent_compare', 'parent': parent, 'parent_ptxas': ptxas,
           'order': 'parent, this, this, parent', 'nvidia_smi': nvidia_smi(), 'rows': rows})
+    if disagree:
+        raise AssertionError(f'this tree and the parent disagree: {disagree}')
     return rows
 
 
 def mlpg_flops(bandwidth):
-    """Operations of one lane and frame of the solve, as csrc/mlpg.cu does
-    them: the factorisation's products, differences and divisions, the
+    """Operations of one lane and frame of the solve in the plain loop's
+    order: the factorisation's products, differences and divisions, the
     pivot's squares, differences, clamp and root; the forward and back
-    substitutions' products, differences and division."""
+    substitutions' products, differences and division. (The kernel's
+    partitioned substitutions do BW + 1 right-hand sides in float64; the
+    bound counts what the solve needs.)"""
     factor = sum(2 * (bandwidth - p) + 1 for p in range(1, bandwidth + 1)) + 2 * bandwidth + 2
     return factor + 2 * (2 * bandwidth + 1)
+
+
+def mlpg_build_flops(windows):
+    """Operations of one lane and frame of the system build: 1 / variance
+    and mean / variance a window, a product and a sum a nonzero tap of b and
+    of the bands."""
+    taps = 0
+    for _, _, coeffs in windows:
+        taps += sum(1 for c in coeffs if c != 0)
+        taps += sum(1 for p in range(len(coeffs)) for a in range(len(coeffs) - p)
+                    if coeffs[a] * coeffs[a + p] != 0)
+    return 2 * taps + 2 * len(windows)
 
 
 def mlpg_bound(frames, lanes, bandwidth):
     """Least time for the solve: b and the BW + 1 bands read once and x
     written once at the memory rate, against its operations at the f32
-    peak. (The dependence of each lane's 2 T' steps, which the kernel's time
+    peak. (The dependence of the steps along time, which the kernel's time
     follows, is not in it.)"""
     bytes_ms = (bandwidth + 3) * frames * lanes * 4 / HBM_BYTES_PER_S * 1e3
     ops_ms = mlpg_flops(bandwidth) * frames * lanes / F32_PEAK_FLOPS * 1e3
     return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
 
 
+def mlpg_fused_bound(means, variances, out, seq_len, padded_rows, windows):
+    """Least time for the whole of MLPG: the means, the variances as passed
+    and seq_len read once and the trajectory written once at the memory
+    rate, against the build's and the solve's operations over the valid
+    rows (``padded_rows``: sum over lanes of seq_len + 2 * padding) at the
+    f32 peak."""
+    bandwidth = max(l + u for l, u, _ in windows)
+    nbytes = 4 * (means.numel() + variances.numel() + out.numel()) + 8 * seq_len.numel()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ((mlpg_flops(bandwidth) + mlpg_build_flops(windows)) * padded_rows
+              / F32_PEAK_FLOPS * 1e3)
+    return max(bytes_ms, ops_ms), 'bytes' if bytes_ms >= ops_ms else 'operations'
+
+
+def kernel_device_ms(torch, fn, reps, name):
+    """Device milliseconds a launch of the kernels whose name holds `name`,
+    over `reps` calls of `fn` (the profiler's CUDA activity; the launches'
+    host time is not in it), and how many such launches a call made; None
+    where the profiler saw no device time in three sessions (on the H100 a
+    session has come back empty)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in events)
+        if count:
+            return sum(e.self_device_time_total for e in events) / 1e3 / count, count / reps
+    return None, 0
+
+
+def device_kernels(torch, fn, reps=10):
+    """The device kernels `reps` calls of `fn` launch, by name, as the
+    profiler counts them (on the H100 it has missed the first record of a
+    session, so a kernel launched once a call may count reps - 1)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def banded_f64(b, bands, valid):
+    """Float64 solutions of the f32 systems (T', lanes) on the host
+    (scipy's banded Cholesky), lane by lane over each lane's first
+    ``valid`` rows (x = 0 past them)."""
+    import scipy.linalg
+
+    bw = bands.shape[0] - 1
+    b64, bands64 = b.double().cpu().numpy(), bands.double().cpu().numpy()
+    x = np.zeros(b64.shape)
+    for lane, n in enumerate(valid):
+        if n == 0:
+            continue
+        upper = np.zeros((bw + 1, n))
+        for m in range(min(bw + 1, n)):
+            upper[bw - m, m:] = bands64[m, :n - m, lane]
+        x[:n, lane] = scipy.linalg.solveh_banded(upper, b64[:n, lane])
+    return x
+
+
+def mlpg_errors(got, plain, exact):
+    """The kernel's error against the plain loop (absolute and relative to
+    the largest |x|), and its max and mean error against float64 beside the
+    plain loop's own (and the loop's own relative to its largest |x|);
+    whether it holds to MLPG_RTOL against the loop and to twice the loop's
+    float64 errors plus one f32 ulp of the largest |x|."""
+    got, plain = got.double().cpu().numpy(), plain.double().cpu().numpy()
+    err = float(np.abs(got - plain).max())
+    scale = max(float(np.abs(plain).max()), 1e-30)
+    rel = err / scale
+    ulp = float(np.spacing(np.float32(np.abs(exact).max())))
+    mine, own = np.abs(got - exact), np.abs(plain - exact)
+    out = {'max_abs_err_vs_plain': err, 'max_rel_err_vs_plain': rel,
+           'f64_max_err': float(mine.max()), 'plain_f64_max_err': float(own.max()),
+           'f64_mean_err': float(mine.mean()), 'plain_f64_mean_err': float(own.mean()),
+           'f32_ulp_of_max': ulp, 'plain_rel_err_vs_f64': float(own.max()) / scale}
+    out['within_rtol_of_plain'] = bool(np.isfinite(got).all() and rel <= MLPG_RTOL)
+    out['within_f64_bar'] = bool(np.isfinite(got).all() and mine.max() <= 2 * own.max() + ulp
+                                 and mine.mean() <= 2 * own.mean() + ulp)
+    out['ok'] = out['within_rtol_of_plain'] and out['within_f64_bar']
+    return out
+
+
+def dense_solve_ms(torch, b, bands):
+    """One torch.linalg.solve (LU, TF32 off) on the dense (lanes, T', T')
+    matrices of the same banded systems: the yardstick a library call gives
+    (the port never calls it). Returns its ms and its error against `x`'s
+    largest |value| is left to the caller: (ms, x)."""
+    bw = bands.shape[0] - 1
+    frames, lanes = b.shape
+    dense = torch.zeros((lanes, frames, frames), dtype=torch.float32, device=b.device)
+    rows = torch.arange(frames, device=b.device)
+    dense[:, rows, rows] = bands[0].t()
+    for m in range(1, bw + 1):
+        dense[:, rows[:-m], rows[m:]] = bands[m, :frames - m].t()
+        dense[:, rows[m:], rows[:-m]] = bands[m, :frames - m].t()
+    rhs = b.t().unsqueeze(-1).contiguous()
+    ms = cuda_ms(torch, lambda: torch.linalg.solve(dense, rhs), 3)
+    x = torch.linalg.solve(dense, rhs)[..., 0].t()
+    del dense
+    torch.cuda.empty_cache()
+    return ms, x
+
+
 def mlpg_case(torch, dev, label, batch, feats, seed):
     """MLPG at B16 T1024 with `feats` static features a window (padding 100,
-    ragged seq_len 200-1024): the banded systems it builds
-    (ops.mlpg.banded_system), the solve kernel against the plain loop on the
-    same card inputs, each timed; then the whole mlpg() on the card against
-    the CPU. Returns the numbers."""
+    ragged seq_len 200-1024, global variances), on the same card inputs:
+    the solve alone (morgana::mlpg_solve) on the systems banded_system
+    builds, and the whole of MLPG (morgana::mlpg, the build fused into the
+    same launch), each against its plain version on the card (the loop; the
+    build, the loop and the unpad) within MLPG_RTOL and against a float64
+    solve of the same systems within twice the loop's own error plus an
+    ulp; one launch each, and mlpg() one device kernel in all (the
+    profiler); device ms a launch (the profiler) beside the bound, the
+    loop's time, the dense torch.linalg.solve of the same systems and, by
+    host clock, the whole mlpg() and the old route (banded_system, then the
+    solve). Every number is measured whatever the checks give; the checks
+    that failed are under 'failures', which main() raises at its end."""
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
 
     rng = np.random.default_rng(seed)
     frames = 1024
+    windows = mlpg_ops.DEFAULT_WINDOWS
+    failures = []
     means = rng.normal(size=(batch, frames, 3 * feats)).astype(np.float32)
     variances = rng.uniform(0.2, 2.0, size=(3 * feats,)).astype(np.float32)
     seq_len = rng.integers(200, frames + 1, batch)
@@ -1449,19 +1669,61 @@ def mlpg_case(torch, dev, label, batch, feats, seed):
     b, bands, _ = mlpg_ops.banded_system(args[0], args[1], padding_size=MLPG_PADDING,
                                          seq_len=args[2])
     bandwidth = bands.shape[0] - 1
+    tp, lanes = b.shape
+
+    # The solve alone, on every row of the built systems.
     before = mlpg_ops.launches
     got = torch.ops.morgana.mlpg_solve(b, bands)
     torch.cuda.synchronize()
     launched = mlpg_ops.launches - before
     want = mlpg_ops._banded_cholesky_solve(b, list(bands.unbind(0)), bandwidth)
-    err = max_abs(got - want)
-    rel = err / max(max_abs(want), 1e-30)
-    if launched != 1 or not torch.isfinite(got).all() or rel > MLPG_RTOL:
-        raise AssertionError(f'mlpg_kernel {label}: {launched} launches, finite '
-                             f'{bool(torch.isfinite(got).all())}, {rel} from the plain loop')
-    kernel_ms = cuda_ms(torch, lambda: torch.ops.morgana.mlpg_solve(b, bands), 20)
+    solve = mlpg_errors(got, want, banded_f64(b, bands, [tp] * lanes))
+    if launched != 1 or not solve['ok']:
+        failures.append(f'mlpg_kernel {label} solve: {launched} launches, {solve}')
+
+    # The whole of MLPG: one launch from the means and variances.
+    def run():
+        return mlpg_ops.mlpg(*args[:2], padding_size=MLPG_PADDING, seq_len=args[2])
+
+    before, fused_before = mlpg_ops.launches, mlpg_ops.fused_launches
+    traj = run()
+    torch.cuda.synchronize()
+    fused_launched = (mlpg_ops.launches - before, mlpg_ops.fused_launches - fused_before)
+    plain_traj = mlpg_ops._mlpg_plain(args[0], args[1].expand(args[0].shape), args[2],
+                                      MLPG_PADDING, windows)
+    valid = [int(n) + 2 * MLPG_PADDING for n in seq_len for _ in range(feats)]
+    exact = banded_f64(b, bands, valid).reshape(tp, batch, feats).transpose(1, 0, 2)
+    exact = exact[:, MLPG_PADDING:MLPG_PADDING + frames]
+    exact = np.where((np.arange(frames)[None, :] < seq_len[:, None])[:, :, None], exact, 0.)
+    fused = mlpg_errors(traj, plain_traj, exact)
+    kernels = device_kernels(torch, run, 10)
+    if (fused_launched != (1, 1) or not fused['ok'] or not kernels
+            or any('mlpg_kernel' not in name for name in kernels)
+            or not 9 <= sum(kernels.values()) <= 10):
+        failures.append(f'mlpg_kernel {label} mlpg(): launches {fused_launched}, device '
+                        f'kernels {kernels}, {fused}')
+    cpu = mlpg_ops.mlpg(*(torch.from_numpy(a) for a in (means, variances)),
+                        padding_size=MLPG_PADDING, seq_len=torch.from_numpy(seq_len))
+    vs_cpu = max_abs(traj.cpu() - cpu) / max(max_abs(cpu), 1e-30)
+    if not vs_cpu <= MLPG_RTOL:
+        failures.append(f'mlpg_kernel {label}: mlpg() on the card {vs_cpu} from the CPU')
+
+    # Device ms a launch by the profiler (kernel_ms), and ms a call by CUDA
+    # events around 20 calls, host launches included (call_ms).
+    solve_call_ms = cuda_ms(torch, lambda: torch.ops.morgana.mlpg_solve(b, bands), 20)
+    fused_call_ms = cuda_ms(torch, run, 20)
+    solve_ms = kernel_device_ms(torch, lambda: torch.ops.morgana.mlpg_solve(b, bands), 20,
+                                'mlpg_kernel')[0]
+    fused_ms = kernel_device_ms(torch, run, 20, 'mlpg_kernel')[0]
+    if solve_ms is None or fused_ms is None:
+        raise AssertionError(f'mlpg_kernel {label}: the profiler saw no device time of the '
+                             f'MLPG kernel (solve {solve_ms}, mlpg() {fused_ms})')
     plain_ms = cuda_ms(torch, lambda: mlpg_ops._banded_cholesky_solve(
         b, list(bands.unbind(0)), bandwidth), 1, warmup=0)
+    plain_mlpg_ms = cuda_ms(torch, lambda: mlpg_ops._mlpg_plain(
+        args[0], args[1].expand(args[0].shape), args[2], MLPG_PADDING, windows), 1, warmup=0)
+    library_ms, dense_x = dense_solve_ms(torch, b, bands)
+    dense_err = max_abs(dense_x - want) / max(max_abs(want), 1e-30)
 
     def host_ms(fn):
         torch.cuda.synchronize()
@@ -1470,35 +1732,40 @@ def mlpg_case(torch, dev, label, batch, feats, seed):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    def run():
-        return mlpg_ops.mlpg(*args[:2], padding_size=MLPG_PADDING, seq_len=args[2])
+    def old_route():
+        sys_b, sys_bands, _ = mlpg_ops.banded_system(args[0], args[1], padding_size=MLPG_PADDING,
+                                                     seq_len=args[2])
+        return torch.ops.morgana.mlpg_solve(sys_b, sys_bands)
 
-    run()
-    mlpg_ms = sorted(host_ms(run) for _ in range(5))[2]
-    system_ms = sorted(host_ms(lambda: mlpg_ops.banded_system(
-        args[0], args[1], padding_size=MLPG_PADDING, seq_len=args[2])) for _ in range(5))[2]
-    traj = run().cpu()
-    cpu = mlpg_ops.mlpg(*(torch.from_numpy(a) for a in (means, variances)),
-                        padding_size=MLPG_PADDING, seq_len=torch.from_numpy(seq_len))
-    vs_cpu = max_abs(traj - cpu) / max(max_abs(cpu), 1e-30)
-    if vs_cpu > MLPG_RTOL:
-        raise AssertionError(f'mlpg_kernel {label}: mlpg() on the card {vs_cpu} from the CPU')
-    bound_ms, bound_by = mlpg_bound(b.shape[0], b.shape[1], bandwidth)
-    out = {'case': label, 'B': batch, 'T': frames, 'T_padded': int(b.shape[0]),
-           'lanes': int(b.shape[1]), 'bandwidth': bandwidth, 'launches': launched,
-           'max_abs_err_vs_plain': err, 'max_rel_err_vs_plain': rel, 'rtol': MLPG_RTOL,
-           'mlpg_vs_cpu_rel_err': vs_cpu, 'kernel_ms': kernel_ms, 'plain_ms': plain_ms,
-           'us_per_frame': kernel_ms * 1e3 / (2 * int(b.shape[0])),
-           'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
-           'mlpg_ms': mlpg_ms, 'mlpg_loop_ms': system_ms + plain_ms, 'system_ms': system_ms}
+    mlpg_ms = sorted(host_ms(run) for _ in range(7))[3]
+    build_ms = sorted(host_ms(lambda: mlpg_ops.banded_system(
+        args[0], args[1], padding_size=MLPG_PADDING, seq_len=args[2])) for _ in range(7))[3]
+    old_route_ms = sorted(host_ms(old_route) for _ in range(7))[3]
+    bound_ms, bound_by = mlpg_bound(tp, lanes, bandwidth)
+    fused_bound_ms, fused_bound_by = mlpg_fused_bound(
+        args[0], args[1], traj, args[2], sum(valid), windows)
+    out = {'case': label, 'B': batch, 'T': frames, 'T_padded': tp, 'lanes': lanes,
+           'bandwidth': bandwidth, 'segments_a_lane': 32, 'rtol': MLPG_RTOL,
+           'solve': dict(solve, launches=launched, kernel_ms=solve_ms, call_ms=solve_call_ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms, library_rel_err_vs_plain=dense_err,
+                         us_per_frame=solve_ms * 1e3 / tp),
+           'mlpg': dict(fused, launches=fused_launched[1], device_kernels=kernels,
+                        kernel_ms=fused_ms, call_ms=fused_call_ms, plain_ms=plain_mlpg_ms,
+                        bound_ms=fused_bound_ms,
+                        bound_by=fused_bound_by, vs_cpu_rel_err=vs_cpu),
+           'library': 'torch.linalg.solve on the dense (lanes, T\', T\') matrices, TF32 off',
+           'mlpg_ms': mlpg_ms, 'system_ms': 0.0, 'build_ms_old_route': build_ms,
+           'old_route_ms': old_route_ms, 'mlpg_loop_ms': plain_mlpg_ms, 'failures': failures}
     emit(dict({'phase': 'mlpg_kernel'}, **out))
     return out
 
 
 def mlpg_timer(torch):
     """A context whose value accumulates the host milliseconds of every
-    viz.synthesis.mlpg call made inside it, synchronised around each (the
-    MLPG of the models' predict)."""
+    viz.synthesis.mlpg call made inside it, synchronised around each: the
+    one way the serving and training phases time their MLPG (mlpg_ms),
+    around one predict or train step after a warm one."""
     from morgana_tpu_torch.viz import synthesis
 
     @contextlib.contextmanager
@@ -1591,7 +1858,6 @@ def _serving_phase(torch, root, phase, store):
     from morgana_tpu_torch.ops import lstm as lstm_ops
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
     from morgana_tpu_torch.serve import InferenceEngine
-    from morgana_tpu_torch.viz.synthesis import MLPG_streams
 
     seed = 0
     rng = np.random.default_rng(seed)
@@ -1610,13 +1876,13 @@ def _serving_phase(torch, root, phase, store):
     torch.cuda.reset_peak_memory_stats()
 
     lstm_ops.launches = lstm_ops.bf16_launches = 0
-    solves = mlpg_ops.launches
+    solves, fused = mlpg_ops.launches, mlpg_ops.fused_launches
     start = time.perf_counter()
     outputs = engine.predict_items(items)      # returns host arrays: ends synchronised
     seconds = time.perf_counter() - start
     launches = lstm_ops.launches
     bf16_launches = lstm_ops.bf16_launches
-    solves = mlpg_ops.launches - solves
+    solves, fused = mlpg_ops.launches - solves, mlpg_ops.fused_launches - fused
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_UTTS // SERVE_BATCH)
 
@@ -1631,7 +1897,7 @@ def _serving_phase(torch, root, phase, store):
                 raise AssertionError(f"{item['name']} {key}: shape {out[key].shape}, "
                                      f'expected ({n}, {dim}), finite={np.isfinite(out[key]).all()}')
     if launches != 8 * n_batches or bf16_launches != (launches if store else 0) \
-            or solves != n_batches:
+            or solves != n_batches or fused != n_batches:
         raise AssertionError(f'K1 launched {launches} times ({bf16_launches} bf16), the MLPG '
                              f'solve {solves}, for {n_batches} batches, expected '
                              f'{8 * n_batches} and {n_batches}')
@@ -1688,14 +1954,9 @@ def _serving_phase(torch, root, phase, store):
         timed(lambda: m.predict(batch))
         predict_ms = [timed(lambda: m.predict(batch))[1] for _ in range(3)]
         inputs, inputs_ms = timed(lambda: m.stream_inputs(batch))
-        net, net_ms = timed(lambda: m.layers(inputs, seq_len=batch['n_frames']))
-        heads = m._split_heads(net)
-        streams = {}
-        for name, pred in (('lf0', heads[0]), ('mcep', heads[2]), ('bap', heads[3])):
-            std_dev = m.normalisers[name].fetch_params(deltas=True, like=pred)['std_dev']
-            streams[name] = (m.normalisers[name].denormalise(pred, deltas=True), std_dev ** 2)
-        _, mlpg_ms = timed(lambda: MLPG_streams(streams, padding_size=100,
-                                                seq_len=batch['n_frames']))
+        _, net_ms = timed(lambda: m.layers(inputs, seq_len=batch['n_frames']))
+        with mlpg_timer(torch) as mlpg_ms:
+            m.predict(batch)
         profile = profile_step(torch, lambda: m.predict(batch))
     emit({'phase': phase, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
           'rnn_backend': kwargs.get('rnn_backend', 'scan'), 'store': store or 'float32',
@@ -1706,12 +1967,13 @@ def _serving_phase(torch, root, phase, store):
           'peak_memory_mib': peak_mib,
           'k1_launches': launches, 'k1_bf16_launches': bf16_launches,
           'k1_launches_expected': 8 * n_batches, 'mlpg_solve_launches': solves,
+          'mlpg_launches': fused,
           'gpu_vs_cpu_err': errs, 'net_tol': net_tol, 'traj_rtol': traj_rtol,
           **({'f32_storage_err': control} if store else {})})
     emit(dict({'phase': 'batch_breakdown' + ('_bf16' if store else ''), 'B': SERVE_BATCH,
                'T': int(features['normalised_counters'].shape[1]),
                'predict_ms': predict_ms, 'inputs_ms': inputs_ms, 'network_ms': net_ms,
-               'mlpg_ms': mlpg_ms}, **profile))
+               'mlpg_ms': mlpg_ms[0]}, **profile))
     return launches, bf16_launches, {'root': root, 'ckpt': ckpt, 'items': items,
                                      'outputs': outputs}
 
@@ -1764,6 +2026,7 @@ def _train_phase(torch, root, phase, store):
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
     from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
 
     data_root, corpus_s = train_corpus(root)
     ckpt = seeded_checkpoint(torch, LSTMAcousticModel,
@@ -1783,10 +2046,12 @@ def _train_phase(torch, root, phase, store):
               'k1_bf16': 'bf16_launches', 'k2_bf16': 'bf16_bwd_launches'}
     for name in counts.values():
         setattr(lstm_ops, name, 0)
+    mlpg_before = mlpg_ops.fused_launches
     start = time.perf_counter()
     exp.run_experiment()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - start
+    mlpg_launches = mlpg_ops.fused_launches - mlpg_before
     launches = {key: getattr(lstm_ops, name) for key, name in counts.items()}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
 
@@ -1814,6 +2079,8 @@ def _train_phase(torch, root, phase, store):
 
     # Steady-state steps on one full batch, then the MLPG's share of one.
     features, step_ms, profile = time_train_steps(torch, exp)
+    with mlpg_timer(torch) as mlpg_ms:     # the MLPG of one train step
+        exp.loop.train_step(features, exp.learning_rate)
 
     emit({'phase': phase, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
           'rnn_backend': 'pallas' if store else 'scan', 'store': store or 'float32',
@@ -1825,34 +2092,15 @@ def _train_phase(torch, root, phase, store):
           'lstm_layers': layers, 'launches': launches, 'launches_expected': expected,
           'k1_gate_launches_per_step': launches['k1_gates'] / train_steps,
           'k2_launches_per_step': launches['k2'] / train_steps,
-          'peak_memory_mib': peak_mib})
+          'mlpg_launches': mlpg_launches, 'peak_memory_mib': peak_mib})
     emit(dict({'phase': phase + '_step_breakdown', 'B': TRAIN_BATCH,
                'T': int(features['normalised_counters'].shape[1]),
                'frames': float(np.sum(features['n_frames'])),
                'step_ms': step_ms, 'median_step_ms_after_first': float(np.median(step_ms[1:])),
-               'mlpg_host_ms': time_mlpg(torch, exp.model, features, exp.device)}, **profile))
+               'mlpg_ms': mlpg_ms[0]}, **profile))
+    if not mlpg_launches:
+        raise AssertionError(f'{phase}: no MLPG launch')
     return launches
-
-
-def time_mlpg(torch, model, features, device):
-    """Host milliseconds of the fused three-stream MLPG of an acoustic
-    model's predict on one collated batch, synchronised around it."""
-    from morgana_tpu_torch.data import device_features
-    from morgana_tpu_torch.viz.synthesis import MLPG_streams
-
-    batch = device_features(features, device)
-    with torch.no_grad():
-        heads = model._split_heads(model.layers(model.stream_inputs(batch),
-                                                seq_len=batch['n_frames']))
-        streams = {}
-        for name, pred in (('lf0', heads[0]), ('mcep', heads[2]), ('bap', heads[3])):
-            std_dev = model.normalisers[name].fetch_params(deltas=True, like=pred)['std_dev']
-            streams[name] = (model.normalisers[name].denormalise(pred, deltas=True), std_dev ** 2)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        MLPG_streams(streams, padding_size=100, seq_len=batch['n_frames'])
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
 
 
 def time_train_steps(torch, exp):
@@ -1920,7 +2168,7 @@ def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12, 
 
 KERNEL_KINDS = (('lstm_fwd_kernel', 'k1'), ('lstm_bwd_kernel', 'k2'), ('gru_fwd_kernel', 'k3'),
                 ('gru_bwd_kernel', 'k4'), ('attn_fwd_kernel', 'attn_fwd'), ('attn_bwd', 'attn_bwd'),
-                ('rnn_dw_bf16_kernel', 'carry'))
+                ('rnn_dw_bf16_kernel', 'carry'), ('mlpg_kernel', 'mlpg'))
 
 
 def kernel_kind(name):
@@ -2004,12 +2252,12 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
     torch.cuda.reset_peak_memory_stats()
 
     ops.launches = ops.bwd_launches = 0
-    solves = mlpg_ops.launches
+    solves, fused = mlpg_ops.launches, mlpg_ops.fused_launches
     start = time.perf_counter()
     outputs = engine.predict_items(items)      # returns host arrays: ends synchronised
     seconds = time.perf_counter() - start
     launches = ops.launches
-    solves = mlpg_ops.launches - solves
+    solves, fused = mlpg_ops.launches - solves, mlpg_ops.fused_launches - fused
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_UTTS // SERVE_BATCH)
 
@@ -2023,7 +2271,7 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
                 raise AssertionError(f"{item['name']} {key}: shape {out[key].shape}, "
                                      f'expected ({n}, {dim}), finite={np.isfinite(out[key]).all()}')
     expected = layers * n_batches
-    if launches != expected or ops.bwd_launches or solves != n_batches:
+    if launches != expected or ops.bwd_launches or solves != n_batches or fused != n_batches:
         raise AssertionError(f'{name} launched {launches} times (backward {ops.bwd_launches}), '
                              f'the MLPG solve {solves}, for {n_batches} batches, expected '
                              f'{expected} (backward 0) and {n_batches}')
@@ -2063,6 +2311,7 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
                'frames_per_s': frames / seconds, 'ms_per_batch': seconds / n_batches * 1e3,
                'peak_memory_mib': peak_mib, f'{name}_launches': launches,
                f'{name}_launches_expected': expected, 'mlpg_solve_launches': solves,
+               'mlpg_launches': fused,
                'gpu_vs_cpu_err': errs, 'net_tol': NET_TOL, 'traj_rtol': TRAJ_RTOL,
                'profiled_batch_T': int(features['normalised_counters'].shape[1]),
                'predict_ms': predict_ms, 'mlpg_ms': mlpg_ms[0]},
@@ -2107,12 +2356,14 @@ def transformer_train_phase(torch, root):
     with open(os.path.join(exp_dir, 'train', 'epoch_2', 'metrics.json')) as f:
         frames_per_s = json.load(f)['frames_per_sec']
     features, step_ms, profile = time_train_steps(torch, exp)
+    with mlpg_timer(torch) as mlpg_ms:     # the MLPG of one train step
+        exp.loop.train_step(features, exp.learning_rate)
     emit(dict({'phase': 'transformer_train_step_breakdown', 'B': TRAIN_BATCH,
                'T': int(features['normalised_counters'].shape[1]),
                'frames': float(np.sum(features['n_frames'])), 'step_ms': step_ms,
                'median_step_ms_after_first': float(np.median(step_ms[1:])),
                'epoch_2_frames_per_s': frames_per_s,
-               'mlpg_host_ms': time_mlpg(torch, exp.model, features, exp.device)}, **profile))
+               'mlpg_ms': mlpg_ms[0]}, **profile))
     return launches
 
 
@@ -2172,6 +2423,7 @@ def builder_train_phase(torch, root, model_class, phase, ops, names, layer_class
     reload. Returns the launches, the experiment and its directory."""
     from morgana_tpu_torch import nn
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
 
     data_root, corpus_s = train_corpus(root)
     ckpt = seeded_checkpoint(torch, model_class, os.path.join(root, f'{phase}_init', 'epoch_0.npz'),
@@ -2189,10 +2441,12 @@ def builder_train_phase(torch, root, model_class, phase, ops, names, layer_class
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.launches = ops.bwd_launches = 0
+    mlpg_before = mlpg_ops.fused_launches
     start = time.perf_counter()
     exp.run_experiment()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - start
+    mlpg_launches = mlpg_ops.fused_launches - mlpg_before
     fwd, bwd = names
     launches = {fwd: ops.launches, bwd: ops.bwd_launches}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -2220,6 +2474,7 @@ def builder_train_phase(torch, root, model_class, phase, ops, names, layer_class
           'train_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('train')},
           'valid_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('valid')},
           'layers': layers, 'launches': launches, 'launches_expected': expected,
+          'mlpg_launches': mlpg_launches,
           f'{fwd}_launches_per_train_step': (launches[fwd] - 2 * layers * valid_batches) / train_steps,
           f'{fwd}_launches_per_valid_batch': layers,
           f'{bwd}_launches_per_train_step': launches[bwd] / train_steps,
@@ -2242,31 +2497,19 @@ def f0_train_phase(torch, root, smi):
     --valid_output_interval 1 (its validation analysis synthesises a wav per
     valid utterance each epoch: f0_valid_synth_check), then steady-state
     steps on one full batch, one profiled step and the MLPG's share of it."""
-    from morgana_tpu_torch.data import device_features
     from morgana_tpu_torch.models.f0_test_model import F0Model
-    from morgana_tpu_torch.viz.synthesis import MLPG
 
     launches, exp, exp_dir = gru_train_phase(torch, root, F0Model, 'f0_train', F0_LAYERS, 21,
                                              '--valid_output_interval', '1')
     f0_valid_synth_check(exp_dir, smi)
     features, step_ms, profile = time_train_steps(torch, exp)
-    model = exp.model
-    batch = device_features(features, exp.device)
-    with torch.no_grad():
-        pred = model.layers(model.stream_inputs(batch), seq_len=batch['n_frames'])
-        normaliser = model.normalisers['lf0']
-        variance = normaliser.fetch_params(deltas=True, like=pred)['std_dev'] ** 2
-        deltas = normaliser.denormalise(pred, deltas=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        MLPG(deltas, variance, padding_size=100, seq_len=batch['n_frames'])
-        torch.cuda.synchronize()
-        mlpg_ms = (time.perf_counter() - t0) * 1e3
+    with mlpg_timer(torch) as mlpg_ms:     # the MLPG of one train step
+        exp.loop.train_step(features, exp.learning_rate)
     emit(dict({'phase': 'f0_train_step_breakdown', 'B': TRAIN_BATCH,
                'T': int(features['normalised_counters'].shape[1]),
                'frames': float(np.sum(features['n_frames'])),
                'step_ms': step_ms, 'median_step_ms_after_first': float(np.median(step_ms[1:])),
-               'mlpg_host_ms': mlpg_ms}, **profile))
+               'mlpg_ms': mlpg_ms[0]}, **profile))
     return launches
 
 
@@ -3693,6 +3936,7 @@ report = {'voices': {}}
 for spec in json.loads(sys.argv[1]):
     before = {k: m.launches for k, m in COUNTERS.items()}
     before_bf16 = {k: getattr(m, a) for k, (m, a) in BF16.items()}
+    before_fused = mlpg.fused_launches
     t0 = time.perf_counter()
     voice = ExportedVoice(spec['dir'])
     with np.load(spec['batches']) as data:
@@ -3712,6 +3956,7 @@ for spec in json.loads(sys.argv[1]):
         outs.update({f'{i}__{k}': v.cpu().numpy() for k, v in out.items()})
     launches = {k: m.launches - before[k] for k, m in COUNTERS.items()}
     launches.update({k: getattr(m, a) - before_bf16[k] for k, (m, a) in BF16.items()})
+    launches['mlpg'] = mlpg.fused_launches - before_fused
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     voice.run(batches[0])
@@ -3834,7 +4079,8 @@ def export_phase(torch, served, smi):
         name, got = spec['name'], report['voices'][spec['name']]
         kernel, per_batch = layers[name]
         n = numbers[name]['batches']
-        if got['launches'][kernel] != per_batch * n or got['launches']['mlpg_solve'] != n:
+        if (got['launches'][kernel] != per_batch * n or got['launches']['mlpg_solve'] != n
+                or got['launches']['mlpg'] != n):
             raise AssertionError(f'export {name}: launches {got["launches"]} for {n} batches')
         errs = {}
         with np.load(spec['out']) as out:
@@ -3853,7 +4099,7 @@ def export_phase(torch, served, smi):
           'voices': numbers, 'bundle_process_s': report['process_s'],
           'lstm_engine_fresh_process': engine_first})
     return {kernel: sum(report['voices'][name]['launches'][kernel] for name in numbers)
-            for kernel in ('k1', 'k3', 'attn_fwd', 'mlpg_solve')}
+            for kernel in ('k1', 'k3', 'attn_fwd', 'mlpg_solve', 'mlpg')}
 
 
 CACHE_RUN = r'''
@@ -4505,6 +4751,7 @@ def builder_run(torch, root, model_class, phase, seed, *flags):
     Returns the numbers, the launches of the 2-epoch run (every counter set
     to 0 just before it) and the train steps and valid batches it took."""
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
 
     data_root, _ = train_corpus(root)
     ckpt = seeded_checkpoint(torch, model_class, os.path.join(root, f'{phase}_init', 'epoch_0.npz'),
@@ -4518,11 +4765,13 @@ def builder_run(torch, root, model_class, phase, seed, *flags):
     torch.cuda.reset_peak_memory_stats()
     for module, name in counters.values():
         setattr(module, name, 0)
+    mlpg_before = mlpg_ops.fused_launches
     start = time.perf_counter()
     exp.run_experiment()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - start
     launches = {key: getattr(module, name) for key, (module, name) in counters.items()}
+    mlpg_launches = mlpg_ops.fused_launches - mlpg_before
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     exp_dir = os.path.join(exp_base, phase)
     metrics = {}
@@ -4538,8 +4787,12 @@ def builder_run(torch, root, model_class, phase, seed, *flags):
                              f'{metrics}')
     with open(os.path.join(exp_dir, 'config.json')) as f:
         config_dtype = json.load(f)['compute_dtype']
-    _, step_ms, profile = time_train_steps(torch, exp)
+    features, step_ms, profile = time_train_steps(torch, exp)
+    with mlpg_timer(torch) as mlpg_ms:     # the MLPG of one train step
+        exp.loop.train_step(features, exp.learning_rate)
+        torch.cuda.synchronize()
     numbers = {'compute_dtype': config_dtype, 'run_seconds': run_s,
+               'mlpg_launches': mlpg_launches, 'mlpg_ms': mlpg_ms[0],
                'median_step_ms_after_first': float(np.median(step_ms[1:])), 'step_ms': step_ms,
                'epoch_2_frames_per_s': metrics['train_2'].get('frames_per_sec', 'not measured'),
                'peak_memory_mib': peak_mib, 'device_busy_ms': profile['device_busy_ms'],
@@ -4632,6 +4885,7 @@ def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, att
     idle share, each beside the f32 engine's. Returns the bf16 launches, the
     bf16 engine and its outputs."""
     from morgana_tpu_torch import data
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
     from morgana_tpu_torch.serve import InferenceEngine
 
     common = dict(data_root=root, batch_size=SERVE_BATCH)
@@ -4650,15 +4904,20 @@ def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, att
             torch.cuda.reset_peak_memory_stats()
             ops.launches = 0
             setattr(ops, attr, 0)
+            mlpg_before = mlpg_ops.fused_launches
             start = time.perf_counter()
             outputs[tag] = engines[tag].predict_items(items)   # host arrays: synchronised
             seconds = time.perf_counter() - start
             launched = (ops.launches, getattr(ops, attr))
-        if launched != (expected, expected if tag == 'bfloat16' else 0):
+            mlpg_launches = mlpg_ops.fused_launches - mlpg_before
+        if launched != (expected, expected if tag == 'bfloat16' else 0) \
+                or mlpg_launches != n_batches:
             raise AssertionError(f'bf16_serving {name} {tag}: launches {launched} for '
-                                 f'{n_batches} batches of {layers} layers')
+                                 f'{n_batches} batches of {layers} layers, MLPG '
+                                 f'{mlpg_launches}')
         bf16_launches += launched[1]
         runs[tag].append({'seconds': seconds, 'frames_per_s': frames / seconds,
+                          'mlpg_launches': mlpg_launches,
                           'ms_per_batch': seconds / n_batches * 1e3,
                           'peak_memory_mib': torch.cuda.max_memory_allocated() / 2 ** 20})
     for item in items:
@@ -4683,14 +4942,17 @@ def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, att
         batch = data.device_features(features, engine.device)
         with compute_dtype(tag), torch.inference_mode():
             engine.model.predict(batch)
-            profiles[tag] = profile_step(torch, lambda: engine.model.predict(batch))
+            with mlpg_timer(torch) as mlpg_ms:
+                engine.model.predict(batch)
+            profiles[tag] = dict(profile_step(torch, lambda: engine.model.predict(batch)),
+                                 mlpg_ms=mlpg_ms[0])
     summary = {tag: {key: float(np.mean([r[key] for r in runs[tag]])) for key in runs[tag][0]}
                for tag in runs}
     for tag in summary:
         summary[tag].update({key: profiles[tag][key] for key in (
             'profiled_wall_ms', 'device_busy_ms', 'device_idle_share', 'gemm_device_ms',
-            'k1_device_ms', 'k3_device_ms', 'attn_fwd_device_ms', 'other_device_ms',
-            'kernels_launched')})
+            'k1_device_ms', 'k3_device_ms', 'attn_fwd_device_ms', 'mlpg_device_ms',
+            'other_device_ms', 'kernels_launched', 'mlpg_ms')})
     emit({'phase': f'bf16_serving_{name}', 'model': label, 'utterances': len(items),
           'frames': frames, 'batch_size': SERVE_BATCH, 'batches': n_batches,
           'runs_in_turns': runs, 'float32': summary['float32'], 'bfloat16': summary['bfloat16'],
@@ -4934,7 +5196,7 @@ def main(argv=None):
         split_build = None if only else pool.submit(_build.build, ['lstm_fwd', 'lstm_bwd'],
                                                     'step_split')
         paths = _build.build(None if not only else ['attn_fwd', 'attn_bwd'] + (
-            ['attn_bwd_bf16', 'rnn_dw_bf16'] if args.kernel_parent else []))
+            ['attn_bwd_bf16', 'rnn_dw_bf16', 'mlpg'] if args.kernel_parent else []))
         if split_build is not None:
             split_build.result()
     logs = {}
@@ -5040,9 +5302,11 @@ def main(argv=None):
                     empty_row=empty)
 
     # MLPG's solve against its plain loop at the serving batch's shapes: the
-    # LSTM's three streams (66 static features) and F0Model's one.
+    # LSTM's three streams (66 static features) and F0Model's one. Their
+    # failed checks make the script fail at its end, after every phase.
     mlpg_shape = mlpg_case(torch, dev, 'lstm', SERVE_BATCH, MLPG_FEATS['lstm'], 71)
-    mlpg_case(torch, dev, 'f0', SERVE_BATCH, MLPG_FEATS['f0'], 72)
+    mlpg_failures = (mlpg_shape['failures']
+                     + mlpg_case(torch, dev, 'f0', SERVE_BATCH, MLPG_FEATS['f0'], 72)['failures'])
 
     # The bf16-compute kernels K1c, K3c and K5b against their plain versions,
     # then the backward ones of bf16 training.
@@ -5050,7 +5314,7 @@ def main(argv=None):
     bf16_bwd_shapes = bf16_backward_phase(torch, dev)
 
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
-    mlpg_ops.launches = 0
+    mlpg_ops.launches = mlpg_ops.fused_launches = 0
     with tempfile.TemporaryDirectory() as root:
         serve_launches, _, served = serving_phase(torch, root)
         vocoder_batch_phase(torch, dev, served, smi)
@@ -5079,7 +5343,9 @@ def main(argv=None):
         bf16_launches = bf16_serving_phase(torch, served, smi)
         bf16_train = bf16_training_phase(torch, root, smi)
     mlpg_launches = mlpg_ops.launches + export_launches['mlpg_solve']
+    fused_launches = mlpg_ops.fused_launches + export_launches['mlpg']
     if not (serve_launches and generate_launches and test_launches and mlpg_launches
+            and fused_launches
             and export_launches['k1'] and export_launches['k3'] and export_launches['attn_fwd']
             and pipeline_launches['k1'] and pipeline_launches['k3'] and stream_launches['k1']
             and stream_launches['k3'] and stream_attn_launches and http_launches['k1']
@@ -5105,13 +5371,16 @@ def main(argv=None):
     # batch for the attention kernels; and http_serve's requests (K1, K3 and
     # the attention forward), quantize_serve's batches (K1), and export's
     # loaded programs (K1, K3, the attention forward, in their own process);
-    # the MLPG solve's over every one of these paths; bf16_serving's engines,
+    # MLPG's over every one of these paths (mlpg: the whole op, one launch a
+    # batch; mlpg_solve: both ops, whose device code is the same, the solve
+    # alone launched on none of them); bf16_serving's engines,
     # streams, bundle process and pipeline command line for K1c, K3c and
     # K5b; bf16_training's four models for K1c (with and without its gate
     # trace), K2c, K3c, K4c, K5b and its backward and the carry. The forward
     # kernels' numbers are at the serving shape (B=16), the backward ones'
-    # (and K1c's with the gate trace) at the training one (B=32), the
-    # solve's at the LSTM's B16 batch.
+    # (and K1c's with the gate trace) at the training one (B=32), MLPG's at
+    # the LSTM's B16 batch (library_ms: the dense torch.linalg.solve of the
+    # same systems, for both rows).
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
@@ -5170,11 +5439,19 @@ def main(argv=None):
         'plain_ms': attn_bwd_shape['plain_ms'], 'bound_ms': attn_bwd_shape['bound_ms'],
         'bound_by': attn_bwd_shape['bound_by'], 'library_ms': attn_bwd_shape['library_ms'],
         'simt_bound_ms': attn_bwd_shape['simt_bound_ms']}, {
+        'name': 'mlpg', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/mlpg.cu',
+        'replaces': 'morgana_tpu/ops/mlpg.py:201', 'also_replaces': 'morgana_tpu/ops/mlpg.py:88',
+        'launches': fused_launches, 'max_abs_err': mlpg_shape['mlpg']['max_abs_err_vs_plain'],
+        'ms': mlpg_shape['mlpg']['kernel_ms'], 'plain_ms': mlpg_shape['mlpg']['plain_ms'],
+        'bound_ms': mlpg_shape['mlpg']['bound_ms'], 'bound_by': mlpg_shape['mlpg']['bound_by'],
+        'library_ms': mlpg_shape['solve']['library_ms']}, {
         'name': 'mlpg_solve', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/mlpg.cu',
         'replaces': 'morgana_tpu/ops/mlpg.py:88', 'launches': mlpg_launches,
-        'max_abs_err': mlpg_shape['max_abs_err_vs_plain'], 'ms': mlpg_shape['kernel_ms'],
-        'plain_ms': mlpg_shape['plain_ms'], 'bound_ms': mlpg_shape['bound_ms'],
-        'bound_by': mlpg_shape['bound_by'], 'library_ms': None}] + [{
+        'launches_of_the_solve_alone': mlpg_launches - fused_launches,
+        'max_abs_err': mlpg_shape['solve']['max_abs_err_vs_plain'],
+        'ms': mlpg_shape['solve']['kernel_ms'], 'plain_ms': mlpg_shape['solve']['plain_ms'],
+        'bound_ms': mlpg_shape['solve']['bound_ms'], 'bound_by': mlpg_shape['solve']['bound_by'],
+        'library_ms': mlpg_shape['solve']['library_ms']}] + [{
         'name': name, 'route': 'cuda', 'source': f'morgana_tpu_torch/csrc/{source}',
         'replaces': replaces, 'also_replaces': also, 'launches': bf16_launches[key] + train,
         'max_abs_err': bf16_shapes[key]['max_abs_err_vs_plain'],
@@ -5207,6 +5484,8 @@ def main(argv=None):
             ('rnn_dw_bf16', 'carry', 'carry', 'max_abs_err_vs_plain', 'rnn_dw_bf16.cu',
              'morgana_tpu/ops/rnn.py:120', 'morgana_tpu/ops/rnn.py:351'))]})
     print(nvidia_smi(), flush=True)
+    if mlpg_failures:
+        raise AssertionError(f'mlpg_kernel failed: {mlpg_failures}')
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})
     return 0

@@ -23,8 +23,9 @@ compilers this process started.
 
 A *variant* is the same source built with extra defines into a library of
 its own (``<name>-<variant>.<hash>.so``): ``step_split`` compiles the LSTM
-kernels' per-step clock records, which the main path's libraries never
-contain.
+kernels' per-step clock records, ``mlpg_check`` MLPG's check of its root and
+reciprocal against the IEEE ones; the main path's libraries contain
+neither.
 """
 import ctypes
 import glob
@@ -47,7 +48,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 # differ in the last bits of a sample.
 CXX_FLAGS = ('-O3', '-march=native', '-shared', '-fPIC', '-std=c++17', '-pthread')
 # name -> the extra nvcc flags of that variant
-VARIANTS = {'step_split': ('-DMORGANA_STEP_SPLIT=1',)}
+VARIANTS = {'step_split': ('-DMORGANA_STEP_SPLIT=1',),
+            'mlpg_check': ('-DMORGANA_MLPG_CHECK=1',)}
 
 _LOCK = threading.Lock()
 _LIBS = {}

@@ -1,22 +1,29 @@
 """Maximum-likelihood parameter generation (MLPG) as a batched banded solve
 on device (counterpart of ``morgana_tpu/ops/mlpg.py``).
 
-The Gaussian product-of-experts natural parameters (b, P) are built with
-shift-and-add ops over all (batch x feature) lanes at once, and the banded
-SPD system ``P x = b`` is solved by a banded Cholesky: three sequential
-passes over frames (factorise, forward and back substitution), each step an
-elementwise op over the lanes. The arithmetic follows the JAX version step
-for step, in float32.
+:func:`mlpg` is one call of the custom op ``morgana::mlpg``
+(:func:`mlpg_op`), from the means and variances to the trajectory:
 
-The solve is the custom op ``morgana::mlpg_solve`` (:func:`mlpg_solve`):
-for CUDA tensors one launch of ``csrc/mlpg.cu`` (one thread a lane, the
-factorisation fused with the forward substitution, then the back
-substitution; the JAX package runs the passes as ``lax.scan`` with no
-Pallas kernel), or an error: there is no fallback; for CPU tensors its
-plain version, :func:`_banded_cholesky_solve`, Python loops of small
-PyTorch ops with the kernel's arithmetic, rounding for rounding.
+* on a CUDA tensor, one launch of ``csrc/mlpg.cu``, which forms each row of
+  the banded systems from the means and variances itself, factors them as
+  the plain loop does (float32, a thread a lane), substitutes in float64
+  partitioned along time (32 segments a lane) and writes the unpadded,
+  masked trajectory; or an error: there is no fallback;
+* on a CPU tensor, its plain version: the Gaussian product-of-experts
+  natural parameters (b, P) built with shift-and-add ops over all (batch x
+  feature) lanes at once (:func:`banded_system`), the banded SPD system
+  ``P x = b`` solved by the banded Cholesky of the JAX package, three
+  sequential passes over frames, each step an elementwise op over the lanes
+  (:func:`_banded_cholesky_solve`), then the unpad. The arithmetic follows
+  the JAX version step for step, in float32.
+
+The solve alone is ``morgana::mlpg_solve`` (:func:`mlpg_solve`) on given
+(b, bands): the same device code on CUDA, the plain loop on the CPU. The
+JAX package runs the passes as ``lax.scan``, no Pallas kernel.
 """
 import ctypes
+import functools
+from typing import List, Optional
 
 import torch
 
@@ -24,12 +31,13 @@ from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_l
                                             no_alias, raise_on_error)
 from morgana_tpu_torch.ops.deltas import DEFAULT_WINDOWS
 
-__all__ = ['mlpg', 'mlpg_solve', 'banded_system', 'DEFAULT_WINDOWS', 'MAX_BANDWIDTH',
-           'launches']
+__all__ = ['mlpg', 'mlpg_op', 'mlpg_solve', 'banded_system', 'DEFAULT_WINDOWS',
+           'MAX_BANDWIDTH', 'MAX_WINDOWS', 'launches', 'fused_launches']
 
-# Launches of the solve kernel, counted where its wrapper launches it and
-# nowhere else.
+# Launches of csrc/mlpg.cu, counted where the wrappers launch it and nowhere
+# else: `launches` those of both ops, `fused_launches` those of morgana::mlpg.
 launches = 0
+fused_launches = 0
 
 #: The bandwidths the kernel is built for (a template each): 0 to 4.
 MAX_BANDWIDTH = 4
@@ -122,9 +130,17 @@ def _banded_cholesky_solve(b, p_band, bandwidth):
     return torch.stack(xs)
 
 
+def _scratch(lib, frames, lanes, bandwidth, device):
+    """The kernel's scratch for lanes of at most ``frames`` rows, as bytes:
+    every row's entries of L (float32) and of the substitutions (float64)."""
+    size_of = lib.morgana_mlpg_scratch_bytes
+    size_of.argtypes, size_of.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return torch.empty(size_of(frames, lanes, bandwidth), dtype=torch.uint8, device=device)
+
+
 def _mlpg_solve_cuda(b, bands):
-    """Launches ``csrc/mlpg.cu`` on PyTorch's current stream; raises on
-    anything it does not take, and on a refused or failed launch. Returns
+    """Launches ``csrc/mlpg.cu``'s solve on PyTorch's current stream; raises
+    on anything it does not take, and on a refused or failed launch. Returns
     x (T', lanes)."""
     global launches
     if b.ndim != 2 or bands.ndim != 3:
@@ -140,16 +156,15 @@ def _mlpg_solve_cuda(b, bands):
     x = torch.empty_like(b)
     if not x.numel():
         return x
-    lrows = torch.empty_like(bands)
-    ys = torch.empty_like(b)
     lib, fn = load_library('mlpg', 'morgana_mlpg_solve',
-                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    scratch = _scratch(lib, frames, lanes, bandwidth, b.device)
     with torch.cuda.device(b.device):
-        err = fn(b.data_ptr(), bands.data_ptr(), lrows.data_ptr(), ys.data_ptr(), x.data_ptr(),
+        err = fn(b.data_ptr(), bands.data_ptr(), scratch.data_ptr(), x.data_ptr(),
                  frames, lanes, bandwidth, b.device.index,
                  torch.cuda.current_stream(b.device).cuda_stream)
     raise_on_error(lib, err, f'MLPG solve kernel launch at T\'={frames} lanes={lanes} '
-                   f'BW={bandwidth}', 'one thread a lane, 32 a block')
+                   f'BW={bandwidth}', '32 segments a lane, 8 lanes a block')
     launches += 1
     return x
 
@@ -224,8 +239,147 @@ def banded_system(means, variances, windows=DEFAULT_WINDOWS, padding_size=0, seq
     return b.contiguous(), torch.stack(bands), seq_len
 
 
+def _flat_windows(windows):
+    """Windows as the op's schema takes them: every tap in one list, and
+    (l, u) of each window in another."""
+    coeffs, bounds = [], []
+    for l, u, taps in windows:
+        if len(taps) != l + u + 1:
+            raise ValueError(f'a window (l={l}, u={u}) needs {l + u + 1} taps, got {len(taps)}')
+        coeffs += [float(c) for c in taps]
+        bounds += [int(l), int(u)]
+    return coeffs, bounds
+
+
+def _windows(coeffs, bounds):
+    """The windows back from :func:`_flat_windows`."""
+    out, start = [], 0
+    for l, u in zip(bounds[::2], bounds[1::2]):
+        out.append((l, u, tuple(coeffs[start:start + l + u + 1])))
+        start += l + u + 1
+    return tuple(out)
+
+
+def _mlpg_plain(means, variances, seq_len, padding_size, windows):
+    """The plain path: the banded systems, the plain loop, the unpad."""
+    batch, num_frames, total_dim = means.shape
+    feat_dim = total_dim // len(windows)
+    b, bands, seq_len = banded_system(means, variances, windows, padding_size, seq_len)
+    traj = _banded_cholesky_solve(b, list(bands.unbind(0)), bands.shape[0] - 1)   # (T', B*D)
+    pad = int(padding_size)
+    traj = traj.reshape(-1, batch, feat_dim).permute(1, 0, 2)[:, pad:pad + num_frames]
+    mask = (torch.arange(num_frames, device=means.device)[None, :] < seq_len[:, None])[:, :, None]
+    return torch.where(mask, traj, 0.).to(means.dtype)
+
+
+# The windows the kernel takes: at most MAX_WINDOWS, l + u <= MAX_BANDWIDTH;
+# DEFAULT_WINDOWS, the acoustic models', are compiled into a build of their own.
+MAX_WINDOWS = 8
+_TAPS = MAX_BANDWIDTH + 1
+_DEFAULT = _windows(*_flat_windows(DEFAULT_WINDOWS))
+# The types of seq_len the kernel reads (a float length truncated, as
+# .long() does: the models' collated n_frames are float32).
+_SEQ_KINDS = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _taps(windows):
+    """The windows as morgana_mlpg takes them (ctypes arrays, built once):
+    (l, u) of each, its taps c_a, and the products c_a c_{a+p}."""
+    num_windows = len(windows)
+    lu = (ctypes.c_int * (2 * num_windows))(*[v for l, u, _ in windows for v in (l, u)])
+    coeffs = (ctypes.c_float * (num_windows * _TAPS))()
+    products = (ctypes.c_float * (num_windows * _TAPS * _TAPS))()
+    for w, (_, _, taps) in enumerate(windows):
+        for a, c in enumerate(taps):
+            coeffs[w * _TAPS + a] = float(c)
+        for p in range(len(taps)):
+            for a in range(len(taps) - p):
+                # As torch rounds c_a * c_{a+p} (a Python float) times an f32 tensor.
+                products[(w * _TAPS + p) * _TAPS + a] = float(taps[a]) * float(taps[a + p])
+    return lu, coeffs, products
+
+
+def _mlpg_cuda(means, variances, seq_len, padding_size, windows):
+    """Launches ``csrc/mlpg.cu``'s whole MLPG on PyTorch's current stream:
+    the systems formed from ``means`` and ``variances`` (read through its
+    strides), the solve and the unpadded, masked (B, T, D) trajectory, one
+    launch; raises on anything it does not take, and on a refused or failed
+    launch."""
+    global launches, fused_launches
+    if means.ndim != 3:
+        raise ValueError(f'mlpg: means must be (batch, time, W * D), got {tuple(means.shape)}')
+    batch, num_frames, total_dim = means.shape
+    num_windows = len(windows)
+    bandwidth = max(l + u for l, u, _ in windows)
+    if bandwidth > MAX_BANDWIDTH or num_windows > MAX_WINDOWS or total_dim % num_windows:
+        raise ValueError(f'mlpg: the kernel takes up to {MAX_WINDOWS} windows of bandwidths up '
+                         f'to {MAX_BANDWIDTH} over W * D features, got {num_windows} of '
+                         f'bandwidth {bandwidth} over {total_dim}')
+    feat_dim = total_dim // num_windows
+    check_operands('mlpg', {'means': (means, tuple(means.shape))}, means.device)
+    if (variances.shape != means.shape or variances.dtype != torch.float32
+            or variances.device != means.device):
+        raise ValueError(f'mlpg: variances must be float32 {tuple(means.shape)} on '
+                         f'{means.device} (any strides), got {variances.dtype} '
+                         f'{tuple(variances.shape)} on {variances.device}')
+    if seq_len is not None and (seq_len.shape != (batch,) or seq_len.device != means.device
+                                or seq_len.dtype not in _SEQ_KINDS
+                                or not seq_len.is_contiguous()):
+        raise ValueError(f'mlpg: seq_len must be a contiguous int32, int64 or float32 '
+                         f'({batch},) on {means.device}, got {seq_len.dtype} '
+                         f'{tuple(seq_len.shape)} on {seq_len.device}')
+    out = means.new_empty((batch, num_frames, feat_dim))
+    if not out.numel():
+        return out
+    pad = int(padding_size)
+    lanes = batch * feat_dim
+    lu, coeffs, products = _taps(windows)
+    lib, fn = load_library('mlpg', 'morgana_mlpg',
+                           [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_longlong] * 3
+                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    scratch = _scratch(lib, num_frames + 2 * pad, lanes, bandwidth, means.device)
+    with torch.cuda.device(means.device):
+        err = fn(means.data_ptr(), variances.data_ptr(), *variances.stride(),
+                 None if seq_len is None else seq_len.data_ptr(),
+                 0 if seq_len is None else _SEQ_KINDS[seq_len.dtype], out.data_ptr(),
+                 scratch.data_ptr(), batch, num_frames, feat_dim, pad, num_windows, lu, coeffs,
+                 products, bandwidth, int(windows == _DEFAULT), means.device.index,
+                 torch.cuda.current_stream(means.device).cuda_stream)
+    raise_on_error(lib, err, f'MLPG kernel launch at B={batch} T={num_frames} D={feat_dim} '
+                   f'padding={pad} BW={bandwidth}', '32 segments a lane, 8 lanes a block')
+    launches += 1
+    fused_launches += 1
+    return out
+
+
+@torch.library.custom_op('morgana::mlpg', mutates_args=(), device_types='cpu')
+def mlpg_op(means: torch.Tensor, variances: torch.Tensor, seq_len: Optional[torch.Tensor],
+            padding_size: int, coeffs: List[float], bounds: List[int]) -> torch.Tensor:
+    """``morgana::mlpg``: the (B, T, D) trajectory of :func:`mlpg` from the
+    (B, T, W * D) ``means``, ``variances`` of the same shape (any strides),
+    ``seq_len`` (B,) or None, and the windows as :func:`_flat_windows` gives
+    them. This is its ``cpu`` implementation, the plain path."""
+    out = _mlpg_plain(means, variances, seq_len, padding_size, _windows(coeffs, bounds))
+    return no_alias((out,), (means, variances))[0]
+
+
+@mlpg_op.register_kernel('cuda')
+def _mlpg_op_cuda(means, variances, seq_len, padding_size, coeffs, bounds):
+    return _mlpg_cuda(means, variances, seq_len, padding_size, _windows(coeffs, bounds))
+
+
+@mlpg_op.register_fake
+def _mlpg_op_fake(means, variances, seq_len, padding_size, coeffs, bounds):
+    batch, num_frames, total_dim = means.shape
+    return means.new_empty((batch, num_frames, total_dim // (len(bounds) // 2)))
+
+
 def mlpg(means, variances, windows=DEFAULT_WINDOWS, padding_size=0, seq_len=None):
-    r"""Batched MLPG on the device of ``means`` (``ops/mlpg.py:201``).
+    r"""Batched MLPG on the device of ``means`` (``ops/mlpg.py:201``): one
+    call of ``morgana::mlpg``, on a CUDA tensor one launch.
 
     Parameters
     ----------
@@ -244,13 +398,13 @@ def mlpg(means, variances, windows=DEFAULT_WINDOWS, padding_size=0, seq_len=None
     -------
     torch.Tensor, shape (batch, time, feat_dim)
     """
-    batch, num_frames, total_dim = means.shape
-    feat_dim = total_dim // len(windows)
     check_device('MLPG solve', means)
-    b, bands, seq_len = banded_system(means, variances, windows, padding_size, seq_len)
-    traj = torch.ops.morgana.mlpg_solve(b, bands)                      # (T', B*D)
-
-    pad = int(padding_size)
-    traj = traj.reshape(-1, batch, feat_dim).permute(1, 0, 2)[:, pad:pad + num_frames]
-    mask = (torch.arange(num_frames, device=means.device)[None, :] < seq_len[:, None])[:, :, None]
-    return torch.where(mask, traj, 0.).to(means.dtype)
+    means = means.contiguous()
+    variances = torch.as_tensor(variances, dtype=means.dtype, device=means.device)
+    if seq_len is not None:
+        seq_len = torch.as_tensor(seq_len, device=means.device).reshape(means.shape[0])
+        if seq_len.dtype not in _SEQ_KINDS:
+            seq_len = seq_len.long()
+    coeffs, bounds = _flat_windows(windows)
+    return torch.ops.morgana.mlpg(means, variances.expand(means.shape), seq_len,
+                                  int(padding_size), coeffs, bounds)

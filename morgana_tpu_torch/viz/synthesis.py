@@ -75,12 +75,18 @@ def MLPG_streams(streams, windows=None, padding_size=0, seq_len=None):
         batch, time = means.shape[0], means.shape[1]
         d = means.shape[-1] // num_windows
         dims.append(d)
-        variances = torch.as_tensor(variances, dtype=means.dtype, device=means.device)
         means_parts.append(means.reshape(batch, time, num_windows, d))
-        var_parts.append(variances.expand(means.shape).reshape(batch, time, num_windows, d))
+        var_parts.append(torch.as_tensor(variances, dtype=means.dtype, device=means.device))
 
     means_all = torch.cat(means_parts, dim=-1).reshape(batch, time, -1)
-    vars_all = torch.cat(var_parts, dim=-1).reshape(batch, time, -1)
+    if all(v.ndim == 1 for v in var_parts):
+        # Global variances (the acoustic models'): one (W * D,) vector, which
+        # mlpg reads broadcast, not a copy a frame.
+        vars_all = torch.cat([v.reshape(num_windows, -1) for v in var_parts], dim=-1).reshape(-1)
+    else:
+        vars_all = torch.cat([v.expand(m.shape[:2] + (m.shape[2] * m.shape[3],))
+                              .reshape(m.shape) for v, m in zip(var_parts, means_parts)],
+                             dim=-1).reshape(batch, time, -1)
     traj = mlpg(means_all, vars_all, windows, int(padding_size), seq_len)
 
     out, start = {}, 0

@@ -41,11 +41,11 @@ finally:
 ID_LIST = 'test/test_file_id_list.scp'
 # name: (model class, model kwargs, the custom ops one batch runs)
 VOICES = {
-    'f0': (F0Model, {}, {'gru_fwd': 3, 'mlpg_solve': 1}),
+    'f0': (F0Model, {}, {'gru_fwd': 3, 'mlpg': 1}),
     'lstm': (LSTMAcousticModel, {'num_layers': 2, 'hidden_size': 32},
-             {'lstm_fwd': 2, 'mlpg_solve': 1}),
+             {'lstm_fwd': 2, 'mlpg': 1}),
     'transformer': (TransformerAcousticModel, {'num_layers': 1, 'd_model': 64},
-                    {'attn_fwd': 1, 'mlpg_solve': 1}),
+                    {'attn_fwd': 1, 'mlpg': 1}),
 }
 
 
@@ -104,7 +104,7 @@ def test_manifest_and_files(bundle):
 def test_programs_take_the_parameters_as_inputs(bundle):
     """No parameter, buffer or example input is saved in a program: its
     constants are the normalisers' statistics; every kernel call is one
-    morgana:: node (per layer, and one MLPG solve)."""
+    morgana:: node (per layer, and one for the whole MLPG)."""
     params = np.load(os.path.join(bundle['dir'], 'params.npz'))
     for prog in bundle['manifest']['programs']:
         program = torch.export.load(os.path.join(bundle['dir'], prog['file']))

@@ -2,7 +2,8 @@
 without its gate trace, K2, its backward, K3, the GRU layer forward, K4, its
 backward, K5/K6, attention forward and backward, their bf16-compute builds
 K1c (with and without its gate trace), K2c, K3c, K4c, K5b and K5b's
-backward, the bf16 weight-gradient carry, and MLPG's banded solve)
+backward, the bf16 weight-gradient carry, and MLPG: its banded solve and the
+whole op from the means to the trajectory)
 against their plain PyTorch versions, and the batched vocoder's determinism
 on the card, on the GPU only (a CUDA kernel has no CPU mode): every test
 here is marked ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
@@ -925,15 +926,55 @@ def test_batched_vocoder_is_deterministic_and_matches_the_cpu(cuda_device):
 
 
 MLPG_SHAPES = [(16, 1024, 66, 2), (16, 1024, 1, 2), (3, 17, 4, 0), (2, 40, 5, 4)]
+# csrc/mlpg.cu against its plain loop, relative to the largest |x|
+# (chip_smoke.py's MLPG_RTOL): the kernel takes the loop's factor but
+# substitutes in float64, partitioned along time.
+MLPG_RTOL = 1e-6
+
+
+def _banded_f64(b, bands, valid):
+    """Float64 solutions of the f32 systems (T', lanes), lane by lane over
+    each lane's first ``valid`` rows (x = 0 past them)."""
+    import scipy.linalg
+    bw = bands.shape[0] - 1
+    b64, bands64 = b.double().cpu().numpy(), bands.double().cpu().numpy()
+    x = np.zeros(b64.shape)
+    for lane, n in enumerate(valid):
+        if n == 0:
+            continue
+        upper = np.zeros((bw + 1, n))
+        for m in range(min(bw + 1, n)):
+            upper[bw - m, m:] = bands64[m, :n - m, lane]
+        x[:n, lane] = scipy.linalg.solveh_banded(upper, b64[:n, lane])
+    return x
+
+
+def _assert_mlpg_close(got, plain, exact):
+    """Within MLPG_RTOL of the plain loop's largest |x|; against float64,
+    max and mean |error| at most twice the plain loop's own plus one f32
+    ulp of the largest |x|."""
+    got, plain = got.double().cpu().numpy(), plain.double().cpu().numpy()
+    scale = np.abs(plain).max() if plain.size else 0.0
+    assert np.isfinite(got).all()
+    assert np.abs(got - plain).max(initial=0.0) <= MLPG_RTOL * scale
+    if not exact.size:
+        return
+    ulp = float(np.spacing(np.float32(np.abs(exact).max())))
+    err, own = np.abs(got - exact), np.abs(plain - exact)
+    assert err.max() <= 2 * own.max() + ulp, (err.max(), own.max(), ulp)
+    assert err.mean() <= 2 * own.mean() + ulp, (err.mean(), own.mean(), ulp)
 
 
 @pytest.mark.parametrize('batch,frames,feats,bandwidth', MLPG_SHAPES)
 def test_mlpg_solve_kernel_is_its_plain_version(cuda_device, batch, frames, feats, bandwidth):
-    """csrc/mlpg.cu on (T', lanes) systems of MLPG's sizes, T' = T + 200
-    (padding 100): the LSTM's three streams at B16 (1,056 lanes), F0's one,
-    and small ones at bandwidths 0 and 4; diagonally dominant, so SPD. The
-    kernel rounds each operation as the plain loop does, so the two agree
-    bit for bit; one launch."""
+    """csrc/mlpg.cu's solve alone on (T', lanes) systems of MLPG's sizes, T'
+    = T + 200 (padding 100): the LSTM's three streams at B16 (1,056 lanes),
+    F0's one, and small ones at bandwidths 0 and 4; diagonally dominant, so
+    SPD. The kernel factors as the loop does and substitutes in float64,
+    partitioned along time, so the two agree within MLPG_RTOL of the
+    largest |x| (they agreed bit for bit while the kernel repeated the
+    loop's order), and against a float64 solve of the same system the
+    kernel's error is the loop's order of error; one launch."""
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
     rng = np.random.default_rng(frames + feats)
     lanes, tp = batch * feats, frames + 200
@@ -948,5 +989,84 @@ def test_mlpg_solve_kernel_is_its_plain_version(cuda_device, batch, frames, feat
     torch.cuda.synchronize()
     assert mlpg_ops.launches == before + 1
     want = mlpg_ops._banded_cholesky_solve(b, list(bands.unbind(0)), bandwidth)
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    _assert_mlpg_close(got, want, _banded_f64(b, bands, [tp] * lanes))
+
+
+def test_mlpg_root_and_reciprocal_are_the_ieee_ones(cuda_device):
+    """csrc/mlpg.cu's factor takes its roots and the reciprocals of its
+    pivots by the fast paths of sqrt.rn and rcp.rn without their branches:
+    bit for bit __fsqrt_rn's at every finite float32 from 1e-20 up (the
+    pivots are clamped at 1e-20) and __frcp_rn's from 1e-20 to 2^126 (a
+    root of a float32 is below 2^64)."""
+    import ctypes
+
+    from morgana_tpu_torch.ops._kernels import load_library, raise_on_error
+    lib, fn = load_library('mlpg', 'morgana_mlpg_check_fast_paths',
+                           [ctypes.c_uint] * 3 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+                           variant='mlpg_check')
+    bad = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    lo = int(np.array(1e-20, np.float32).view(np.uint32))
+    finite = int(np.array(np.finfo(np.float32).max, np.float32).view(np.uint32))
+    err = fn(lo, finite, int(np.array(2.0 ** 126, np.float32).view(np.uint32)),
+             bad.data_ptr(), cuda_device.index or 0, torch.cuda.current_stream().cuda_stream)
+    raise_on_error(lib, err, 'the root and reciprocal check', '')
+    assert bad.tolist() == [0, 0]
+
+
+# (batch, frames, static features, padding, windows' bandwidth, seq_len
+# kind): the LSTM's three streams and F0's one at B16 T1024 with ragged
+# seq_len; small ones at bandwidths 0 and 4, with padding 0, an item of
+# length 0, no seq_len, and float32 lengths (the models' collated n_frames).
+MLPG_OP_SHAPES = [(16, 1024, 66, 100, 2, 'ragged'), (16, 1024, 1, 100, 2, 'ragged'),
+                  (3, 17, 4, 0, 0, 'empty_row'), (2, 40, 5, 100, 4, 'empty_row'),
+                  (4, 33, 3, 0, 2, 'none'), (3, 9, 2, 5, 4, 'ragged'),
+                  (5, 60, 3, 100, 2, 'float')]
+MLPG_WINDOWS = {0: ((0, 0, (1.0,)),),
+                4: ((0, 0, (1.0,)), (1, 1, (-0.5, 0.0, 0.5)),
+                    (2, 2, (0.1, -0.2, 0.2, -0.2, 0.1)))}
+
+
+@pytest.mark.parametrize('batch,frames,feats,padding,bandwidth,lengths', MLPG_OP_SHAPES)
+def test_mlpg_op_is_its_plain_path(cuda_device, batch, frames, feats, padding, bandwidth,
+                                   lengths):
+    """morgana::mlpg on the card (the systems formed from the means and
+    variances in the kernel, the loop's factor, the partitioned float64
+    substitutions, the unpad) against the
+    plain path on the same inputs (banded_system, the plain loop, the
+    unpad): within MLPG_RTOL of the largest |value|, and against a float64
+    solve of the systems banded_system builds its error is the plain
+    loop's order of error; 0 past seq_len; one launch per mlpg() call.
+    Variances per item and frame for the small cases, global for MLPG's."""
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
+    windows = MLPG_WINDOWS.get(bandwidth, mlpg_ops.DEFAULT_WINDOWS)
+    rng = np.random.default_rng(frames + feats + bandwidth)
+    width = len(windows) * feats
+    means = torch.from_numpy(rng.normal(size=(batch, frames, width)).astype(np.float32))
+    vshape = (width,) if frames == 1024 else (batch, frames, width)
+    variances = torch.from_numpy(rng.uniform(0.2, 2.0, size=vshape).astype(np.float32))
+    seq_len = None
+    if lengths != 'none':
+        seq_len = torch.from_numpy(rng.integers(1, frames + 1, batch))
+        seq_len[0] = frames
+        if lengths == 'empty_row':
+            seq_len[-1] = 0
+        if lengths == 'float':
+            seq_len = seq_len.float()
+    dev = [t if t is None else t.to(cuda_device) for t in (means, variances, seq_len)]
+    before, fused = mlpg_ops.launches, mlpg_ops.fused_launches
+    got = mlpg_ops.mlpg(dev[0], dev[1], windows, padding, dev[2])
+    torch.cuda.synchronize()
+    assert (mlpg_ops.launches, mlpg_ops.fused_launches) == (before + 1, fused + 1)
+    want = mlpg_ops._mlpg_plain(means, variances.expand(means.shape), seq_len, padding, windows)
+    assert got.shape == want.shape == (batch, frames, feats)
+
+    b, bands, lens = mlpg_ops.banded_system(means, variances, windows, padding, seq_len)
+    valid = [int(n) + 2 * padding if n > 0 else 0 for n in lens for _ in range(feats)]
+    exact = _banded_f64(b, bands, valid).reshape(-1, batch, feats).transpose(1, 0, 2)
+    exact = exact[:, padding:padding + frames]
+    exact = np.where((np.arange(frames)[None, :] < lens.numpy()[:, None])[:, :, None], exact, 0.)
+    _assert_mlpg_close(got, want, exact)
+    for item, n in enumerate(lens.tolist()):
+        assert (got[item, n:] == 0).all()
+
+
