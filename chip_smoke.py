@@ -510,25 +510,27 @@ def carry_bound(batch, time_steps, hidden, gates):
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
-def layer_inputs(torch, dev, batch, time_steps, with_state, seed):
-    """Seeded inputs of one LSTM(512) layer: x, the four weights, a ragged
-    seq_len (one row of T, one of 1) and an optional initial state."""
+def layer_inputs(torch, dev, batch, time_steps, with_state, seed, hidden=H):
+    """Seeded inputs of one LSTM(hidden) layer (input width `hidden` too):
+    x, the four weights, a ragged seq_len (one row of T, one of 1) and an
+    optional initial state."""
     rng = np.random.default_rng(seed)
-    bound = 1.0 / math.sqrt(H)
+    bound = 1.0 / math.sqrt(hidden)
 
     def uniform(*shape):
         return torch.from_numpy(rng.uniform(-bound, bound, shape).astype(np.float32)).to(dev)
 
-    x = torch.from_numpy(rng.normal(size=(batch, time_steps, H)).astype(np.float32)).to(dev)
-    weights = [uniform(H, 4 * H), uniform(H, 4 * H), uniform(4 * H), uniform(4 * H)]
+    x = torch.from_numpy(rng.normal(size=(batch, time_steps, hidden)).astype(np.float32)).to(dev)
+    weights = [uniform(hidden, 4 * hidden), uniform(hidden, 4 * hidden), uniform(4 * hidden),
+               uniform(4 * hidden)]
     seq_len = rng.integers(1, time_steps + 1, batch)
     seq_len[0] = time_steps
     seq_len[-1] = 1
     seq_len = torch.from_numpy(seq_len).to(dev)
     h0 = c0 = None
     if with_state:
-        h0 = torch.from_numpy(0.5 * rng.normal(size=(batch, H)).astype(np.float32)).to(dev)
-        c0 = torch.from_numpy(0.5 * rng.normal(size=(batch, H)).astype(np.float32)).to(dev)
+        h0 = torch.from_numpy(0.5 * rng.normal(size=(batch, hidden)).astype(np.float32)).to(dev)
+        c0 = torch.from_numpy(0.5 * rng.normal(size=(batch, hidden)).astype(np.float32)).to(dev)
     return x, weights, seq_len, h0, c0
 
 
@@ -609,7 +611,7 @@ def k1_case(torch, dev, batch, time_steps, with_state, seed, timed, store=None):
 
 def cudnn_layer(torch, dev, w_ih, w_hh, b_ih, b_hh):
     """torch.nn.LSTM (cuDNN) holding the same weights: the yardstick."""
-    cudnn = torch.nn.LSTM(H, H, batch_first=True).to(dev)
+    cudnn = torch.nn.LSTM(w_ih.shape[0], w_hh.shape[0], batch_first=True).to(dev)
     with torch.no_grad():
         cudnn.weight_ih_l0.copy_(w_ih.t())
         cudnn.weight_hh_l0.copy_(w_hh.t())
@@ -621,9 +623,9 @@ def cudnn_layer(torch, dev, w_ih, w_hh, b_ih, b_hh):
 def layer_grads(torch, layer, x, weights, seq_len, h0, c0, loss_weights):
     """Gradients of sum(y*wy) + sum(hn*wh) + sum(cn*wc) with respect to x,
     the four weights, h0 and c0 (zeros given when there is no state)."""
-    batch = x.shape[0]
-    h0 = torch.zeros((batch, H), device=x.device) if h0 is None else h0
-    c0 = torch.zeros((batch, H), device=x.device) if c0 is None else c0
+    batch, hidden = x.shape[0], weights[1].shape[0]
+    h0 = torch.zeros((batch, hidden), device=x.device) if h0 is None else h0
+    c0 = torch.zeros((batch, hidden), device=x.device) if c0 is None else c0
     leaves = [t.detach().clone().requires_grad_(True) for t in (x, *weights, h0, c0)]
     y, (hn, cn) = layer(*leaves[:5], seq_len=seq_len, h0=leaves[5], c0=leaves[6])
     loss = sum((out * w).sum() for out, w in zip((y, hn, cn), loss_weights))
@@ -762,8 +764,12 @@ def lstm_step_split_phase(torch, dev):
     """k1_step_split (B16 and B32 in f32, B16 with bf16 storage, without the
     gate trace) and k2_step_split (B32) at H=512, T=1024: the step_split
     build of K1 and K2 records the phases of their first SPLIT_STEPS steps in
-    block 0 and the middle block."""
+    block 0 and the middle block; then k1c_step_split (B16, and B32 with the
+    gate trace) and k2c_step_split (B32) of the bf16 cluster kernels, CTA 0
+    and the middle CTA of the grid, with the launch's plan (n8 tiles a
+    cluster, clusters, clusters that fit at once)."""
     from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.ops import precision
 
     steps = 1024
     split = torch.zeros(2 * (SPLIT_STEPS * len(SPLIT_PHASES) + 4), dtype=torch.int64, device=dev)
@@ -794,6 +800,37 @@ def lstm_step_split_phase(torch, dev):
         torch.cuda.synchronize()
     emit({'phase': 'k2_step_split', 'store': 'float32', 'B': TRAIN_BATCH, 'T': steps,
           'H': H, 'steps_recorded': SPLIT_STEPS, 'skipped': SPLIT_SKIP,
+          **read_split(torch, split, SPLIT_STEPS)})
+
+    # K1c and K2c's cluster kernels (bf16 products, f32 storage): K1c at B16
+    # (serving) and with its gate trace at B32, K2c on that trace. Their
+    # phases: exchange (the DSMEM hand-over), product, reduction (K2c: the
+    # sum of the CTAs' partials; none in K1c), gates, barrier (arrive to
+    # wait, with the trace stores and the next inputs' issue between).
+    for batch, gates in ((SERVE_BATCH, False), (TRAIN_BATCH, True)):
+        x, (w_ih, w_hh, b_ih, b_hh), _, _, _ = layer_inputs(torch, dev, batch, steps, False, 72)
+        xg = (precision.matmul(x, w_ih, torch.bfloat16) + (b_ih + b_hh)).transpose(0, 1) \
+            .contiguous()
+        zeros = torch.zeros((batch, H), device=dev)
+        for _ in range(2):
+            split.zero_()
+            out = lstm_ops._lstm_fwd_cuda(xg, w_hh, zeros, zeros, with_gates=gates, split=split,
+                                          compute_bf16=True)
+            torch.cuda.synchronize()
+        emit({'phase': 'k1c_step_split', 'route': 'cluster', 'source': 'lstm_fwd_bf16.cu',
+              'B': batch, 'T': steps, 'H': H, 'gates': gates,
+              'plan_tiles_clusters_fit': lstm_ops.cluster_plan(batch, H, gates),
+              'steps_recorded': SPLIT_STEPS, 'skipped': SPLIT_SKIP,
+              **read_split(torch, split, SPLIT_STEPS)})
+    _, c_all, g_all, _, _ = out
+    for _ in range(2):
+        split.zero_()
+        lstm_ops._lstm_bwd_cuda(g_all, w_hh, zeros, c_all, *cot, split=split, compute_bf16=True)
+        torch.cuda.synchronize()
+    emit({'phase': 'k2c_step_split', 'route': 'cluster', 'source': 'lstm_bwd_bf16.cu',
+          'B': TRAIN_BATCH, 'T': steps, 'H': H,
+          'plan_tiles_clusters_fit': lstm_ops.cluster_plan(TRAIN_BATCH, H, backward=True),
+          'steps_recorded': SPLIT_STEPS, 'skipped': SPLIT_SKIP,
           **read_split(torch, split, SPLIT_STEPS)})
 
 
@@ -1226,15 +1263,19 @@ def k5_bwd_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, 
 
 
 # The parent tree's C entries: name -> (entry, argument types), as the tree
-# before MLPG's partition solve has them: K5b's backward a source of its own
-# with do's planes in a scratch, the carry a scratch, and MLPG's solve the
-# loop a thread a lane with its rows of L and y in two scratches.
+# before the bf16 LSTM cluster kernels has them: K5b's backward a source of
+# its own with do's planes in a scratch, the carry a scratch, MLPG's solve
+# with a scratch of morgana_mlpg_scratch_bytes, and K1c and K2c as the bf16
+# builds of lstm_fwd.cu and lstm_bwd.cu (storage and compute flags, K2's
+# scratch of partials).
 PARENT_ENTRIES = {
+    'lstm_fwd': ('morgana_lstm_fwd', ['p'] * 9 + ['i'] * 6 + ['p']),
+    'lstm_bwd': ('morgana_lstm_bwd', ['p'] * 12 + ['i'] * 6 + ['p']),
     'attn_fwd': ('morgana_attn_fwd', ['p'] * 6 + ['i'] * 8 + ['p']),
     'attn_bwd': ('morgana_attn_bwd', ['p'] * 11 + ['i'] * 7 + ['p']),
     'attn_bwd_bf16': ('morgana_attn_bwd_bf16', ['p'] * 11 + ['i'] * 7 + ['p']),
     'rnn_dw_bf16': ('morgana_rnn_dw_bf16', ['p'] * 4 + ['i'] * 4 + ['q'] * 4 + ['i', 'p']),
-    'mlpg': ('morgana_mlpg_solve', ['p'] * 5 + ['i'] * 4 + ['p'])}
+    'mlpg': ('morgana_mlpg_solve', ['p'] * 4 + ['i'] * 4 + ['p'])}
 
 
 def build_parent_kernels(parent):
@@ -1272,14 +1313,20 @@ def build_parent_kernels(parent):
             fns['rnn_dw_bf16_scratch'] = lib.morgana_rnn_dw_bf16_scratch
             fns['rnn_dw_bf16_scratch'].argtypes = [ctypes.c_int] * 4
             fns['rnn_dw_bf16_scratch'].restype = ctypes.c_longlong
+        if name == 'mlpg':
+            fns['mlpg_scratch'] = lib.morgana_mlpg_scratch_bytes
+            fns['mlpg_scratch'].argtypes = [ctypes.c_int] * 3
+            fns['mlpg_scratch'].restype = ctypes.c_longlong
     return fns, logs
 
 
 def parent_wrappers(torch, fns):
     """The parent's attention forward, its backward (f32, or K5b's for bf16
-    q, k, v), its carry and MLPG's solve, called as this tree's wrappers
+    q, k, v), its carry, MLPG's solve and its K1c and K2c at H512 (the bf16
+    builds of lstm_fwd.cu and lstm_bwd.cu), called as this tree's wrappers
     are: (attention_forward's o, attention_backward's (dq, dk, dv), the
-    carry's dW, mlpg_solve's x)."""
+    carry's dW, mlpg_solve's x, [y, c_all, hn, cn] (and g_all with gates),
+    [dxg, dh0, dc0])."""
 
     def launch(name, *args):
         err = fns[name](*args, torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
@@ -1325,12 +1372,35 @@ def parent_wrappers(torch, fns):
         return dw
 
     def solve(b, bands):
-        x, ys, lrows = torch.empty_like(b), torch.empty_like(b), torch.empty_like(bands)
-        launch('mlpg', b.data_ptr(), bands.data_ptr(), lrows.data_ptr(), ys.data_ptr(),
-               x.data_ptr(), b.shape[0], b.shape[1], bands.shape[0] - 1)
+        frames, lanes, bandwidth = b.shape[0], b.shape[1], bands.shape[0] - 1
+        x = torch.empty_like(b)
+        scratch = torch.empty(fns['mlpg_scratch'](frames, lanes, bandwidth), dtype=torch.uint8,
+                              device=b.device)
+        launch('mlpg', b.data_ptr(), bands.data_ptr(), scratch.data_ptr(), x.data_ptr(), frames,
+               lanes, bandwidth)
         return x
 
-    return forward, backward, carry, solve
+    def lstm_fwd(xg, w_hh, h0, c0, gates):
+        time_steps, batch, gates4 = xg.shape
+        y = torch.empty((time_steps, batch, gates4 // 4), device=xg.device)
+        c_all, g_all = torch.empty_like(y), torch.empty_like(xg) if gates else None
+        hn, cn = torch.empty_like(h0), torch.empty_like(c0)
+        launch('lstm_fwd', xg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+               y.data_ptr(), c_all.data_ptr(), None if g_all is None else g_all.data_ptr(),
+               hn.data_ptr(), cn.data_ptr(), time_steps, batch, gates4 // 4, 0, 1)
+        return [y, c_all, hn, cn] + ([g_all] if gates else [])
+
+    def lstm_bwd(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn):
+        time_steps, batch, gates4 = g_all.shape
+        hidden = gates4 // 4
+        dxg, dh0, dc0 = torch.empty_like(g_all), torch.empty_like(dhn), torch.empty_like(dcn)
+        part = torch.empty(2 * 64 * batch * hidden, device=g_all.device)
+        launch('lstm_bwd', *(t.data_ptr() for t in (g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn,
+                                                     dxg, dh0, dc0, part)),
+               time_steps, batch, hidden, 0, 1)
+        return [dxg, dh0, dc0]
+
+    return forward, backward, carry, solve, lstm_fwd, lstm_bwd
 
 
 # The carry's shapes in the parent comparison: (name, T, B, H, G,
@@ -1341,8 +1411,9 @@ CARRY_PARENT_SHAPES = (('lstm', 1024, TRAIN_BATCH, H, 4 * H, False),
 
 
 def kernel_parent_phase(torch, dev, parent):
-    """The parent tree's attention kernels and carry beside this tree's in
-    one process, in turns (parent, this, this, parent), on the same inputs:
+    """The parent tree's attention kernels, carry and bf16 LSTM kernels
+    beside this tree's in one process, in turns (parent, this, this,
+    parent), on the same inputs:
     the f32 forward at B16 (the serving batch) and B32, the f32 backward and
     K5b's backward at B32 (the training batch), T1024 H4 dh96, full, causal
     and causal with window 256, and the carry at CARRY_PARENT_SHAPES. The f32
@@ -1353,14 +1424,18 @@ def kernel_parent_phase(torch, dev, parent):
     the same bf16 q, k, v; beside the carry, the f32 dW GEMM it replaces.
     Then MLPG's solve alone and the whole mlpg() against the parent's solve
     and route at mlpg_case's inputs, within MLPG_RTOL of the largest |x|
-    (the parent's solve gives the plain loop's bits). Every row is measured;
+    (the parent's solve gives the plain loop's bits); then K1c at B16 and
+    K1c with its gate trace and K2c at B32, T1024 H512 (this tree's cluster
+    kernels, the parent's grid builds), within BF16_ULPS bf16 ulps of the
+    largest |value| of their outputs. Every row is measured;
     the phase fails after its line if any row disagreed."""
     from morgana_tpu_torch.ops import flash_attention as fa
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
     from morgana_tpu_torch.ops import weight_grad
 
     fns, ptxas = build_parent_kernels(parent)
-    parent_fwd, parent_bwd, parent_carry, parent_solve = parent_wrappers(torch, fns)
+    parent_fwd, parent_bwd, parent_carry, parent_solve, parent_lstm_fwd, parent_lstm_bwd = \
+        parent_wrappers(torch, fns)
     # (kernel, B, causal, window, seed): the inputs of main()'s timed k5,
     # k5_bwd and k5b_bwd cases at dh 96.
     masks = ((False, None), (True, None), (True, 256))
@@ -1485,6 +1560,43 @@ def kernel_parent_phase(torch, dev, parent):
         compare({'kernel': 'mlpg', 'case': label},
                 lambda: mlpg_ops.mlpg(means, variances, padding_size=MLPG_PADDING,
                                       seq_len=seq_len), parent_mlpg, 20, rel)
+    # K1c (B16, the serving batch), K1c with its gate trace and K2c (B32,
+    # the training batch) at T1024 H512: this tree's cluster kernels against
+    # the parent's grid builds, within BF16_ULPS bf16 ulps of the largest
+    # |value| of their outputs.
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.ops import precision
+
+    for kernel, batch, seed in (('lstm_fwd_bf16', SERVE_BATCH, 101),
+                                ('lstm_fwd_bf16_gates', TRAIN_BATCH, 111),
+                                ('lstm_bwd_bf16', TRAIN_BATCH, 111)):
+        x, (w_ih, w_hh, b_ih, b_hh), _, _, _ = layer_inputs(torch, dev, batch, 1024, False, seed)
+        xg = (precision.matmul(x, w_ih, torch.bfloat16) + (b_ih + b_hh)).transpose(0, 1) \
+            .contiguous()
+        zeros = torch.zeros((batch, H), device=dev)
+        gates = kernel != 'lstm_fwd_bf16'
+        row = {'kernel': kernel, 'B': batch, 'T': 1024, 'H': H}
+        if kernel == 'lstm_bwd_bf16':
+            _, c_all, g_all, _, _ = lstm_ops.lstm_recurrence(xg, w_hh, zeros, zeros, True, True)
+            rng = np.random.default_rng(seed + 200)
+            cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+                   for shape in ((1024, batch, H),) * 2 + ((batch, H),) * 2]
+            args = (g_all, w_hh, zeros, c_all, *cot)
+            row['bound_ms'], row['bound_by'] = k2_bound(batch, 1024, H, compute='bfloat16')
+            this = lambda: list(lstm_ops.lstm_backward(*args, compute_bf16=True))  # noqa: E731,B023
+            other = lambda: parent_lstm_bwd(*args)  # noqa: E731,B023
+        else:
+            row['bound_ms'], row['bound_by'] = k1_bound(batch, 1024, H, gates, compute='bfloat16')
+
+            def this(gates=gates, xg=xg, zeros=zeros):
+                y, c_all, g_all, hn, cn = lstm_ops.lstm_recurrence(xg, w_hh, zeros, zeros, gates,
+                                                                   True)
+                return [y, c_all, hn, cn] + ([g_all] if gates else [])
+
+            other = lambda: parent_lstm_fwd(xg, w_hh, zeros, zeros, gates)  # noqa: E731,B023
+        compare(row, this, other, 10,
+                lambda a, b: (grads_rel(a, b), BF16_ULPS * 2.0 ** -7))
+
     emit({'phase': 'kernel_parent_compare', 'parent': parent, 'parent_ptxas': ptxas,
           'order': 'parent, this, this, parent', 'nvidia_smi': nvidia_smi(), 'rows': rows})
     if disagree:
@@ -2166,7 +2278,8 @@ def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12, 
         raise AssertionError(f'{phase}: GPU trainer disagrees with the CPU trainer')
 
 
-KERNEL_KINDS = (('lstm_fwd_kernel', 'k1'), ('lstm_bwd_kernel', 'k2'), ('gru_fwd_kernel', 'k3'),
+KERNEL_KINDS = (('lstm_fwd_bf16_kernel', 'k1c'), ('lstm_bwd_bf16_kernel', 'k2c'),
+                ('lstm_fwd_kernel', 'k1'), ('lstm_bwd_kernel', 'k2'), ('gru_fwd_kernel', 'k3'),
                 ('gru_bwd_kernel', 'k4'), ('attn_fwd_kernel', 'attn_fwd'), ('attn_bwd', 'attn_bwd'),
                 ('rnn_dw_bf16_kernel', 'carry'), ('mlpg_kernel', 'mlpg'))
 
@@ -2185,9 +2298,9 @@ def kernel_kind(name):
 
 
 def profile_step(torch, fn):
-    """One profiled call: device time by kernel (K1-K4, the attention forward
-    and backward, the bf16 carry, GEMMs, Adam's multi-tensor kernels, the
-    rest), the number of kernels, and the host ops
+    """One profiled call: device time by kernel (K1-K4, K1c and K2c's
+    cluster kernels, the attention forward and backward, the bf16 carry,
+    GEMMs, Adam's multi-tensor kernels, the rest), the number of kernels, and the host ops
     that took the most time. The table by device time goes to stderr."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3931,7 +4044,8 @@ from morgana_tpu_torch.ops import flash_attention, gru, lstm, mlpg
 
 COUNTERS = {'k1': lstm, 'k3': gru, 'attn_fwd': flash_attention, 'mlpg_solve': mlpg}
 BF16 = {'k1c': (lstm, 'bf16_compute_launches'), 'k3c': (gru, 'bf16_compute_launches'),
-        'k5b': (flash_attention, 'bf16_launches')}
+        'k5b': (flash_attention, 'bf16_launches'),
+        'k1c_cluster': (lstm, 'bf16_cluster_launches')}
 report = {'voices': {}}
 for spec in json.loads(sys.argv[1]):
     before = {k: m.launches for k, m in COUNTERS.items()}
@@ -4193,12 +4307,13 @@ def attention_bf16_bound(batch, heads, time_steps, head_dim, pairs):
     return max(ops_ms, bytes_ms), ('operations' if ops_ms >= bytes_ms else 'bytes')
 
 
-def hold_bf16(label, got, want, f32, closer_by=BF16_CLOSER, common_scale=False):
+def hold_bf16(label, got, want, f32, closer_by=BF16_CLOSER, common_scale=False, held=True):
     """The tensors `got` (a kernel's bf16-compute outputs) against `want`
     (its plain version's): each within bf16_tol (with `common_scale`, of the
     largest |value| of them all), and `closer_by` times closer in mean
     |error| to them than to `f32` (the f32 plain version's). Returns the
-    numbers."""
+    numbers; with `held` False it only reports them, with 'held': False and
+    'within_tolerance'."""
     err = max(max_abs(a.float() - b.float()) for a, b in zip(got, want))
     top = max(max_abs(b.float()) for b in want)
     within = all(max_abs(a.float() - b.float())
@@ -4208,40 +4323,53 @@ def hold_bf16(label, got, want, f32, closer_by=BF16_CLOSER, common_scale=False):
     out = {'max_abs_err_vs_plain': err, 'mean_err_vs_plain': near, 'mean_err_vs_f32': far,
            'tolerance': f'{BF16_ULPS} bf16 ulps at each output\'s max, mean {closer_by}x '
                         'closer to the bf16 plain version than to the f32 one'}
-    if not (within and far > 0 and near * closer_by <= far and (closer_by > 1 or near < far)):
+    ok = within and far > 0 and near * closer_by <= far and (closer_by > 1 or near < far)
+    if not held:
+        out.update(held=False, within_tolerance=ok,
+                   max_rel_err_vs_plain={i: max_abs(a.float() - b.float())
+                                         / max(max_abs(b.float()), 1e-30)
+                                         for i, (a, b) in enumerate(zip(got, want))})
+    elif not ok:
         raise AssertionError(f'{label} disagrees with its plain version: {out}')
     return out
 
 
-def k1c_case(torch, dev, batch, time_steps, with_state, seed, timed):
+def k1c_case(torch, dev, batch, time_steps, with_state, seed, timed, hidden=H):
     """K1c (f32 storage, bf16 products: the scan backend under
     --compute_dtype bfloat16) through lstm_layer(compute_dtype='bfloat16')
     against lstm_layer_reference with the same compute dtype on the card
-    (hold_bf16: y, hn, cn), one K1c launch and no other. With `timed`, K1c
-    alone, its plain version, the layer, cuDNN's LSTM in bf16 (weights,
-    input and state) and the bound."""
+    (hold_bf16: y, hn, cn), one K1c launch and no other, on the route the
+    width gives (the cluster kernel up to 512, the grid build at 1024). With
+    `timed`, K1c alone, its plain version, the layer, cuDNN's LSTM in bf16
+    (weights, input and state) and the bound."""
     from morgana_tpu_torch.ops import lstm as lstm_ops
     from morgana_tpu_torch.ops import precision
 
     x, (w_ih, w_hh, b_ih, b_hh), seq_len, h0, c0 = layer_inputs(
-        torch, dev, batch, time_steps, with_state, seed)
+        torch, dev, batch, time_steps, with_state, seed, hidden)
     weights, state = (w_ih, w_hh, b_ih, b_hh), dict(seq_len=seq_len, h0=h0, c0=c0)
+    route = lstm_ops.bf16_route(hidden)
     with torch.inference_mode():
-        before = (lstm_ops.launches, lstm_ops.bf16_compute_launches)
+        before = (lstm_ops.launches, lstm_ops.bf16_compute_launches,
+                  lstm_ops.bf16_cluster_launches)
         y, (hn, cn) = lstm_ops.lstm_layer(x, *weights, compute_dtype='bfloat16', **state)
         torch.cuda.synchronize()
-        launched = (lstm_ops.launches - before[0], lstm_ops.bf16_compute_launches - before[1])
+        launched = (lstm_ops.launches - before[0], lstm_ops.bf16_compute_launches - before[1],
+                    lstm_ops.bf16_cluster_launches - before[2])
         wy, (wh, wc) = lstm_ops.lstm_layer_reference(x, *weights, compute_dtype='bfloat16',
                                                      **state)
         fy, (fh, fc) = lstm_ops.lstm_layer_reference(x, *weights, **state)
-        out = {'phase': 'k1c', 'B': batch, 'T': time_steps, 'H': H, 'initial_state': with_state,
-               'launches': launched[0], 'k1c_launches': launched[1],
-               **hold_bf16(f'K1c B={batch} T={time_steps}', [y, hn, cn], [wy, wh, wc],
-                           [fy, fh, fc])}
+        out = {'phase': 'k1c', 'route': route, 'B': batch, 'T': time_steps, 'H': hidden,
+               'initial_state': with_state, 'launches': launched[0], 'k1c_launches': launched[1],
+               'cluster_launches': launched[2],
+               **hold_bf16(f'K1c B={batch} T={time_steps} H={hidden}', [y, hn, cn],
+                           [wy, wh, wc], [fy, fh, fc])}
+        if route == 'cluster':
+            out['plan_tiles_clusters_fit'] = lstm_ops.cluster_plan(batch, hidden)
         if timed:
             xg = (precision.matmul(x, w_ih, torch.bfloat16) + (b_ih + b_hh)).transpose(0, 1) \
                 .contiguous()
-            zeros = torch.zeros((batch, H), device=dev)
+            zeros = torch.zeros((batch, hidden), device=dev)
             hs, cs = (zeros, zeros) if h0 is None else (h0, c0)
             out['kernel_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence(
                 xg, w_hh, hs, cs, compute_bf16=True), 10)
@@ -4253,11 +4381,13 @@ def k1c_case(torch, dev, batch, time_steps, with_state, seed, timed):
             x_l = x.to(torch.bfloat16)
             hx = None if h0 is None else (h0[None].bfloat16(), c0[None].bfloat16())
             out['library_ms'] = cuda_ms(torch, lambda: cudnn(x_l, hx), 20)
-            out['bound_ms'], out['bound_by'] = k1_bound(batch, time_steps, H, compute='bfloat16')
+            out['bound_ms'], out['bound_by'] = k1_bound(batch, time_steps, hidden,
+                                                        compute='bfloat16')
             out['us_per_step'] = out['kernel_ms'] * 1e3 / time_steps
     emit(out)
-    if launched != (1, 1):
-        raise AssertionError(f'K1c: launches {launched}, expected one K1c launch')
+    if launched != (1, 1, int(route == 'cluster')):
+        raise AssertionError(f'K1c: launches {launched}, expected one K1c launch on the '
+                             f'{route} route')
     return out
 
 
@@ -4354,14 +4484,21 @@ def bf16_kernels_phase(torch, dev):
     """The bf16-compute kernels against their plain versions on the card, at
     the shapes the bf16 serving paths give them and at edge shapes: K1c at
     B16 T1024 H512 (the LSTM's serving batch) and B1 T64 with the carried
-    state (a streamed chunk); K3c at H64 B16 T1024 (F0Model) and H128 B32
+    state (a streamed chunk) on the cluster kernel, with edge shapes at H
+    512, 64 and 200, and at H1024 B16 T1024 on the grid build; K3c at H64 B16 T1024 (F0Model) and H128 B32
     T128 (DurationModel); K5b at B16 H4 T1024 dh 96 with full, causal,
     windowed (256) masks and ragged seq_len with an empty row. Returns the
     main shapes' numbers."""
     main = {'k1c': k1c_case(torch, dev, SERVE_BATCH, 1024, False, 101, timed=True)}
-    k1c_case(torch, dev, 1, STREAM_CONFIG[0], True, 102, timed=True)
+    main['k1c_chunk'] = k1c_case(torch, dev, 1, STREAM_CONFIG[0], True, 102, timed=True)
     for batch, steps in ((5, 1), (40, 33), (256, 9)):
         k1c_case(torch, dev, batch, steps, True, 103, timed=False)
+    # The cluster kernel at the other widths (64: 2 CTAs; 200 padded to 256:
+    # 8 CTAs), then the grid build that H = 1024 takes, at the serving shape.
+    for hidden in (64, 200):
+        k1c_case(torch, dev, 87, 33, True, 103, timed=False, hidden=hidden)
+    main['k1c_grid'] = k1c_case(torch, dev, SERVE_BATCH, 1024, False, 104, timed=True,
+                                hidden=1024)
     main['k3c'] = k3c_case(torch, dev, SERVE_BATCH, 1024, 64, 256, False, 104, timed=True)
     k3c_case(torch, dev, TRAIN_BATCH, 128, 128, 128, True, 105, timed=True)
     for hidden in (64, 128):
@@ -4439,30 +4576,37 @@ def carry_case(torch, h_prev, dg, label, timed):
     return out
 
 
-def k2c_case(torch, dev, batch, time_steps, with_state, seed, timed):
+def k2c_case(torch, dev, batch, time_steps, with_state, seed, timed, hidden=H, layer_held=True):
     """The bf16 gradient path of lstm_layer (the bf16 input GEMM and its
     gradient, K1c writing its gate trace, K2c, the bf16 carry of dW_hh)
     against the plain versions in the same autograd Function
     (lstm_layer_reference with compute_dtype bf16): hold_bf16, closer to
     them than to the f32 plain gradients; K1c's gate trace, K2c alone and
     the carry alone against their plain versions on the same inputs
-    likewise. With `timed`, times of K1c with gates, K2c and the carry
-    beside their plain versions and bounds, the layer forward+backward and
-    cuDNN's LSTM forward+backward in bf16. Returns the kernels' numbers."""
+    likewise. K1c and K2c take the route the width gives (the cluster
+    kernels up to 512, the grid builds at 1024). With `layer_held` False
+    the layer's gradients are reported, not held (the kernels alone still
+    are). With `timed`, times of K1c
+    with gates, K2c and the carry beside their plain versions and bounds,
+    the layer forward+backward and cuDNN's LSTM forward+backward in bf16.
+    Returns the kernels' numbers."""
     from morgana_tpu_torch.ops import lstm as lstm_ops
     from morgana_tpu_torch.ops import precision
     from morgana_tpu_torch.ops import weight_grad
 
-    x, weights, seq_len, h0, c0 = layer_inputs(torch, dev, batch, time_steps, with_state, seed)
+    x, weights, seq_len, h0, c0 = layer_inputs(torch, dev, batch, time_steps, with_state, seed,
+                                               hidden)
     rng = np.random.default_rng(seed + 100)
     loss_weights = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
-                    for shape in ((batch, time_steps, H), (batch, H), (batch, H))]
+                    for shape in ((batch, time_steps, hidden), (batch, hidden), (batch, hidden))]
+    route = lstm_ops.bf16_route(hidden)
 
     def bf16(fn):
         return lambda *a, **k: fn(*a, compute_dtype='bfloat16', **k)
 
     counts = [(lstm_ops, 'bf16_compute_gate_launches'), (lstm_ops, 'bf16_compute_bwd_launches'),
-              (weight_grad, 'launches')]
+              (weight_grad, 'launches'), (lstm_ops, 'bf16_cluster_gate_launches'),
+              (lstm_ops, 'bf16_cluster_bwd_launches')]
     before = [getattr(m, c) for m, c in counts]
     got = layer_grads(torch, bf16(lstm_ops.lstm_layer), x, weights, seq_len, h0, c0, loss_weights)
     torch.cuda.synchronize()
@@ -4471,11 +4615,11 @@ def k2c_case(torch, dev, batch, time_steps, with_state, seed, timed):
                        loss_weights)
     f32 = layer_grads(torch, lstm_ops.lstm_layer_reference, x, weights, seq_len, h0, c0,
                       loss_weights)
-    label = f'B={batch} T={time_steps}'
-    layer = hold_bf16(f'bf16 LSTM gradients {label}', got, want, f32, 1)
+    label = f'B={batch} T={time_steps} H={hidden}'
+    layer = hold_bf16(f'bf16 LSTM gradients {label}', got, want, f32, 1, held=layer_held)
 
     w_ih, w_hh, b_ih, b_hh = weights
-    zeros = torch.zeros((batch, H), device=dev)
+    zeros = torch.zeros((batch, hidden), device=dev)
     hs, cs = (zeros, zeros) if h0 is None else (h0, c0)
     xg = (precision.matmul(x, w_ih, torch.bfloat16) + (b_ih + b_hh)).transpose(0, 1).contiguous()
     y_k, c_all, g_k, _, _ = lstm_ops.lstm_recurrence(xg, w_hh, hs, cs, with_gates=True,
@@ -4483,7 +4627,7 @@ def k2c_case(torch, dev, batch, time_steps, with_state, seed, timed):
     _, _, g_p, _, _ = lstm_ops.lstm_recurrence_reference(xg, w_hh, hs, cs, True)
     gate_err = max_abs(g_k - g_p)
     cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
-           for shape in ((time_steps, batch, H),) * 2 + ((batch, H),) * 2]
+           for shape in ((time_steps, batch, hidden),) * 2 + ((batch, hidden),) * 2]
     bwd_args = (g_k, w_hh, cs, c_all, *cot)
     k2c = lstm_ops.lstm_backward(*bwd_args, compute_bf16=True)
     k2c_held = hold_bf16(f'K2c {label}', k2c, lstm_ops.lstm_backward_reference(
@@ -4493,16 +4637,21 @@ def k2c_case(torch, dev, batch, time_steps, with_state, seed, timed):
 
     k1c_gates = {'gate_trace_max_abs_err': gate_err, 'gate_tol': bf16_tol(g_p),
                  'max_abs_err_vs_plain': layer['max_abs_err_vs_plain']}
-    out = {'phase': 'k2c', 'B': batch, 'T': time_steps, 'H': H, 'initial_state': with_state,
-           'layer_grads': layer, 'k2c': k2c_held, 'carry': carry, 'k1c_gates': k1c_gates,
-           'k1c_gate_launches': launched[0], 'k2c_launches': launched[1],
-           'carry_launches': launched[2]}
+    out = {'phase': 'k2c', 'route': route, 'B': batch, 'T': time_steps, 'H': hidden,
+           'initial_state': with_state, 'layer_grads': layer, 'k2c': k2c_held, 'carry': carry,
+           'k1c_gates': k1c_gates, 'k1c_gate_launches': launched[0],
+           'k2c_launches': launched[1], 'carry_launches': launched[2],
+           'cluster_launches': launched[3:]}
+    if route == 'cluster':
+        out['plan_tiles_clusters_fit'] = {
+            'k1c_gates': lstm_ops.cluster_plan(batch, hidden, True),
+            'k2c': lstm_ops.cluster_plan(batch, hidden, backward=True)}
     if timed:
         k2c_held['kernel_ms'] = cuda_ms(
             torch, lambda: lstm_ops.lstm_backward(*bwd_args, compute_bf16=True), 10)
         k2c_held['plain_ms'] = cuda_ms(
             torch, lambda: lstm_ops.lstm_backward_reference(*bwd_args, compute_bf16=True), 2)
-        k2c_held['bound_ms'], k2c_held['bound_by'] = k2_bound(batch, time_steps, H,
+        k2c_held['bound_ms'], k2c_held['bound_by'] = k2_bound(batch, time_steps, hidden,
                                                              compute='bfloat16')
         k2c_held['us_per_step'] = k2c_held['kernel_ms'] * 1e3 / time_steps
         k2c_held['f32_k2_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_backward(*bwd_args), 10)
@@ -4510,8 +4659,9 @@ def k2c_case(torch, dev, batch, time_steps, with_state, seed, timed):
             xg, w_hh, hs, cs, with_gates=True, compute_bf16=True), 10)
         k1c_gates['plain_ms'] = cuda_ms(torch, lambda: lstm_ops.lstm_recurrence_reference(
             xg, w_hh, hs, cs, True), 2)
-        k1c_gates['bound_ms'], k1c_gates['bound_by'] = k1_bound(batch, time_steps, H, True,
+        k1c_gates['bound_ms'], k1c_gates['bound_by'] = k1_bound(batch, time_steps, hidden, True,
                                                                 compute='bfloat16')
+        k1c_gates['us_per_step'] = k1c_gates['kernel_ms'] * 1e3 / time_steps
         out['layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: layer_grads(
             torch, bf16(lstm_ops.lstm_layer), x, weights, seq_len, h0, c0, loss_weights), 5)
         out['f32_layer_fwd_bwd_ms'] = cuda_ms(torch, lambda: layer_grads(
@@ -4530,8 +4680,9 @@ def k2c_case(torch, dev, batch, time_steps, with_state, seed, timed):
         for entry in (k2c_held, k1c_gates):
             entry['library_ms'] = library
     emit(out)
-    if not (gate_err <= bf16_tol(g_p) and launched == [1, 1, 1]):
-        raise AssertionError(f'K1c with gates / K2c / carry at {label}: {out}')
+    cluster = int(route == 'cluster')
+    if not (gate_err <= bf16_tol(g_p) and launched == [1, 1, 1, cluster, cluster]):
+        raise AssertionError(f'K1c with gates / K2c / carry at {label} ({route}): {out}')
     return {'k1c_gates': k1c_gates, 'k2c': k2c_held, 'carry': carry}
 
 
@@ -4692,13 +4843,23 @@ def bf16_backward_phase(torch, dev):
     """The backward kernels of --compute_dtype bfloat16 training against
     their plain versions on the card, at the shapes the training paths give
     them and at edge shapes: K1c with its gate trace, K2c and the LSTM's
-    carry at B32 T1024 H512; K4c and the GRU's carry at H64 B32 T1024
+    carry at B32 T1024 H512 (the cluster kernels; edge shapes at H 512, 64
+    and 200) and at H1024 (the grid builds); K4c and the GRU's carry at H64 B32 T1024
     (F0Model) and H128 B32 T128 (DurationModel); K5b's backward at B32 H4
     T1024 dh 96, full, causal and windowed (256). Returns the main shapes'
     numbers."""
     lstm = k2c_case(torch, dev, TRAIN_BATCH, 1024, False, 111, timed=True)
-    for batch, steps in ((5, 1), (1, 17), (40, 33), (88, 17)):
+    for batch, steps in ((5, 1), (1, 17), (40, 33), (88, 17), (256, 9)):
         k2c_case(torch, dev, batch, steps, True, 112, timed=False)
+    for hidden in (64, 200):
+        k2c_case(torch, dev, 87, 33, True, 112, timed=False, hidden=hidden)
+    # The grid builds that H = 1024 takes (K1c with gates, K2c): the layer's
+    # gradients held at B32 T64, the kernels alone held and timed at the
+    # training shape, T1024, where the layer's gradients are reported (at
+    # H1024 they go past BF16_ULPS there: PERF.md §7).
+    k2c_case(torch, dev, TRAIN_BATCH, 64, True, 119, timed=False, hidden=1024)
+    wide = k2c_case(torch, dev, TRAIN_BATCH, 1024, False, 119, timed=True, hidden=1024,
+                    layer_held=False)
     gru = k4c_case(torch, dev, TRAIN_BATCH, 1024, 64, 256, False, 113, timed=True)
     k4c_case(torch, dev, TRAIN_BATCH, 128, 128, 128, True, 114, timed=True)
     for hidden in (64, 128):
@@ -4713,7 +4874,8 @@ def bf16_backward_phase(torch, dev):
         k5b_bwd_case(torch, dev, batch, 4, steps, head_dim, causal, window, 118, timed=False,
                      empty_row=empty)
     return {'k1c_gates': lstm['k1c_gates'], 'k2c': lstm['k2c'], 'carry': lstm['carry'],
-            'carry_gru': gru['carry'], 'k4c': gru['k4c'], 'k5b_bwd': attn}
+            'carry_gru': gru['carry'], 'k4c': gru['k4c'], 'k5b_bwd': attn,
+            'k1c_gates_grid': wide['k1c_gates'], 'k2c_grid': wide['k2c']}
 
 
 # name: (model module, class, the kernels' counters, layers, seed, flags)
@@ -4727,7 +4889,7 @@ BF16_TRAIN_MODELS = (
 
 def bf16_counters():
     """The launch counters of the bf16 training path, by name: K1c (all, and
-    those with the gate trace), K2c, K3c, K4c, K5b and its backward, the
+    those with the gate trace), K2c, those of them on the cluster kernels, K3c, K4c, K5b and its backward, the
     carry, and every launch of the LSTM, GRU and attention kernels."""
     from morgana_tpu_torch.ops import flash_attention as fa
     from morgana_tpu_torch.ops import gru as gru_ops
@@ -4736,7 +4898,10 @@ def bf16_counters():
 
     return {'k1c': (lstm_ops, 'bf16_compute_launches'),
             'k1c_gates': (lstm_ops, 'bf16_compute_gate_launches'),
-            'k2c': (lstm_ops, 'bf16_compute_bwd_launches'), 'k1': (lstm_ops, 'launches'),
+            'k2c': (lstm_ops, 'bf16_compute_bwd_launches'),
+            'k1c_cluster': (lstm_ops, 'bf16_cluster_launches'),
+            'k1c_cluster_gates': (lstm_ops, 'bf16_cluster_gate_launches'),
+            'k2c_cluster': (lstm_ops, 'bf16_cluster_bwd_launches'), 'k1': (lstm_ops, 'launches'),
             'k2': (lstm_ops, 'bwd_launches'), 'k3c': (gru_ops, 'bf16_compute_launches'),
             'k4c': (gru_ops, 'bf16_compute_bwd_launches'), 'k3': (gru_ops, 'launches'),
             'k4': (gru_ops, 'bwd_launches'), 'k5b': (fa, 'bf16_launches'),
@@ -4744,8 +4909,9 @@ def bf16_counters():
             'attn_bwd': (fa, 'bwd_launches'), 'carry': (weight_grad, 'launches')}
 
 
-def builder_run(torch, root, model_class, phase, seed, *flags):
-    """Trains `model_class` for 2 epochs with validation through the
+def builder_run(torch, root, model_class, phase, seed, *flags, model_kwargs=None):
+    """Trains `model_class` (with `model_kwargs`, which `flags` then pass
+    as --model_kwargs) for 2 epochs with validation through the
     ExperimentBuilder on the train corpus from a seeded epoch_0.npz, then
     five steady-state steps on one full batch and one profiled step.
     Returns the numbers, the launches of the 2-epoch run (every counter set
@@ -4755,7 +4921,7 @@ def builder_run(torch, root, model_class, phase, seed, *flags):
 
     data_root, _ = train_corpus(root)
     ckpt = seeded_checkpoint(torch, model_class, os.path.join(root, f'{phase}_init', 'epoch_0.npz'),
-                             seed)
+                             seed, **(model_kwargs or {}))
     exp_base = os.path.join(root, 'experiments')
     args = ExperimentBuilder.get_experiment_args(
         builder_argv(data_root, exp_base, phase, ckpt, '--end_epoch', '2', *flags))
@@ -4810,9 +4976,9 @@ def bf16_training_phase(torch, root, smi):
     ExperimentBuilder in f32 and then with --compute_dtype bfloat16, from
     one seeded init: ms a step, frames/s, peak memory and the device's idle
     share of each, side by side (one turn each); the bf16 run launches only
-    the bf16 builds (K1c with and without gates, K2c, K3c, K4c, K5b and its
-    backward, the carry), as many as its layers, steps and valid batches
-    give; then 3 steps of B=4 on the card against the CPU bf16 trainer
+    the bf16 builds (K1c with and without gates, K2c, all of them the
+    cluster kernels at H512, K3c, K4c, K5b and its backward, the carry), as
+    many as its layers, steps and valid batches give; then 3 steps of B=4 on the card against the CPU bf16 trainer
     (train_parity_phase). Returns the bf16 runs' launches, summed."""
     import importlib
 
@@ -4829,7 +4995,8 @@ def bf16_training_phase(torch, root, smi):
             fwd, per = layers * (steps + 2 * valid), layers * steps
             expected = dict.fromkeys(totals, 0)
             if name == 'lstm':
-                expected.update(k1c=fwd, k1=fwd, k1c_gates=per, k2c=per, k2=per, carry=per)
+                expected.update(k1c=fwd, k1=fwd, k1c_gates=per, k2c=per, k2=per, carry=per,
+                                k1c_cluster=fwd, k1c_cluster_gates=per, k2c_cluster=per)
             elif name == 'transformer':
                 expected.update(k5b=fwd, attn_fwd=fwd, k5b_bwd=per, attn_bwd=per)
             else:
@@ -4847,6 +5014,67 @@ def bf16_training_phase(torch, root, smi):
                                '--compute_dtype', 'bfloat16', *flags,
                                grad_rtol=BF16_ULPS * 2.0 ** -7)
     return totals
+
+
+# The LSTM voice whose bf16 layers take the grid route (bf16_route): its
+# bf16 w_hh, 8 MiB a layer, fits no cluster.
+WIDE_LSTM = {'num_layers': 2, 'hidden_size': 1024}
+
+
+def bf16_wide_lstm_phase(torch, root, served, smi):
+    """The main path of K1c and K2c's grid route (H = 1024): a seeded
+    LSTMAcousticModel of 2 x LSTM(1024) served in bf16 over the serving
+    phase's 32 utterances at B16 (2 K1c launches a batch on the grid build,
+    none on the cluster kernel; shapes and finiteness), then trained for 2
+    epochs with --compute_dtype bfloat16 through the ExperimentBuilder
+    (builder_run): K1c with and without its gate trace and K2c on the grid
+    builds, as many as its layers, steps and valid batches give. Returns the
+    launches of both runs."""
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    layers = WIDE_LSTM['num_layers']
+    ckpt = seeded_checkpoint(torch, LSTMAcousticModel,
+                             os.path.join(root, 'wide_lstm', 'epoch_1.npz'), 131, **WIDE_LSTM)
+    engine = InferenceEngine(LSTMAcousticModel, ckpt, data_root=served['root'],
+                             batch_size=SERVE_BATCH, model_kwargs=WIDE_LSTM,
+                             compute_dtype='bfloat16')
+    items = served['items']
+    n_batches = -(-len(items) // SERVE_BATCH)
+    counts = ('bf16_compute_launches', 'bf16_cluster_launches')
+    with compute_dtype('bfloat16'):
+        engine.predict_items(items[:2])   # warm-up
+        torch.cuda.synchronize()
+        before = [getattr(lstm_ops, c) for c in counts]
+        start = time.perf_counter()
+        outputs = engine.predict_items(items)
+        seconds = time.perf_counter() - start
+        serve = [getattr(lstm_ops, c) - b for c, b in zip(counts, before)]
+    for item in items:
+        n = int(item['n_frames'].reshape(-1)[0])
+        for key, dim in ACOUSTIC_DIMS.items():
+            out = outputs[item['name']][key]
+            if out.shape != (n, dim) or not np.isfinite(out).all():
+                raise AssertionError(f"bf16_wide_lstm {item['name']} {key}: {out.shape}")
+    numbers, launches, steps, valid = builder_run(
+        torch, root, LSTMAcousticModel, 'bf16_train_lstm_wide', 132, '--compute_dtype',
+        'bfloat16', '--model_kwargs', repr(WIDE_LSTM), model_kwargs=WIDE_LSTM)
+    fwd, per = layers * (steps + 2 * valid), layers * steps
+    expected = dict.fromkeys(launches, 0)
+    expected.update(k1c=fwd, k1=fwd, k1c_gates=per, k2c=per, k2=per, carry=per)
+    emit({'phase': 'bf16_wide_lstm', 'model': 'LSTMAcousticModel 609-2xLSTM(1024)-199',
+          'route': lstm_ops.bf16_route(WIDE_LSTM['hidden_size']),
+          'serving': {'utterances': len(items), 'batches': n_batches, 'seconds': seconds,
+                      'ms_per_batch': seconds / n_batches * 1e3, 'k1c_launches': serve[0],
+                      'cluster_launches': serve[1]},
+          'train': numbers, 'train_steps': steps, 'valid_batches': valid, 'launches': launches,
+          'launches_expected': expected, 'nvidia_smi': smi})
+    if serve != [layers * n_batches, 0] or launches != expected:
+        raise AssertionError(f'bf16_wide_lstm: serving launches {serve}, training {launches}, '
+                             f'expected {expected}')
+    return {'k1c': serve[0] + launches['k1c'] - launches['k1c_gates'],
+            'k1c_gates': launches['k1c_gates'], 'k2c': launches['k2c']}
 
 
 def hold_engines(label, got, want, control, keys):
@@ -4951,7 +5179,8 @@ def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, att
     for tag in summary:
         summary[tag].update({key: profiles[tag][key] for key in (
             'profiled_wall_ms', 'device_busy_ms', 'device_idle_share', 'gemm_device_ms',
-            'k1_device_ms', 'k3_device_ms', 'attn_fwd_device_ms', 'mlpg_device_ms',
+            'k1_device_ms', 'k1c_device_ms', 'k3_device_ms', 'attn_fwd_device_ms',
+            'mlpg_device_ms',
             'other_device_ms', 'kernels_launched', 'mlpg_ms')})
     emit({'phase': f'bf16_serving_{name}', 'model': label, 'utterances': len(items),
           'frames': frames, 'batch_size': SERVE_BATCH, 'batches': n_batches,
@@ -5012,7 +5241,8 @@ printed = io.StringIO()
 with contextlib.redirect_stdout(printed):
     pipeline.main(sys.argv[1:])
 print(json.dumps({'stats': json.loads(printed.getvalue().strip().splitlines()[-1]),
-                  'k1': lstm.launches, 'k1c': lstm.bf16_compute_launches, 'k3': gru.launches,
+                  'k1': lstm.launches, 'k1c': lstm.bf16_compute_launches,
+                  'k1c_cluster': lstm.bf16_cluster_launches, 'k3': gru.launches,
                   'k3c': gru.bf16_compute_launches,
                   'compute_dtype': str(nn.default_compute_dtype()),
                   'seconds': time.perf_counter() - start}))
@@ -5054,7 +5284,7 @@ def bf16_serving_phase(torch, served, smi):
 
     n, lstm_engine, lstm_out = bf16_engine_case(
         torch, 'lstm', LSTMAcousticModel, served['ckpt'], served['root'], served['items'],
-        ACOUSTIC_DIMS, lstm_ops, 'bf16_compute_launches', 8,
+        ACOUSTIC_DIMS, lstm_ops, 'bf16_cluster_launches', 8,
         'LSTMAcousticModel 609-8xLSTM(512)-199')
     launches['k1c'] += n
     lap('lstm')
@@ -5080,7 +5310,7 @@ def bf16_serving_phase(torch, served, smi):
     # step over the KV caches).
     longest = sorted(served['items'], key=lambda it: -int(it['n_frames'].reshape(-1)[0]))[:2]
     lstm_stream, n = bf16_stream_case(torch, 'lstm', lstm_engine, longest, lstm_out, lstm_ops,
-                                      'bf16_compute_launches', 8)
+                                      'bf16_cluster_launches', 8)
     launches['k1c'] += n
     root = os.path.join(base, 'causal_transformer')
     os.makedirs(root)
@@ -5114,7 +5344,8 @@ def bf16_serving_phase(torch, served, smi):
     report = run_script('bf16_serving: ExportedVoice', EXPORT_RUN, json.dumps([entry]))
     got = report['voices']['lstm_bf16']
     if report['models_imported'] or got['launches']['k1'] != got['launches']['k1c'] \
-            or got['launches']['k1c'] != 8 * numbers['batches']:
+            or got['launches']['k1c'] != 8 * numbers['batches'] \
+            or got['launches']['k1c_cluster'] != got['launches']['k1c']:
         raise AssertionError(f'bf16_serving export: {report}')
     with np.load(entry['out']) as out:
         export_err = max(float(np.abs(out[key] - value).max())
@@ -5138,7 +5369,8 @@ def bf16_serving_phase(torch, served, smi):
                      '--compute_dtype', 'bfloat16')
     stats = cli['stats']
     if stats['utterances'] != N_UTTS or stats['wavs'] != N_UTTS or 'evaluation' not in stats \
-            or not cli['k1c'] or cli['k1c'] != cli['k1'] or not cli['k3c'] \
+            or not cli['k1c'] or cli['k1c'] != cli['k1'] or cli['k1c_cluster'] != cli['k1c'] \
+            or not cli['k3c'] \
             or cli['k3c'] != cli['k3'] or cli['compute_dtype'] != 'torch.bfloat16':
         raise AssertionError(f'bf16_serving: the pipeline CLI gave {cli}')
     check_wavs('bf16 pipeline cli', os.path.join(cli_dir, 'synth'),
@@ -5163,9 +5395,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description='Smoke test of the port on one NVIDIA GPU; '
                                      'with no arguments, every phase.')
     parser.add_argument('--kernel-parent', metavar='DIR',
-                        help='only time the attention kernels and the bf16 carry of DIR (a '
-                        'tree holding morgana_tpu_torch/csrc, e.g. a git archive of the parent '
-                        "commit) beside this tree's, in turns, and stop")
+                        help='only time the attention kernels, the bf16 carry, MLPG and the bf16 '
+                        'LSTM kernels of DIR (a tree holding morgana_tpu_torch/csrc, e.g. a git '
+                        "archive of the parent commit) beside this tree's, in turns, and stop")
     parser.add_argument('--transformer-only', action='store_true',
                         help='only the Transformer serving and training phases (copied into '
                         "another tree's root, this gives that tree's end-to-end numbers)")
@@ -5193,10 +5425,11 @@ def main(argv=None):
     start = time.perf_counter()
     only = args.kernel_parent or args.transformer_only
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        split_build = None if only else pool.submit(_build.build, ['lstm_fwd', 'lstm_bwd'],
-                                                    'step_split')
+        split_build = None if only else pool.submit(
+            _build.build, ['lstm_fwd', 'lstm_bwd', 'lstm_fwd_bf16', 'lstm_bwd_bf16'], 'step_split')
         paths = _build.build(None if not only else ['attn_fwd', 'attn_bwd'] + (
-            ['attn_bwd_bf16', 'rnn_dw_bf16', 'mlpg'] if args.kernel_parent else []))
+            ['attn_bwd_bf16', 'rnn_dw_bf16', 'mlpg', 'lstm_fwd_bf16', 'lstm_bwd_bf16']
+            if args.kernel_parent else []))
         if split_build is not None:
             split_build.result()
     logs = {}
@@ -5342,6 +5575,7 @@ def main(argv=None):
         transformer_dropout_phase(torch, root)
         bf16_launches = bf16_serving_phase(torch, served, smi)
         bf16_train = bf16_training_phase(torch, root, smi)
+        wide = bf16_wide_lstm_phase(torch, root, served, smi)
     mlpg_launches = mlpg_ops.launches + export_launches['mlpg_solve']
     fused_launches = mlpg_ops.fused_launches + export_launches['mlpg']
     if not (serve_launches and generate_launches and test_launches and mlpg_launches
@@ -5359,7 +5593,9 @@ def main(argv=None):
             and attn_train_launches['attn_bwd'] and bf16_launches['k1c']
             and bf16_launches['k3c'] and bf16_launches['k5b'] and bf16_train['k1c_gates']
             and bf16_train['k2c'] and bf16_train['k4c'] and bf16_train['k5b_bwd']
-            and bf16_train['carry']):
+            and bf16_train['carry'] and bf16_train['k1c_cluster']
+            and bf16_train['k1c_cluster_gates'] and bf16_train['k2c_cluster'] and wide['k1c']
+            and wide['k1c_gates'] and wide['k2c']):
         raise AssertionError('a kernel of the main path was not launched')
 
     # launches: the main paths' runs, each counted from 0: serving,
@@ -5376,7 +5612,10 @@ def main(argv=None):
     # alone launched on none of them); bf16_serving's engines,
     # streams, bundle process and pipeline command line for K1c, K3c and
     # K5b; bf16_training's four models for K1c (with and without its gate
-    # trace), K2c, K3c, K4c, K5b and its backward and the carry. The forward
+    # trace), K2c, K3c, K4c, K5b and its backward and the carry; K1c and
+    # K2c's cluster kernels are those of every bf16 LSTM path (H512), their
+    # grid builds those of bf16_wide_lstm's serving and training (H1024),
+    # timed at H1024 (B16 forward, B32 with gates and backward). The forward
     # kernels' numbers are at the serving shape (B=16), the backward ones'
     # (and K1c's with the gate trace) at the training one (B=32), MLPG's at
     # the LSTM's B16 batch (library_ms: the dense torch.linalg.solve of the
@@ -5459,23 +5698,40 @@ def main(argv=None):
         'bound_ms': bf16_shapes[key]['bound_ms'], 'bound_by': bf16_shapes[key]['bound_by'],
         'library_ms': bf16_shapes[key]['library_ms']}
         for name, key, train, source, replaces, also in (
-            ('lstm_fwd_bf16_compute', 'k1c', bf16_train['k1c'] - bf16_train['k1c_gates'],
-             'lstm_fwd.cu', 'morgana_tpu/ops/pallas_rnn.py:77', 'morgana_tpu/ops/rnn.py:113'),
+            ('lstm_fwd_bf16_cluster', 'k1c',
+             bf16_train['k1c_cluster'] - bf16_train['k1c_cluster_gates'], 'lstm_fwd_bf16.cu',
+             'morgana_tpu/ops/pallas_rnn.py:77', 'morgana_tpu/ops/rnn.py:113'),
             ('gru_fwd_bf16_compute', 'k3c', bf16_train['k3c'], 'gru_fwd.cu',
              'morgana_tpu/ops/pallas_gru.py:35', 'morgana_tpu/ops/rnn.py:347'),
             ('attn_fwd_bf16', 'k5b', bf16_train['k5b'], 'attn_fwd.cu', 'morgana_tpu/nn.py:1001',
              'morgana_tpu/nn.py:1055'))] + [{
+        'name': 'lstm_fwd_bf16_compute', 'route': 'cuda',
+        'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
+        'replaces': 'morgana_tpu/ops/pallas_rnn.py:77', 'also_replaces': 'morgana_tpu/ops/rnn.py:113',
+        'launches': wide['k1c'], 'max_abs_err': bf16_shapes['k1c_grid']['max_abs_err_vs_plain'],
+        'ms': bf16_shapes['k1c_grid']['kernel_ms'],
+        'plain_ms': bf16_shapes['k1c_grid']['plain_ms'],
+        'bound_ms': bf16_shapes['k1c_grid']['bound_ms'],
+        'bound_by': bf16_shapes['k1c_grid']['bound_by'],
+        'library_ms': bf16_shapes['k1c_grid']['library_ms']}] + [{
         'name': name, 'route': 'cuda', 'source': f'morgana_tpu_torch/csrc/{source}',
-        'replaces': replaces, 'also_replaces': also, 'launches': bf16_train[launches],
+        'replaces': replaces, 'also_replaces': also,
+        'launches': wide[launches[:-5]] if launches.endswith('_grid') else bf16_train[launches],
         'max_abs_err': bf16_bwd_shapes[key][err], 'ms': bf16_bwd_shapes[key]['kernel_ms'],
         'plain_ms': bf16_bwd_shapes[key]['plain_ms'],
         'bound_ms': bf16_bwd_shapes[key]['bound_ms'],
         'bound_by': bf16_bwd_shapes[key]['bound_by'],
         'library_ms': bf16_bwd_shapes[key]['library_ms']}
         for name, key, launches, err, source, replaces, also in (
-            ('lstm_fwd_bf16_compute_gates', 'k1c_gates', 'k1c_gates', 'gate_trace_max_abs_err',
-             'lstm_fwd.cu', 'morgana_tpu/ops/pallas_rnn.py:77', 'morgana_tpu/ops/rnn.py:113'),
-            ('lstm_bwd_bf16_compute', 'k2c', 'k2c', 'max_abs_err_vs_plain', 'lstm_bwd.cu',
+            ('lstm_fwd_bf16_cluster_gates', 'k1c_gates', 'k1c_cluster_gates',
+             'gate_trace_max_abs_err', 'lstm_fwd_bf16.cu', 'morgana_tpu/ops/pallas_rnn.py:77',
+             'morgana_tpu/ops/rnn.py:113'),
+            ('lstm_bwd_bf16_cluster', 'k2c', 'k2c_cluster', 'max_abs_err_vs_plain',
+             'lstm_bwd_bf16.cu', 'morgana_tpu/ops/pallas_rnn.py:113', 'morgana_tpu/ops/rnn.py:113'),
+            ('lstm_fwd_bf16_compute_gates', 'k1c_gates_grid', 'k1c_gates_grid',
+             'gate_trace_max_abs_err', 'lstm_fwd.cu', 'morgana_tpu/ops/pallas_rnn.py:77',
+             'morgana_tpu/ops/rnn.py:113'),
+            ('lstm_bwd_bf16_compute', 'k2c_grid', 'k2c_grid', 'max_abs_err_vs_plain', 'lstm_bwd.cu',
              'morgana_tpu/ops/pallas_rnn.py:113', 'morgana_tpu/ops/rnn.py:113'),
             ('gru_bwd_bf16_compute', 'k4c', 'k4c', 'max_abs_err_vs_plain', 'gru_bwd.cu',
              'morgana_tpu/ops/pallas_gru.py:59', 'morgana_tpu/ops/rnn.py:347'),

@@ -3,8 +3,9 @@
 //
 // Replaces morgana_tpu/ops/pallas_rnn.py::_lstm_bwd_kernel (driven there by
 // _core_bwd), with its storage type (K1s, pallas_rnn.py::_store_dtype), and,
-// as K2c, the autodiff of the scan backend's bf16 recurrence (K1c;
-// morgana_tpu/ops/rnn.py:113-135 under compute_dtype bfloat16). Same
+// as K2c at H = 1024, the autodiff of the scan backend's bf16 recurrence
+// (K1c; morgana_tpu/ops/rnn.py:113-135 under compute_dtype bfloat16;
+// narrower layers take csrc/lstm_bwd_bf16.cu, ops/lstm.py::bf16_route). Same
 // function: with the activated gates i, f, g, o that K1 saved (g_all),
 // running t from T-1 down to 0,
 //

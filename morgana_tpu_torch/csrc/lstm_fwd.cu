@@ -2,8 +2,10 @@
 //
 // Replaces morgana_tpu/ops/pallas_rnn.py::_lstm_fwd_kernel (driven there by
 // _fwd_call), with its storage type (K1s, pallas_rnn.py::_store_dtype), and,
-// as K1c, the bf16 recurrence of the scan backend (morgana_tpu/ops/rnn.py:
-// 113-135 under compute_dtype bfloat16). Same function: with gates ordered
+// as K1c at H = 1024, the bf16 recurrence of the scan backend
+// (morgana_tpu/ops/rnn.py:113-135 under compute_dtype bfloat16; narrower
+// layers take csrc/lstm_fwd_bf16.cu, ops/lstm.py::bf16_route). Same
+// function: with gates ordered
 // i, f, g, o,
 //
 //     gates_t = xg_t + round(h_{t-1}) @ round(w_hh)

@@ -37,15 +37,22 @@ again at each call) for its ``'pallas'`` backend only, as the JAX package's
 scan path never reads it.
 
 Compute type (``compute_dtype`` bf16, the scan backend under
-``--compute_dtype bfloat16``, ``ops/rnn.py:113-135``, "K1c"): the input GEMM
+``--compute_dtype bfloat16``, ``ops/rnn.py:113-135``, "K1c" and "K2c"): the input GEMM
 rounds x and w_ih to bf16 (:func:`~morgana_tpu_torch.ops.precision.matmul`),
 and the recurrence rounds w_hh and each step's h to bf16 for ``h @ w_hh``,
 whose sums stay f32; xg, the gate math, the carried h and c and every
 stored trace stay f32. Its gradient is the JAX scan's autodiff: K1c writes
-its f32 gate trace, and K2c (the bf16-compute build of K2) rounds w_hh to
-bf16 and each step's carried ``dgates @ w_hh^T`` to bf16 before it joins dy,
-the gate gradients, dxg, dh0 and dc0 staying f32; dW_hh is the bf16 carry of
-``ops/weight_grad.py`` over ``h_{t-1}`` and dxg.
+its f32 gate trace, and K2c rounds w_hh to bf16 and each step's carried
+``dgates @ w_hh^T`` to bf16 before it joins dy, the gate gradients, dxg,
+dh0 and dc0 staying f32; dW_hh is the bf16 carry of
+``ops/weight_grad.py`` over ``h_{t-1}`` and dxg. On the card K1c and K2c
+take one of two routes by the layer's width alone (:func:`bf16_route`):
+up to 512 (padded) the cluster kernels ``csrc/lstm_fwd_bf16.cu`` and
+``csrc/lstm_bwd_bf16.cu`` (w_hh in bf16 in the registers of a thread-block
+cluster, the step product on bf16 tensor cores, a cluster barrier a step),
+at 1024 the bf16-compute builds of ``csrc/lstm_fwd.cu`` and
+``csrc/lstm_bwd.cu``. Either raises on a refused launch; neither falls
+back to the other.
 
 Outputs past ``seq_len`` are zeroed and the final ``(h, c)`` is gathered at
 ``seq_len - 1`` (``h0``/``c0`` for empty rows), which is exactly the state a
@@ -67,7 +74,9 @@ __all__ = ['lstm_layer', 'lstm_layer_reference', 'lstm_recurrence',
            'lstm_fwd', 'lstm_bwd',
            'STORE_DTYPE', 'launches', 'gate_launches', 'bwd_launches',
            'bf16_launches', 'bf16_bwd_launches', 'bf16_compute_launches',
-           'bf16_compute_gate_launches', 'bf16_compute_bwd_launches']
+           'bf16_compute_gate_launches', 'bf16_compute_bwd_launches', 'bf16_route',
+           'cluster_plan', 'bf16_cluster_launches', 'bf16_cluster_gate_launches',
+           'bf16_cluster_bwd_launches']
 
 # The storage type of the 'pallas' backend's LSTM layers, e.g. 'bfloat16'
 # (pallas_rnn.py:59); None is the input's type, f32.
@@ -79,7 +88,8 @@ STORE_DTYPE = os.environ.get('MORGANA_PALLAS_STORE', None)
 # built for bf16 storage (K1s), among the others, and bf16_compute_launches
 # those of K1c, f32 storage with bf16 products (bf16_compute_gate_launches
 # those of them that wrote the gate trace), bf16_compute_bwd_launches those of
-# K2c.
+# K2c; the bf16_cluster_ counts those of K1c, K1c with its gate trace and K2c
+# that took the cluster kernels (bf16_route), among them.
 launches = 0
 gate_launches = 0
 bwd_launches = 0
@@ -88,9 +98,13 @@ bf16_bwd_launches = 0
 bf16_compute_launches = 0
 bf16_compute_gate_launches = 0
 bf16_compute_bwd_launches = 0
+bf16_cluster_launches = 0
+bf16_cluster_gate_launches = 0
+bf16_cluster_bwd_launches = 0
 
 _MAX_BATCH = 256
 _WIDTHS = (64, 128, 256, 512, 1024)  # the widths the kernels are built for
+_CLUSTER_WIDTH = 512                 # the widest the cluster kernels take
 _STORES = {None: torch.float32, 'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
@@ -111,6 +125,42 @@ def _width(kernel, batch, hidden):
         if hidden <= width:
             return width
     raise ValueError(f'{kernel}: the LSTM kernels take H up to {_WIDTHS[-1]}, got H={hidden}')
+
+
+def bf16_route(hidden):
+    """The kernels a bf16-compute LSTM layer (K1c, K2c) of ``hidden`` units
+    takes on the card, a rule of its width alone: ``'cluster'``
+    (``csrc/lstm_fwd_bf16.cu``, ``csrc/lstm_bwd_bf16.cu``) when the width it
+    is padded to is at most 512, so that its bf16 w_hh (2 MiB at 512) fits
+    the registers of one cluster of H / 32 CTAs; ``'grid'`` (the
+    bf16-compute builds of ``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu``)
+    at 1024."""
+    return 'cluster' if _width('K1c', 1, hidden) <= _CLUSTER_WIDTH else 'grid'
+
+
+def cluster_plan(batch, hidden, gates=False, backward=False, device=None):
+    """What a cluster kernel's launch at (``batch``, ``hidden`` padded)
+    takes on ``device`` (a CUDA device), launching nothing: ``(tiles,
+    clusters, fit)``, the n8 tiles of batch rows a cluster, the clusters of
+    the launch and how many of them the card holds at once
+    (``cudaOccupancyMaxActiveClusters``). K1c with ``gates`` (its gate
+    trace), K2c with ``backward``."""
+    width = _width('K1c', batch, hidden)
+    if width > _CLUSTER_WIDTH:
+        raise ValueError(f'H={hidden} takes the grid kernels, not a cluster (bf16_route)')
+    device = torch.device('cuda' if device is None else device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    name = 'lstm_bwd_bf16' if backward else 'lstm_fwd_bf16'
+    out = (ctypes.c_int * 3)()
+    lib, fn = load_library(name, f'morgana_{name}_plan',
+                           [ctypes.c_int] * (3 if backward else 4) + [ctypes.c_void_p])
+    args = (batch, width) + (() if backward else (int(gates),)) + (index, out)
+    raise_on_error(lib, fn(*args), f'{name} plan at B={batch} H={width}', _CLUSTER_HINT)
+    return tuple(out)
+
+
+_CLUSTER_HINT = ('a cluster of H / 32 CTAs of 256 threads (128 at H = 64), one a SM, must fit '
+                 '(cudaOccupancyMaxActiveClusters)')
 
 
 def _pad_units(t, width, gates=1):
@@ -160,12 +210,12 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None, compute_bf16=
     width; raises on anything it does not take, and on a refused or failed
     launch. ``xg`` and ``w_hh`` are f32 or bf16, the storage type of the
     traces; ``h0`` and ``c0`` f32. With ``compute_bf16`` and f32 storage it
-    launches K1c, which rounds w_hh and the staged h to bf16 for the product
-    (bf16 storage rounds them so already). Returns ``(y, c_all, g_all, hn,
-    cn)``, ``g_all`` None unless ``with_gates``. ``split``: see
-    :func:`_entry`."""
+    launches K1c, which rounds w_hh and h to bf16 for the product (bf16
+    storage rounds them so already), on the route :func:`bf16_route` gives.
+    Returns ``(y, c_all, g_all, hn, cn)``, ``g_all`` None unless
+    ``with_gates``. ``split``: see :func:`_entry`."""
     global launches, gate_launches, bf16_launches, bf16_compute_launches, \
-        bf16_compute_gate_launches
+        bf16_compute_gate_launches, bf16_cluster_launches, bf16_cluster_gate_launches
     if xg.ndim != 3 or xg.shape[2] % 4:
         raise ValueError(f'K1: xg must be (T, B, 4H), got {tuple(xg.shape)}')
     time, batch, gates4 = xg.shape
@@ -177,11 +227,16 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None, compute_bf16=
                    dtypes=(torch.float32, torch.bfloat16))
     width = _width('K1', batch, hidden)
     k1c = compute_bf16 and store == torch.float32
+    cluster = k1c and bf16_route(hidden) == 'cluster'
+    name = 'lstm_fwd_bf16' if cluster else 'lstm_fwd'
+    # The cluster kernel takes (T, B, H, gates), the grid one (T, B, H, bf16,
+    # compute_bf16), then the device.
+    flags = (int(with_gates),) if cluster else (int(store == torch.bfloat16), int(k1c))
 
-    variant, entry, extra_types, extra = _entry('lstm_fwd', split)
-    lib, fn = load_library('lstm_fwd', entry,
-                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-                           + extra_types, variant)
+    variant, entry, extra_types, extra = _entry(name, split)
+    lib, fn = load_library(name, entry,
+                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * (4 + len(flags))
+                           + [ctypes.c_void_p] + extra_types, variant)
     xg, w_hh = _pad_units(xg, width, 4), _pad_w_hh(w_hh, width)
     h0, c0 = _pad_units(h0, width), _pad_units(c0, width)
     y = torch.empty((time, batch, width), dtype=store, device=xg.device)
@@ -192,16 +247,19 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None, compute_bf16=
     with torch.cuda.device(xg.device):
         err = fn(xg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(), y.data_ptr(),
                  c_all.data_ptr(), None if g_all is None else g_all.data_ptr(), hn.data_ptr(),
-                 cn.data_ptr(), time, batch, width, int(store == torch.bfloat16), int(k1c),
-                 xg.device.index, _stream(xg.device), *extra)
-    raise_on_error(lib, err, f'LSTM kernel {"K1c" if k1c else "K1"} launch at T={time} '
-                   f'B={batch} H={width}',
+                 cn.data_ptr(), time, batch, width, *flags, xg.device.index,
+                 _stream(xg.device), *extra)
+    raise_on_error(lib, err, f'LSTM kernel {"K1c" if k1c else "K1"} ({name}.cu) launch at '
+                   f'T={time} B={batch} H={width}',
+                   _CLUSTER_HINT if cluster else
                    'one block of 256 threads a SM must fit, for every block of the layer')
     launches += 1
     gate_launches += with_gates
     bf16_launches += store == torch.bfloat16
     bf16_compute_launches += k1c
     bf16_compute_gate_launches += k1c and with_gates
+    bf16_cluster_launches += cluster
+    bf16_cluster_gate_launches += cluster and with_gates
     if g_all is not None:
         g_all = _unpad_units(g_all, hidden, 4)
     return (_unpad_units(y, hidden), _unpad_units(c_all, hidden), g_all,
@@ -222,9 +280,9 @@ def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, split=None,
     all f32 or all bf16, the storage type; ``dhn`` and ``dcn`` f32. Returns
     ``(dxg, dh0, dc0)``, dxg in the storage type and dh0, dc0 in f32. With
     ``compute_bf16`` and f32 storage it launches K2c, which rounds w_hh and
-    each step's carried ``dgates @ w_hh^T`` to bf16. ``split``: as
-    :func:`_lstm_fwd_cuda`."""
-    global bwd_launches, bf16_bwd_launches, bf16_compute_bwd_launches
+    each step's carried ``dgates @ w_hh^T`` to bf16, on the route
+    :func:`bf16_route` gives. ``split``: as :func:`_lstm_fwd_cuda`."""
+    global bwd_launches, bf16_bwd_launches, bf16_compute_bwd_launches, bf16_cluster_bwd_launches
     if g_all.ndim != 3 or g_all.shape[2] % 4:
         raise ValueError(f'K2: g_all must be (T, B, 4H), got {tuple(g_all.shape)}')
     time, batch, gates4 = g_all.shape
@@ -239,10 +297,16 @@ def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, split=None,
                    g_all.device, dtypes=(torch.float32, torch.bfloat16))
     width = _width('K2', batch, hidden)
     k2c = compute_bf16 and store == torch.float32
+    cluster = k2c and bf16_route(hidden) == 'cluster'
+    name = 'lstm_bwd_bf16' if cluster else 'lstm_bwd'
 
-    variant, entry, extra_types, extra = _entry('lstm_bwd', split)
-    lib, fn = load_library('lstm_bwd', entry,
-                           [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    variant, entry, extra_types, extra = _entry(name, split)
+    # The cluster kernel takes no scratch and (T, B, H), the grid one the
+    # scratch of its partials and (T, B, H, bf16, compute_bf16), then the
+    # device.
+    lib, fn = load_library(name, entry,
+                           [ctypes.c_void_p] * (11 if cluster else 12)
+                           + [ctypes.c_int] * (4 if cluster else 6) + [ctypes.c_void_p]
                            + extra_types, variant)
     g_all, w_hh = _pad_units(g_all, width, 4), _pad_w_hh(w_hh, width)
     c0, c_all, dy, dc_all, dhn, dcn = (_pad_units(t, width)
@@ -250,19 +314,24 @@ def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, split=None,
     dxg = torch.empty_like(g_all)
     dh0 = torch.empty((batch, width), dtype=torch.float32, device=g_all.device)
     dc0 = torch.empty_like(dh0)
-    part = torch.empty(_part_floats(batch, width), dtype=torch.float32, device=g_all.device)
+    if cluster:
+        rest = (time, batch, width)
+    else:
+        part = torch.empty(_part_floats(batch, width), dtype=torch.float32, device=g_all.device)
+        rest = (part.data_ptr(), time, batch, width, int(store == torch.bfloat16), int(k2c))
     with torch.cuda.device(g_all.device):
         err = fn(g_all.data_ptr(), w_hh.data_ptr(), c0.data_ptr(), c_all.data_ptr(),
                  dy.data_ptr(), dc_all.data_ptr(), dhn.data_ptr(), dcn.data_ptr(),
-                 dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), part.data_ptr(), time, batch,
-                 width, int(store == torch.bfloat16), int(k2c), g_all.device.index,
+                 dxg.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), *rest, g_all.device.index,
                  _stream(g_all.device), *extra)
-    raise_on_error(lib, err, f'LSTM kernel {"K2c" if k2c else "K2"} launch at T={time} '
-                   f'B={batch} H={width}',
+    raise_on_error(lib, err, f'LSTM kernel {"K2c" if k2c else "K2"} ({name}.cu) launch at '
+                   f'T={time} B={batch} H={width}',
+                   _CLUSTER_HINT if cluster else
                    'one block of 256 threads a SM must fit, for every block of the layer')
     bwd_launches += 1
     bf16_bwd_launches += store == torch.bfloat16
     bf16_compute_bwd_launches += k2c
+    bf16_cluster_bwd_launches += cluster
     return _unpad_units(dxg, hidden, 4), _unpad_units(dh0, hidden), _unpad_units(dc0, hidden)
 
 

@@ -4,7 +4,9 @@ backward, K5/K6, attention forward and backward, their bf16-compute builds
 K1c (with and without its gate trace), K2c, K3c, K4c, K5b and K5b's
 backward, the bf16 weight-gradient carry, and MLPG: its banded solve and the
 whole op from the means to the trajectory)
-against their plain PyTorch versions, and the batched vocoder's determinism
+against their plain PyTorch versions, K1c and K2c's cluster kernels at
+every width up to 512 and in an exported bf16 voice, and the batched
+vocoder's determinism
 on the card, on the GPU only (a CUDA kernel has no CPU mode): every test
 here is marked ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed::
@@ -744,6 +746,151 @@ def test_k1c_gates_k2c_and_carry_match_plain_versions(cuda_device, batch, steps,
     _assert_bf16_grads(lstm_ops.lstm_backward(*args, compute_bf16=True),
                        lstm_ops.lstm_backward_reference(*args, compute_bf16=True),
                        lstm_ops.lstm_backward_reference(*args), steps)
+
+
+# The bf16 cluster kernels (csrc/lstm_fwd_bf16.cu, csrc/lstm_bwd_bf16.cu),
+# which K1c and K2c take at every width padded to at most 512
+# (lstm_ops.bf16_route): B 1 to 256, H 64 to 512 and 200 (padded to 256),
+# T 0, 1, 64 and 1024, with a carried state.
+CLUSTER_WIDTHS = [64, 128, 256, 512, 200]
+CLUSTER_SHAPES = [(1, 64), (16, 1024), (32, 64), (87, 33), (256, 5), (5, 1), (16, 0)]
+CLUSTER_COUNTERS = ('bf16_cluster_launches', 'bf16_cluster_gate_launches',
+                    'bf16_cluster_bwd_launches')
+
+
+def _cluster_counts():
+    return [getattr(lstm_ops, c) for c in CLUSTER_COUNTERS]
+
+
+@pytest.mark.parametrize('hidden', CLUSTER_WIDTHS)
+@pytest.mark.parametrize('batch,steps', CLUSTER_SHAPES)
+def test_cluster_k1c_and_k2c_match_plain_versions(cuda_device, batch, steps, hidden):
+    """lstm_layer(compute_dtype='bfloat16') with a carried state, forward
+    (K1c without its gate trace, one cluster launch) and its gradient (K1c
+    with the gate trace and K2c, one cluster launch each), against
+    lstm_layer_reference with the same compute dtype: y, hn, cn within
+    BF16_ULPS ulps and past T = 1 BF16_CLOSER times closer in the mean than
+    to the f32 plain version; the gradients as
+    test_k1c_gates_k2c_and_carry_match_plain_versions holds them; K2c alone
+    on the layer's saved traces likewise."""
+    x, weights, seq_len, state = _layer_inputs(cuda_device, batch, steps, hidden=hidden)
+    seq_len = seq_len if steps else None
+    kwargs = {'seq_len': seq_len, 'h0': state[0], 'c0': state[1]}
+    before = _cluster_counts()
+    with torch.no_grad():
+        y, (hn, cn) = lstm_ops.lstm_layer(x, *weights, compute_dtype='bfloat16', **kwargs)
+        torch.cuda.synchronize()
+        assert _cluster_counts() == [before[0] + 1, before[1], before[2]]
+        wy, (wh, wc) = lstm_ops.lstm_layer_reference(x, *weights, compute_dtype='bfloat16',
+                                                     **kwargs)
+        fy, (fh, fc) = lstm_ops.lstm_layer_reference(x, *weights, **kwargs)
+    if steps > 1:
+        _assert_bf16_compute([y, hn, cn], [wy, wh, wc], [fy, fh, fc])
+    else:
+        for g, w in ((y, wy), (hn, wh), (cn, wc)):
+            _assert_bf16_close(g, w)
+
+    def bf16(fn):
+        return lambda *a, **k: fn(*a, compute_dtype='bfloat16', **k)
+
+    before = _cluster_counts()
+    got = _loss_grads(bf16(lstm_ops.lstm_layer), x, weights, seq_len, state)
+    torch.cuda.synchronize()
+    assert _cluster_counts() == [before[0] + 1, before[1] + 1, before[2] + 1]
+    want = _loss_grads(bf16(lstm_ops.lstm_layer_reference), x, weights, seq_len, state)
+    f32 = _loss_grads(lstm_ops.lstm_layer_reference, x, weights, seq_len, state)
+    _assert_bf16_grads(got, want, f32, steps)
+
+    w_ih, w_hh, b_ih, b_hh = weights
+    xg = (precision.matmul(x, w_ih, torch.bfloat16) + (b_ih + b_hh)).transpose(0, 1).contiguous()
+    _, c_all, gates, _, _ = lstm_ops.lstm_recurrence(xg, w_hh, *state, with_gates=True,
+                                                     compute_bf16=True)
+    rng = np.random.default_rng(19)
+    cot = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+           for shape in ((steps, batch, hidden),) * 2 + ((batch, hidden),) * 2]
+    args = (gates, w_hh, state[1], c_all, *cot)
+    _assert_bf16_grads(lstm_ops.lstm_backward(*args, compute_bf16=True),
+                       lstm_ops.lstm_backward_reference(*args, compute_bf16=True),
+                       lstm_ops.lstm_backward_reference(*args), steps)
+
+
+@pytest.mark.parametrize('hidden,route', [(512, 'cluster'), (96, 'cluster'), (600, 'grid'),
+                                          (1024, 'grid')])
+def test_bf16_width_rule_routes_the_launches(cuda_device, hidden, route):
+    """A bf16 layer's K1c, K1c with its gate trace and K2c launch the
+    cluster kernels at widths padded to at most 512 and the grid builds at
+    1024, by the width alone: the cluster counters move with the route, the
+    bf16-compute counters always; each route's outputs against the plain
+    versions."""
+    x, weights, seq_len, state = _layer_inputs(cuda_device, 4, 9, hidden=hidden)
+    assert lstm_ops.bf16_route(hidden) == route
+    compute = ('bf16_compute_launches', 'bf16_compute_gate_launches', 'bf16_compute_bwd_launches')
+    before = _cluster_counts() + [getattr(lstm_ops, c) for c in compute]
+    with torch.no_grad():
+        y, _ = lstm_ops.lstm_layer(x, *weights, seq_len=seq_len, compute_dtype='bfloat16')
+    _assert_bf16_close(y, lstm_ops.lstm_layer_reference(x, *weights, seq_len=seq_len,
+                                                        compute_dtype='bfloat16')[0])
+    grads = _loss_grads(lambda *a, **k: lstm_ops.lstm_layer(*a, compute_dtype='bfloat16', **k),
+                        x, weights, seq_len, state)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g).all() for g in grads)
+    moved = [a - b for a, b in zip(_cluster_counts() + [getattr(lstm_ops, c) for c in compute],
+                                   before)]
+    cluster = int(route == 'cluster')
+    assert moved == [2 * cluster, cluster, cluster, 2, 1, 1], moved
+
+
+def test_cluster_plan_fits_the_card(cuda_device):
+    """cluster_plan: at H 512 a cluster of 16 CTAs fits (at least once);
+    B = 16 and 32 take one n8 tile a cluster in one wave; B = 256 takes
+    the largest tiles (4 forward, 2 backward)."""
+    for gates in (False, True):
+        tiles, clusters, fit = lstm_ops.cluster_plan(16, 512, gates)
+        assert fit >= 2 and (tiles, clusters) == (1, 2)
+        assert lstm_ops.cluster_plan(256, 512, gates)[0] == 4
+    assert lstm_ops.cluster_plan(32, 512, backward=True)[:2] == (1, 4)
+    assert lstm_ops.cluster_plan(256, 512, backward=True)[0] == 2
+
+
+def test_bf16_lstm_bundle_launches_the_cluster_kernel(cuda_device, tmp_path):
+    """A torch.export bundle of a bf16 LSTMAcousticModel voice (2 x LSTM(64),
+    seeded) exported on the card: its morgana.lstm_fwd nodes carry
+    compute_bf16 and resolve in ExportedVoice, each batch launches the
+    cluster kernel once a layer, and its outputs are the bf16 engine's."""
+    from morgana_tpu_torch import checkpointing
+    from morgana_tpu_torch.data.synthetic import generate_voice_data
+    from morgana_tpu_torch.export import ExportedVoice, export_bundle
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    data_root = str(tmp_path / 'data')
+    generate_voice_data(data_root, num_train=4, num_valid=2, num_test=3, seed=21)
+    kwargs = {'num_layers': 2, 'hidden_size': 64}
+    model = LSTMAcousticModel(generator=torch.Generator().manual_seed(22), **kwargs)
+    ckpt = checkpointing.save_state_dict(nn.state_dict(model), str(tmp_path / 'epoch_0.npz'))
+    try:
+        engine = InferenceEngine(LSTMAcousticModel, ckpt, data_root=data_root,
+                                 model_kwargs=kwargs, device='cuda', batch_size=2,
+                                 compute_dtype='bfloat16')
+        manifest = export_bundle(engine, str(tmp_path / 'bundle'), data_dir='test',
+                                 id_list='test/test_file_id_list.scp')
+        batches = list(engine._loader('test', id_list='test/test_file_id_list.scp'))
+        wants = [engine.predict_batch(features) for features in batches]
+    finally:
+        nn.set_default_compute_dtype(None)
+    for prog in manifest['programs']:
+        graph = torch.export.load(str(tmp_path / 'bundle' / prog['file'])).graph
+        nodes = [n for n in graph.nodes if str(n.target).startswith('morgana.lstm_fwd')]
+        assert len(nodes) == 2 and all(n.args[5] is True for n in nodes)
+    voice = ExportedVoice(str(tmp_path / 'bundle'), device='cuda')
+    for features, want in zip(batches, wants):
+        before = lstm_ops.bf16_cluster_launches
+        _, got = voice.run(features)
+        torch.cuda.synchronize()
+        assert lstm_ops.bf16_cluster_launches == before + 2
+        for key in want:
+            scale = max(float(want[key].abs().max()), 1e-30)
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-6 * scale)
 
 
 @pytest.mark.parametrize('hidden', [64, 128])
