@@ -230,8 +230,10 @@ DIR times the attention kernels, the bf16 carry and MLPG's solve of another
 tree (DIR holds its morgana_tpu_torch/csrc, e.g. a git archive of the
 parent commit) beside this tree's, in turns, at the k5 / k5_bwd / k5b_bwd
 main shapes, the LSTM, F0 and Duration carries and mlpg_kernel's systems,
-and this tree's whole mlpg() beside the parent's route to the same
-trajectory (kernel_parent_compare);
+this tree's whole mlpg() beside the parent's route to the same
+trajectory, the bf16 LSTM and GRU kernels beside the parent's builds, and
+the bf16 F0 serving batch and train step with the parent's GRU kernels in
+place of K3c and K4c (kernel_parent_compare);
 --transformer-only runs phases 16 and 17 alone: copied into another tree's
 root, it gives that tree's end-to-end numbers.
 """
@@ -743,15 +745,17 @@ SPLIT_PHASES = ('exchange', 'product', 'reduction', 'gates', 'barrier')
 
 def read_split(torch, split, steps):
     """The records of a step_split launch: per recording block (block 0 and
-    the middle one), each phase's median us a step over steps SPLIT_SKIP..
-    and the mean step; cycles become us by the launch's clock64 and
-    globaltimer deltas."""
+    the middle one, which is block 0 in a grid of one), each phase's median
+    us a step over steps SPLIT_SKIP.. and the mean step; cycles become us by
+    the launch's clock64 and globaltimer deltas."""
     rec = split.cpu().double().view(2, -1)
     n = len(SPLIT_PHASES)
     blocks = {}
     for slot, name in enumerate(('block_0', 'block_middle')):
         cycles = rec[slot, :steps * n].view(steps, n)[SPLIT_SKIP:]
         c_start, ns_start, c_end, ns_end = rec[slot, steps * n:].tolist()
+        if c_end == c_start:   # a grid of one block writes one record
+            continue
         us_per_cycle = (ns_end - ns_start) / (c_end - c_start) / 1e3
         medians = (cycles.median(dim=0).values * us_per_cycle).tolist()
         blocks[name] = dict({f'{p}_us': v for p, v in zip(SPLIT_PHASES, medians)},
@@ -1065,6 +1069,67 @@ def gru_step_sweep(torch, dev, seed):
     emit({'phase': 'gru_step_sweep', 'T': steps, 'sms': sms, 'rows': rows})
 
 
+def gru_bf16_step_split_phase(torch, dev, seed=43):
+    """Where K3c's and K4c's step goes (csrc/gru_fwd_bf16.cu,
+    csrc/gru_bwd_bf16.cu): at F0Model's H64 (T1024; K3c at B16 and B32,
+    K4c at B32) and DurationModel's H128 (B32 T128), the us a step of the
+    whole launch by CUDA events, in turns with the f32 K3's or K4's at the
+    same shape (bf16, f32, f32, bf16); then the step_split build's records
+    (CTA 0 and the middle CTA, the median of the steps recorded after the
+    first SPLIT_SKIP: product; gates, which in K3c include staging bf16(h)
+    and storing y; 'exchange', K4c's prefetch; barrier). The clock marks
+    order only each other, so work the compiler schedules across a mark
+    counts in the next phase, and work between a step's barrier and the
+    next step's first mark in none: mean_step_us can fall short of
+    us_per_step. The step_split build's outputs within BF16_ULPS bf16 ulps
+    of the largest |value| of the main path's."""
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    rng = np.random.default_rng(seed)
+    for kernel, hidden, batch, steps in (('k3c', 64, SERVE_BATCH, 1024),
+                                         ('k3c', 64, TRAIN_BATCH, 1024),
+                                         ('k3c', 128, TRAIN_BATCH, 128),
+                                         ('k4c', 64, TRAIN_BATCH, 1024),
+                                         ('k4c', 128, TRAIN_BATCH, 128)):
+        x, (w_ih, w_hh, b_ih, b_hh), _, _ = gru_inputs(torch, dev, batch, steps, hidden,
+                                                       hidden, False, seed)
+        xg = torch.matmul(x, w_ih) + b_ih
+        hs = torch.zeros((batch, hidden), device=dev)
+        y, _ = gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, hs, compute_bf16=True)
+        _, hg = gru_ops.hidden_gates(w_hh, b_hh, hs, y, batch_first=True,
+                                     compute=torch.bfloat16)
+        dy = torch.from_numpy(rng.normal(size=(batch, steps, hidden)).astype(np.float32)).to(dev)
+        bwd = (xg, hg, w_hh, hs, y, dy, hs)
+        if kernel == 'k3c':
+            bf16 = lambda **k: gru_ops._gru_fwd_cuda(  # noqa: E731,B023
+                xg, w_hh, b_hh, hs, compute_bf16=True, **k)
+            f32 = lambda: gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, hs)  # noqa: E731,B023
+        else:
+            bf16 = lambda **k: gru_ops._gru_bwd_cuda(*bwd, compute_bf16=True, **k)  # noqa: E731,B023
+            f32 = lambda: gru_ops._gru_bwd_cuda(*bwd)  # noqa: E731,B023
+        with torch.inference_mode():
+            times = {'bf16': [], 'f32': []}
+            for key, fn in (('bf16', bf16), ('f32', f32), ('f32', f32), ('bf16', bf16)):
+                times[key].append(cuda_ms(torch, fn, 20) * 1e3 / steps)
+            want = bf16()
+            recorded = min(SPLIT_STEPS, steps)
+            split = torch.zeros(2 * (recorded * len(SPLIT_PHASES) + 4), dtype=torch.int64,
+                                device=dev)
+            for _ in range(2):   # the first launch builds and warms up
+                split.zero_()
+                got = bf16(split=split)
+                torch.cuda.synchronize()
+        err = max(max_abs(a - b) / max(max_abs(b), 1e-30) for a, b in zip(got, want))
+        emit({'phase': f'{kernel}_step_split', 'H': hidden, 'B': batch, 'T': steps,
+              'order': 'bf16, f32, f32, bf16', 'us_per_step': times['bf16'],
+              'f32_us_per_step': times['f32'], 'split_build_err_vs_main': err,
+              'steps_recorded': recorded, 'skipped': SPLIT_SKIP,
+              **read_split(torch, split, recorded)})
+        if not err <= BF16_ULPS * 2.0 ** -7:
+            raise AssertionError(f'{kernel} step split: the step_split build disagrees with '
+                                 f'the main path ({err})')
+
+
 def attention_pairs(seq_len, time_steps, heads, causal, window):
     """P, the (query, key) pairs the kernel computes on valid rows: for each
     batch row of length n, query i < n sees keys j < n, j <= i when causal,
@@ -1263,11 +1328,12 @@ def k5_bwd_case(torch, dev, batch, heads, time_steps, head_dim, causal, window, 
 
 
 # The parent tree's C entries: name -> (entry, argument types), as the tree
-# before the bf16 LSTM cluster kernels has them: K5b's backward a source of
-# its own with do's planes in a scratch, the carry a scratch, MLPG's solve
-# with a scratch of morgana_mlpg_scratch_bytes, and K1c and K2c as the bf16
-# builds of lstm_fwd.cu and lstm_bwd.cu (storage and compute flags, K2's
-# scratch of partials).
+# before the bf16 GRU kernels has them: K5b's backward a source of its own
+# with do's planes in a scratch, the carry a scratch, MLPG's solve with a
+# scratch of morgana_mlpg_scratch_bytes, K1c and K2c's grid builds
+# lstm_fwd.cu and lstm_bwd.cu (storage and compute flags, K2's scratch of
+# partials), and K3c and K4c as the bf16 builds of gru_fwd.cu and
+# gru_bwd.cu (a bf16 flag after T, B, H).
 PARENT_ENTRIES = {
     'lstm_fwd': ('morgana_lstm_fwd', ['p'] * 9 + ['i'] * 6 + ['p']),
     'lstm_bwd': ('morgana_lstm_bwd', ['p'] * 12 + ['i'] * 6 + ['p']),
@@ -1275,7 +1341,9 @@ PARENT_ENTRIES = {
     'attn_bwd': ('morgana_attn_bwd', ['p'] * 11 + ['i'] * 7 + ['p']),
     'attn_bwd_bf16': ('morgana_attn_bwd_bf16', ['p'] * 11 + ['i'] * 7 + ['p']),
     'rnn_dw_bf16': ('morgana_rnn_dw_bf16', ['p'] * 4 + ['i'] * 4 + ['q'] * 4 + ['i', 'p']),
-    'mlpg': ('morgana_mlpg_solve', ['p'] * 4 + ['i'] * 4 + ['p'])}
+    'mlpg': ('morgana_mlpg_solve', ['p'] * 4 + ['i'] * 4 + ['p']),
+    'gru_fwd': ('morgana_gru_fwd', ['p'] * 7 + ['i'] * 5 + ['p']),
+    'gru_bwd': ('morgana_gru_bwd', ['p'] * 11 + ['i'] * 5 + ['p'])}
 
 
 def build_parent_kernels(parent):
@@ -1400,7 +1468,24 @@ def parent_wrappers(torch, fns):
                time_steps, batch, hidden, 0, 1)
         return [dxg, dh0, dc0]
 
-    return forward, backward, carry, solve, lstm_fwd, lstm_bwd
+    def gru_fwd(xg, w_hh, b_hh, h0, seq_len=None):
+        batch, time_steps, gates3 = xg.shape
+        y = torch.empty((batch, time_steps, gates3 // 3), device=xg.device)
+        hn = torch.empty_like(h0)
+        launch('gru_fwd', xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(),
+               None if seq_len is None else seq_len.data_ptr(), y.data_ptr(), hn.data_ptr(),
+               time_steps, batch, gates3 // 3, 1)
+        return [y, hn]
+
+    def gru_bwd(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None):
+        batch, time_steps, gates3 = xg.shape
+        dxg, dnr, dh0 = torch.empty_like(xg), torch.empty_like(y), torch.empty_like(dhn)
+        launch('gru_bwd', *(t.data_ptr() for t in (xg, hg, w_hh, h0, y, dy, dhn)),
+               None if seq_len is None else seq_len.data_ptr(),
+               *(t.data_ptr() for t in (dxg, dnr, dh0)), time_steps, batch, gates3 // 3, 1)
+        return [dxg, dnr, dh0]
+
+    return forward, backward, carry, solve, lstm_fwd, lstm_bwd, gru_fwd, gru_bwd
 
 
 # The carry's shapes in the parent comparison: (name, T, B, H, G,
@@ -1427,15 +1512,18 @@ def kernel_parent_phase(torch, dev, parent):
     (the parent's solve gives the plain loop's bits); then K1c at B16 and
     K1c with its gate trace and K2c at B32, T1024 H512 (this tree's cluster
     kernels, the parent's grid builds), within BF16_ULPS bf16 ulps of the
-    largest |value| of their outputs. Every row is measured;
+    largest |value| of their outputs; then K3c (H64 B16 and B32 T1024, H128
+    B32 T128) and K4c (H64 B32 T1024, H128 B32 T128), this tree's bf16
+    sources against the parent's kBf16 builds of gru_fwd.cu and gru_bwd.cu,
+    likewise. Every row is measured;
     the phase fails after its line if any row disagreed."""
     from morgana_tpu_torch.ops import flash_attention as fa
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
     from morgana_tpu_torch.ops import weight_grad
 
     fns, ptxas = build_parent_kernels(parent)
-    parent_fwd, parent_bwd, parent_carry, parent_solve, parent_lstm_fwd, parent_lstm_bwd = \
-        parent_wrappers(torch, fns)
+    (parent_fwd, parent_bwd, parent_carry, parent_solve, parent_lstm_fwd, parent_lstm_bwd,
+     parent_gru_fwd, parent_gru_bwd) = parent_wrappers(torch, fns)
     # (kernel, B, causal, window, seed): the inputs of main()'s timed k5,
     # k5_bwd and k5b_bwd cases at dh 96.
     masks = ((False, None), (True, None), (True, 256))
@@ -1597,10 +1685,159 @@ def kernel_parent_phase(torch, dev, parent):
         compare(row, this, other, 10,
                 lambda a, b: (grads_rel(a, b), BF16_ULPS * 2.0 ** -7))
 
+    # K3c at F0Model's H64 (B16 serving, B32 training, T1024) and
+    # DurationModel's H128 (B32 T128), K4c at the training shapes: this
+    # tree's csrc/gru_fwd_bf16.cu and csrc/gru_bwd_bf16.cu against the
+    # parent's kBf16 builds of gru_fwd.cu and gru_bwd.cu, batch-major, no
+    # seq_len, within BF16_ULPS bf16 ulps of the largest |value|.
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    for kernel, hidden, batch, steps, seed in (('gru_fwd_bf16', 64, SERVE_BATCH, 1024, 104),
+                                               ('gru_fwd_bf16', 64, TRAIN_BATCH, 1024, 113),
+                                               ('gru_fwd_bf16', 128, TRAIN_BATCH, 128, 114),
+                                               ('gru_bwd_bf16', 64, TRAIN_BATCH, 1024, 113),
+                                               ('gru_bwd_bf16', 128, TRAIN_BATCH, 128, 114)):
+        x, (w_ih, w_hh, b_ih, b_hh), _, _ = gru_inputs(torch, dev, batch, steps, hidden, hidden,
+                                                       False, seed)
+        xg = precision.matmul(x, w_ih, torch.bfloat16) + b_ih
+        hs = torch.zeros((batch, hidden), device=dev)
+        row = {'kernel': kernel, 'B': batch, 'T': steps, 'H': hidden}
+        if kernel == 'gru_fwd_bf16':
+            row['bound_ms'], row['bound_by'] = k3_bound(batch, steps, hidden, 'bfloat16')
+            this = lambda: list(gru_ops._gru_fwd_cuda(  # noqa: E731,B023
+                xg, w_hh, b_hh, hs, compute_bf16=True))
+            other = lambda: parent_gru_fwd(xg, w_hh, b_hh, hs)  # noqa: E731,B023
+        else:
+            y, _ = gru_ops._gru_fwd_cuda(xg, w_hh, b_hh, hs, compute_bf16=True)
+            _, hg = gru_ops.hidden_gates(w_hh, b_hh, hs, y, batch_first=True,
+                                         compute=torch.bfloat16)
+            rng = np.random.default_rng(seed + 200)
+            dy, dhn = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+                       for shape in ((batch, steps, hidden), (batch, hidden)))
+            args = (xg, hg, w_hh, hs, y, dy, dhn)
+            row['bound_ms'], row['bound_by'] = k4_bound(batch, steps, hidden, 'bfloat16')
+            this = lambda: list(gru_ops._gru_bwd_cuda(  # noqa: E731,B023
+                *args, compute_bf16=True))
+            other = lambda: parent_gru_bwd(*args)  # noqa: E731,B023
+        compare(row, this, other, 20, lambda a, b: (grads_rel(a, b), BF16_ULPS * 2.0 ** -7))
+
+    rows += f0_bf16_parent_turns(torch, parent_gru_fwd, parent_gru_bwd)
     emit({'phase': 'kernel_parent_compare', 'parent': parent, 'parent_ptxas': ptxas,
           'order': 'parent, this, this, parent', 'nvidia_smi': nvidia_smi(), 'rows': rows})
     if disagree:
         raise AssertionError(f'this tree and the parent disagree: {disagree}')
+    return rows
+
+
+def f0_bf16_parent_turns(torch, parent_gru_fwd, parent_gru_bwd, seed=122):
+    """F0Model's bf16 main path with this tree's K3c and K4c and with the
+    parent's kBf16 builds of gru_fwd.cu and gru_bwd.cu in their place (the
+    wrappers' launches routed to them; every other kernel the same), in
+    turns (parent, this, this, parent): a B16 serving batch of f0_items
+    through the bf16 engine's predict, and a train step of the
+    ExperimentBuilder under --compute_dtype bfloat16 on a B32 batch of the
+    train corpus. For each: the median of 5 synchronised calls on the host
+    clock, and one profiled call's device busy ms, idle share and GRU
+    recurrence device ms (K3 / K3c and K4 / K4c kernels: the parent's
+    builds trace as K3 and K4). The two trees' outputs within BF16_ULPS
+    bf16 ulps of the largest |value| (the step's loss, the batch's
+    normalised F0)."""
+    from morgana_tpu_torch import data
+    from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+    from morgana_tpu_torch.models.f0_test_model import F0Model
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    this_fwd, this_bwd = gru_ops._gru_fwd_cuda, gru_ops._gru_bwd_cuda
+    parent_calls = [0]
+
+    def routed_fwd(xg, w_hh, b_hh, h0, seq_len=None, compute_bf16=False):
+        if not compute_bf16:
+            return this_fwd(xg, w_hh, b_hh, h0, seq_len)
+        parent_calls[0] += 1
+        return tuple(parent_gru_fwd(xg, w_hh, b_hh, h0, seq_len))
+
+    def routed_bwd(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None, compute_bf16=False):
+        if not compute_bf16:
+            return this_bwd(xg, hg, w_hh, h0, y, dy, dhn, seq_len)
+        parent_calls[0] += 1
+        return tuple(parent_gru_bwd(xg, hg, w_hh, h0, y, dy, dhn, seq_len))
+
+    def host_ms(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        return float(np.median(times))
+
+    rows = []
+    with tempfile.TemporaryDirectory() as root:
+        rng = np.random.default_rng(seed)
+        ckpt = seeded_checkpoint(torch, F0Model, os.path.join(root, 'init', 'epoch_0.npz'), seed)
+        write_normalisers(root, rng)
+        items = f0_items(rng)
+        engine = InferenceEngine(F0Model, ckpt, data_root=root, batch_size=SERVE_BATCH,
+                                 compute_dtype='bfloat16')
+        features = data.collate([data.assemble_item(
+            engine.model.test_data_sources(), engine.model.normalisers,
+            lambda key, source, item=item: source.package(item[key]), item['name'])
+            for item in items[:SERVE_BATCH]])
+        batch = data.device_features(features, engine.device)
+
+        def serve():
+            with compute_dtype('bfloat16'), torch.inference_mode():
+                return engine.model.predict(batch)['normalised_lf0_deltas']
+
+        data_root, _ = train_corpus(root)
+        args = ExperimentBuilder.get_experiment_args(builder_argv(
+            data_root, os.path.join(root, 'experiments'), 'f0_parent_turns', ckpt,
+            '--end_epoch', '1', '--compute_dtype', 'bfloat16'))
+        exp = ExperimentBuilder(F0Model, **args)
+        train_batch = next(iter(exp.train_loader))
+        exp.model.mode = 'train'
+        initial = {k: v.detach().clone() for k, v in exp.loop.params.items()}
+
+        def train():
+            # Each call from the same weights, so that the step's loss compares.
+            with torch.no_grad():
+                for name, param in exp.loop.params.items():
+                    param.copy_(initial[name])
+            return exp.loop.train_step(train_batch, exp.learning_rate)[0]
+
+        for label, fn in (('f0_bf16_serve_batch', serve), ('f0_bf16_train_step', train)):
+            row = {'kernel': label, 'B': SERVE_BATCH if label.endswith('batch') else TRAIN_BATCH,
+                   'ms': [], 'parent_ms': [], 'device_busy_ms': [], 'parent_device_busy_ms': [],
+                   'idle_share': [], 'parent_idle_share': [], 'gru_device_ms': [],
+                   'parent_gru_device_ms': []}
+            outs = {}
+            for who in ('parent', 'this', 'this', 'parent'):
+                gru_ops._gru_fwd_cuda, gru_ops._gru_bwd_cuda = (
+                    (routed_fwd, routed_bwd) if who == 'parent' else (this_fwd, this_bwd))
+                before = parent_calls[0]
+                try:
+                    ms = host_ms(fn)
+                    prof = profile_step(torch, fn, counted=who == 'this')
+                    outs[who] = fn()
+                finally:
+                    gru_ops._gru_fwd_cuda, gru_ops._gru_bwd_cuda = this_fwd, this_bwd
+                if (parent_calls[0] > before) != (who == 'parent'):
+                    raise AssertionError(f'{label}: the {who} run took the wrong GRU kernels')
+                pre = 'parent_' if who == 'parent' else ''
+                row[f'{pre}ms'].append(ms)
+                row[f'{pre}device_busy_ms'].append(prof['device_busy_ms'])
+                row[f'{pre}idle_share'].append(prof['device_idle_share'])
+                row[f'{pre}gru_device_ms'].append(sum(
+                    prof[f'{kind}_device_ms'] for kind in ('k3', 'k3c', 'k4', 'k4c')
+                    if prof[f'{kind}_device_ms'] != 'not measured'))
+                if prof['launch_mismatch']:
+                    row['launch_mismatch'] = prof['launch_mismatch']
+            got, want = (torch.as_tensor(outs[w]).float() for w in ('this', 'parent'))
+            row['err_vs_parent'] = max_abs(got - want) / max(max_abs(want), 1e-30)
+            row['tolerance'] = BF16_ULPS * 2.0 ** -7
+            rows.append(row)
     return rows
 
 
@@ -2279,6 +2516,7 @@ def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12, 
 
 
 KERNEL_KINDS = (('lstm_fwd_bf16_kernel', 'k1c'), ('lstm_bwd_bf16_kernel', 'k2c'),
+                ('gru_fwd_bf16_kernel', 'k3c'), ('gru_bwd_simt_kernel', 'k4c'),
                 ('lstm_fwd_kernel', 'k1'), ('lstm_bwd_kernel', 'k2'), ('gru_fwd_kernel', 'k3'),
                 ('gru_bwd_kernel', 'k4'), ('attn_fwd_kernel', 'attn_fwd'), ('attn_bwd', 'attn_bwd'),
                 ('rnn_dw_bf16_kernel', 'carry'), ('mlpg_kernel', 'mlpg'))
@@ -2297,33 +2535,87 @@ def kernel_kind(name):
     return 'other'
 
 
-def profile_step(torch, fn):
-    """One profiled call: device time by kernel (K1-K4, K1c and K2c's
-    cluster kernels, the attention forward and backward, the bf16 carry,
-    GEMMs, Adam's multi-tensor kernels, the rest), the number of kernels, and the host ops
-    that took the most time. The table by device time goes to stderr."""
-    from torch.profiler import ProfilerActivity, profile
+PROFILE_MARGIN_S = 0.02    # idle host time at each end of a profiled call
+
+# The profiler's kinds whose kernels a wrapper's counter counts one for one:
+# kind -> (the counters of bf16_counters() that it adds, those it takes away).
+COUNTED_KINDS = {'k3c': (('k3c',), ()), 'k4c': (('k4c',), ()), 'k3': (('k3',), ('k3c',)),
+                 'k4': (('k4',), ('k4c',)), 'k1c': (('k1c_cluster',), ()),
+                 'k2c': (('k2c_cluster',), ()), 'k1': (('k1',), ('k1c_cluster',)),
+                 'k2': (('k2',), ('k2c_cluster',))}
+
+
+def profile_step(torch, fn, counted=True):
+    """One profiled call of `fn`, after a first call with the tracer already
+    on (the profiler's warm-up step, whose events it drops, so that the
+    call's first kernels are traced): device time by kernel (K1-K4, K1c and
+    K2c's cluster kernels, K3c and K4c, the attention forward and backward,
+    the bf16 carry, GEMMs, Adam's multi-tensor kernels, the rest), the
+    number of kernels, and the host ops that took the most time. With
+    `counted`, the kernels of each kind in COUNTED_KINDS are held to the
+    launches its wrappers counted in the call: a kind whose traced kernels
+    differ from them reports its device ms as 'not measured' and both
+    counts under 'launch_mismatch'. Device time counts kernels only: the
+    device-side ranges of annotations (the profiler's step, the
+    optimizer's record_function) span kernels counted on their own, and
+    are reported apart as annotations_device_ms. The table by device time
+    goes to stderr."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    counters = bf16_counters()
+
+    def counts():
+        return {key: getattr(module, name) for key, (module, name) in counters.items()}
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        # The tracer keeps the device's events inside its window on the
+        # host's clock: an idle margin at each end keeps the call's first
+        # and last kernels in it.
+        time.sleep(PROFILE_MARGIN_S)
+        before = counts()
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
+        after = counts()
+        time.sleep(PROFILE_MARGIN_S)
+        prof.step()
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = dict.fromkeys([kind for _, kind in KERNEL_KINDS] + ['gemm', 'adam', 'other'], 0.0)
+    kernels, annotation_us = [], 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(e, 'is_user_annotation', False) or e.name.startswith('ProfilerStep'):
+            annotation_us += e.self_device_time_total
+        else:
+            kernels.append(e)
+    kinds = [kind for _, kind in KERNEL_KINDS] + ['gemm', 'adam', 'other']
+    device_us, traced = dict.fromkeys(kinds, 0.0), dict.fromkeys(kinds, 0)
     for e in kernels:
-        device_us[kernel_kind(e.key)] += e.self_device_time_total
+        device_us[kernel_kind(e.name)] += e.self_device_time_total
+        traced[kernel_kind(e.name)] += 1
     busy_ms = sum(device_us.values()) / 1e3
+    out = {f'{kind}_device_ms': us / 1e3 for kind, us in device_us.items()}
+    mismatch = {}
+    for kind, (plus, minus) in COUNTED_KINDS.items() if counted else ():
+        launched = sum(after[k] - before[k] for k in plus) - sum(after[k] - before[k]
+                                                                 for k in minus)
+        if launched != traced[kind]:
+            mismatch[kind] = {'traced': traced[kind], 'launched': launched}
+            out[f'{kind}_device_ms'] = 'not measured'
     host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:6]
     print(events.table(sort_by='self_device_time_total', row_limit=15), file=sys.stderr)
     return {'profiled_wall_ms': wall_ms,
             'device_busy_ms': busy_ms if kernels else 'not measured',
             'device_idle_share': 1 - busy_ms / wall_ms if kernels else 'not measured',
-            **{f'{kind}_device_ms': us / 1e3 for kind, us in device_us.items()},
-            'kernels_launched': sum(e.count for e in kernels),
+            **out, 'launch_mismatch': mismatch, 'annotations_device_ms': annotation_us / 1e3,
+            'kernels_launched': len(kernels),
             'top_host_ops': [[e.key, e.self_cpu_time_total / 1e3, e.count] for e in host]}
 
 
@@ -4878,6 +5170,120 @@ def bf16_backward_phase(torch, dev):
             'k1c_gates_grid': wide['k1c_gates'], 'k2c_grid': wide['k2c']}
 
 
+@contextlib.contextmanager
+def float64_products(torch):
+    """Inside, every torch.matmul of two f32 operands sums its products in
+    float64 and rounds the result to f32 once: the plain versions' products
+    exact but for that rounding, their roundings to bf16 where they were."""
+    matmul = torch.matmul
+
+    def exact(a, b):
+        if a.dtype == b.dtype == torch.float32:
+            return matmul(a.double(), b.double()).float()
+        return matmul(a, b)
+
+    torch.matmul = exact
+    try:
+        yield
+    finally:
+        torch.matmul = matmul
+
+
+@contextlib.contextmanager
+def plain_in_layer(torch, swapped):
+    """Inside, lstm_layer's autograd Function runs the plain version of each
+    of `swapped` ('k1c_gates', 'k2c', 'carry') in place of its kernel, the
+    others' kernels as before."""
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    saved = {name: getattr(lstm_ops, name)
+             for name in ('lstm_recurrence', 'lstm_backward', 'bf16_weight_grad')}
+    if 'k1c_gates' in swapped:
+        lstm_ops.lstm_recurrence = lambda xg, w, h0, c0, with_gates=False, compute_bf16=False: \
+            lstm_ops.lstm_recurrence_reference(xg, w, h0, c0, compute_bf16)
+    if 'k2c' in swapped:
+        lstm_ops.lstm_backward = lstm_ops.lstm_backward_reference
+    if 'carry' in swapped:
+        lstm_ops.bf16_weight_grad = lstm_ops.bf16_weight_grad_reference
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(lstm_ops, name, fn)
+
+
+LAYER_GRADS = ('dx', 'dw_ih', 'dw_hh', 'db_ih', 'db_hh', 'dh0', 'dc0')
+
+
+def lstm_wide_gradient_phase(torch, dev, batch=TRAIN_BATCH, steps=1024, hidden=1024, seed=119):
+    """Where the bf16 layer gradient of a 1024-wide LSTM on the grid builds
+    (K1c with gates, K2c, the bf16 carry) leaves its plain version, at
+    k2c_case's B32 T1024 H1024 seed-119 inputs. First the plain version's
+    own spread: its gradients on the card against the same plain version
+    with every product summed in float64 (float64_products) and against it
+    on the CPU, each relative to the largest |value| of each gradient. Then
+    every combination of the three kernels and their plain versions inside
+    the layer (plain_in_layer), each against the plain version on the card.
+    The bar is BF16_ULPS bf16 ulps (BF16_ULPS * 2**-7 of the largest
+    |value|); the verdict names a kernel when the plain version's spread is
+    below a third of the bar and swapping that kernel alone for its plain
+    version brings dW_hh under the bar, and otherwise says the bar is of the
+    order of the plain version's own spread there. Reports; holds nothing."""
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    x, weights, seq_len, h0, c0 = layer_inputs(torch, dev, batch, steps, False, seed, hidden)
+    rng = np.random.default_rng(seed + 100)
+    loss_weights = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+                    for shape in ((batch, steps, hidden), (batch, hidden), (batch, hidden))]
+
+    def grads(layer, on=dev):
+        moved = [None if t is None else t.to(on) for t in (x, *weights, seq_len, h0, c0)]
+        out = layer_grads(torch, lambda *a, **k: layer(*a, compute_dtype='bfloat16', **k),
+                          *moved[:1], moved[1:5], *moved[5:], [w.to(on) for w in loss_weights])
+        return [g.to(dev) for g in out]
+
+    def rel(got, want):
+        return {name: max_abs(g - w) / max(max_abs(w), 1e-30)
+                for name, g, w in zip(LAYER_GRADS, got, want)}
+
+    start = time.perf_counter()
+    plain = grads(lstm_ops.lstm_layer_reference)
+    with float64_products(torch):
+        plain64 = grads(lstm_ops.lstm_layer_reference)
+    cpu_start = time.perf_counter()
+    plain_cpu = grads(lstm_ops.lstm_layer_reference, torch.device('cpu'))
+    cpu_seconds = time.perf_counter() - cpu_start
+    kernels = ('k1c_gates', 'k2c', 'carry')
+    combos = []
+    for mask in range(8):
+        swapped = [k for i, k in enumerate(kernels) if mask >> i & 1]
+        with plain_in_layer(torch, swapped):
+            got = grads(lstm_ops.lstm_layer)
+        combos.append({'kernels': [k for k in kernels if k not in swapped],
+                       'plain': swapped, 'vs_plain': rel(got, plain),
+                       'vs_plain_f64': rel(got, plain64)})
+    bar = BF16_ULPS * 2.0 ** -7
+    spread = rel(plain64, plain)
+    error = combos[0]['vs_plain']['dw_hh']
+    fixes = [c['plain'][0] for c in combos
+             if len(c['plain']) == 1 and c['vs_plain']['dw_hh'] <= bar]
+    if spread['dw_hh'] * 3 < bar and error > bar and len(fixes) == 1:
+        verdict = f'fault: the grid build of {fixes[0]} errs at H1024'
+    elif error <= bar:
+        verdict = 'held: the kernels are within the bar'
+    else:
+        verdict = ('not a fault: the plain version\'s own spread in dW_hh is of the order of '
+                   'the bar')
+    out = {'phase': 'lstm_wide_gradient', 'B': batch, 'T': steps, 'H': hidden, 'seed': seed,
+           'bar': bar, 'kernels_vs_plain_dw_hh': error,
+           'spread_f64_vs_plain': spread, 'spread_cpu_vs_plain': rel(plain_cpu, plain),
+           'spread_f64_vs_cpu': rel(plain64, plain_cpu), 'cpu_seconds': cpu_seconds,
+           'combinations': combos, 'verdict': verdict,
+           'seconds': time.perf_counter() - start}
+    emit(out)
+    return out
+
+
 # name: (model module, class, the kernels' counters, layers, seed, flags)
 BF16_TRAIN_MODELS = (
     ('lstm', 'rnn_spss', 'LSTMAcousticModel', 8, 121, ()),
@@ -5179,9 +5585,9 @@ def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, att
     for tag in summary:
         summary[tag].update({key: profiles[tag][key] for key in (
             'profiled_wall_ms', 'device_busy_ms', 'device_idle_share', 'gemm_device_ms',
-            'k1_device_ms', 'k1c_device_ms', 'k3_device_ms', 'attn_fwd_device_ms',
-            'mlpg_device_ms',
-            'other_device_ms', 'kernels_launched', 'mlpg_ms')})
+            'k1_device_ms', 'k1c_device_ms', 'k3_device_ms', 'k3c_device_ms',
+            'attn_fwd_device_ms', 'mlpg_device_ms',
+            'other_device_ms', 'kernels_launched', 'launch_mismatch', 'mlpg_ms')})
     emit({'phase': f'bf16_serving_{name}', 'model': label, 'utterances': len(items),
           'frames': frames, 'batch_size': SERVE_BATCH, 'batches': n_batches,
           'runs_in_turns': runs, 'float32': summary['float32'], 'bfloat16': summary['bfloat16'],
@@ -5396,8 +5802,9 @@ def main(argv=None):
                                      'with no arguments, every phase.')
     parser.add_argument('--kernel-parent', metavar='DIR',
                         help='only time the attention kernels, the bf16 carry, MLPG and the bf16 '
-                        'LSTM kernels of DIR (a tree holding morgana_tpu_torch/csrc, e.g. a git '
-                        "archive of the parent commit) beside this tree's, in turns, and stop")
+                        'LSTM and GRU kernels of DIR (a tree holding morgana_tpu_torch/csrc, e.g. '
+                        "a git archive of the parent commit) beside this tree's, in turns, and "
+                        'stop')
     parser.add_argument('--transformer-only', action='store_true',
                         help='only the Transformer serving and training phases (copied into '
                         "another tree's root, this gives that tree's end-to-end numbers)")
@@ -5426,9 +5833,11 @@ def main(argv=None):
     only = args.kernel_parent or args.transformer_only
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         split_build = None if only else pool.submit(
-            _build.build, ['lstm_fwd', 'lstm_bwd', 'lstm_fwd_bf16', 'lstm_bwd_bf16'], 'step_split')
+            _build.build, ['lstm_fwd', 'lstm_bwd', 'lstm_fwd_bf16', 'lstm_bwd_bf16', 'gru_fwd_bf16',
+                           'gru_bwd_bf16'], 'step_split')
         paths = _build.build(None if not only else ['attn_fwd', 'attn_bwd'] + (
-            ['attn_bwd_bf16', 'rnn_dw_bf16', 'mlpg', 'lstm_fwd_bf16', 'lstm_bwd_bf16']
+            ['attn_bwd_bf16', 'rnn_dw_bf16', 'mlpg', 'lstm_fwd_bf16', 'lstm_bwd_bf16',
+             'gru_fwd_bf16', 'gru_bwd_bf16']
             if args.kernel_parent else []))
         if split_build is not None:
             split_build.result()
@@ -5503,6 +5912,7 @@ def main(argv=None):
         for batch, steps in edges:
             k4_case(torch, dev, batch, steps, hidden, hidden, True, 39, timed=False)
     gru_step_sweep(torch, dev, 42)
+    gru_bf16_step_split_phase(torch, dev)
 
     # The attention forward against its plain version and SDPA at the
     # Transformer's heads (H4, dh 96; B16 the serving batch, B32 the training
@@ -5545,6 +5955,7 @@ def main(argv=None):
     # then the backward ones of bf16 training.
     bf16_shapes = bf16_kernels_phase(torch, dev)
     bf16_bwd_shapes = bf16_backward_phase(torch, dev)
+    lstm_wide_gradient_phase(torch, dev)
 
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
     mlpg_ops.launches = mlpg_ops.fused_launches = 0
@@ -5701,7 +6112,7 @@ def main(argv=None):
             ('lstm_fwd_bf16_cluster', 'k1c',
              bf16_train['k1c_cluster'] - bf16_train['k1c_cluster_gates'], 'lstm_fwd_bf16.cu',
              'morgana_tpu/ops/pallas_rnn.py:77', 'morgana_tpu/ops/rnn.py:113'),
-            ('gru_fwd_bf16_compute', 'k3c', bf16_train['k3c'], 'gru_fwd.cu',
+            ('gru_fwd_bf16_compute', 'k3c', bf16_train['k3c'], 'gru_fwd_bf16.cu',
              'morgana_tpu/ops/pallas_gru.py:35', 'morgana_tpu/ops/rnn.py:347'),
             ('attn_fwd_bf16', 'k5b', bf16_train['k5b'], 'attn_fwd.cu', 'morgana_tpu/nn.py:1001',
              'morgana_tpu/nn.py:1055'))] + [{
@@ -5733,7 +6144,7 @@ def main(argv=None):
              'morgana_tpu/ops/rnn.py:113'),
             ('lstm_bwd_bf16_compute', 'k2c_grid', 'k2c_grid', 'max_abs_err_vs_plain', 'lstm_bwd.cu',
              'morgana_tpu/ops/pallas_rnn.py:113', 'morgana_tpu/ops/rnn.py:113'),
-            ('gru_bwd_bf16_compute', 'k4c', 'k4c', 'max_abs_err_vs_plain', 'gru_bwd.cu',
+            ('gru_bwd_bf16_compute', 'k4c', 'k4c', 'max_abs_err_vs_plain', 'gru_bwd_bf16.cu',
              'morgana_tpu/ops/pallas_gru.py:59', 'morgana_tpu/ops/rnn.py:347'),
             ('attn_bwd_bf16', 'k5b_bwd', 'k5b_bwd', 'max_abs_err_vs_plain', 'attn_bwd_bf16.cu',
              'morgana_tpu/nn.py:1001', 'morgana_tpu/nn.py:1055'),

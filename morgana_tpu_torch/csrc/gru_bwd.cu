@@ -1,9 +1,8 @@
 // K4: one GRU layer, backward, on Hopper (sm_90a).
 //
 // Replaces morgana_tpu/ops/pallas_gru.py::_gru_bwd_kernel (driven there by
-// _core_bwd) and, as K4c, the autodiff of the scan backend's bf16
-// recurrence (K3c; morgana_tpu/ops/rnn.py:347-361 under compute_dtype
-// bfloat16). Same function: walking time backwards from dh = dhn, each step
+// _core_bwd); K4c, its bf16 counterpart, is csrc/gru_bwd_bf16.cu. Same
+// function: walking time backwards from dh = dhn, each step
 // takes the gates r, z, n of K3 from xg and hg = h_{t-1} @ w_hh + b_hh, then
 //
 //     dh   = dy_t + dh
@@ -11,12 +10,7 @@
 //     da_z = dh * (h_{t-1} - n) * z * (1 - z)
 //     da_r = da_n * hg_n * r * (1 - r)
 //     dxg_t = [da_r, da_z, da_n]
-//     dh   = dh * z + rc([da_r, da_z, da_n * r] @ rc(w_hh)^T)
-//
-// with rc() none for K4 and, for K4c, the rounding to bf16: the scan's
-// autodiff reads w_hh_c and converts the carried product to bf16 and back;
-// K4c's hg is K3c's, computed outside on rounded operands, and everything
-// else stays f32.
+//     dh   = dh * z + [da_r, da_z, da_n * r] @ w_hh^T
 //
 // and returns dh0 = dh after step 0. Inputs, batch-major as the layer's x:
 // xg (B, T, 3H); hg (B, T, 3H), computed for the whole sequence by one GEMM
@@ -61,7 +55,7 @@ struct Coef {
   float ar, az, an, r, z, dy;  // da_r / dh, da_z / dh, da_n / dh, r, z, dy_t
 };
 
-template <int H, bool kBf16>
+template <int H>
 __global__ void __launch_bounds__(Shape<H>::kThreads, 1)
 gru_bwd_kernel(const float* __restrict__ xg, const float* __restrict__ hg,
                const float* __restrict__ w_hh, const float* __restrict__ h0,
@@ -89,7 +83,7 @@ gru_bwd_kernel(const float* __restrict__ xg, const float* __restrict__ hg,
 
   // Group q holds w_hh[u][c] for the gate columns c = q * 16 + s * 4 + e.
   float4 w[G3];
-  load_slice<H>(w, s, [&](int c) { return operand<kBf16>(w_hh[size_t(u) * 3 * H + c]); });
+  load_slice<H>(w, s, [&](int c) { return w_hh[size_t(u) * 3 * H + c]; });
 
   // Step `step`'s inputs into ring slot step % kRing (step >= 0).
   auto prefetch = [&](int step) {
@@ -171,7 +165,7 @@ gru_bwd_kernel(const float* __restrict__ xg, const float* __restrict__ hg,
       a = fmaf(gv.z, w[q].z, a);
       a = fmaf(gv.w, w[q].w, a);
     }
-    const float carry = operand<kBf16>(slice_sum(acc[0] + acc[1]));
+    const float carry = slice_sum(acc[0] + acc[1]);
     if (lead) {
       const float dprev = fmaf(dh, z_keep, carry);  // dh_{t-1} without what enters there
       if (t > 0) {
@@ -194,14 +188,11 @@ gru_bwd_kernel(const float* __restrict__ xg, const float* __restrict__ hg,
 template <int H>
 cudaError_t launch(const float* xg, const float* hg, const float* w_hh, const float* h0,
                    const float* y, const float* dy, const float* dhn, const long long* seq_len,
-                   float* dxg, float* dnr, float* dh0, int T, int B, int bf16, int device,
+                   float* dxg, float* dnr, float* dh0, int T, int B, int device,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * 3 + kRing * kFields) * H;
-  if (bf16)
-    return launch_clusters<H>(gru_bwd_kernel<H, true>, B, smem, device, stream, xg, hg, w_hh, h0,
-                              y, dy, dhn, seq_len, dxg, dnr, dh0, T);
-  return launch_clusters<H>(gru_bwd_kernel<H, false>, B, smem, device, stream, xg, hg, w_hh, h0,
-                            y, dy, dhn, seq_len, dxg, dnr, dh0, T);
+  return launch_clusters<H>(gru_bwd_kernel<H>, B, smem, device, stream, xg, hg, w_hh, h0, y, dy,
+                            dhn, seq_len, dxg, dnr, dh0, T);
 }
 
 }  // namespace
@@ -210,11 +201,11 @@ extern "C" {
 
 // Launches K4 on `stream` (a cudaStream_t) of `device`; returns a cudaError_t
 // (0 on success). All pointers are device pointers to contiguous f32 arrays,
-// the (B, T, .) ones batch-major. seq_len may be null. A non-zero `bf16`
-// launches K4c. H is 32, 64, 96 or 128; B >= 1, T >= 0.
+// the (B, T, .) ones batch-major. seq_len may be null. H is 32, 64, 96 or
+// 128; B >= 1, T >= 0.
 int morgana_gru_bwd(const float* xg, const float* hg, const float* w_hh, const float* h0,
                     const float* y, const float* dy, const float* dhn, const long long* seq_len,
-                    float* dxg, float* dnr, float* dh0, int T, int B, int H, int bf16, int device,
+                    float* dxg, float* dnr, float* dh0, int T, int B, int H, int device,
                     void* stream) {
   if (T < 0 || B < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -222,16 +213,16 @@ int morgana_gru_bwd(const float* xg, const float* hg, const float* w_hh, const f
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
     case 32:
-      return launch<32>(xg, hg, w_hh, h0, y, dy, dhn, seq_len, dxg, dnr, dh0, T, B, bf16, device,
+      return launch<32>(xg, hg, w_hh, h0, y, dy, dhn, seq_len, dxg, dnr, dh0, T, B, device,
                          st);
     case 64:
-      return launch<64>(xg, hg, w_hh, h0, y, dy, dhn, seq_len, dxg, dnr, dh0, T, B, bf16, device,
+      return launch<64>(xg, hg, w_hh, h0, y, dy, dhn, seq_len, dxg, dnr, dh0, T, B, device,
                          st);
     case 96:
-      return launch<96>(xg, hg, w_hh, h0, y, dy, dhn, seq_len, dxg, dnr, dh0, T, B, bf16, device,
+      return launch<96>(xg, hg, w_hh, h0, y, dy, dhn, seq_len, dxg, dnr, dh0, T, B, device,
                          st);
     case 128:
-      return launch<128>(xg, hg, w_hh, h0, y, dy, dhn, seq_len, dxg, dnr, dh0, T, B, bf16, device,
+      return launch<128>(xg, hg, w_hh, h0, y, dy, dhn, seq_len, dxg, dnr, dh0, T, B, device,
                          st);
     default: return cudaErrorInvalidValue;
   }

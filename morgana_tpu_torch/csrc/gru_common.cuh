@@ -54,17 +54,6 @@ __device__ __forceinline__ float tanh_fast(float x) {
   return __fdividef(2.f, 1.f + __expf(-2.f * x)) - 1.f;
 }
 
-// An operand of the product: v, or with kBf16 (K3c, K4c) v rounded to bf16 (to
-// nearest even, as XLA's astype), held as f32.
-template <bool kBf16>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (kBf16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-
 // Sum of v over the 4 slices of a unit (lanes 8 apart); every lane gets it.
 __device__ __forceinline__ float slice_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 8);

@@ -9,12 +9,8 @@
 //     h_t = (1 - z) * n + z * h_{t-1}
 //
 // over the whole padded time axis, h carried in f32. K3c, the bf16 recurrence
-// of the scan backend (morgana_tpu/ops/rnn.py:347-361 under compute_dtype
-// bfloat16), is the same kernel with kBf16: w_hh and the h_{t-1} of the
-// product are rounded to bf16 (the copy of h_t published for the next
-// product, not the carried h), so each product is exact in f32 and the sums
-// stay f32: "bf16 inputs, f32 accumulation". Inputs, batch-major as
-// the layer's x: xg = x @ w_ih + b_ih (B, T, 3H), w_hh (H, 3H), b_hh (3H),
+// of the scan backend, is csrc/gru_fwd_bf16.cu. Inputs, batch-major as the
+// layer's x: xg = x @ w_ih + b_ih (B, T, 3H), w_hh (H, 3H), b_hh (3H),
 // h0 (B, H) and, optionally, seq_len (B) in int64. Outputs: y = h trace
 // (B, T, H) and hn (B, H). With seq_len, y is written as 0 past each row's
 // length and hn is h at step seq_len - 1 (h0 for an empty row): the masking
@@ -53,7 +49,7 @@ namespace {
 
 using namespace gru;
 
-template <int H, bool kBf16>
+template <int H>
 __global__ void __launch_bounds__(Shape<H>::kThreads, 1)
 gru_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
                const float* __restrict__ b_hh, const float* __restrict__ h0,
@@ -79,9 +75,9 @@ gru_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
   // the flat index q * 16 + s * 4 + e is g * H + k.
   float4 w[Shape<H>::kGroups];
   load_slice<H>(w, s, [&](int idx) {
-    return operand<kBf16>(w_hh[size_t(idx % H) * 3 * H + (idx / H) * H + u]);
+    return w_hh[size_t(idx % H) * 3 * H + (idx / H) * H + u];
   });
-  if (threadIdx.x < H) hs[threadIdx.x] = operand<kBf16>(h0[size_t(b) * H + threadIdx.x]);
+  if (threadIdx.x < H) hs[threadIdx.x] = h0[size_t(b) * H + threadIdx.x];
   float h = h0[size_t(b) * H + u];
   float h_last = h;  // h at step len - 1, h0 for an empty row
   const float bias[3] = {lead ? b_hh[u] : 0.f, lead ? b_hh[H + u] : 0.f,
@@ -132,7 +128,7 @@ gru_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
       h = fmaf(zg, h - ng, ng);
       if (t == len - 1) h_last = h;
       y_b[size_t(t) * H + u] = t < len ? h : 0.f;
-      Cl::store(hs + (cur ^ 1) * H + u, operand<kBf16>(h));
+      Cl::store(hs + (cur ^ 1) * H + u, h);
     }
     // Refills the slot read last step (or the free one at t = 0).
     prefetch(t + kRing - 1);
@@ -145,36 +141,33 @@ gru_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ w_hh,
 
 template <int H>
 cudaError_t launch(const float* xg, const float* w_hh, const float* b_hh, const float* h0,
-                   const long long* seq_len, float* y, float* hn, int T, int B, int bf16,
-                   int device, cudaStream_t stream) {
+                   const long long* seq_len, float* y, float* hn, int T, int B, int device,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 + kRing * 3) * H;
-  if (bf16)
-    return launch_clusters<H>(gru_fwd_kernel<H, true>, B, smem, device, stream, xg, w_hh, b_hh,
-                              h0, seq_len, y, hn, T);
-  return launch_clusters<H>(gru_fwd_kernel<H, false>, B, smem, device, stream, xg, w_hh, b_hh,
-                            h0, seq_len, y, hn, T);
+  return launch_clusters<H>(gru_fwd_kernel<H>, B, smem, device, stream, xg, w_hh, b_hh, h0,
+                            seq_len, y, hn, T);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K3 (K3c when `bf16` is non-zero) on `stream` (a cudaStream_t) of
+// Launches K3 on `stream` (a cudaStream_t) of
 // `device`; returns a cudaError_t (0 on success). All pointers are device
 // pointers to contiguous f32 arrays, xg and y batch-major. seq_len may be
 // null (every row T long). H is 32, 64, 96 or 128; B >= 1, T >= 0.
 int morgana_gru_fwd(const float* xg, const float* w_hh, const float* b_hh, const float* h0,
                     const long long* seq_len, float* y, float* hn, int T, int B, int H,
-                    int bf16, int device, void* stream) {
+                    int device, void* stream) {
   if (T < 0 || B < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 32: return launch<32>(xg, w_hh, b_hh, h0, seq_len, y, hn, T, B, bf16, device, st);
-    case 64: return launch<64>(xg, w_hh, b_hh, h0, seq_len, y, hn, T, B, bf16, device, st);
-    case 96: return launch<96>(xg, w_hh, b_hh, h0, seq_len, y, hn, T, B, bf16, device, st);
-    case 128: return launch<128>(xg, w_hh, b_hh, h0, seq_len, y, hn, T, B, bf16, device, st);
+    case 32: return launch<32>(xg, w_hh, b_hh, h0, seq_len, y, hn, T, B, device, st);
+    case 64: return launch<64>(xg, w_hh, b_hh, h0, seq_len, y, hn, T, B, device, st);
+    case 96: return launch<96>(xg, w_hh, b_hh, h0, seq_len, y, hn, T, B, device, st);
+    case 128: return launch<128>(xg, w_hh, b_hh, h0, seq_len, y, hn, T, B, device, st);
     default: return cudaErrorInvalidValue;
   }
 }

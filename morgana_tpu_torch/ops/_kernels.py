@@ -18,8 +18,8 @@ import torch
 
 from morgana_tpu_torch import _build
 
-__all__ = ['check_device', 'check_operands', 'load_library', 'raise_on_error', 'no_alias',
-           'mask_past_seq_len', 'state_at_seq_len']
+__all__ = ['check_device', 'check_operands', 'load_library', 'split_entry', 'raise_on_error',
+           'no_alias', 'mask_past_seq_len', 'state_at_seq_len']
 
 
 def check_device(what, tensor):
@@ -64,6 +64,19 @@ def load_library(name, entry, argtypes, variant=None):
         lib.morgana_cuda_error_string.restype = ctypes.c_char_p
         _ENTRIES[name, entry, variant] = lib, fn
     return _ENTRIES[name, entry, variant]
+
+
+def split_entry(entry, split):
+    """``(variant, entry, extra argtypes, extra args)`` of a launch of the C
+    entry ``entry``: the main path's library, or with ``split`` (an int64
+    tensor of two records of ``steps * 5 + 4``) the step_split build's
+    ``<entry>_split``, which records the phases of the first ``steps`` steps
+    of block 0 and of the middle block."""
+    if split is None:
+        return None, entry, [], []
+    steps = (split.numel() // 2 - 4) // 5
+    return 'step_split', f'{entry}_split', [ctypes.c_void_p, ctypes.c_int], \
+        [split.data_ptr(), steps]
 
 
 def raise_on_error(lib, err, what, hint):

@@ -9,7 +9,8 @@ with the gates ordered r, z, n:
 
 * for a CUDA tensor, in kernel K3 (``csrc/gru_fwd.cu``: 4H threads a batch
   row, in one CTA or, at H = 128, a cluster of two, each thread a slice of
-  ``w_hh`` in registers), or an error: there is no fallback;
+  ``w_hh`` in registers; K3c under a bf16 compute dtype, below), or an
+  error: there is no fallback;
 * for a CPU tensor, in its plain version, :func:`gru_recurrence_reference`
   (a Python loop over time with ``torch.matmul``).
 
@@ -27,15 +28,20 @@ K3 and K4 are the custom ops ``morgana::gru_fwd`` and ``morgana::gru_bwd``
 kernels, their ``cpu`` ones are the plain versions).
 
 Compute type (``compute_dtype`` bf16, the scan backend under
-``--compute_dtype bfloat16``, ``ops/rnn.py:347-361``, "K3c"): the input GEMM
+``--compute_dtype bfloat16``, ``ops/rnn.py:347-361``): the input GEMM
 rounds x and w_ih to bf16 (:func:`~morgana_tpu_torch.ops.precision.matmul`),
 and the recurrence rounds w_hh and each step's h to bf16 for ``h @ w_hh``,
 whose sums, the bias, the gate math, the carried h and the outputs stay
-f32. Its gradient is the JAX scan's autodiff: the backward's hg is computed
-on the rounded operands, K4c (the bf16 build of K4) rounds w_hh and each
-step's carried ``[da_r, da_z, da_n * r] @ w_hh^T`` to bf16, the gate
-gradients and dh0 staying f32, and dW_hh is the bf16 carry of
-``ops/weight_grad.py`` (db_hh an f32 sum, as the scan carries it in f32).
+f32: kernel K3c (``csrc/gru_fwd_bf16.cu``: one CTA of H / 8 compute warps
+and its copy warps per 4 batch rows at every width, ``w_hh`` in bf16
+``mma.sync`` fragments in registers, the batch rows the product's N side).
+Its gradient is the JAX scan's autodiff: the backward's hg is computed on
+the rounded operands, K4c (``csrc/gru_bwd_bf16.cu``: one CTA of 4H threads
+a batch row at every width, ``w_hh`` as packed bf16 pairs in registers)
+rounds w_hh and each step's carried ``[da_r, da_z, da_n * r] @ w_hh^T`` to
+bf16, the gate gradients and dh0 staying f32, and dW_hh is the bf16 carry
+of ``ops/weight_grad.py`` (db_hh an f32 sum, as the scan carries it in
+f32).
 
 Both kernels take the layer's batch-major layout and ``seq_len``: K3 zeroes
 the outputs past ``seq_len`` and gathers the final ``h`` at ``seq_len - 1``
@@ -50,7 +56,7 @@ import torch
 from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
                                             mask_past_seq_len, no_alias, raise_on_error,
-                                            state_at_seq_len)
+                                            split_entry, state_at_seq_len)
 from morgana_tpu_torch.ops.weight_grad import bf16_weight_grad, bf16_weight_grad_reference
 
 __all__ = ['gru_layer', 'gru_layer_reference', 'gru_recurrence', 'gru_recurrence_reference',
@@ -67,8 +73,9 @@ bwd_launches = 0
 bf16_compute_launches = 0
 bf16_compute_bwd_launches = 0
 
-# The kernels are built for H = 32, 64, 96 and 128: 4H threads a row, each
-# with 3H/4 floats of w_hh, in one CTA up to H = 96 and in two above.
+# The kernels are built for H = 32, 64, 96 and 128: K3 and K4 with 4H
+# threads a row, each with 3H/4 floats of w_hh, in one CTA up to H = 96 and
+# in two above; K3c and K4c with w_hh in bf16 in one CTA.
 _MAX_HIDDEN = 128
 
 
@@ -93,22 +100,35 @@ def _sizes(kernel, xg, time_major=False):
     return time, batch, gates3 // 3
 
 
-def _launch(kernel, name, entry, pointers, time, batch, hidden, device, flags=()):
+def _launch(kernel, name, entry, pointers, time, batch, hidden, device, split=None):
     """Loads kernel ``name`` and calls its C entry on PyTorch's current
     stream of ``device`` with the device pointers (None for a null one), T,
-    B, H, the int ``flags`` and the device's index; raises on a refused or
-    failed launch."""
-    ints = (time, batch, hidden, *flags, device.index)
+    B, H and the device's index; with ``split``, the
+    step_split build's entry (:func:`~morgana_tpu_torch.ops._kernels.split_entry`).
+    Raises on a refused or failed launch."""
+    ints = (time, batch, hidden, device.index)
+    variant, entry, extra_types, extra = split_entry(entry, split)
     lib, fn = load_library(name, entry, [ctypes.c_void_p] * len(pointers)
-                           + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+                           + [ctypes.c_int] * len(ints) + [ctypes.c_void_p] + extra_types,
+                           variant)
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index == torch.cuda.current_device():
-        err = fn(*pointers, *ints, stream)
+        err = fn(*pointers, *ints, stream, *extra)
     else:   # the entry sets the device; the context restores the caller's
         with torch.cuda.device(device):
-            err = fn(*pointers, *ints, stream)
-    raise_on_error(lib, err, f'GRU kernel {kernel} launch at T={time} B={batch} H={hidden}',
+            err = fn(*pointers, *ints, stream, *extra)
+    raise_on_error(lib, err, f'GRU kernel {kernel} ({name}.cu) launch at T={time} B={batch} '
+                   f'H={hidden}', 'H a multiple of 32 up to 128, B >= 1, inputs 16-byte aligned'
+                   if name.endswith('_bf16') else
                    '4H threads a row keep w_hh in registers, in two CTAs above H = 96')
+
+
+def _check_aligned(kernel, tensors):
+    """Raises, before any launch, on an operand that K3c or K4c reads by
+    16-byte copies and that does not start on 16 bytes."""
+    for name, tensor in tensors.items():
+        if tensor.data_ptr() % 16:
+            raise ValueError(f'{kernel}: {name} must start on a 16-byte boundary')
 
 
 def _seq_len_pointer(kernel, seq_len, batch, device):
@@ -121,12 +141,13 @@ def _seq_len_pointer(kernel, seq_len, batch, device):
     return seq_len.data_ptr()
 
 
-def _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len=None, compute_bf16=False):
+def _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len=None, compute_bf16=False, split=None):
     """Launches K3 (K3c with ``compute_bf16``: w_hh and the h each step's
     product reads rounded to bf16) on a batch-major ``xg`` (B, T, 3H) on
     PyTorch's current stream; raises on anything it does not take, and on a
     refused or failed launch. Returns ``(y, hn)``, y (B, T, H); with
-    ``seq_len``, y is 0 past each row's length and hn the state there."""
+    ``seq_len``, y is 0 past each row's length and hn the state there.
+    ``split`` (K3c only): see :func:`~morgana_tpu_torch.ops._kernels.split_entry`."""
     global launches, bf16_compute_launches
     time, batch, hidden = _sizes('K3', xg)
     check_operands('K3', {'xg': (xg, tuple(xg.shape)), 'w_hh': (w_hh, (hidden, 3 * hidden)),
@@ -135,9 +156,14 @@ def _gru_fwd_cuda(xg, w_hh, b_hh, h0, seq_len=None, compute_bf16=False):
     seq = _seq_len_pointer('K3', seq_len, batch, xg.device)
     y = torch.empty((batch, time, hidden), dtype=torch.float32, device=xg.device)
     hn = torch.empty((batch, hidden), dtype=torch.float32, device=xg.device)
-    _launch('K3c' if compute_bf16 else 'K3', 'gru_fwd', 'morgana_gru_fwd',
-            (xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), seq, y.data_ptr(),
-             hn.data_ptr()), time, batch, hidden, xg.device, (int(compute_bf16),))
+    pointers = (xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), h0.data_ptr(), seq,
+                y.data_ptr(), hn.data_ptr())
+    if compute_bf16:
+        _check_aligned('K3c', {'xg': xg})
+        _launch('K3c', 'gru_fwd_bf16', 'morgana_gru_fwd_bf16', pointers, time, batch, hidden,
+                xg.device, split)
+    else:
+        _launch('K3', 'gru_fwd', 'morgana_gru_fwd', pointers, time, batch, hidden, xg.device)
     launches += 1
     bf16_compute_launches += bool(compute_bf16)
     return y, hn
@@ -155,11 +181,12 @@ def _check_bwd_operands(xg, w_hh, h0, y, dy, dhn, time_major=False):
     return time, batch, hidden
 
 
-def _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None, compute_bf16=False):
+def _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None, compute_bf16=False, split=None):
     """Launches K4 (K4c with ``compute_bf16``: w_hh and each step's carried
-    product rounded to bf16) on batch-major operands on PyTorch's current
-    stream; raises on anything it does not take, and on a refused or failed
-    launch. Returns ``(dxg, dnr, dh0)``, ``dnr = da_n * r`` (B, T, H)."""
+    product rounded to bf16) on batch-major operands on PyTorch's current stream; raises on anything
+    it does not take, and on a refused or failed launch. Returns ``(dxg,
+    dnr, dh0)``, ``dnr = da_n * r`` (B, T, H). ``split`` (K4c only): see
+    :func:`~morgana_tpu_torch.ops._kernels.split_entry`."""
     global bwd_launches, bf16_compute_bwd_launches
     time, batch, hidden = _check_bwd_operands(xg, w_hh, h0, y, dy, dhn)
     check_operands('K4', {'hg': (hg, tuple(xg.shape))}, xg.device)
@@ -167,10 +194,15 @@ def _gru_bwd_cuda(xg, hg, w_hh, h0, y, dy, dhn, seq_len=None, compute_bf16=False
     dxg = torch.empty_like(xg)
     dnr = torch.empty_like(y)
     dh0 = torch.empty((batch, hidden), dtype=torch.float32, device=xg.device)
-    _launch('K4c' if compute_bf16 else 'K4', 'gru_bwd', 'morgana_gru_bwd',
-            (xg.data_ptr(), hg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), y.data_ptr(),
-             dy.data_ptr(), dhn.data_ptr(), seq, dxg.data_ptr(), dnr.data_ptr(), dh0.data_ptr()),
-            time, batch, hidden, xg.device, (int(compute_bf16),))
+    pointers = (xg.data_ptr(), hg.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                dy.data_ptr(), dhn.data_ptr(), seq, dxg.data_ptr(), dnr.data_ptr(),
+                dh0.data_ptr())
+    if compute_bf16:
+        _check_aligned('K4c', {'xg': xg, 'hg': hg, 'h0': h0, 'y': y, 'dy': dy})
+        _launch('K4c', 'gru_bwd_bf16', 'morgana_gru_bwd_bf16', pointers, time, batch, hidden,
+                xg.device, split)
+    else:
+        _launch('K4', 'gru_bwd', 'morgana_gru_bwd', pointers, time, batch, hidden, xg.device)
     bwd_launches += 1
     bf16_compute_bwd_launches += bool(compute_bf16)
     return dxg, dnr, dh0

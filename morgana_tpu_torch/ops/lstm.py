@@ -66,7 +66,7 @@ import torch
 from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.ops._kernels import (check_device, check_operands, load_library,
                                             mask_past_seq_len, no_alias, raise_on_error,
-                                            state_at_seq_len)
+                                            split_entry, state_at_seq_len)
 from morgana_tpu_torch.ops.weight_grad import bf16_weight_grad, bf16_weight_grad_reference
 
 __all__ = ['lstm_layer', 'lstm_layer_reference', 'lstm_recurrence',
@@ -189,18 +189,6 @@ def _pad_w_hh(w_hh, width):
     return w if hidden == width else torch.nn.functional.pad(w, (0, 0, 0, width - hidden))
 
 
-def _entry(kernel, split):
-    """``(variant, entry, extra argtypes, extra args)`` of a launch: the main
-    path's library, or with ``split`` (an int64 tensor of two records of
-    ``steps * 5 + 4``) the step_split build, which records the phases of the
-    first ``steps`` steps of block 0 and of the middle block."""
-    if split is None:
-        return None, f'morgana_{kernel}', [], []
-    steps = (split.numel() // 2 - 4) // 5
-    return 'step_split', f'morgana_{kernel}_split', [ctypes.c_void_p, ctypes.c_int], \
-        [split.data_ptr(), steps]
-
-
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -213,7 +201,8 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None, compute_bf16=
     launches K1c, which rounds w_hh and h to bf16 for the product (bf16
     storage rounds them so already), on the route :func:`bf16_route` gives.
     Returns ``(y, c_all, g_all, hn, cn)``, ``g_all`` None unless
-    ``with_gates``. ``split``: see :func:`_entry`."""
+    ``with_gates``. ``split``: see
+    :func:`~morgana_tpu_torch.ops._kernels.split_entry`."""
     global launches, gate_launches, bf16_launches, bf16_compute_launches, \
         bf16_compute_gate_launches, bf16_cluster_launches, bf16_cluster_gate_launches
     if xg.ndim != 3 or xg.shape[2] % 4:
@@ -233,7 +222,7 @@ def _lstm_fwd_cuda(xg, w_hh, h0, c0, with_gates=False, split=None, compute_bf16=
     # compute_bf16), then the device.
     flags = (int(with_gates),) if cluster else (int(store == torch.bfloat16), int(k1c))
 
-    variant, entry, extra_types, extra = _entry(name, split)
+    variant, entry, extra_types, extra = split_entry(f'morgana_{name}', split)
     lib, fn = load_library(name, entry,
                            [ctypes.c_void_p] * 9 + [ctypes.c_int] * (4 + len(flags))
                            + [ctypes.c_void_p] + extra_types, variant)
@@ -300,7 +289,7 @@ def _lstm_bwd_cuda(g_all, w_hh, c0, c_all, dy, dc_all, dhn, dcn, split=None,
     cluster = k2c and bf16_route(hidden) == 'cluster'
     name = 'lstm_bwd_bf16' if cluster else 'lstm_bwd'
 
-    variant, entry, extra_types, extra = _entry(name, split)
+    variant, entry, extra_types, extra = split_entry(f'morgana_{name}', split)
     # The cluster kernel takes no scratch and (T, B, H), the grid one the
     # scratch of its partials and (T, B, H, bf16, compute_bf16), then the
     # device.

@@ -5,8 +5,8 @@ K1c (with and without its gate trace), K2c, K3c, K4c, K5b and K5b's
 backward, the bf16 weight-gradient carry, and MLPG: its banded solve and the
 whole op from the means to the trajectory)
 against their plain PyTorch versions, K1c and K2c's cluster kernels at
-every width up to 512 and in an exported bf16 voice, and the batched
-vocoder's determinism
+every width up to 512 and in an exported bf16 voice, K3c in an exported
+bf16 F0 voice, and the batched vocoder's determinism
 on the card, on the GPU only (a CUDA kernel has no CPU mode): every test
 here is marked ``cuda`` and skips without a GPU. The file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed::
@@ -590,9 +590,15 @@ def test_k1c_matches_plain_version(cuda_device, batch, steps, with_state):
             _assert_bf16_close(g, w)
 
 
-@pytest.mark.parametrize('hidden,batch,steps', [(64, 16, 1024), (128, 32, 128), (64, 5, 1),
-                                                (128, 1, 17), (32, 40, 33), (96, 40, 33),
-                                                (64, 16, 0), (128, 256, 9)])
+# K3c and K4c (csrc/gru_fwd_bf16.cu, csrc/gru_bwd_bf16.cu): F0Model's
+# serving and training batches at T1024, DurationModel's at T128, B = 1, 40
+# and 200 (50 CTAs of 4 rows), T = 17, 1 and 0, every width the kernels
+# are built for.
+K3C_SHAPES = [(16, 1024), (32, 1024), (32, 128), (1, 17), (40, 17), (200, 17), (5, 1), (16, 0)]
+
+
+@pytest.mark.parametrize('hidden', GRU_HIDDEN)
+@pytest.mark.parametrize('batch,steps', K3C_SHAPES)
 def test_k3c_matches_plain_version(cuda_device, hidden, batch, steps):
     """gru_layer(compute_dtype='bfloat16') (the bf16 input GEMM, then K3c)
     against gru_layer_reference with the same compute dtype: y and hn,
@@ -893,8 +899,9 @@ def test_bf16_lstm_bundle_launches_the_cluster_kernel(cuda_device, tmp_path):
             torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-6 * scale)
 
 
-@pytest.mark.parametrize('hidden', [64, 128])
-@pytest.mark.parametrize('batch,steps', [(32, 64), (1, 17), (5, 1), (16, 0), (40, 33)])
+@pytest.mark.parametrize('hidden', GRU_HIDDEN)
+@pytest.mark.parametrize('batch,steps', [(32, 64), (32, 1024), (1, 17), (5, 1), (16, 0),
+                                         (40, 33), (200, 9)])
 def test_k4c_and_carry_match_plain_versions(cuda_device, batch, steps, hidden):
     """The bf16 gradient path of gru_layer (K3c, hg on rounded operands, K4c,
     the bf16 carry of dW_hh) against the plain versions in the same autograd
@@ -924,9 +931,48 @@ def test_k4c_and_carry_match_plain_versions(cuda_device, batch, steps, hidden):
                for shape in (tuple(y.shape), tuple(h0.shape)))
     _, hg = gru_ops.hidden_gates(w_hh, b_hh, h0, y, batch_first=True, compute=torch.bfloat16)
     args = (xg, hg, w_hh, h0, y, dy, dhn, seq_len)
-    _assert_bf16_grads(gru_ops._gru_bwd_cuda(*args, compute_bf16=True),
-                       gru_ops.layer_backward_reference(*args, compute_bf16=True),
-                       gru_ops.layer_backward_reference(*args), steps)
+    want = gru_ops.layer_backward_reference(*args, compute_bf16=True)
+    f32 = gru_ops.layer_backward_reference(*args)
+    _assert_bf16_grads(gru_ops._gru_bwd_cuda(*args, compute_bf16=True), want, f32, steps)
+
+
+def test_bf16_f0_bundle_launches_k3c(cuda_device, tmp_path):
+    """A torch.export bundle of a bf16 F0Model voice (seeded) exported on the
+    card: its three morgana.gru_fwd nodes carry compute_bf16 and resolve in
+    ExportedVoice, each batch launches K3c once a layer, and its outputs are
+    the bf16 engine's."""
+    from morgana_tpu_torch import checkpointing
+    from morgana_tpu_torch.data.synthetic import generate_voice_data
+    from morgana_tpu_torch.export import ExportedVoice, export_bundle
+    from morgana_tpu_torch.models.f0_test_model import F0Model
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    data_root = str(tmp_path / 'data')
+    generate_voice_data(data_root, num_train=4, num_valid=2, num_test=3, seed=23)
+    model = F0Model(generator=torch.Generator().manual_seed(24))
+    ckpt = checkpointing.save_state_dict(nn.state_dict(model), str(tmp_path / 'epoch_0.npz'))
+    try:
+        engine = InferenceEngine(F0Model, ckpt, data_root=data_root, device='cuda',
+                                 batch_size=2, compute_dtype='bfloat16')
+        manifest = export_bundle(engine, str(tmp_path / 'bundle'), data_dir='test',
+                                 id_list='test/test_file_id_list.scp')
+        batches = list(engine._loader('test', id_list='test/test_file_id_list.scp'))
+        wants = [engine.predict_batch(features) for features in batches]
+    finally:
+        nn.set_default_compute_dtype(None)
+    for prog in manifest['programs']:
+        graph = torch.export.load(str(tmp_path / 'bundle' / prog['file'])).graph
+        nodes = [n for n in graph.nodes if str(n.target).startswith('morgana.gru_fwd')]
+        assert len(nodes) == 3 and all(n.args[5] is True for n in nodes)
+    voice = ExportedVoice(str(tmp_path / 'bundle'), device='cuda')
+    for features, want in zip(batches, wants):
+        before = gru_ops.bf16_compute_launches
+        _, got = voice.run(features)
+        torch.cuda.synchronize()
+        assert gru_ops.bf16_compute_launches == before + 3
+        for key in want:
+            scale = max(float(want[key].abs().max()), 1e-30)
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-6 * scale)
 
 
 # K5b's backward: every ATTN_SHAPES case, then each dh at T no multiple of
