@@ -96,8 +96,8 @@ __device__ __forceinline__ void dq_tile_products(const float* qw, const float* d
     FragB bk0[NK], bk1[NK], bv0[NK], bv1[NK];
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
-      load_b2_rows<float, SK>(ks, 8 * n, c, g, t, bk0[n], bk1[n]);
-      load_b2_rows<float, SV>(vs, 8 * n, c, g, t, bv0[n], bv1[n]);
+      load_b2_rows<SK>(ks, 8 * n, c, g, t, bk0[n], bk1[n]);
+      load_b2_rows<SV>(vs, 8 * n, c, g, t, bv0[n], bv1[n]);
     }
     mma3<NK>(s, aq0, bk0);
     mma3<NK>(dp, ad0, bv0);
@@ -217,7 +217,7 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const FragA a = a_from_c(s[kk]);
         FragB b[ND];
 #pragma unroll
-        for (int c = 0; c < DH / 32; ++c) load_b4_cols<float, SK>(ks, 8 * kk, c, g, t, b + 4 * c);
+        for (int c = 0; c < DH / 32; ++c) load_b4_cols<SK>(ks, 8 * kk, c, g, t, b + 4 * c);
         mma3<ND>(acc, a, b);
       }
     }
@@ -331,8 +331,8 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         FragB bq0[NQ], bq1[NQ], bd0[NQ], bd1[NQ];
 #pragma unroll
         for (int n = 0; n < NQ; ++n) {
-          load_b2_rows<float, SQ>(qs, 8 * n, c, g, t, bq0[n], bq1[n]);
-          load_b2_rows<float, SQ>(dos, 8 * n, c, g, t, bd0[n], bd1[n]);
+          load_b2_rows<SQ>(qs, 8 * n, c, g, t, bq0[n], bq1[n]);
+          load_b2_rows<SQ>(dos, 8 * n, c, g, t, bd0[n], bd1[n]);
         }
         mma3<NQ>(st, ak0, bq0);
         mma3<NQ>(dpt, av0, bd0);
@@ -357,11 +357,11 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         FragB b[ND];
         const FragA ap = a_from_c(st[kk]);
 #pragma unroll
-        for (int c = 0; c < DH / 32; ++c) load_b4_cols<float, SQ>(dos, 8 * kk, c, g, t, b + 4 * c);
+        for (int c = 0; c < DH / 32; ++c) load_b4_cols<SQ>(dos, 8 * kk, c, g, t, b + 4 * c);
         mma3<ND>(acc_v, ap, b);
         const FragA ads = a_from_c(dpt[kk]);
 #pragma unroll
-        for (int c = 0; c < DH / 32; ++c) load_b4_cols<float, SQ>(qs, 8 * kk, c, g, t, b + 4 * c);
+        for (int c = 0; c < DH / 32; ++c) load_b4_cols<SQ>(qs, 8 * kk, c, g, t, b + 4 * c);
         mma3<ND>(acc_k, ads, b);
       }
     }

@@ -4,7 +4,7 @@
 // Replaces the autodiff of the JAX package's exact attention on bf16 q, k
 // and v (morgana_tpu/ops/attention.py:100-143 under compute_dtype bfloat16;
 // the splash and flash calls cast q, k and v to bf16, nn.py:1018-1019,
-// :1063-1064), the backward of K5b (attn_fwd.cu's bf16 build). Given bf16
+// :1063-1064), the backward of K5b (attn_fwd_bf16.cu). Given bf16
 // q, k, v, the forward's f32 lse and the f32 cotangent do, it writes bf16
 // dq, dk, dv with JAX's roundings to bf16 (rb): with P_ij = exp(q_i . k_j *
 // s - lse_i) on the visible pairs (0 elsewhere) and s = 1 / sqrt(DH),

@@ -1,5 +1,6 @@
-// Shared by the attention kernels K5/K6 (attn_fwd.cu, attn_bwd.cu), K5b's
-// backward (attn_bwd_bf16.cu) and the bf16 weight-gradient carry
+// Shared by the attention kernels K5/K6 (attn_fwd.cu, attn_bwd.cu), K5b
+// (attn_fwd_bf16.cu, which takes the mask rule and the softmax's helpers),
+// K5b's backward (attn_bwd_bf16.cu) and the bf16 weight-gradient carry
 // (rnn_dw_bf16.cu): the visibility rule of the masks, the products on the
 // tensor cores (3xTF32, bf16, and bf16 x three bf16 planes of an f32
 // operand), and the asynchronous tile copies.
@@ -25,11 +26,8 @@
 // while the current one is computed. Their row strides keep every fragment
 // read conflict-free (kRowStride, kColStride).
 //
-// Elem is the element type of q, k, v in device memory (IoOps reads and
-// writes f32); every sum is f32. The forward is built for Elem = float and
-// Elem = __nv_bfloat16: the bf16 forward (K5b, attn_fwd.cu) keeps bf16 in
-// shared memory and runs each product as one mma.sync.m16n8k16 in bf16
-// (mma_bf16 below), with f32 sums; o and lse stay f32.
+// Every sum is f32. The bf16 kernels keep bf16 in shared memory and run a
+// bf16 product as one mma.sync.m16n8k16 (mma_bf16 below).
 //
 // An f32 operand of a product with a bf16 one (do, dS, the gate gradients
 // of the carry) goes to mma.sync.m16n8k16 as three bf16 planes (split3_pack):
@@ -47,8 +45,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace attn {
 
 constexpr int kWarps = 4;
@@ -57,20 +53,6 @@ constexpr int kTile = 64;     // rows of a block's own tile (queries, or keys in
 constexpr int kStages = 2;    // the ring of streamed tiles
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-template <typename Elem>
-struct IoOps;
-
-template <>
-struct IoOps<float> {
-  __device__ __forceinline__ static float load(const float* p) { return *p; }
-  __device__ __forceinline__ static float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  __device__ __forceinline__ static void store4(float* p, float4 x) {
-    *reinterpret_cast<float4*>(p) = x;
-  }
-};
 
 // Row strides of shared tiles, in floats. kRowStride (= 16 mod 32) for a
 // tile read only along its rows; kColStride (= 4 mod 32) for one also read
@@ -82,17 +64,6 @@ template <int DH>
 constexpr int kRowStride = DH + 16;
 template <int DH>
 constexpr int kColStride = DH + 4;
-
-// The forward's k and v tile strides in elements of Elem: f32 as above. In
-// bf16, k is read 16 bytes a lane along its rows (lanes 4g + t: row g, bytes
-// 16t of a 64-byte run), conflict-free when a row is 64 bytes mod 128; v
-// is read by ldmatrix.trans, eight 16-byte rows at a time, conflict-free
-// when a row is an odd number of 16 bytes mod 128.
-template <typename Elem, int DH>
-constexpr int kKStride =
-    std::is_same_v<Elem, float> ? kRowStride<DH> : (DH % 64 == 32 ? DH : DH + 32);
-template <typename Elem, int DH>
-constexpr int kVStride = std::is_same_v<Elem, float> ? kColStride<DH> : DH + 8;
 
 // Whether query i sees key j of a batch row of length len (<= T): both below
 // len (a padded query row sees no key), and j <= i when causal, i - j <
@@ -167,9 +138,8 @@ __device__ __forceinline__ void mma3(float (*d)[4], const FragA& a, const FragB 
 // fragment column g. The C fragment of tile 4c + j then holds columns
 // 32c + 8t + j and 32c + 8t + 4 + j (store_c4).
 
-template <typename Elem>
-__device__ __forceinline__ float4 ld4(const Elem* p) {
-  return IoOps<Elem>::load4(p);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 // A of k-steps 2c and 2c + 1 from the two 16-byte reads of rows g and g + 8.
@@ -179,8 +149,8 @@ __device__ __forceinline__ void split_a2(const float4& x, const float4& y, FragA
 }
 
 // B of k-steps 2c and 2c + 1 for columns n0 .. n0 + 7, B[kk][n] = m[n0 + n][.].
-template <typename Elem, int S>
-__device__ __forceinline__ void load_b2_rows(const Elem* m, int n0, int c, int g, int t,
+template <int S>
+__device__ __forceinline__ void load_b2_rows(const float* m, int n0, int c, int g, int t,
                                              FragB& b0, FragB& b1) {
   const float4 x = ld4(m + (n0 + g) * S + 16 * c + 4 * t);
   b0 = split_b(x.x, x.y);
@@ -189,8 +159,8 @@ __device__ __forceinline__ void load_b2_rows(const Elem* m, int n0, int c, int g
 
 // B of the k-step at rows k0 + 2t, k0 + 2t + 1 of m (the depth permuted as
 // a_from_c's) for the four column tiles of chunk c.
-template <typename Elem, int S>
-__device__ __forceinline__ void load_b4_cols(const Elem* m, int k0, int c, int g, int t,
+template <int S>
+__device__ __forceinline__ void load_b4_cols(const float* m, int k0, int c, int g, int t,
                                              FragB* b) {
   const float4 x = ld4(m + (k0 + 2 * t) * S + 32 * c + 4 * g);
   const float4 y = ld4(m + (k0 + 2 * t + 1) * S + 32 * c + 4 * g);
@@ -209,18 +179,17 @@ __device__ __forceinline__ FragA a_from_c(const float (&c)[4]) {
 
 // Row r (0: g, 1: g + 8) of the C fragments of the four column tiles of
 // chunk c, times `scale`, to the row's columns 32c + 8t .. + 7.
-template <typename Elem>
-__device__ __forceinline__ void store_c4(Elem* row, float (*acc)[4], int c, int r, int t,
+__device__ __forceinline__ void store_c4(float* row, float (*acc)[4], int c, int r, int t,
                                          float scale) {
-  IoOps<Elem>::store4(row + 32 * c + 8 * t,
-                      make_float4(acc[0][2 * r] * scale, acc[1][2 * r] * scale,
-                                  acc[2][2 * r] * scale, acc[3][2 * r] * scale));
-  IoOps<Elem>::store4(row + 32 * c + 8 * t + 4,
-                      make_float4(acc[0][2 * r + 1] * scale, acc[1][2 * r + 1] * scale,
-                                  acc[2][2 * r + 1] * scale, acc[3][2 * r + 1] * scale));
+  *reinterpret_cast<float4*>(row + 32 * c + 8 * t) =
+      make_float4(acc[0][2 * r] * scale, acc[1][2 * r] * scale, acc[2][2 * r] * scale,
+                  acc[3][2 * r] * scale);
+  *reinterpret_cast<float4*>(row + 32 * c + 8 * t + 4) =
+      make_float4(acc[0][2 * r + 1] * scale, acc[1][2 * r + 1] * scale,
+                  acc[2][2 * r + 1] * scale, acc[3][2 * r + 1] * scale);
 }
 
-// ---- bf16 on mma.sync.m16n8k16 (K5b) ----
+// ---- bf16 on mma.sync.m16n8k16 ----
 //
 // Lane = 4 g + t holds A (16 x 16) as a0 = row g, columns 2t, 2t + 1; a1 =
 // row g + 8, the same columns; a2, a3 = rows g, g + 8, columns 2t + 8,

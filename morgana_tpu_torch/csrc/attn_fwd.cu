@@ -3,8 +3,8 @@
 // Replaces the two TPU attention kernels of morgana_tpu/nn.py's
 // MultiHeadAttention: _splash (nn.py:1001, splash attention built by
 // _splash_kernel :946) and _flash (nn.py:1055, flash attention). Both compute
-// the same function, which this kernel computes for q, k, v (B, H, T, DH) f32
-// (K5, K6) or bf16 (K5b, below):
+// the same function, which this kernel computes for q, k, v (B, H, T, DH)
+// f32 (K5b, the forward on bf16 q, k, v, is attn_fwd_bf16.cu):
 //
 //     o_i = sum_j softmax_j(q_i . k_j / sqrt(DH)) v_j   over the keys j that
 //     query i sees: i, j < len_b, and with `causal` j <= i, and with `window`
@@ -41,18 +41,6 @@
 // a warp skips a tile that none of its rows sees, so windowed attention
 // costs O(T * W).
 //
-// K5b is the Elem = bf16 build, the splash and flash kernels on bf16
-// operands (nn.py:1018-1019, :1063-1064; the plain path
-// ops/attention.py:126-143): q, k and v are read and staged as bf16, each
-// product is one mma.sync.m16n8k16 in bf16 with f32 sums (q.k^T reads q and
-// k 16 bytes a lane, its depth permuted alike in both; p.v reads v by
-// ldmatrix.trans), and the unnormalised probabilities are rounded to bf16
-// as p.v's A operand; the running max and sum, lse and o stay f32. o is
-// written in f32, as the exact path's f32 accumulation returns it (the TPU
-// splash kernel rounds it to bf16). Its bound at the shapes above (P =
-// 31.8 M): 4 * P * DH flops at 989 TFLOP/s, 0.012 ms, against 0.019 ms for
-// the bytes of bf16 q, k, v and f32 o, so K5b is bound by its bytes.
-//
 // Both products are mma.sync, not wgmma. TF32 wgmma reads B only K-major
 // from shared memory, in its canonical layout, so its 3xTF32 needs hi and lo
 // planes of each streamed tile written by the block (and a transposed v for
@@ -66,27 +54,25 @@ namespace {
 
 using namespace attn;
 
-template <typename Elem, int DH>
+template <int DH>
 constexpr size_t fwd_smem_bytes() {
-  return sizeof(Elem) * size_t(kStages) * kTile * (kKStride<Elem, DH> + kVStride<Elem, DH>);
+  return sizeof(float) * size_t(kStages) * kTile * (kRowStride<DH> + kColStride<DH>);
 }
 
-template <typename Elem, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 2)
-attn_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                const Elem* __restrict__ v, const int* __restrict__ seq_len,
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ seq_len,
                 float* __restrict__ o, float* __restrict__ lse, int H, int T, int causal,
                 int window) {
-  constexpr bool kBf16 = std::is_same_v<Elem, __nv_bfloat16>;
-  constexpr int SK = kKStride<Elem, DH>;  // k is read along its rows (q.k^T)
-  constexpr int SV = kVStride<Elem, DH>;  // v down its columns (p.v)
-  constexpr int kPer = 16 / int(sizeof(Elem));  // values in 16 bytes
-  constexpr int KC = DH / (4 * kPer);  // 16-byte reads of a q row a lane: two k-steps each
+  constexpr int SK = kRowStride<DH>;  // k is read along its rows (q.k^T)
+  constexpr int SV = kColStride<DH>;  // v down its columns (p.v)
+  constexpr int KC = DH / 16;         // 16-byte reads of a q row a lane: two k-steps each
   constexpr int ND = DH / 8;          // 8-column tiles of o
   constexpr int NK = kTile / 8;       // 8-key columns of a key tile
   constexpr int kStage = kTile * (SK + SV);
   extern __shared__ float4 smem4[];
-  Elem* ring = reinterpret_cast<Elem*>(smem4);  // kStages x {k, v}
+  float* ring = reinterpret_cast<float*>(smem4);  // kStages x {k, v}
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y;
@@ -101,26 +87,25 @@ attn_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   if (causal) kv_end = min(kv_end, q0 + kTile);
   const int kv_first = window > 0 ? (max(0, q0 - window + 1) / kTile) * kTile : 0;
 
-  const Elem* kb = k + base;
-  const Elem* vb = v + base;
+  const float* kb = k + base;
+  const float* vb = v + base;
   if (kv_first < kv_end) {
-    copy_tile_async<Elem, DH, SK, kTile>(ring, kb, kv_first, T);
-    copy_tile_async<Elem, DH, SV, kTile>(ring + kTile * SK, vb, kv_first, T);
+    copy_tile_async<float, DH, SK, kTile>(ring, kb, kv_first, T);
+    copy_tile_async<float, DH, SV, kTile>(ring + kTile * SK, vb, kv_first, T);
   }
   cp_async_commit();
 
   // This warp's q rows g and g + 8 in registers, 16 bytes a chunk (rows past
-  // T zero): f32 split into A fragments at each key tile, bf16 as they are.
-  using Chunk = std::conditional_t<kBf16, uint4, float4>;
-  Chunk qx[KC], qy[KC];
+  // T zero), split into A fragments at each key tile.
+  float4 qx[KC], qy[KC];
   {
     const int ra = row0 + g, rb = ra + 8;
-    const Chunk zero = {};
+    const float4 zero = {};
 #pragma unroll
     for (int c = 0; c < KC; ++c) {
-      const size_t at = 4 * kPer * c + kPer * t;
-      qx[c] = ra < T ? *reinterpret_cast<const Chunk*>(q + base + size_t(ra) * DH + at) : zero;
-      qy[c] = rb < T ? *reinterpret_cast<const Chunk*>(q + base + size_t(rb) * DH + at) : zero;
+      const size_t at = 16 * c + 4 * t;
+      qx[c] = ra < T ? *reinterpret_cast<const float4*>(q + base + size_t(ra) * DH + at) : zero;
+      qy[c] = rb < T ? *reinterpret_cast<const float4*>(q + base + size_t(rb) * DH + at) : zero;
     }
   }
 
@@ -136,13 +121,13 @@ attn_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
     cp_async_wait<0>();
     __syncthreads();  // this tile has landed; every warp is done with the other stage
     if (k0 + kTile < kv_end) {
-      Elem* next = ring + (stage ^ 1) * kStage;
-      copy_tile_async<Elem, DH, SK, kTile>(next, kb, k0 + kTile, T);
-      copy_tile_async<Elem, DH, SV, kTile>(next + kTile * SK, vb, k0 + kTile, T);
+      float* next = ring + (stage ^ 1) * kStage;
+      copy_tile_async<float, DH, SK, kTile>(next, kb, k0 + kTile, T);
+      copy_tile_async<float, DH, SV, kTile>(next + kTile * SK, vb, k0 + kTile, T);
     }
     cp_async_commit();
-    const Elem* ks = ring + stage * kStage;
-    const Elem* vs = ks + kTile * SK;
+    const float* ks = ring + stage * kStage;
+    const float* vs = ks + kTile * SK;
 
     // Whether any row of this warp sees a key of this tile, and whether
     // every row sees every key (no mask to apply).
@@ -159,29 +144,13 @@ attn_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
-        if constexpr (kBf16) {
-          // Lane t reads depths 32c + 8t .. + 7 of q's rows and of key g's
-          // row: k-step 2c takes the first four as its columns 2t, 2t + 1,
-          // 2t + 8, 2t + 9, k-step 2c + 1 the last four.
-          uint4 kx[NK];
+        FragA a0, a1;
+        split_a2(qx[c], qy[c], a0, a1);
+        FragB b0[NK], b1[NK];
 #pragma unroll
-          for (int n = 0; n < NK; ++n)
-            kx[n] = *reinterpret_cast<const uint4*>(ks + (8 * n + g) * SK + 32 * c + 8 * t);
-          const uint32_t a0[4] = {qx[c].x, qy[c].x, qx[c].y, qy[c].y};
-          const uint32_t a1[4] = {qx[c].z, qy[c].z, qx[c].w, qy[c].w};
-#pragma unroll
-          for (int n = 0; n < NK; ++n) mma_bf16(s[n], a0, kx[n].x, kx[n].y);
-#pragma unroll
-          for (int n = 0; n < NK; ++n) mma_bf16(s[n], a1, kx[n].z, kx[n].w);
-        } else {
-          FragA a0, a1;
-          split_a2(qx[c], qy[c], a0, a1);
-          FragB b0[NK], b1[NK];
-#pragma unroll
-          for (int n = 0; n < NK; ++n) load_b2_rows<Elem, SK>(ks, 8 * n, c, g, t, b0[n], b1[n]);
-          mma3<NK>(s, a0, b0);
-          mma3<NK>(s, a1, b1);
-        }
+        for (int n = 0; n < NK; ++n) load_b2_rows<SK>(ks, 8 * n, c, g, t, b0[n], b1[n]);
+        mma3<NK>(s, a0, b0);
+        mma3<NK>(s, a1, b1);
       }
 
       // Online softmax in log2 units: s[n][e] is row g + 8 (e / 2), key
@@ -233,36 +202,13 @@ attn_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
       }
 
       // o += p . v, p from registers.
-      if constexpr (kBf16) {
-        // 16 keys a k-step: the C fragments of key columns 2kk and 2kk + 1
-        // are the A fragment as they stand, rounded to bf16. ldmatrix.trans
-        // gives two column tiles of v a call: matrices (keys 16kk, +8) x
-        // (features 16n, +8).
-        const int mi = lane / 8;
 #pragma unroll
-        for (int kk = 0; kk < NK / 2; ++kk) {
-          const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                 pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                 pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int kk = 0; kk < NK; ++kk) {
+        const FragA a = a_from_c(s[kk]);
+        FragB b[ND];
 #pragma unroll
-          for (int n = 0; n < ND / 2; ++n) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, vs + (16 * kk + (mi & 1) * 8 + (lane & 7)) * SV + 16 * n +
-                                     (mi >> 1) * 8);
-            mma_bf16(acc[2 * n], a, b[0], b[1]);
-            mma_bf16(acc[2 * n + 1], a, b[2], b[3]);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < NK; ++kk) {
-          const FragA a = a_from_c(s[kk]);
-          FragB b[ND];
-#pragma unroll
-          for (int c = 0; c < DH / 32; ++c) load_b4_cols<Elem, SV>(vs, 8 * kk, c, g, t, b + 4 * c);
-          mma3<ND>(acc, a, b);
-        }
+        for (int c = 0; c < DH / 32; ++c) load_b4_cols<SV>(vs, 8 * kk, c, g, t, b + 4 * c);
+        mma3<ND>(acc, a, b);
       }
     }
   }
@@ -275,29 +221,22 @@ attn_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (row >= T) continue;
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
     float* out = o + base + size_t(row) * DH;
-    if constexpr (kBf16) {  // tile n holds columns 8n + 2t, 8n + 2t + 1
 #pragma unroll
-      for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<float2*>(out + 8 * n + 2 * t) =
-            make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    } else {
-#pragma unroll
-      for (int c = 0; c < DH / 32; ++c) store_c4(out, acc + 4 * c, c, r, t, inv);
-    }
+    for (int c = 0; c < DH / 32; ++c) store_c4(out, acc + 4 * c, c, r, t, inv);
     if (t == 0) lse[size_t(bh) * T + row] = sum > 0.f ? (m[r] + log2f(sum)) * kLn2 : INFINITY;
   }
 }
 
-template <typename Elem, int DH>
+template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seq_len, float* o,
                    float* lse, int B, int H, int T, int causal, int window, int device,
                    cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<Elem, DH>();
-  const cudaError_t err = set_smem(attn_fwd_kernel<Elem, DH>, smem, device);
+  const size_t smem = fwd_smem_bytes<DH>();
+  const cudaError_t err = set_smem(attn_fwd_kernel<DH>, smem, device);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kTile - 1) / kTile, B * H);
-  attn_fwd_kernel<Elem, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
+  attn_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       seq_len, o, lse, H, T, causal, window);
   return cudaGetLastError();
 }
@@ -307,30 +246,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seq_l
 extern "C" {
 
 // Launches K5/K6's forward on `stream` (a cudaStream_t) of `device`; returns a
-// cudaError_t (0 on success). q, k, v are contiguous (B, H, T, DH), in bf16
-// when `bf16` is non-zero (K5b) and f32 otherwise; o is f32 (B, H, T, DH),
-// lse f32 (B, H, T), seq_len int32 (B,) or null. DH is 64, 96 or 128;
-// B, H, T >= 1, B * H < 65536; window <= 0 means no window.
+// cudaError_t (0 on success). q, k, v are contiguous f32 (B, H, T, DH); o is
+// f32 (B, H, T, DH), lse f32 (B, H, T), seq_len int32 (B,) or null. DH is 64,
+// 96 or 128; B, H, T >= 1, B * H < 65536; window <= 0 means no window.
 int morgana_attn_fwd(const void* q, const void* k, const void* v, const int* seq_len, float* o,
-                     float* lse, int B, int H, int T, int DH, int causal, int window, int bf16,
-                     int device, void* stream) {
+                     float* lse, int B, int H, int T, int DH, int causal, int window, int device,
+                     void* stream) {
   if (B < 1 || H < 1 || T < 1 || B * H > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K5_RUN(ELEM, D) \
-  return launch<ELEM, D>(q, k, v, seq_len, o, lse, B, H, T, causal, window, device, s)
-#define K5_DH(D)                          \
-  case D:                                 \
-    if (bf16) K5_RUN(__nv_bfloat16, D);   \
-    K5_RUN(float, D);
   switch (DH) {
-    K5_DH(64)
-    K5_DH(96)
-    K5_DH(128)
+    case 64:
+      return launch<64>(q, k, v, seq_len, o, lse, B, H, T, causal, window, device, s);
+    case 96:
+      return launch<96>(q, k, v, seq_len, o, lse, B, H, T, causal, window, device, s);
+    case 128:
+      return launch<128>(q, k, v, seq_len, o, lse, B, H, T, causal, window, device, s);
   }
-#undef K5_DH
-#undef K5_RUN
   return cudaErrorInvalidValue;
 }
 

@@ -8,21 +8,24 @@ computes, per row ``i`` of batch row ``b``, the softmax of ``q_i . k_j /
 sqrt(dh)`` over the keys ``j`` it sees (``j < seq_len[b]``; with ``causal``
 also ``j <= i``; with ``window`` also ``i - j < window``) times v:
 
-* for CUDA tensors, in kernel K5/K6: ``csrc/attn_fwd.cu`` forward and, when
-  a gradient is needed, ``csrc/attn_bwd.cu`` backward (``csrc/attn_bwd_bf16.cu``
-  for bf16 q, k and v) inside a :class:`torch.autograd.Function`, or an
-  error: there is no fallback;
+* for CUDA tensors, in kernel K5/K6: ``csrc/attn_fwd.cu`` forward
+  (``csrc/attn_fwd_bf16.cu``, K5b, for bf16 q, k and v) and, when a gradient
+  is needed, ``csrc/attn_bwd.cu`` backward (``csrc/attn_bwd_bf16.cu`` for
+  bf16 q, k and v) inside a :class:`torch.autograd.Function`, or an error:
+  there is no fallback;
 * for CPU tensors, in its plain version, :func:`flash_attention_reference`
   (the additive biases of ``ops/attention.py`` and
   ``scaled_dot_product_attention``), differentiated by autograd when a
   gradient is needed.
 
 With ``compute_dtype`` bf16 (the splash and flash calls on bf16 operands,
-``nn.py:1018-1019``, :1063-1064) q, k and v go to the kernel as bf16, and
-the forward runs in K5b, the kernel's bf16 build: both products are one
-``mma.sync`` m16n8k16 in bf16 with f32 sums, the unnormalised probabilities
-rounded to bf16 before P.V, the softmax statistics and o in float32. o
-stays float32, as the JAX package's exact path returns it (its splash
+``nn.py:1018-1019``, :1063-1064) q, k and v go to the kernels as bf16, and
+the forward runs in K5b: a block of 128 query rows, two warpgroups of 64
+rows running both products as ``wgmma`` in bf16 with f32 sums (q.k^T from
+shared memory, P.V with P from registers and v read as it lies), fed with
+128-key tiles of k and v by a TMA producer through a ring of ``mbarrier``
+stages; the unnormalised probabilities rounded to bf16 before P.V, the
+softmax statistics and o in float32. o stays float32, as the JAX package's exact path returns it (its splash
 kernel rounds o to bf16; the tests hold the port to the exact path). Its
 plain version is ``scaled_dot_product_attention(compute_dtype=bf16)``. Its
 backward, K5b's backward (``csrc/attn_bwd_bf16.cu``), is the autodiff of
@@ -46,14 +49,16 @@ discard.
 
 What bounds the kernels: their products, 4 * P * dh flops forward and at
 least 10 * P * dh backward for P visible (query, key) pairs, against
-O(B * T * H * dh) bytes: they are bound by operations. So every product
-runs on the tensor cores; in f32 as ``mma.sync`` in TF32 with each f32
+O(B * T * H * dh) bytes: in f32 they are bound by operations (K5b, on
+the bf16 tensor cores, by its bytes). So every product runs on the tensor
+cores; in f32 as ``mma.sync`` in TF32 with each f32
 operand split into a TF32 high part and the low rest and three products
 summed in f32 (3xTF32: within a few 2^-20 of f32, where one TF32 product
 alone misses the 1e-4 the card checks hold them to). The kernels keep the
 T x T logits out of device memory (an online softmax over key tiles of 64,
-recomputed in the backward from the saved log-sum-exp), stream k and v (q
-and do in the dk/dv pass) through a ``cp.async`` ring, and skip key tiles
+128 in K5b, recomputed in the backward from the saved log-sum-exp), stream
+k and v (q and do in the dk/dv pass) through a ``cp.async`` ring (K5b: TMA),
+and skip key tiles
 that no row of a query tile sees, so windowed attention is linear in T.
 """
 import ctypes
@@ -83,7 +88,11 @@ bf16_bwd_launches = 0
 #: The head widths the kernels are built for (a template each).
 HEAD_DIMS = (64, 96, 128)
 
-_MAX_BATCH_HEADS = 65535  # the grid's y dimension
+_MAX_BATCH_HEADS = 65535  # the f32 kernels' grid y dimension; the same bound for all
+
+# morgana_attn_fwd_bf16's argument types: q, k, v, seq_len, o, lse, then B,
+# H, T, dh, causal, window, device, then the stream.
+FWD_BF16_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def attention_bias(seq_len, max_len, causal=False, window=None, device=None):
@@ -164,17 +173,24 @@ def attention_forward(q, k, v, seq_len=None, causal=False, window=None):
     if o.numel() == 0:
         return o, lse.fill_(float('inf'))
     lengths = _lengths(seq_len, batch, q.device)
-    lib, fn = load_library('attn_fwd', 'morgana_attn_fwd',
-                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    if bf16:
+        lib, fn = load_library('attn_fwd_bf16', 'morgana_attn_fwd_bf16', FWD_BF16_ARGTYPES)
+        hint = ('a block of 384 threads keeps 128 rows of q and three stages of a 128-key k '
+                'and v tile in shared memory (225 KB at dh 96 and 128, 113 KB at dh 64), and '
+                'encodes TMA tensor maps through the driver (libcuda.so.1)')
+    else:
+        lib, fn = load_library('attn_fwd', 'morgana_attn_fwd',
+                               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        hint = ('a block keeps two stages of a 64-row k and v tile in shared memory (106 KB at '
+                'dh 96)')
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if lengths is None else lengths.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), batch, heads, time, head_dim, int(causal),
-                 int(window or 0), int(bf16), q.device.index, stream)
+                 int(window or 0), q.device.index, stream)
     raise_on_error(lib, err, f'attention kernel {name} at B={batch} H={heads} T={time} '
-                   f'dh={head_dim}', 'a block keeps two stages of a 64-row k and v tile in '
-                   'shared memory (106 KB at dh 96 in f32, 50 KB in bf16)')
+                   f'dh={head_dim}', hint)
     launches += 1
     bf16_launches += bf16
     return o, lse

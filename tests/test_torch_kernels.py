@@ -1,9 +1,9 @@
 """The port's hand-written CUDA kernels (K1, the LSTM layer forward with and
 without its gate trace, K2, its backward, K3, the GRU layer forward, K4, its
 backward, K5/K6, attention forward and backward, their bf16-compute builds
-K1c (with and without its gate trace), K2c, K3c, K4c, K5b and K5b's
-backward, the bf16 weight-gradient carry, and MLPG: its banded solve and the
-whole op from the means to the trajectory)
+K1c (with and without its gate trace), K2c, K3c, K4c, K5b (at the edges of
+its tiles too) and K5b's backward, the bf16 weight-gradient carry, and
+MLPG: its banded solve and the whole op from the means to the trajectory)
 against their plain PyTorch versions, K1c and K2c's cluster kernels at
 every width up to 512 and in an exported bf16 voice, K3c in an exported
 bf16 F0 voice, and the batched vocoder's determinism
@@ -549,6 +549,13 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 # normalised ones, an independent rounding of the same size (measured on the
 # H100: 0.68 of the error against f32 at every shape).
 K5B_CLOSER = 1
+# And o within K5B_O_OF_CONTROL times the largest |error| of the control, the
+# plain version in f32 on the same bf16 q, k, v (no rounding of p):
+# chip_smoke.py's constant (sound runs on the H100: 0.98-1.17); plus
+# F32_SLACK of the largest |value| for the f32 sums alone (at T = 1 the
+# control rounds nothing).
+K5B_O_OF_CONTROL = 2.0
+F32_SLACK = 2.0 ** -20
 
 
 def _assert_bf16_compute(got, want, f32, closer=BF16_CLOSER):
@@ -639,6 +646,51 @@ def test_k5b_matches_plain_version(cuda_device, batch, heads, steps, head_dim, c
                          BF16_CLOSER if steps == 1 else K5B_CLOSER)
     if batch > 2:
         assert (got[-1] == 0).all()
+
+
+# K5b (csrc/attn_fwd_bf16.cu) at the edges of its 128-row query tiles, its
+# two 64-row warpgroups and its 128-key tiles: T = 1, 63, 64, 65 and 130,
+# every dh, full, causal and windowed masks (a window inside one key tile
+# and one across two), B3 with a ragged row and an empty one.
+K5B_EDGES = [(steps, head_dim, causal, window) for steps in (1, 63, 64, 65, 130)
+             for head_dim in fa.HEAD_DIMS
+             for causal, window in ((False, None), (True, None), (True, 8), (True, 100))]
+
+
+@pytest.mark.parametrize('steps,head_dim,causal,window', K5B_EDGES)
+def test_k5b_edges_match_plain_version(cuda_device, steps, head_dim, causal, window):
+    """attention_forward on bf16 q, k and v (K5b alone) against the plain
+    bf16 attention on the rows below seq_len, as chip_smoke.py's k5b_case
+    holds it (BF16_ULPS bf16 ulps, nearer in the mean than the f32 plain
+    version, within K5B_O_OF_CONTROL times the largest |error| of the plain
+    version in f32 on the same bf16 q, k, v), and lse against the
+    log-sum-exp of the bf16 logits; o and lse f32, the empty row o = 0 with
+    lse +inf; one launch of the bf16 build."""
+    q, k, v, seq_len = _attn_inputs(cuda_device, 3, 2, steps, head_dim, seed=19)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    mask = {'seq_len': seq_len, 'causal': causal, 'window': window}
+    before = (fa.launches, fa.bf16_launches)
+    with torch.no_grad():
+        o, lse = fa.attention_forward(qb, kb, vb, **mask)
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.bf16_launches) == (before[0] + 1, before[1] + 1)
+        want = fa.flash_attention_reference(q, k, v, compute_dtype=torch.bfloat16, **mask)
+        f32 = fa.flash_attention_reference(q, k, v, **mask)
+        control = fa.flash_attention_reference(qb.float(), kb.float(), vb.float(), **mask)
+        bias = fa.attention_bias(seq_len, steps, causal, window, device=cuda_device)
+        logits = torch.matmul(qb.float(), kb.float().transpose(-1, -2)) / head_dim ** 0.5
+        want_lse = torch.logsumexp(logits if bias is None else logits + bias, -1)
+    assert o.dtype == lse.dtype == torch.float32 and torch.isfinite(o).all()
+    valid = _valid_rows(seq_len, steps)
+    _assert_bf16_compute([o * valid], [want * valid], [f32 * valid],
+                         BF16_CLOSER if steps == 1 else K5B_CLOSER)
+    err, control_err = (float(((t - want) * valid).abs().max()) for t in (o, control))
+    assert err <= (K5B_O_OF_CONTROL * control_err
+                   + F32_SLACK * float((want * valid).abs().max())), (err, control_err)
+    rows = valid[..., 0].expand_as(lse)
+    torch.testing.assert_close(torch.where(rows, lse, 0.), torch.where(rows, want_lse, 0.),
+                               rtol=0, atol=1e-5 * max(1.0, float(want_lse[rows].abs().max())))
+    assert (o[-1] == 0).all() and torch.isinf(lse[-1]).all()
 
 
 def test_bf16_gradients_launch_the_backward_kernels(cuda_device):
