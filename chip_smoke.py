@@ -312,6 +312,23 @@ TRAIN_BATCH = 32
 F0_LAYERS = 3       # F0Model: 3 x GRU(64)
 TRANSFORMER_BLOCKS = 6      # TransformerAcousticModel's defaults
 TRANSFORMER_LR = '0.001'    # the learning rate its JAX docstring recommends
+# The other model families at their defaults: MultiSpeakerF0Model over 4
+# speakers, VAEProsodyModel (its 2 GRU layers in a train step, the decoder's
+# alone in predict), ConvAcousticModel (6 blocks) and the Transformer with 8
+# experts in blocks 2, 4 and 6 (Switch Transformer's smallest sparse
+# configuration; the repo gives no count).
+SPEAKERS = ('spk_0', 'spk_1', 'spk_2', 'spk_3')
+# A mixture-of-experts block sends each token to its most probable expert.
+# Under bf16 two right engines can route a near tie apart (their router
+# inputs differ by bf16 roundings), and that batch row's outputs then differ
+# by an expert's output. So a bf16 MoE engine is held row by row (rows are
+# independent): a row routed alike in every block in full, a row routed
+# apart only where, at the first block that routes it apart, the two
+# experts' probabilities are within ROUTE_TIE of each other on both engines.
+ROUTE_TIE = 2.0 ** -7
+VAE_LATENT_SAMPLES = 4      # VAEProsodyModel.analysis_for_test_batch's default
+CONV_BLOCKS = 6
+MOE_KWARGS = {'moe_experts': 8}
 # The vocoder: 16 kHz, 5 ms frames. Float32 paths (card, CPU, JAX) against
 # each other: relative L2 within VOCODER_RTOL where no glottal pulse may
 # differ (unvoiced, or the same pulse train; the CPU tests measure 1.2e-6
@@ -2516,8 +2533,10 @@ def _train_phase(torch, root, phase, store):
     expected = {'k1': layers * (train_steps + 2 * valid_batches),
                 'k1_gates': layers * train_steps, 'k2': layers * train_steps}
     expected.update(k1_bf16=expected['k1'] if store else 0, k2_bf16=expected['k2'] if store else 0)
-    if launches != expected:
-        raise AssertionError(f'{phase}: launches {launches}, expected {expected}')
+    mlpg_expected = train_steps + 2 * valid_batches     # one a step and a valid batch
+    if launches != expected or mlpg_launches != mlpg_expected:
+        raise AssertionError(f'{phase}: launches {launches}, MLPG {mlpg_launches}, expected '
+                             f'{expected}, MLPG {mlpg_expected}')
     exp_dir = os.path.join(exp_base, phase)
     epoch_metrics = {}
     for mode in ('train', 'valid'):
@@ -2742,14 +2761,27 @@ def f0_items(rng):
     return items
 
 
+def cpu_held_batch(items):
+    """Of the batches of SERVE_BATCH that predict_items serves `items` in
+    (in their order), the one of the shortest padded length: the CPU engine
+    serves it whole, so both engines pad it alike (a MoE block's expert
+    capacity depends on the batch's padded length) and the card's timed
+    outputs are held as they came."""
+    batches = [items[i:i + SERVE_BATCH] for i in range(0, len(items), SERVE_BATCH)]
+    return min(batches, key=lambda b: max(int(it['n_frames'].reshape(-1)[0]) for it in b))
+
+
 def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops, name, layers,
-                         seed):
-    """`model_class` at full width, seeded weights and normaliser statistics,
-    served by InferenceEngine.predict_items: the utterances of `make` at
-    B=16; shapes and finiteness of the outputs in `dims`, `layers` forward
-    launches per batch of the kernel counted by `ops` (reported as `name`)
-    and none of its backward, agreement with the CPU engine, throughput,
-    peak memory and where a batch's time goes."""
+                         seed, model_kwargs=None, prepare=None, mlpg_per_batch=1):
+    """`model_class` (with `model_kwargs`) at full width, seeded weights and
+    normaliser statistics (and what `prepare(root, rng)` writes beside
+    them), served by InferenceEngine.predict_items: the utterances of `make`
+    at B=16; shapes and finiteness of the outputs in `dims`, `layers`
+    forward launches per batch of the kernel counted by `ops` (reported as
+    `name`; None for a model without one) and none of its backward,
+    `mlpg_per_batch` MLPG launches a batch, the timed outputs of one batch
+    against the CPU engine's (cpu_held_batch), throughput, peak memory and
+    where a batch's time goes."""
     from morgana_tpu_torch import data
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
     from morgana_tpu_torch.serve import InferenceEngine
@@ -2757,21 +2789,26 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
     serve_root = os.path.join(root, phase)
     os.makedirs(serve_root)
     rng = np.random.default_rng(seed)
-    ckpt = seeded_checkpoint(torch, model_class, os.path.join(serve_root, 'epoch_1.npz'), seed)
+    ckpt = seeded_checkpoint(torch, model_class, os.path.join(serve_root, 'epoch_1.npz'), seed,
+                             **(model_kwargs or {}))
     write_normalisers(serve_root, rng)
+    if prepare is not None:
+        prepare(serve_root, rng)
     items = make(rng)
 
-    engine = InferenceEngine(model_class, ckpt, data_root=serve_root, batch_size=SERVE_BATCH)
+    engine = InferenceEngine(model_class, ckpt, data_root=serve_root, batch_size=SERVE_BATCH,
+                             model_kwargs=model_kwargs)
     engine.predict_items(items[:2])   # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    ops.launches = ops.bwd_launches = 0
+    if ops is not None:
+        ops.launches = ops.bwd_launches = 0
     solves, fused = mlpg_ops.launches, mlpg_ops.fused_launches
     start = time.perf_counter()
     outputs = engine.predict_items(items)      # returns host arrays: ends synchronised
     seconds = time.perf_counter() - start
-    launches = ops.launches
+    launches, bwd_launches = (0, 0) if ops is None else (ops.launches, ops.bwd_launches)
     solves, fused = mlpg_ops.launches - solves, mlpg_ops.fused_launches - fused
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_UTTS // SERVE_BATCH)
@@ -2786,20 +2823,23 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
                 raise AssertionError(f"{item['name']} {key}: shape {out[key].shape}, "
                                      f'expected ({n}, {dim}), finite={np.isfinite(out[key]).all()}')
     expected = layers * n_batches
-    if launches != expected or ops.bwd_launches or solves != n_batches or fused != n_batches:
-        raise AssertionError(f'{name} launched {launches} times (backward {ops.bwd_launches}), '
+    mlpg_expected = mlpg_per_batch * n_batches
+    if launches != expected or bwd_launches or solves != mlpg_expected \
+            or fused != mlpg_expected:
+        raise AssertionError(f'{name} launched {launches} times (backward {bwd_launches}), '
                              f'the MLPG solve {solves}, for {n_batches} batches, expected '
-                             f'{expected} (backward 0) and {n_batches}')
+                             f'{expected} (backward 0) and {mlpg_expected}')
 
-    # The same checkpoint on the CPU (plain versions) for the shortest utterances.
-    few = sorted(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:4]
+    # The same checkpoint on the CPU (plain versions) for the timed batch
+    # of the shortest padded length, against the card's timed outputs.
+    held = cpu_held_batch(items)
     cpu = InferenceEngine(model_class, ckpt, data_root=serve_root, device='cpu',
-                          batch_size=SERVE_BATCH).predict_items(few)
+                          batch_size=SERVE_BATCH, model_kwargs=model_kwargs).predict_items(held)
     errs = {}
     for key in dims:
         net = key.startswith('normalised') or key == 'vuv'
         worst = 0.0
-        for it in few:
+        for it in held:
             a, b = outputs[it['name']][key], cpu[it['name']][key]
             err = float(np.abs(a - b).max())
             worst = max(worst, err if net else err / max(1.0, float(np.abs(b).max())))
@@ -2824,10 +2864,12 @@ def engine_serving_phase(torch, root, model_class, phase, label, make, dims, ops
                'utterances': N_UTTS, 'frames': frames, 'batch_size': SERVE_BATCH,
                'batches': n_batches, 'seconds': seconds, 'utterances_per_s': N_UTTS / seconds,
                'frames_per_s': frames / seconds, 'ms_per_batch': seconds / n_batches * 1e3,
-               'peak_memory_mib': peak_mib, f'{name}_launches': launches,
-               f'{name}_launches_expected': expected, 'mlpg_solve_launches': solves,
+               'peak_memory_mib': peak_mib,
+               **({f'{name}_launches': launches, f'{name}_launches_expected': expected}
+                  if ops is not None else {}), 'mlpg_solve_launches': solves,
                'mlpg_launches': fused,
-               'gpu_vs_cpu_err': errs, 'net_tol': NET_TOL, 'traj_rtol': TRAJ_RTOL,
+               'gpu_vs_cpu_err': errs, 'gpu_vs_cpu_utterances': len(held),
+               'net_tol': NET_TOL, 'traj_rtol': TRAJ_RTOL,
                'profiled_batch_T': int(features['normalised_counters'].shape[1]),
                'predict_ms': predict_ms, 'mlpg_ms': mlpg_ms[0]},
               **profile))
@@ -2928,21 +2970,27 @@ def transformer_dropout_phase(torch, root):
 
 
 def builder_train_phase(torch, root, model_class, phase, ops, names, layer_class, layers, seed,
-                        *flags):
-    """Trains `model_class` for 2 epochs with validation through the
-    ExperimentBuilder on the train corpus, from a seeded epoch_0.npz; checks
-    the launches of the kernels counted by `ops` (its `launches` and
-    `bwd_launches`, reported under `names`): `layers` (the number of
-    `layer_class` modules) of each per train step and forward ones alone per
-    valid batch; finite losses and metrics and the checkpoint's strict
-    reload. Returns the launches, the experiment and its directory."""
+                        *flags, model_kwargs=None, corpus=None, mlpg_per_step=1):
+    """Trains `model_class` (with `model_kwargs`) for 2 epochs with
+    validation through the ExperimentBuilder on the train corpus (or the
+    one `corpus(root)` writes), from a seeded epoch_0.npz; checks the
+    launches of the kernels counted by `ops` (its `launches` and
+    `bwd_launches`, reported under `names`; None for a model without one):
+    `layers` (the number of `layer_class` modules) of each per train step
+    and forward ones alone per valid batch, and `mlpg_per_step` MLPG
+    launches per train step and per valid batch; finite losses and metrics
+    and the checkpoint's strict reload. Returns the launches, the experiment
+    and its directory."""
     from morgana_tpu_torch import nn
     from morgana_tpu_torch.experiment_builder import ExperimentBuilder
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
 
-    data_root, corpus_s = train_corpus(root)
+    data_root, corpus_s = (corpus or train_corpus)(root)
+    kwargs = model_kwargs or {}
     ckpt = seeded_checkpoint(torch, model_class, os.path.join(root, f'{phase}_init', 'epoch_0.npz'),
-                             seed)
+                             seed, **kwargs)
+    if kwargs:
+        flags += ('--model_kwargs', repr(kwargs))
     exp_base = os.path.join(root, 'experiments')
     args = ExperimentBuilder.get_experiment_args(
         builder_argv(data_root, exp_base, phase, ckpt, '--end_epoch', '2', *flags))
@@ -2955,7 +3003,8 @@ def builder_train_phase(torch, root, model_class, phase, ops, names, layer_class
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.launches = ops.bwd_launches = 0
+    if ops is not None:
+        ops.launches = ops.bwd_launches = 0
     mlpg_before = mlpg_ops.fused_launches
     start = time.perf_counter()
     exp.run_experiment()
@@ -2963,13 +3012,16 @@ def builder_train_phase(torch, root, model_class, phase, ops, names, layer_class
     run_s = time.perf_counter() - start
     mlpg_launches = mlpg_ops.fused_launches - mlpg_before
     fwd, bwd = names
-    launches = {fwd: ops.launches, bwd: ops.bwd_launches}
+    launches = {fwd: 0, bwd: 0} if ops is None else {fwd: ops.launches, bwd: ops.bwd_launches}
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
 
     train_steps = 2 * steps_per_epoch
-    expected = {fwd: layers * (train_steps + 2 * valid_batches), bwd: layers * train_steps}
-    if launches != expected:
-        raise AssertionError(f'{phase}: launches {launches}, expected {expected}')
+    expected = {fwd: 0, bwd: 0} if ops is None else {
+        fwd: layers * (train_steps + 2 * valid_batches), bwd: layers * train_steps}
+    mlpg_expected = mlpg_per_step * (train_steps + 2 * valid_batches)
+    if launches != expected or mlpg_launches != mlpg_expected:
+        raise AssertionError(f'{phase}: launches {launches}, MLPG {mlpg_launches}, expected '
+                             f'{expected}, MLPG {mlpg_expected}')
     exp_dir = os.path.join(exp_base, phase)
     epoch_metrics = {}
     for mode in ('train', 'valid'):
@@ -2981,30 +3033,33 @@ def builder_train_phase(torch, root, model_class, phase, ops, names, layer_class
     if len(step_losses) != train_steps or not all(math.isfinite(v) for v in values):
         raise AssertionError(f'{phase}: non-finite or missing losses/metrics: {step_losses} '
                              f'{epoch_metrics}')
-    nn.load_jax_params(model_class(), np.load(os.path.join(exp_dir, 'checkpoints', 'epoch_2.npz')))
-    emit({'phase': phase, 'model': model_class.__name__,
+    nn.load_jax_params(model_class(**kwargs),
+                       np.load(os.path.join(exp_dir, 'checkpoints', 'epoch_2.npz')))
+    emit({'phase': phase, 'model': model_class.__name__, 'model_kwargs': kwargs,
           'corpus': '64 train + 16 valid, n_phones 40-119, dur 5-9', 'corpus_seconds': corpus_s,
           'batch_size': TRAIN_BATCH, 'epochs': 2, 'steps_per_epoch': steps_per_epoch,
           'valid_batches': valid_batches, 'run_seconds': run_s, 'step_losses': step_losses,
           'train_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('train')},
           'valid_metrics': {k: v for k, v in epoch_metrics.items() if k.startswith('valid')},
-          'layers': layers, 'launches': launches, 'launches_expected': expected,
-          'mlpg_launches': mlpg_launches,
-          f'{fwd}_launches_per_train_step': (launches[fwd] - 2 * layers * valid_batches) / train_steps,
-          f'{fwd}_launches_per_valid_batch': layers,
-          f'{bwd}_launches_per_train_step': launches[bwd] / train_steps,
-          'peak_memory_mib': peak_mib})
+          'layers': layers, 'mlpg_launches': mlpg_launches,
+          'mlpg_launches_expected': mlpg_expected, 'peak_memory_mib': peak_mib,
+          **({} if ops is None else {
+              'launches': launches, 'launches_expected': expected,
+              f'{fwd}_launches_per_train_step':
+                  (launches[fwd] - 2 * layers * valid_batches) / train_steps,
+              f'{fwd}_launches_per_valid_batch': layers,
+              f'{bwd}_launches_per_train_step': launches[bwd] / train_steps})})
     return launches, exp, exp_dir
 
 
-def gru_train_phase(torch, root, model_class, phase, layers, seed, *flags):
+def gru_train_phase(torch, root, model_class, phase, layers, seed, *flags, mlpg_per_step=1):
     """builder_train_phase for a GRU model: K3 and K4, one each per GRU
     layer."""
     from morgana_tpu_torch import nn
     from morgana_tpu_torch.ops import gru as gru_ops
 
     return builder_train_phase(torch, root, model_class, phase, gru_ops, ('k3', 'k4'),
-                               nn.Recurrent, layers, seed, *flags)
+                               nn.Recurrent, layers, seed, *flags, mlpg_per_step=mlpg_per_step)
 
 
 def f0_train_phase(torch, root, smi):
@@ -3035,7 +3090,7 @@ def duration_train_phase(torch, root):
     from morgana_tpu_torch.models.duration_model import DurationModel
 
     launches, exp, exp_dir = gru_train_phase(torch, root, DurationModel, 'duration_train', 1, 22,
-                                             '--valid_output_interval', '1')
+                                             '--valid_output_interval', '1', mlpg_per_step=0)
     data_root = os.path.join(root, 'train_data')
     ids = file_io.get_file_ids(os.path.join(data_root, 'valid', 'valid_file_id_list.scp'))
     for epoch in (1, 2):
@@ -5707,21 +5762,76 @@ def hold_engines(label, got, want, control, keys):
                          "engine's"}
 
 
-def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, attr, layers, label):
-    """`model_class` served by an f32 engine and a bf16 engine
-    (compute_dtype='bfloat16') on the card over `items` at B16, in turns
-    (f32, bf16, bf16, f32; the process's compute dtype set for each call):
-    every bf16 batch launches `layers` kernels of `ops`, all of them its bf16
-    build (`attr`), and every f32 batch none; shapes and finiteness; the 4
-    shortest utterances against the bf16 CPU engine (hold_engines); frames/s,
+def moe_routes(torch, engine, items):
+    """`items` served as one batch by `engine`, a forward hook on each of
+    its MoEFeedForward blocks recomputing the block's router on its input as
+    the block does. Returns the outputs and, block by block, each frame's
+    expert and router probabilities ((B, T) and (B, T, E) numpy arrays)."""
+    from morgana_tpu_torch import nn
+
+    routes = []
+
+    def record(module, args, _):
+        probs = torch.softmax(torch.matmul(args[0].float(), module.router.weight.float()),
+                              dim=-1).detach()
+        routes.append((torch.argmax(probs, dim=-1).cpu().numpy(), probs.cpu().numpy()))
+    handles = [m.register_forward_hook(record) for m in engine.model.modules()
+               if isinstance(m, nn.MoEFeedForward)]
+    try:
+        outputs = engine.predict_items(items)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return outputs, routes
+
+
+def rows_routed_alike(label, held, cpu, card_routes, cpu_routes):
+    """The CPU engine's outputs `cpu` of the rows of `held` that the card
+    and CPU engines routed alike in every MoE block (moe_routes), and the
+    numbers of the rows routed apart. Fails if a row routed apart was first
+    routed apart at a token whose two experts' probabilities are more than
+    ROUTE_TIE apart on either engine, or if no row was routed alike."""
+    alike, apart = {}, []
+    for row, item in enumerate(held):
+        n = int(item['n_frames'].reshape(-1)[0])
+        for block, ((e_card, p_card), (e_cpu, p_cpu)) in enumerate(zip(card_routes,
+                                                                       cpu_routes)):
+            tokens = np.nonzero(e_card[row, :n] != e_cpu[row, :n])[0]
+            if tokens.size:
+                a, b = e_card[row, tokens], e_cpu[row, tokens]
+                gaps = np.maximum(p_card[row, tokens, a] - p_card[row, tokens, b],
+                                  p_cpu[row, tokens, b] - p_cpu[row, tokens, a])
+                apart.append({'utterance': item['name'], 'frames': n, 'moe_block': block,
+                              'tokens': int(tokens.size), 'max_gap': float(gaps.max())})
+                if gaps.max() > ROUTE_TIE:
+                    raise AssertionError(f'{label}: {item["name"]} routed apart in MoE block '
+                                         f'{block} at a gap of {gaps.max()}, beyond {ROUTE_TIE}')
+                break
+        else:
+            alike[item['name']] = cpu[item['name']]
+    if not alike:
+        raise AssertionError(f'{label}: no row routed alike on the card and the CPU: {apart}')
+    return alike, {'rows_routed_apart': apart, 'route_tie': ROUTE_TIE}
+
+
+def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, attr, layers, label,
+                     model_kwargs=None, mlpg_per_batch=1):
+    """`model_class` (with `model_kwargs`) served by an f32 engine and a bf16
+    engine (compute_dtype='bfloat16') on the card over `items` at B16, in
+    turns (f32, bf16, bf16, f32; the process's compute dtype set for each
+    call): every bf16 batch launches `layers` kernels of `ops`, all of them
+    its bf16 build (`attr`), and every f32 batch none, and `mlpg_per_batch`
+    MLPG launches a batch; shapes and finiteness; the timed outputs of one
+    batch (cpu_held_batch) against the bf16 CPU engine (hold_engines; a
+    mixture of experts row by row, rows_routed_alike); frames/s,
     ms a batch, peak memory and, profiled on one batch, device busy time and
     idle share, each beside the f32 engine's. Returns the bf16 launches, the
     bf16 engine and its outputs."""
-    from morgana_tpu_torch import data
+    from morgana_tpu_torch import data, nn
     from morgana_tpu_torch.ops import mlpg as mlpg_ops
     from morgana_tpu_torch.serve import InferenceEngine
 
-    common = dict(data_root=root, batch_size=SERVE_BATCH)
+    common = dict(data_root=root, batch_size=SERVE_BATCH, model_kwargs=model_kwargs)
     engines = {'float32': InferenceEngine(model_class, ckpt, **common),
                'bfloat16': InferenceEngine(model_class, ckpt, compute_dtype='bfloat16', **common)}
     for tag, engine in engines.items():
@@ -5744,7 +5854,7 @@ def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, att
             launched = (ops.launches, getattr(ops, attr))
             mlpg_launches = mlpg_ops.fused_launches - mlpg_before
         if launched != (expected, expected if tag == 'bfloat16' else 0) \
-                or mlpg_launches != n_batches:
+                or mlpg_launches != mlpg_per_batch * n_batches:
             raise AssertionError(f'bf16_serving {name} {tag}: launches {launched} for '
                                  f'{n_batches} batches of {layers} layers, MLPG '
                                  f'{mlpg_launches}')
@@ -5760,12 +5870,23 @@ def bf16_engine_case(torch, name, model_class, ckpt, root, items, dims, ops, att
             if out[key].shape != (n, dim) or not np.isfinite(out[key]).all():
                 raise AssertionError(f"bf16_serving {name} {item['name']} {key}: shape "
                                      f'{out[key].shape}, expected ({n}, {dim})')
-    few = sorted(items, key=lambda it: int(it['n_frames'].reshape(-1)[0]))[:4]
+    # The timed outputs of one batch (cpu_held_batch) against the bf16 CPU
+    # engine's; a MoE model's row by row (moe_routes, rows_routed_alike).
+    held = cpu_held_batch(items)
+    routed = any(isinstance(m, nn.MoEFeedForward) for m in engines['bfloat16'].model.modules())
+    routing = {}
     with compute_dtype('bfloat16'):
-        cpu = InferenceEngine(model_class, ckpt, device='cpu', **common).predict_items(few)
-    check = hold_engines(f'bf16_serving {name}', {it['name']: outputs['bfloat16'][it['name']]
-                                                  for it in few}, cpu,
-                         {it['name']: outputs['float32'][it['name']] for it in few}, dims)
+        cpu_engine = InferenceEngine(model_class, ckpt, device='cpu', **common)
+        if routed:
+            cpu, cpu_routes = moe_routes(torch, cpu_engine, held)
+            _, card_routes = moe_routes(torch, engines['bfloat16'], held)
+            cpu, routing = rows_routed_alike(f'bf16_serving {name}', held, cpu, card_routes,
+                                             cpu_routes)
+        else:
+            cpu = cpu_engine.predict_items(held)
+    check = hold_engines(f'bf16_serving {name}', outputs['bfloat16'], cpu, outputs['float32'],
+                         dims)
+    check.update(utterances=len(cpu), **routing)
     features = data.collate([data.assemble_item(
         engines['bfloat16'].model.test_data_sources(), engines['bfloat16'].model.normalisers,
         lambda key, source, item=item: source.package(item[key]), item['name'])
@@ -5996,6 +6117,352 @@ def bf16_serving_phase(torch, served, smi):
     return launches
 
 
+# ------------------------------------------------------ the other families
+
+def speaker_items(rng):
+    """make_items' utterances, each given a speaker of SPEAKERS in turn."""
+    items = make_items(rng)
+    for i, item in enumerate(items):
+        item['speaker_id'] = SPEAKERS[i % len(SPEAKERS)]
+    return items
+
+
+def write_speaker_normalisers(root, rng):
+    """speakers.scp and each speaker's seeded lf0 statistics,
+    {root}/train/{speaker}/lf0_mvn.json."""
+    with open(os.path.join(root, 'speakers.scp'), 'w') as f:
+        f.write('\n'.join(SPEAKERS))
+    for speaker in SPEAKERS:
+        os.makedirs(os.path.join(root, 'train', speaker))
+        with open(os.path.join(root, 'train', speaker, 'lf0_mvn.json'), 'w') as f:
+            json.dump({'mean': rng.normal(5.0, 0.3, 1).tolist(),
+                       'std_dev': rng.uniform(0.1, 0.5, 1).tolist()}, f)
+
+
+def speaker_corpus(root):
+    """train_corpus' sizes with its utterances spread over SPEAKERS (each
+    speaker's lf0 offset, its statistics and speakers.scp). Returns its
+    directory and the seconds it took (0 when it was there)."""
+    from morgana_tpu_torch.data.synthetic import generate_voice_data
+
+    data_root = os.path.join(root, 'speaker_data')
+    if os.path.isdir(data_root):
+        return data_root, 0.0
+    start = time.perf_counter()
+    generate_voice_data(data_root, num_train=64, num_valid=16, num_test=0, seed=9,
+                        n_phones_range=(40, 120), dur_range=(5, 10), speakers=list(SPEAKERS))
+    return data_root, time.perf_counter() - start
+
+
+def step_parity(torch, phase, model_class, ckpt, data_root, model_kwargs=None, fixed_noise=False):
+    """One train step of `model_class` from `ckpt` on the card and on the
+    CPU, on the first 4 training utterances of `data_root` (through
+    TrainLoop.train_step, the balance loss of MoE blocks included): the
+    losses within TRAIN_LOSS_RTOL and every gradient within TRAIN_GRAD_RTOL
+    of its largest |value|. With `fixed_noise` (a VAE) both draw the
+    posterior sample from the same seeded noise, since the two devices'
+    generators give different draws."""
+    from morgana_tpu_torch import data
+    from morgana_tpu_torch.training import TrainLoop, build_optimizer
+
+    noise = torch.randn((4, 4096), generator=torch.Generator().manual_seed(7))
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        model = model_class(**(model_kwargs or {}))
+        model.load_parameters(ckpt)
+        model.normalisers = data.Normalisers(model.normaliser_sources(), 'train', data_root)
+        model.mode = 'train'
+        model = model.to(device)
+        if fixed_noise:
+            model.sample = lambda mean, log_var, device=device: mean + torch.exp(
+                0.5 * log_var) * noise[:, :mean.shape[1]].to(device)
+        dataset = data.FilesDataset(model.train_data_sources(), 'train',
+                                    'train/train_file_id_list.scp', model.normalisers, data_root)
+        features = data.collate([dataset[i] for i in range(4)])
+        loss, _ = TrainLoop(model, build_optimizer('adam')).train_step(features, 0.0)
+        runs[device] = (float(loss), {n: p.grad.detach().cpu()
+                                      for n, p in model.named_parameters()})
+    (gpu_loss, gpu_grads), (cpu_loss, cpu_grads) = runs['cuda'], runs['cpu']
+    grad_rel = {n: float((gpu_grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                for n, g in cpu_grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    out = {'B': 4, 'gpu_loss': gpu_loss, 'cpu_loss': cpu_loss,
+           'loss_rel_err': abs(gpu_loss - cpu_loss) / abs(cpu_loss), 'loss_rtol': TRAIN_LOSS_RTOL,
+           'max_grad_rel_err': grad_rel[worst], 'worst_param': worst,
+           'grad_rtol': TRAIN_GRAD_RTOL, 'fixed_noise': fixed_noise}
+    if out['loss_rel_err'] > TRAIN_LOSS_RTOL or grad_rel[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f'{phase}: the card train step disagrees with the CPU one: {out}')
+    return out
+
+
+def family_train_phase(torch, root, phase, model_class, ops, names, layer_class, layers, seed,
+                       *flags, model_kwargs=None, corpus=None, fixed_noise=False,
+                       mlpg_per_step=1):
+    """builder_train_phase, then the train step on the card against the CPU
+    (step_parity), five steady-state steps on one full batch, one profiled
+    step and the MLPG's share of a step. Returns the launches and the
+    experiment."""
+    launches, exp, exp_dir = builder_train_phase(
+        torch, root, model_class, phase, ops, names, layer_class, layers, seed, *flags,
+        model_kwargs=model_kwargs, corpus=corpus, mlpg_per_step=mlpg_per_step)
+    parity = step_parity(torch, phase, model_class,
+                         os.path.join(root, f'{phase}_init', 'epoch_0.npz'),
+                         (corpus or train_corpus)(root)[0], model_kwargs, fixed_noise)
+    with open(os.path.join(exp_dir, 'train', 'epoch_2', 'metrics.json')) as f:
+        frames_per_s = json.load(f)['frames_per_sec']
+    features, step_ms, profile = time_train_steps(torch, exp)
+    with mlpg_timer(torch) as mlpg_ms:
+        exp.loop.train_step(features, exp.learning_rate)
+    emit(dict({'phase': phase + '_step_breakdown', 'B': TRAIN_BATCH,
+               'T': int(features['normalised_counters'].shape[1]),
+               'frames': float(np.sum(features['n_frames'])), 'step_ms': step_ms,
+               'median_step_ms_after_first': float(np.median(step_ms[1:])),
+               'epoch_2_frames_per_s': frames_per_s, 'mlpg_ms': mlpg_ms[0],
+               'gpu_vs_cpu_step': parity}, **profile))
+    return launches, exp
+
+
+def vae_latent_case(torch, exp):
+    """VAEProsodyModel's test analysis on the card for one valid batch of
+    the trained model: VAE_LATENT_SAMPLES latents on the sphere decoded
+    (one K3 launch each) into latent_samples/feats/lf0, n_frames long and
+    finite. Returns the K3 launches."""
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    features = next(iter(exp.valid_loader))
+    outputs = exp.loop.predict_step(features)
+    out_dir = os.path.join(exp.experiment_dir, 'latent_check')
+    gru_ops.launches = 0
+    exp.model.analysis_for_test_batch(features, outputs, out_dir)
+    launches = gru_ops.launches
+    lf0_dir = os.path.join(out_dir, 'latent_samples', 'feats', 'lf0')
+    n_frames = np.asarray(features['n_frames']).astype(np.int64).reshape(-1)
+    for name, n in zip(features['name'], n_frames):
+        for s in range(VAE_LATENT_SAMPLES):
+            lf0 = np.load(os.path.join(lf0_dir, f'{name}_sample{s}.npy'))
+            if lf0.shape[0] != n or not np.isfinite(lf0).all():
+                raise AssertionError(f'vae latent sample {name} {s}: shape {lf0.shape}, '
+                                     f'expected {n} frames')
+    if launches != VAE_LATENT_SAMPLES:
+        raise AssertionError(f'vae latent samples: K3 launched {launches} times')
+    return launches
+
+
+def conv_stream_case(torch, root, smi):
+    """The causal ConvAcousticModel at its defaults with seeded weights and
+    statistics: the STREAM_UTTS longest of make_items' utterances predicted
+    in one batch, then each streamed at STREAM_CONFIG through
+    InferenceEngine.stream_item_audio (each convolution's context tail
+    carried on the card; MLPG and vocoder on the host). Checks the audio
+    length, every chunk's network outputs against the batch within
+    NET_TOL, and the shortest streamed on the CPU within NET_TOL /
+    TRAJ_RTOL; the streamed trajectories' distance from the batch's is
+    recorded, not held, as stream_transformer records it (random weights
+    make rough outputs, on which a window of 32 + 64 + 16 frames strays
+    from the whole-utterance solve). Records the time to first audio, ms a
+    chunk (model, MLPG, vocoder) and the real-time factor. Returns the
+    batch's MLPG launches."""
+    from morgana_tpu_torch.models.conv_spss import ConvAcousticModel
+    from morgana_tpu_torch.ops import mlpg as mlpg_ops
+    from morgana_tpu_torch.serve import InferenceEngine
+
+    stream_root = os.path.join(root, 'conv_stream')
+    os.makedirs(stream_root)
+    rng = np.random.default_rng(131)
+    kwargs = {'causal': True}
+    ckpt = seeded_checkpoint(torch, ConvAcousticModel, os.path.join(stream_root, 'epoch_1.npz'),
+                             131, **kwargs)
+    write_normalisers(stream_root, rng)
+    items = make_items(rng)
+    longest = sorted(items, key=lambda it: -int(it['n_frames'].reshape(-1)[0]))[:STREAM_UTTS]
+    engine = InferenceEngine(ConvAcousticModel, ckpt, data_root=stream_root,
+                             batch_size=SERVE_BATCH, model_kwargs=kwargs)
+    list(engine.stream_item_audio(items[1], *STREAM_CONFIG))      # warm-up
+    mlpg_before = mlpg_ops.fused_launches
+    batch = engine.predict_items(longest)
+    mlpg_launches = mlpg_ops.fused_launches - mlpg_before
+    streams, per_utt = {}, []
+    for item in longest:
+        name, n_frames = item['name'], int(item['n_frames'].reshape(-1)[0])
+        with stream_timers(torch, engine.model, NET_OUTPUTS) as rec:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            first, pairs = None, []
+            for feats, wav in engine.stream_item_audio(item, *STREAM_CONFIG):
+                if first is None and wav.shape[0]:
+                    first = time.perf_counter() - start
+                pairs.append((feats, wav))
+            seconds = time.perf_counter() - start
+        audio = np.concatenate([w for _, w in pairs])
+        if audio.shape != (n_frames * HOP,) or not np.isfinite(audio).all():
+            raise AssertionError(f'conv_stream {name}: audio {audio.shape}, expected '
+                                 f'({n_frames * HOP},)')
+        streams[name] = {k: np.concatenate([c[k] for c, _ in pairs if c])
+                         for k in ('lf0', 'vuv', 'mcep', 'bap')}
+        streams[name].update(streamed(torch, rec['outputs'], n_frames, NET_OUTPUTS))
+        chunks = -(-n_frames // STREAM_CONFIG[0])
+        per_utt.append({'utterance': name, 'frames': n_frames, 'chunks': chunks,
+                        'audio_seconds': n_frames * HOP / FS, 'seconds': seconds,
+                        'time_to_first_audio_ms': first * 1e3,
+                        'ms_per_chunk': chunk_ms(rec, chunks),
+                        'real_time_factor': n_frames * HOP / FS / seconds})
+    errs = hold_features('conv_stream network vs batch', streams, batch, NET_OUTPUTS)
+    vs_batch = {key: max(float(np.abs(streams[n][key] - batch[n][key]).max()) for n in streams)
+                for key in ('lf0', 'mcep', 'bap')}
+    shortest = min(longest, key=lambda it: int(it['n_frames'].reshape(-1)[0]))
+    cpu = InferenceEngine(ConvAcousticModel, ckpt, data_root=stream_root, device='cpu',
+                          model_kwargs=kwargs)
+    cpu_stream = {shortest['name']: {k: np.concatenate([c[k] for c in cpu.stream_item(
+        shortest, *STREAM_CONFIG)]) for k in ('lf0', 'vuv', 'mcep', 'bap')}}
+    vs_cpu = hold_features('conv_stream vs CPU stream', streams, cpu_stream,
+                           ('lf0', 'vuv', 'mcep', 'bap'))
+
+    def mean(key):
+        return float(np.mean([u[key] for u in per_utt]))
+    emit({'phase': 'conv_stream', 'card': smi,
+          'model': 'ConvAcousticModel(causal=True) 609-512-6x(conv k5)-256-199',
+          'config': dict(zip(('chunk_frames', 'context', 'lookahead'), STREAM_CONFIG)),
+          'utterances': per_utt, 'time_to_first_audio_ms': mean('time_to_first_audio_ms'),
+          'ms_per_chunk': {part: float(np.mean([u['ms_per_chunk'][part] for u in per_utt]))
+                           for part in per_utt[0]['ms_per_chunk']},
+          'real_time_factor': sum(u['audio_seconds'] for u in per_utt)
+          / sum(u['seconds'] for u in per_utt),
+          'host': "the streamed MLPG and the vocoder run on the card machine's CPU",
+          'network_vs_batch': errs, 'trajectories_vs_batch_not_held': vs_batch,
+          'cpu_stream_check': {'utterance': shortest['name'], **vs_cpu},
+          'batch_mlpg_launches': mlpg_launches})
+    if mlpg_launches != 1:
+        raise AssertionError(f'conv_stream: {mlpg_launches} MLPG launches for one batch')
+    return mlpg_launches
+
+
+@contextlib.contextmanager
+def tf32_as_users_get(torch, label):
+    """PyTorch's default cuDNN TF32 (on) inside, which main turned off for
+    the library yardsticks: the convolutions inside run as in a user's
+    process, so they are IEEE f32 only if the port turns TF32 off itself
+    (device.use_ieee_f32). Fails if it is still on after; off after."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+        if torch.backends.cudnn.allow_tf32:
+            raise AssertionError(f'{label}: the port left cuDNN TF32 on')
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def families_phase(torch, root, smi):
+    """The four model families this slice ports, at full width: each served
+    (engine_serving_phase: 32 utterances at B16 against the CPU engine),
+    trained for 2 epochs (family_train_phase: B32 through the
+    ExperimentBuilder, a train step against the CPU's, step times and a
+    profiled step), and the GRU families and the MoE Transformer served in
+    bf16 beside f32 (bf16_engine_case, against the bf16 CPU engine).
+    MultiSpeakerF0Model: 1 K3 a batch and step, 1 K4 a step, no MLPG.
+    VAEProsodyModel: the decoder's K3 and 1 MLPG a served batch; the
+    encoder's and the decoder's K3 and K4 and 1 MLPG a step, both K3 a valid
+    batch; its latent-sample analysis (vae_latent_case). ConvAcousticModel:
+    no kernel of the JAX package but MLPG, 1 a batch and step; the causal
+    configuration streamed (conv_stream_case). The Transformer with
+    MOE_KWARGS: 6 attention forwards a batch, 6 of each direction a step, 1
+    MLPG. The process's compute dtype is f32 throughout (an earlier bf16
+    phase leaves it bf16), bf16 only inside bf16_engine_case's bf16 turns;
+    the convolutional phases start from PyTorch's default cuDNN TF32
+    (tf32_as_users_get). Returns every counted kernel's launches, each
+    phase's counters set to 0 just before it."""
+    with compute_dtype(None):
+        return _families_phase(torch, root, smi)
+
+
+def _families_phase(torch, root, smi):
+    from morgana_tpu_torch import nn
+    from morgana_tpu_torch.models.conv_spss import ConvAcousticModel
+    from morgana_tpu_torch.models.multispeaker_f0 import MultiSpeakerF0Model
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
+    from morgana_tpu_torch.models.vae_prosody import VAEProsodyModel
+    from morgana_tpu_torch.ops import flash_attention as fa
+    from morgana_tpu_torch.ops import gru as gru_ops
+
+    moe_label = 'TransformerAcousticModel(moe_experts=8) 609-6x(384, 4 heads, 1536; MoE 2/4/6)-199'
+    launches = dict.fromkeys(('k3', 'k4', 'k3c', 'attn_fwd', 'attn_bwd', 'k5b'), 0)
+    seconds, start = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal start
+        seconds[name] = time.perf_counter() - start
+        start = time.perf_counter()
+
+    # Serving, f32.
+    launches['k3'] += engine_serving_phase(
+        torch, root, MultiSpeakerF0Model, 'multispeaker_serving',
+        'MultiSpeakerF0Model 9-256-GRU(64)-1, 4 speakers', speaker_items, {'normalised_lf0': 1},
+        gru_ops, 'k3', 1, 120, prepare=write_speaker_normalisers, mlpg_per_batch=0)
+    launches['k3'] += engine_serving_phase(
+        torch, root, VAEProsodyModel, 'vae_serving', 'VAEProsodyModel z16, GRU(3->64), '
+        '625-64-GRU(64)-3, zero latent', make_items, {'normalised_lf0_deltas': 3, 'lf0': 1},
+        gru_ops, 'k3', 1, 121)
+    with tf32_as_users_get(torch, 'conv_serving'):
+        engine_serving_phase(torch, root, ConvAcousticModel, 'conv_serving',
+                             'ConvAcousticModel 609-512-6x(conv k5, dilations 1,2,4,8,1,2)-256-199',
+                             make_items, ACOUSTIC_DIMS, None, None, 0, 122)
+    launches['attn_fwd'] += engine_serving_phase(
+        torch, root, TransformerAcousticModel, 'moe_serving', moe_label, make_items,
+        ACOUSTIC_DIMS, fa, 'attn_fwd', TRANSFORMER_BLOCKS, 123, model_kwargs=MOE_KWARGS)
+    lap('serving')
+
+    # Training.
+    trained, _ = family_train_phase(torch, root, 'multispeaker_train', MultiSpeakerF0Model,
+                                    gru_ops, ('k3', 'k4'), nn.Recurrent, 1, 124,
+                                    corpus=speaker_corpus, mlpg_per_step=0)
+    trained_vae, vae_exp = family_train_phase(torch, root, 'vae_train', VAEProsodyModel, gru_ops,
+                                              ('k3', 'k4'), nn.Recurrent, 2, 125,
+                                              fixed_noise=True)
+    latent_k3 = vae_latent_case(torch, vae_exp)
+    for got in (trained, trained_vae):
+        launches['k3'] += got['k3']
+        launches['k4'] += got['k4']
+    launches['k3'] += latent_k3
+    with tf32_as_users_get(torch, 'conv_train'):
+        family_train_phase(torch, root, 'conv_train', ConvAcousticModel, None,
+                           ('none', 'none_bwd'), nn.Conv1d, CONV_BLOCKS, 126)
+    trained, _ = family_train_phase(torch, root, 'moe_train', TransformerAcousticModel, fa,
+                                    ('attn_fwd', 'attn_bwd'), nn.MultiHeadAttention,
+                                    TRANSFORMER_BLOCKS, 127, '--learning_rate', TRANSFORMER_LR,
+                                    model_kwargs=MOE_KWARGS)
+    launches['attn_fwd'] += trained['attn_fwd']
+    launches['attn_bwd'] += trained['attn_bwd']
+    lap('training')
+
+    with tf32_as_users_get(torch, 'conv_stream'):
+        conv_stream_case(torch, root, smi)
+    lap('conv_stream')
+
+    # bf16 serving beside f32.
+    base = os.path.join(root, 'families_bf16')
+    for name, cls, make, dims, ops, attr, layers, label, seed, kwargs, mlpg, prepare in (
+            ('multispeaker', MultiSpeakerF0Model, speaker_items, {'normalised_lf0': 1}, gru_ops,
+             'bf16_compute_launches', 1, 'MultiSpeakerF0Model 9-256-GRU(64)-1', 140, None, 0,
+             write_speaker_normalisers),
+            ('vae', VAEProsodyModel, make_items, {'normalised_lf0_deltas': 3, 'lf0': 1}, gru_ops,
+             'bf16_compute_launches', 1, 'VAEProsodyModel, zero latent', 141, None, 1, None),
+            ('moe', TransformerAcousticModel, make_items, ACOUSTIC_DIMS, fa, 'bf16_launches',
+             TRANSFORMER_BLOCKS, moe_label, 142, MOE_KWARGS, 1, None)):
+        family_root = os.path.join(base, name)
+        os.makedirs(family_root)
+        rng = np.random.default_rng(seed)
+        ckpt = seeded_checkpoint(torch, cls, os.path.join(family_root, 'epoch_1.npz'), seed,
+                                 **(kwargs or {}))
+        write_normalisers(family_root, rng)
+        if prepare is not None:
+            prepare(family_root, rng)
+        n, _, _ = bf16_engine_case(torch, name, cls, ckpt, family_root, make(rng), dims, ops,
+                                   attr, layers, label, model_kwargs=kwargs, mlpg_per_batch=mlpg)
+        launches['k3c' if ops is gru_ops else 'k5b'] += n
+    lap('bf16_serving')
+    emit({'phase': 'families', 'launches': launches, 'seconds': seconds})
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description='Smoke test of the port on one NVIDIA GPU; '
                                      'with no arguments, every phase.')
@@ -6007,6 +6474,9 @@ def main(argv=None):
     parser.add_argument('--transformer-only', action='store_true',
                         help='only the Transformer serving and training phases (copied into '
                         "another tree's root, this gives that tree's end-to-end numbers)")
+    parser.add_argument('--families-only', action='store_true',
+                        help='only the phases of the multi-speaker, VAE, convolutional and '
+                        'mixture-of-experts models (families_phase)')
     args = parser.parse_args(argv)
     import torch
 
@@ -6019,6 +6489,9 @@ def main(argv=None):
     from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
 
     smi = nvidia_smi()
+    # For the library yardsticks (cuDNN's LSTM and GRU), so that they compute
+    # the same f32 function; the port turns TF32 off itself, which the
+    # convolutional phases check (tf32_as_users_get).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({'phase': 'device', 'nvidia_smi': smi, 'name': torch.cuda.get_device_name(0),
@@ -6029,12 +6502,12 @@ def main(argv=None):
     # Every kernel, and the LSTM kernels' step_split build, one nvcc each, all
     # started together.
     start = time.perf_counter()
-    only = args.kernel_parent or args.transformer_only
+    only = args.kernel_parent or args.transformer_only or args.families_only
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         split_build = None if only else pool.submit(
             _build.build, ['lstm_fwd', 'lstm_bwd', 'lstm_fwd_bf16', 'lstm_bwd_bf16', 'gru_fwd_bf16',
                            'gru_bwd_bf16'], 'step_split')
-        paths = _build.build(None if not only else ['attn_fwd', 'attn_bwd'] + (
+        paths = _build.build(None if not only or args.families_only else ['attn_fwd', 'attn_bwd'] + (
             ['attn_fwd_bf16', 'attn_bwd_bf16', 'rnn_dw_bf16', 'mlpg', 'lstm_fwd_bf16',
              'lstm_bwd_bf16', 'gru_fwd_bf16', 'gru_bwd_bf16']
             if args.kernel_parent else []))
@@ -6053,6 +6526,9 @@ def main(argv=None):
     if only:
         if args.kernel_parent:
             kernel_parent_phase(torch, dev, args.kernel_parent)
+        elif args.families_only:
+            with tempfile.TemporaryDirectory() as root:
+                families_phase(torch, root, smi)
         else:
             with tempfile.TemporaryDirectory() as root:
                 transformer_serving_phase(torch, root)
@@ -6186,6 +6662,7 @@ def main(argv=None):
         bf16_launches = bf16_serving_phase(torch, served, smi)
         bf16_train = bf16_training_phase(torch, root, smi)
         wide = bf16_wide_lstm_phase(torch, root, served, smi)
+        families = families_phase(torch, root, smi)
     mlpg_launches = mlpg_ops.launches + export_launches['mlpg_solve']
     fused_launches = mlpg_ops.fused_launches + export_launches['mlpg']
     if not (serve_launches and generate_launches and test_launches and mlpg_launches
@@ -6205,7 +6682,7 @@ def main(argv=None):
             and bf16_train['k2c'] and bf16_train['k4c'] and bf16_train['k5b_bwd']
             and bf16_train['carry'] and bf16_train['k1c_cluster']
             and bf16_train['k1c_cluster_gates'] and bf16_train['k2c_cluster'] and wide['k1c']
-            and wide['k1c_gates'] and wide['k2c']):
+            and wide['k1c_gates'] and wide['k2c'] and all(families.values())):
         raise AssertionError('a kernel of the main path was not launched')
 
     # launches: the main paths' runs, each counted from 0: serving,
@@ -6229,7 +6706,11 @@ def main(argv=None):
     # kernels' numbers are at the serving shape (B=16), the backward ones'
     # (and K1c's with the gate trace) at the training one (B=32), MLPG's at
     # the LSTM's B16 batch (library_ms: the dense torch.linalg.solve of the
-    # same systems, for both rows).
+    # same systems, for both rows). families_phase adds the multi-speaker and
+    # VAE models' K3 (serving, training, the VAE's latent samples) and K4,
+    # their bf16 serving's K3c, the MoE Transformer's attention forward
+    # (serving, training) and backward and its bf16 serving's K5b, and every
+    # family's MLPG but the multi-speaker model's.
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
@@ -6261,13 +6742,13 @@ def main(argv=None):
         'replaces': 'morgana_tpu/ops/pallas_gru.py:35',
         'launches': f0_serve_launches + f0_train_launches['k3'] + duration_launches['k3']
         + pipeline_launches['k3'] + stream_launches['k3'] + http_launches['k3']
-        + export_launches['k3'],
+        + export_launches['k3'] + families['k3'],
         'max_abs_err': gru_fwd_shape['max_abs_err_vs_plain'], 'ms': gru_fwd_shape['kernel_ms'],
         'plain_ms': gru_fwd_shape['plain_ms'], 'bound_ms': gru_fwd_shape['bound_ms'],
         'bound_by': gru_fwd_shape['bound_by'], 'library_ms': gru_fwd_shape['library_ms']}, {
         'name': 'gru_bwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/gru_bwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_gru.py:59',
-        'launches': f0_train_launches['k4'] + duration_launches['k4'],
+        'launches': f0_train_launches['k4'] + duration_launches['k4'] + families['k4'],
         'max_abs_err': gru_bwd_shape['k4_max_abs_err'], 'ms': gru_bwd_shape['kernel_ms'],
         'plain_ms': gru_bwd_shape['plain_ms'], 'bound_ms': gru_bwd_shape['bound_ms'],
         'bound_by': gru_bwd_shape['bound_by'], 'library_ms': gru_bwd_shape['library_ms'],
@@ -6276,14 +6757,14 @@ def main(argv=None):
         'name': 'attn_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/attn_fwd.cu',
         'replaces': 'morgana_tpu/nn.py:1001', 'also_replaces': 'morgana_tpu/nn.py:1055',
         'launches': attn_serve_launches + attn_train_launches['attn_fwd'] + stream_attn_launches
-        + http_launches['attn'] + export_launches['attn_fwd'],
+        + http_launches['attn'] + export_launches['attn_fwd'] + families['attn_fwd'],
         'max_abs_err': attn_fwd_shape['max_abs_err_vs_plain'], 'ms': attn_fwd_shape['kernel_ms'],
         'plain_ms': attn_fwd_shape['plain_ms'], 'bound_ms': attn_fwd_shape['bound_ms'],
         'bound_by': attn_fwd_shape['bound_by'], 'library_ms': attn_fwd_shape['library_ms'],
         'simt_bound_ms': attn_fwd_shape['simt_bound_ms']}, {
         'name': 'attn_bwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/attn_bwd.cu',
         'replaces': 'morgana_tpu/nn.py:1001', 'also_replaces': 'morgana_tpu/nn.py:1055',
-        'launches': attn_train_launches['attn_bwd'],
+        'launches': attn_train_launches['attn_bwd'] + families['attn_bwd'],
         'max_abs_err': attn_bwd_shape['bwd_max_abs_err'], 'ms': attn_bwd_shape['kernel_ms'],
         'plain_ms': attn_bwd_shape['plain_ms'], 'bound_ms': attn_bwd_shape['bound_ms'],
         'bound_by': attn_bwd_shape['bound_by'], 'library_ms': attn_bwd_shape['library_ms'],
@@ -6323,9 +6804,9 @@ def main(argv=None):
             ('lstm_fwd_bf16_cluster', 'k1c',
              bf16_train['k1c_cluster'] - bf16_train['k1c_cluster_gates'], 'lstm_fwd_bf16.cu',
              'morgana_tpu/ops/pallas_rnn.py:77', 'morgana_tpu/ops/rnn.py:113'),
-            ('gru_fwd_bf16_compute', 'k3c', bf16_train['k3c'], 'gru_fwd_bf16.cu',
-             'morgana_tpu/ops/pallas_gru.py:35', 'morgana_tpu/ops/rnn.py:347'),
-            ('attn_fwd_bf16', 'k5b', bf16_train['k5b'], 'attn_fwd_bf16.cu',
+            ('gru_fwd_bf16_compute', 'k3c', bf16_train['k3c'] + families['k3c'],
+             'gru_fwd_bf16.cu', 'morgana_tpu/ops/pallas_gru.py:35', 'morgana_tpu/ops/rnn.py:347'),
+            ('attn_fwd_bf16', 'k5b', bf16_train['k5b'] + families['k5b'], 'attn_fwd_bf16.cu',
              'morgana_tpu/nn.py:1001', 'morgana_tpu/nn.py:1055'))] + [{
         'name': 'lstm_fwd_bf16_compute', 'route': 'cuda',
         'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',

@@ -5,13 +5,14 @@ builder or ``serve.InferenceEngine``); ``mode``, ``metrics`` and ``step`` are
 kept by the experiment builder."""
 import os
 
+import torch
 from torch import nn
 
 from morgana_tpu_torch import checkpointing
 from morgana_tpu_torch import metrics
 from morgana_tpu_torch.nn import load_jax_params, state_dict
 
-__all__ = ['BaseModel', 'BaseSPSS']
+__all__ = ['BaseModel', 'BaseSPSS', 'BaseVAE']
 
 
 class BaseModel(nn.Module):
@@ -139,3 +140,60 @@ class BaseSPSS(BaseModel):
         :class:`morgana_tpu_torch.streaming.StreamingMLPG` with those global
         variances and edge burn-in, emitted as ``name``."""
         raise self._no_streaming()
+
+
+class BaseVAE(BaseSPSS):
+    r"""Abstract VAE whose decoder is an SPSS model (``base_models.py:175``).
+
+    The posterior sample's noise is drawn from ``self.generator`` (the
+    default generator of the device when it is None), which the trainer sets
+    at every train and eval step, seeded from the run's seed and the step
+    count, as it sets the ``Dropout`` layers' (not the JAX package's bits).
+
+    Parameters
+    ----------
+    z_dim : int
+        Latent dimensionality.
+    kld_weight : float
+        Weight of the KL divergence term.
+    """
+
+    def __init__(self, z_dim=16, kld_weight=1.):
+        super().__init__()
+        self.z_dim = z_dim
+        self.kld_weight = kld_weight
+        self.generator = None
+        self.metrics.add_metrics('all', kld=metrics.Mean())
+
+    def encode(self, features):
+        r"""Returns ``(mean, log_variance)``, each (batch, z_dim)."""
+        raise NotImplementedError('Encoder must be implemented in a subclass.')
+
+    def sample(self, mean, log_variance):
+        r"""One reparameterised sample from the approximate posterior."""
+        noise = torch.randn(mean.shape, generator=self.generator, dtype=mean.dtype,
+                            device=mean.device)
+        return mean + torch.exp(log_variance * 0.5) * noise
+
+    def decode(self, latent, features):
+        r"""Returns reconstruction output features."""
+        raise NotImplementedError('Decoder must be implemented in a subclass.')
+
+    def forward(self, features):
+        mean, log_variance = self.encode(features)
+        latent_sample = self.sample(mean, log_variance)
+        output_features = self.decode(latent_sample, features)
+        output_features['latent'] = latent_sample
+        output_features['mean'] = mean
+        output_features['log_variance'] = log_variance
+        return self.loss(features, output_features), output_features
+
+    def predict(self, features):
+        r"""Decodes ``features['latent']``, or the zero vector when there is
+        none (``base_models.py:219-230``)."""
+        latent = features.get('latent')
+        if latent is None:
+            feature = next(v for v in features.values()
+                           if isinstance(v, torch.Tensor) and v.ndim >= 1)
+            latent = torch.zeros((feature.shape[0], self.z_dim), device=feature.device)
+        return self.decode(latent, features)

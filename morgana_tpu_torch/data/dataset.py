@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from morgana_tpu_torch.data import file_io
+from morgana_tpu_torch.data.normalisers import _SpeakerDependentNormaliser
 
 __all__ = ['FilesDataset', 'assemble_item', 'bucket_size', 'collate', 'device_features']
 
@@ -32,6 +33,10 @@ class FilesDataset(object):
 
     def __init__(self, data_sources, data_dir, id_list, normalisers, data_root='.'):
         for name, normaliser in (normalisers or {}).items():
+            if isinstance(normaliser, _SpeakerDependentNormaliser) \
+                    and 'speaker_id' not in data_sources:
+                raise KeyError(f"{name} is a speaker-dependent normaliser, but no 'speaker_id' "
+                               'data_source was defined')
             if name in data_sources and normaliser.use_deltas and not data_sources[name].use_deltas:
                 raise ValueError(f'To normalise deltas of {name}, set `data_source.use_deltas` to True.')
         self.data_sources = data_sources
@@ -57,18 +62,31 @@ class FilesDataset(object):
 def assemble_item(data_sources, normalisers, get_packaged, base_name):
     """One utterance's feature dict from packaged source features, with
     ``normalised_{name}`` (and ``normalised_{name}_deltas``) keys
-    (``data/dataset.py:130``). ``get_packaged(name, data_source)`` supplies
-    each source's packaged dict, from disk or from memory."""
+    (``data/dataset.py:130``); a speaker-dependent normaliser uses the
+    utterance's ``speaker_id``, which is read first. ``get_packaged(name,
+    data_source)`` supplies each source's packaged dict, from disk or from
+    memory."""
     features = {'name': base_name}
+    if 'speaker_id' in data_sources:
+        features.update(get_packaged('speaker_id', data_sources['speaker_id']))
+
+    def normalise(name, feature, deltas=False):
+        normaliser = normalisers[name]
+        if isinstance(normaliser, _SpeakerDependentNormaliser):
+            out = normaliser.normalise(feature, features['speaker_id'], deltas=deltas)
+        else:
+            out = normaliser.normalise(feature, deltas=deltas)
+        return np.asarray(out, np.float32)
+
     for name, data_source in data_sources.items():
+        if name == 'speaker_id':
+            continue
         packaged = get_packaged(name, data_source)
         if name in normalisers:
-            normaliser = normalisers[name]
-            packaged[f'normalised_{name}'] = np.asarray(
-                normaliser.normalise(packaged[name]), np.float32)
-            if normaliser.use_deltas:
-                packaged[f'normalised_{name}_deltas'] = np.asarray(
-                    normaliser.normalise(packaged[f'{name}_deltas'], deltas=True), np.float32)
+            packaged[f'normalised_{name}'] = normalise(name, packaged[name])
+            if normalisers[name].use_deltas:
+                packaged[f'normalised_{name}_deltas'] = normalise(
+                    name, packaged[f'{name}_deltas'], deltas=True)
         features.update(packaged)
     return features
 

@@ -1,7 +1,8 @@
 """Feature normalisers (counterpart of ``morgana_tpu/data/normalisers.py``),
 with the same parameter-file contract: ``{name}_mvn.json`` (mean, std_dev)
 and ``{name}_minmax.json`` (mmin, mmax), plus ``{name}_deltas_*.json`` when
-``use_deltas``.
+``use_deltas``; a speaker-dependent normaliser reads them per speaker from
+``{speaker_id}/{name}_*.json``, for the speakers its id list names.
 
 ``normalise``/``denormalise`` take numpy arrays (the host data pipeline) or
 tensors on any device (inside ``predict``); for a tensor the parameters are
@@ -13,8 +14,11 @@ import numpy as np
 import torch
 
 from morgana_tpu_torch.data import file_io
+from morgana_tpu_torch.utils import listify
 
-__all__ = ['MeanVarianceNormaliser', 'MinMaxNormaliser', 'fit_mvn_params', 'fit_minmax_params']
+__all__ = ['Normalisers', 'MeanVarianceNormaliser', 'MinMaxNormaliser',
+           'SpeakerDependentMeanVarianceNormaliser', 'SpeakerDependentMinMaxNormaliser',
+           'fit_mvn_params', 'fit_minmax_params']
 
 
 def _align(param, feature):
@@ -137,3 +141,96 @@ class MinMaxNormaliser(_FeatureNormaliser):
 
     def _denormalise(self, feature, mmin, mmax):
         return feature * _align(_safe_scale(mmin, mmax), feature) + _align(mmin, feature)
+
+
+class _SpeakerDependentNormaliser(_FeatureNormaliser):
+    r"""Per-speaker parameters, gathered by speaker id for a batch
+    (``data/normalisers.py:145``). ``speaker_id_list`` (under ``data_root``)
+    names the speakers whose files :meth:`load_params` reads."""
+
+    def __init__(self, name, speaker_id_list, use_deltas=False,
+                 file_pattern='{speaker_id}/{name}.json'):
+        super().__init__(name, use_deltas=use_deltas, file_pattern=file_pattern)
+        self.speaker_id_list = speaker_id_list
+        self.speaker_ids = None
+        self.params = {}
+        self.delta_params = {} if use_deltas else None
+
+    def normalise(self, feature, speaker_ids, deltas=False):
+        return self._normalise(feature, **self.fetch_params(speaker_ids, deltas, like=feature))
+
+    def denormalise(self, feature, speaker_ids, deltas=False):
+        return self._denormalise(feature, **self.fetch_params(speaker_ids, deltas, like=feature))
+
+    def fetch_params(self, speaker_ids, deltas=False, like=None):
+        """The parameters of ``speaker_ids`` (one id, or a list or array of
+        them, one a batch row), each stacked over the ids, or bare for one
+        id: numpy arrays, or tensors on the device and in the dtype of
+        ``like`` when it is a tensor."""
+        if isinstance(speaker_ids, np.ndarray):
+            speaker_ids = np.atleast_1d(speaker_ids).tolist()
+        speaker_ids = listify(speaker_ids)
+        speaker_params = self.delta_params if deltas else self.params
+        if speaker_params is None:
+            raise RuntimeError(f'Normaliser {self.name!r}: delta parameters not loaded '
+                               '(construct the normaliser with use_deltas=True)')
+        for speaker_id in speaker_ids:
+            if speaker_id not in speaker_params:
+                raise KeyError(f'Normaliser {self.name!r}: no parameters for speaker '
+                               f'{speaker_id!r} (loaded speakers: {sorted(speaker_params)[:8]}; '
+                               'speaker ids must match the speaker_id_list entries)')
+        first = speaker_params[speaker_ids[0]]
+        out = {}
+        for key in first:
+            stacked = np.stack([speaker_params[s][key] for s in speaker_ids])
+            out[key] = stacked[0] if len(speaker_ids) == 1 else stacked
+        if isinstance(like, torch.Tensor):
+            out = {k: torch.as_tensor(v, dtype=like.dtype, device=like.device)
+                   for k, v in out.items()}
+        return out
+
+    def load_params(self, data_dir, data_root='.'):
+        r"""Loads every listed speaker's parameters from
+        ``{data_root}/{data_dir}/{speaker_id}/{name}_*.json``."""
+        if self.speaker_ids is None:
+            self.speaker_ids = file_io.get_file_ids(os.path.join(data_root, self.speaker_id_list))
+        pattern = os.path.join(data_root, data_dir, self.file_pattern)
+        for speaker_id in self.speaker_ids:
+            self.params[speaker_id] = self._from_json(
+                pattern.format(name=self.name, speaker_id=speaker_id))
+            if self.use_deltas:
+                self.delta_params[speaker_id] = self._from_json(
+                    pattern.format(name=self.name + '_deltas', speaker_id=speaker_id))
+
+
+class SpeakerDependentMeanVarianceNormaliser(_SpeakerDependentNormaliser):
+    r"""Per-speaker MVN; params from ``{speaker_id}/{name}_mvn.json``
+    (``data/normalisers.py:258``)."""
+
+    def __init__(self, name, speaker_id_list, use_deltas=False):
+        super().__init__(name, speaker_id_list, use_deltas, '{speaker_id}/{name}_mvn.json')
+
+    _normalise = MeanVarianceNormaliser._normalise
+    _denormalise = MeanVarianceNormaliser._denormalise
+
+
+class SpeakerDependentMinMaxNormaliser(_SpeakerDependentNormaliser):
+    r"""Per-speaker min-max; params from ``{speaker_id}/{name}_minmax.json``
+    (``data/normalisers.py:269``)."""
+
+    def __init__(self, name, speaker_id_list, use_deltas=False):
+        super().__init__(name, speaker_id_list, use_deltas, '{speaker_id}/{name}_minmax.json')
+
+    _normalise = MinMaxNormaliser._normalise
+    _denormalise = MinMaxNormaliser._denormalise
+
+
+class Normalisers(dict):
+    r"""The normalisers of ``normaliser_sources`` by name, their parameters
+    loaded from ``{data_root}/{normalisation_dir}`` (``data/normalisers.py:280``)."""
+
+    def __init__(self, normaliser_sources, normalisation_dir, data_root='.'):
+        super().__init__()
+        for name, normaliser in normaliser_sources.items():
+            normaliser.load_params(normalisation_dir, data_root)
+            self[name] = normaliser

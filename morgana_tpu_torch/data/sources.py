@@ -9,7 +9,7 @@ import numpy as np
 from morgana_tpu_torch.data import file_io
 from morgana_tpu_torch.ops.deltas import compute_deltas
 
-__all__ = ['_DataSource', 'NumpyBinarySource', 'TextSource']
+__all__ = ['_DataSource', 'NumpyBinarySource', 'TextSource', 'StringSource']
 
 
 class _DataSource(object):
@@ -78,3 +78,16 @@ class TextSource(_DataSource):
 
     def load_file(self, base_name, data_dir):
         return np.asarray(file_io.load_txt(self.file_path(base_name, data_dir)), np.float32)
+
+
+class StringSource(_DataSource):
+    r"""One string per utterance, e.g. its ``speaker_id``
+    (``data/sources.py:102``). Collate keeps it as a host list, and
+    :func:`~morgana_tpu_torch.data.dataset.device_features` leaves it out."""
+
+    def __init__(self, name, ext='txt'):
+        super().__init__(name, use_deltas=False, ext=ext, sentence_level=True)
+
+    def load_file(self, base_name, data_dir):
+        with open(self.file_path(base_name, data_dir), 'r') as f:
+            return f.read().strip()

@@ -256,9 +256,8 @@ class ExperimentBuilder(object):
 
         torch.manual_seed(self.seed)
         self.model = self.build_model(self.model_class, self.model_kwargs, self.checkpoint_path)
-        normalisers = self.model.normaliser_sources()
-        for normaliser in normalisers.values():
-            normaliser.load_params(self.normalisation_dir, self.data_root)
+        normalisers = data.Normalisers(self.model.normaliser_sources(), self.normalisation_dir,
+                                       self.data_root)
         self.model.normalisers = normalisers
 
         ema_model = None

@@ -41,6 +41,7 @@ import torch
 
 from morgana_tpu_torch import checkpointing
 from morgana_tpu_torch import quantize as quantize_mod
+from morgana_tpu_torch.device import resolve_device
 from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.serve import (InferenceEngine, load_exported_program, load_model_class,
                                      numeric_features, program_inputs)
@@ -144,12 +145,13 @@ class ExportedVoice(object):
     bundle_dir : str
     device : str or torch.device, optional
         Where the parameters and batches go: the device the programs were
-        exported on, ``cuda`` by default (``'cpu'`` for a CPU bundle).
+        exported on, ``cuda`` by default (``'cpu'`` for a CPU bundle),
+        resolved by :func:`~morgana_tpu_torch.device.resolve_device`.
     """
 
     def __init__(self, bundle_dir, device=None):
         self.bundle_dir = bundle_dir
-        self.device = torch.device(device or 'cuda')
+        self.device = resolve_device(device)
         with open(os.path.join(bundle_dir, _MANIFEST)) as f:
             self.manifest = json.load(f)
         path = os.path.join(bundle_dir, self.manifest['params_file'])

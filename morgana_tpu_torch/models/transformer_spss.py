@@ -17,7 +17,9 @@ it with::
 
 ``--model_kwargs "{'num_layers': 2}"`` resizes it, ``{'causal': True}``
 selects the sliding-window causal configuration (window 256), which also
-streams chunk by chunk through per-block KV caches. Its analysis
+streams chunk by chunk through per-block KV caches, and ``{'moe_experts':
+8}`` makes every second block's FFN a mixture of 8 experts (top-1 routing,
+capacity 1.25, balance loss 0.01 in the train loss). Its analysis
 hooks are the LSTM model's: the validation analysis and ``--test``
 synthesise wavs with the WORLD vocoder.
 """
@@ -34,10 +36,12 @@ class TransformerAcousticModel(LSTMAcousticModel):
     """Parameters and keyword arguments as the JAX model's
     (``models/transformer_spss.py:57-157``), so that its checkpoints and
     ``model_kwargs`` carry over. ``attention_backend`` 'auto', 'xla',
-    'splash' and 'flash' all run kernel K5/K6 on the GPU. Pipeline, expert
-    and sequence parallelism, mixture-of-experts blocks and ``remat`` are
-    not ported yet and raise; ``pipeline_microbatches``, ``moe_every``,
-    ``moe_capacity_factor`` and ``moe_aux_weight`` only matter with them."""
+    'splash' and 'flash' all run kernel K5/K6 on the GPU. ``moe_experts``
+    makes every ``moe_every``-th block's FFN a
+    :class:`~morgana_tpu_torch.nn.MoEFeedForward` with ``moe_capacity_factor``
+    and ``moe_aux_weight``, on one device. Pipeline, expert and sequence
+    parallelism and ``remat`` are not ported yet and raise;
+    ``pipeline_microbatches`` only matters with them."""
 
     def __init__(self, input_dim=600 + 9, output_dims=None, dropout_prob=0.,
                  num_layers=6, d_model=384, num_heads=4, d_ff=None,
@@ -46,7 +50,7 @@ class TransformerAcousticModel(LSTMAcousticModel):
                  pipeline_microbatches=8, moe_experts=0, moe_every=2,
                  moe_capacity_factor=1.25, moe_aux_weight=0.01,
                  expert_parallel=False, sequence_parallel=0, generator=None):
-        for name, value in (('pipeline_stages', pipeline_stages), ('moe_experts', moe_experts),
+        for name, value in (('pipeline_stages', pipeline_stages),
                             ('expert_parallel', expert_parallel),
                             ('sequence_parallel', sequence_parallel)):
             if value:
@@ -73,10 +77,14 @@ class TransformerAcousticModel(LSTMAcousticModel):
         self.attention_window = attention_window
         self.attention_backend = attention_backend
 
+        moe = None
+        if moe_experts:
+            moe = {'num_experts': moe_experts, 'capacity_factor': moe_capacity_factor,
+                   'aux_weight': moe_aux_weight}
         encoder = nn.TransformerEncoder(
             num_layers, d_model, num_heads, d_ff, dropout=dropout_prob, causal=causal,
             window=attention_window, remat=remat, attention_backend=attention_backend,
-            generator=generator)
+            moe=moe, moe_every=moe_every, generator=generator)
         self.layers = nn.SequentialWithRecurrent(
             nn.Linear(input_dim, d_model, generator=generator),
             nn.Dropout(p=dropout_prob),

@@ -18,7 +18,9 @@ reads its own while it traces. A 'pallas' ``Recurrent`` ignores it (f32, or
 its storage type), as the JAX package's Pallas kernels do; a layer's own
 ``compute_dtype`` overrides it.
 """
+import contextlib
 import math
+import threading
 
 import numpy as np
 import torch
@@ -26,16 +28,19 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import parametrize
 
+from morgana_tpu_torch.device import use_ieee_f32
 from morgana_tpu_torch.ops import attention as attention_ops
 from morgana_tpu_torch.ops import precision
 from morgana_tpu_torch.ops.flash_attention import attention_bias, flash_attention
 from morgana_tpu_torch.ops.gru import gru_layer
 from morgana_tpu_torch.ops import lstm as lstm_ops
+from morgana_tpu_torch.ops.masking import sequence_mask
 
-__all__ = ['Linear', 'Sigmoid', 'Dropout', 'LayerNorm', 'GELU', 'ModuleList', 'Recurrent', 'GRU',
-           'MultiHeadAttention', 'TransformerEncoderLayer', 'TransformerEncoder',
-           'SequentialWithRecurrent', 'load_jax_params', 'state_dict', 'ema_update',
-           'set_default_compute_dtype', 'default_compute_dtype']
+__all__ = ['Linear', 'Sigmoid', 'Dropout', 'LayerNorm', 'GELU', 'Conv1d', 'ModuleList',
+           'Recurrent', 'GRU', 'MultiHeadAttention', 'MoEFeedForward', 'TransformerEncoderLayer',
+           'TransformerEncoder', 'SequentialWithRecurrent', 'load_jax_params', 'state_dict',
+           'ema_update', 'set_default_compute_dtype', 'default_compute_dtype', 'aux_loss',
+           'collected_aux_loss', 'collect_aux_losses']
 
 _NOT_PORTED = 'is not ported yet (ROADMAP.md)'
 
@@ -72,6 +77,39 @@ def _weight(module, name, compute_dtype):
         return param[0].dequantize(param.original0, param.original1,
                                    compute_dtype).to(torch.float32)
     return getattr(module, name)
+
+# Each thread's auxiliary losses of the open collect_aux_losses block; None
+# outside one.
+_AUX = threading.local()
+
+
+@contextlib.contextmanager
+def collect_aux_losses():
+    """Collects the auxiliary losses that layers register with
+    :func:`aux_loss` inside the block, in this thread, as the JAX package's
+    ``nn.bind`` context of a train step collects them."""
+    _AUX.losses = []
+    try:
+        yield
+    finally:
+        _AUX.losses = None
+
+
+def aux_loss(value):
+    """Registers an auxiliary training loss from inside a layer (the MoE
+    router's balance term; ``nn.py:331``); nothing outside
+    :func:`collect_aux_losses`."""
+    losses = getattr(_AUX, 'losses', None)
+    if losses is not None:
+        losses.append(value)
+
+
+def collected_aux_loss():
+    """The sum of the auxiliary losses registered in the open
+    :func:`collect_aux_losses` block, 0.0 when none (``nn.py:341``)."""
+    losses = getattr(_AUX, 'losses', None)
+    return sum(losses) if losses else 0.0
+
 
 Sigmoid = nn.Sigmoid
 
@@ -111,14 +149,15 @@ class Linear(nn.Module):
     """Dense layer with the kernel stored ``(in, out)`` (``nn.py:354``).
     Init U(-1/sqrt(in), 1/sqrt(in)), as ``torch.nn.Linear``."""
 
-    def __init__(self, in_features, out_features, generator=None):
+    def __init__(self, in_features, out_features, bias=True, generator=None):
         super().__init__()
         bound = 1.0 / math.sqrt(in_features)
         self.weight = _uniform((in_features, out_features), bound, generator)
-        self.bias = _uniform((out_features,), bound, generator)
+        self.bias = _uniform((out_features,), bound, generator) if bias else None
 
     def forward(self, x):
-        return _matmul(x, _weight(self, 'weight', _DEFAULT_COMPUTE_DTYPE)) + self.bias
+        y = _matmul(x, _weight(self, 'weight', _DEFAULT_COMPUTE_DTYPE))
+        return y if self.bias is None else y + self.bias
 
 
 class LayerNorm(nn.Module):
@@ -140,6 +179,90 @@ class GELU(nn.Module):
 
     def forward(self, x):
         return F.gelu(x)
+
+
+class Conv1d(nn.Module):
+    """1-d convolution over ``(batch, time, channels)`` (``nn.py:427``),
+    the weight stored ``(kernel, in / groups, out)`` as the JAX package
+    stores it, init U(-b, b) with b = 1/sqrt(in / groups * kernel).
+
+    ``padding='same'`` keeps the length (``dilation * (kernel - 1)`` frames
+    split low and high, the low half rounded down); ``'causal'`` pads them
+    all on the left, so frame t sees frames up to t, and streams through
+    :meth:`step` with the last :attr:`context` input frames as its state.
+    With ``seq_len`` the frames past it are zeroed before the convolution, so
+    an utterance's output does not depend on the batch it is padded in.
+
+    The JAX package convolves with XLA (``lax.conv_general_dilated``), no
+    Pallas kernel; here ``torch.nn.functional.conv1d``. Under a bf16 compute
+    dtype it reads x and the weight rounded to bf16 and sums in f32, as the
+    JAX convolution's ``preferred_element_type`` does: the f32 convolution of
+    the rounded operands, the same function. On the card it turns cuDNN's
+    TF32 off first (:func:`~morgana_tpu_torch.device.use_ieee_f32`), so the
+    convolution and its backward are IEEE f32 whatever the process allowed.
+    """
+
+    accepts_seq_len = True
+
+    def __init__(self, in_channels, out_channels, kernel_size, dilation=1, groups=1, bias=True,
+                 padding='same', generator=None):
+        super().__init__()
+        if padding not in ('same', 'causal'):
+            raise ValueError(f"padding must be 'same' or 'causal', got {padding!r}")
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(f'groups={groups} must divide in_channels={in_channels} and '
+                             f'out_channels={out_channels}')
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = int(kernel_size)
+        self.dilation = int(dilation)
+        self.groups = int(groups)
+        self.padding = padding
+        bound = 1.0 / math.sqrt(in_channels // groups * kernel_size)
+        self.weight = _uniform((self.kernel_size, in_channels // groups, out_channels), bound,
+                               generator)
+        self.bias = _uniform((out_channels,), bound, generator) if bias else None
+
+    @property
+    def context(self):
+        """Frames of left context that one output needs."""
+        return self.dilation * (self.kernel_size - 1)
+
+    def _conv(self, x, pad_low, pad_high):
+        if x.is_cuda:
+            use_ieee_f32()
+        compute = _DEFAULT_COMPUTE_DTYPE
+        w = precision.rounded(self.weight, compute).permute(2, 1, 0)
+        x = F.pad(precision.rounded(x, compute).transpose(1, 2), (pad_low, pad_high))
+        y = F.conv1d(x, w, dilation=self.dilation, groups=self.groups).transpose(1, 2)
+        return y if self.bias is None else y + self.bias
+
+    def forward(self, x, seq_len=None):
+        if seq_len is not None:
+            x = x * sequence_mask(seq_len, max_len=x.shape[1], dtype=x.dtype)
+        total = self.context
+        if self.padding == 'causal':
+            return self._conv(x, total, 0)
+        return self._conv(x, total // 2, total - total // 2)
+
+    def init_stream_state(self):
+        """The streaming protocol's marker: the first chunk's state is None."""
+        return None
+
+    def step(self, chunk, state):
+        """One streamed chunk of a causal convolution: ``[context tail |
+        chunk]`` convolved without padding, which is the causal forward's
+        output for these frames; returns it and the new tail."""
+        if self.padding != 'causal':
+            raise NotImplementedError("Conv1d(padding='same') cannot stream (it needs future "
+                                      "frames); build streaming models with padding='causal'.")
+        ctx = self.context
+        if ctx == 0:
+            return self._conv(chunk, 0, 0), state
+        if state is None:
+            state = chunk.new_zeros((chunk.shape[0], ctx, self.in_channels))
+        x = torch.cat([state, chunk], dim=1)
+        return self._conv(x, 0, 0), x[:, x.shape[1] - ctx:]
 
 
 class ModuleList(nn.Module):
@@ -347,26 +470,111 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out), k_full[:, -cache_k.shape[1]:], v_full[:, -cache_v.shape[1]:]
 
 
+class MoEFeedForward(nn.Module):
+    """Mixture-of-experts FFN with Switch-Transformer top-1 routing
+    (``nn.py:1114``), the sparse stand-in for ``Linear -> GELU -> Linear``,
+    on one device.
+
+    The router (``router.weight`` (d_model, E), no bias) runs in float32
+    whatever the compute dtype; each token goes to its most probable expert,
+    scaled by that probability. Every expert takes at most ``C =
+    ceil(capacity_factor * T / E)`` tokens of a batch row, in time order;
+    the tokens past it, and the frames past ``seq_len``, get 0 here (the
+    block's residual carries them on), and padded frames take no capacity
+    and no part in the balance loss. Routing is the JAX package's dense
+    formulation, one-hot dispatch and combine products over ``(B, T, E, C)``
+    and the experts' FFNs ``w_in`` (E, d_model, d_ff), ``b_in``, ``w_out``
+    (E, d_ff, d_model), ``b_out`` as batched products; under a bf16 compute
+    dtype their operands are rounded to bf16 and the sums stay f32
+    (``nn.py:1183``). In training the balance loss ``aux_weight * E *
+    sum_e f_e p_e`` (Fedus et al. 2021) is registered with :func:`aux_loss`.
+    The JAX package's expert parallelism (``mesh``) is not ported yet."""
+
+    accepts_seq_len = True
+
+    def __init__(self, d_model, d_ff, num_experts, capacity_factor=1.25, aux_weight=0.01,
+                 mesh=None, generator=None):
+        super().__init__()
+        if num_experts < 1:
+            raise ValueError(f'num_experts must be >= 1, got {num_experts}')
+        if mesh is not None:
+            raise NotImplementedError(f'expert parallelism (mesh=) {_NOT_PORTED}')
+        self.d_model = d_model
+        self.d_ff = d_ff
+        self.num_experts = int(num_experts)
+        self.capacity_factor = float(capacity_factor)
+        self.aux_weight = float(aux_weight)
+        self.router = Linear(d_model, num_experts, bias=False, generator=generator)
+        bound_in, bound_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+        self.w_in = _uniform((num_experts, d_model, d_ff), bound_in, generator)
+        self.b_in = _uniform((num_experts, d_ff), bound_in, generator)
+        self.w_out = _uniform((num_experts, d_ff, d_model), bound_out, generator)
+        self.b_out = _uniform((num_experts, d_model), bound_out, generator)
+
+    def capacity(self, frames):
+        """Tokens an expert takes from one batch row of ``frames`` frames."""
+        return max(1, min(frames, int(math.ceil(self.capacity_factor * frames / self.num_experts))))
+
+    def forward(self, x, seq_len=None):
+        batch, frames, _ = x.shape
+        num_experts, cap = self.num_experts, self.capacity(frames)
+        compute = _DEFAULT_COMPUTE_DTYPE
+
+        def rounded(t):
+            return precision.rounded(t, compute)
+
+        probs = torch.softmax(torch.matmul(x.float(), self.router.weight.float()), dim=-1)
+        gate = probs.max(dim=-1).values                       # (B, T)
+        expert = torch.argmax(probs, dim=-1)                  # (B, T)
+        if seq_len is None:
+            valid = torch.ones((batch, frames), device=x.device)
+        else:
+            valid = sequence_mask(seq_len, max_len=frames, dtype=torch.float32)[..., 0]
+        onehot = F.one_hot(expert, num_experts).float() * valid[..., None]
+        # Each token's 1-based place in its expert's queue of its row.
+        position = torch.cumsum(onehot, dim=1) * onehot
+        keep = onehot * (position <= cap)
+        place = (position - 1).clamp(min=0, max=cap - 1).long()
+        slot = F.one_hot(place, cap).to(x.dtype) * keep[..., None].to(x.dtype)  # (B, T, E, C)
+
+        dispatched = torch.einsum('btec,btd->becd', slot, rounded(x))
+        h = torch.einsum('becd,edf->becf', rounded(dispatched), rounded(self.w_in))
+        h = F.gelu(h + self.b_in[None, :, None, :])
+        out = torch.einsum('becf,efd->becd', rounded(h), rounded(self.w_out))
+        out = out + self.b_out[None, :, None, :]
+        y = torch.einsum('btec,becd->btd', slot, rounded(out)) * gate[..., None].to(x.dtype)
+
+        if self.training and self.aux_weight:
+            denom = valid.sum().clamp(min=1.0)
+            frac = onehot.sum(dim=(0, 1)) / denom
+            mean_prob = (probs * valid[..., None]).sum(dim=(0, 1)) / denom
+            aux_loss(self.aux_weight * num_experts * torch.sum(frac * mean_prob))
+        return y
+
+
 class TransformerEncoderLayer(nn.Module):
     """Pre-LN block (``nn.py:1247``): ``x + attn(LN(x))`` then ``x +
-    ffn(LN(x))``, the FFN ``Linear -> GELU -> Linear``, dropout on both
-    residual branches. A mixture-of-experts FFN (``moe=``) is not ported
-    yet."""
+    ffn(LN(x))``, the FFN ``Linear -> GELU -> Linear``, or with ``moe`` (the
+    :class:`MoEFeedForward` keyword dict, e.g. ``{'num_experts': 8}``) a
+    mixture of experts routed within ``seq_len``; dropout on both residual
+    branches."""
 
     accepts_seq_len = True
 
     def __init__(self, d_model, num_heads, d_ff, dropout=0.0, attention_backend='auto', moe=None,
                  generator=None):
         super().__init__()
-        if moe:
-            raise NotImplementedError(f'a mixture-of-experts FFN (moe=) {_NOT_PORTED}')
         self.attn_norm = LayerNorm(d_model)
         self.attn = MultiHeadAttention(d_model, num_heads, dropout=dropout,
                                        backend=attention_backend, generator=generator)
         self.ffn_norm = LayerNorm(d_model)
-        self.ffn_in = Linear(d_model, d_ff, generator=generator)
-        self.ffn_act = GELU()
-        self.ffn_out = Linear(d_ff, d_model, generator=generator)
+        if moe:
+            self.moe = MoEFeedForward(d_model, d_ff, generator=generator, **moe)
+        else:
+            self.moe = None
+            self.ffn_in = Linear(d_model, d_ff, generator=generator)
+            self.ffn_act = GELU()
+            self.ffn_out = Linear(d_ff, d_model, generator=generator)
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x, seq_len=None, causal=False, window=None):
@@ -374,10 +582,13 @@ class TransformerEncoderLayer(nn.Module):
         if self.dropout is not None:
             h = self.dropout(h)
         x = x + h
-        return x + self._ffn(x)
+        return x + self._ffn(x, seq_len)
 
-    def _ffn(self, x):
-        h = self.ffn_out(self.ffn_act(self.ffn_in(self.ffn_norm(x))))
+    def _ffn(self, x, seq_len=None):
+        if self.moe is not None:
+            h = self.moe(self.ffn_norm(x), seq_len=seq_len)
+        else:
+            h = self.ffn_out(self.ffn_act(self.ffn_in(self.ffn_norm(x))))
         if self.dropout is not None:
             h = self.dropout(h)
         return h
@@ -397,20 +608,20 @@ class TransformerEncoder(nn.Module):
     ``Recurrent`` stack. The blocks are ``blocks.items.<i>``, as in the JAX
     package. A causal encoder with a window also streams, chunk by chunk
     through per-block KV caches (:meth:`init_stream_state`, :meth:`step`).
-    ``remat``, ``moe`` and ``activation_sharding`` are not ported yet."""
+    With ``moe`` (the :class:`MoEFeedForward` keyword dict) every
+    ``moe_every``-th block's FFN is a mixture of experts (``nn.py:1343``).
+    ``remat`` and ``activation_sharding`` are not ported yet."""
 
     accepts_seq_len = True
 
     def __init__(self, num_layers, d_model, num_heads, d_ff, dropout=0.0, add_positions=True,
                  causal=False, window=None, remat=None, attention_backend='auto', moe=None,
-                 activation_sharding=None, generator=None):
+                 moe_every=2, activation_sharding=None, generator=None):
         super().__init__()
         if window is not None and not causal:
             raise ValueError('window (sliding-window attention) requires causal=True')
         if remat:
             raise NotImplementedError(f'remat (rematerialised blocks) {_NOT_PORTED}')
-        if moe:
-            raise NotImplementedError(f'mixture-of-experts blocks (moe=) {_NOT_PORTED}')
         if activation_sharding is not None:
             raise NotImplementedError(f'activation_sharding (sequence parallelism) {_NOT_PORTED}')
         self.d_model = d_model
@@ -418,9 +629,10 @@ class TransformerEncoder(nn.Module):
         self.causal = causal
         self.window = window
         self.blocks = ModuleList([
-            TransformerEncoderLayer(d_model, num_heads, d_ff, dropout=dropout,
-                                    attention_backend=attention_backend, generator=generator)
-            for _ in range(num_layers)])
+            TransformerEncoderLayer(
+                d_model, num_heads, d_ff, dropout=dropout, attention_backend=attention_backend,
+                moe=moe if moe and i % moe_every == moe_every - 1 else None, generator=generator)
+            for i in range(num_layers)])
         self.norm = LayerNorm(d_model)
 
     def forward(self, x, seq_len=None):

@@ -286,9 +286,8 @@ class InferenceEngine(object):
         self._quantize = quantize
 
         self.model = self._build_model(checkpoint_path)
-        self._normalisers = self.model.normaliser_sources()
-        for normaliser in self._normalisers.values():
-            normaliser.load_params(normalisation_dir, data_root)
+        self._normalisers = data.Normalisers(self.model.normaliser_sources(), normalisation_dir,
+                                             data_root)
         self.model.normalisers = self._normalisers
         self.checkpoint_path = checkpoint_path
 

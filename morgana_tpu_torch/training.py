@@ -175,21 +175,38 @@ class TrainLoop(object):
                 'ema_params': None if self.ema_params is None else mnn.state_dict(self.ema_model),
                 'step': self.step_count}
 
-    def _set_dropout_generators(self):
+    def _set_generators(self, model):
+        """This step's generator, given to every module of ``model`` that
+        draws noise (one with a ``generator`` attribute: dropout, attention
+        dropout, the VAE's posterior sample)."""
         seed = int(np.random.SeedSequence([self.seed, self.step_count]).generate_state(1)[0])
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        for module in self.model.modules():
-            if isinstance(module, (mnn.Dropout, mnn.MultiHeadAttention)):
+        for module in model.modules():
+            if hasattr(module, 'generator'):
                 module.generator = generator
+
+    def _batch(self, features):
+        """A collated batch on the device, with ``global_step``, the step
+        count as a device int32 scalar (``training.py:297``) that a loss may
+        schedule on (the VAE's KL annealing). Filled on the device: no host
+        sync."""
+        batch = device_features(features, self.device)
+        batch['global_step'] = torch.full((), self.step_count, dtype=torch.int32,
+                                          device=self.device)
+        return batch
 
     def train_step(self, features, lr):
         """One training step on a collated (numpy) batch. Returns ``(loss,
-        outputs)`` as device tensors, detached; no host sync."""
-        batch = device_features(features, self.device)
+        outputs)`` as device tensors, detached; no host sync. Auxiliary
+        losses that layers register (the mixture-of-experts balance term)
+        join the loss that is optimised and returned (``training.py:41``)."""
+        batch = self._batch(features)
         self.model.train()
-        self._set_dropout_generators()
+        self._set_generators(self.model)
         self.opt_state.zero_grad(set_to_none=True)
-        loss, outputs = self.model(batch)
+        with mnn.collect_aux_losses():
+            loss, outputs = self.model(batch)
+            loss = loss + mnn.collected_aux_loss()
         loss.backward()
         apply_updates(self.optimizer, self.ema_decay, self.params, self.opt_state,
                       self.ema_params, lr)
@@ -206,11 +223,14 @@ class TrainLoop(object):
         return self.model
 
     def eval_step(self, features, use_ema=False):
-        """Loss and outputs without a gradient (dropout off)."""
+        """Loss and outputs without a gradient (dropout off; the loss alone,
+        without auxiliary terms), ``global_step`` in the batch as in
+        training (``training.py:693``)."""
         model = self._model_for(use_ema)
         model.eval()
+        self._set_generators(model)
         with torch.no_grad():
-            loss, outputs = model(device_features(features, self.device))
+            loss, outputs = model(self._batch(features))
         return loss, outputs
 
     def predict_step(self, features, use_ema=False):

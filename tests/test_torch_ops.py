@@ -196,6 +196,21 @@ def test_device_none_means_cuda_and_raises_without_gpu(monkeypatch):
     assert resolve_device('cpu') == torch.device('cpu')
 
 
+@pytest.mark.parametrize('device', [None, 'cuda:0'])
+def test_a_cuda_device_turns_tf32_off(monkeypatch, device):
+    """The port's f32 is IEEE f32 on the card: resolving a CUDA device turns
+    off TF32 in cuDNN (PyTorch's default is on) and in cuBLAS; resolving the
+    CPU leaves both as they were."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+    resolve_device('cpu')
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    assert resolve_device(device).type == 'cuda'
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
 def _port_files():
     files = glob.glob(os.path.join(REPO, 'morgana_tpu_torch', '**', '*.py'), recursive=True)
     return sorted(files) + [os.path.join(REPO, 'chip_smoke.py')]
@@ -208,7 +223,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     assert {'world.py', 'torch_world.py', 'analysis.py'} <= {
         os.path.basename(p) for p in files if os.sep + 'vocoder' + os.sep in p}
-    assert {'serve.py', 'http_serve.py', 'quantize.py'} <= {os.path.basename(p) for p in files}
+    assert {'serve.py', 'http_serve.py', 'quantize.py', 'sampling.py', 'multispeaker_f0.py',
+            'vae_prosody.py', 'conv_spss.py'} <= {os.path.basename(p) for p in files}
     offenders = []
     for path in files:
         with open(path) as f:

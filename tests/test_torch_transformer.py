@@ -178,7 +178,8 @@ def test_checkpoints_cross_in_both_directions(trained, full_width, tmp_path):
         tnn.load_jax_params(TModel(**CUT), want)
 
 
-@pytest.mark.parametrize('kwargs', [{'pipeline_stages': 2}, {'moe_experts': 8},
+@pytest.mark.parametrize('kwargs', [{'pipeline_stages': 2},
+                                    {'moe_experts': 8, 'expert_parallel': True},
                                     {'expert_parallel': True}, {'sequence_parallel': 2},
                                     {'remat': True}],
                          ids=['pipeline', 'moe', 'expert_parallel', 'sequence_parallel', 'remat'])
@@ -188,17 +189,20 @@ def test_unported_options_raise(kwargs):
 
 
 def test_unported_paths_raise():
-    """Cross-attention, MoE blocks and sharded activations raise
-    NotImplementedError naming ROADMAP.md. The KV-cache stream of the causal
-    configuration (window 256) is ported: its step runs and carries the
-    caches (held to JAX in tests/test_torch_streaming.py)."""
+    """Cross-attention, the expert parallelism of MoE blocks (a mesh; the
+    blocks themselves are ported, tests/test_torch_moe.py) and sharded
+    activations raise NotImplementedError naming ROADMAP.md. The KV-cache
+    stream of the causal configuration (window 256) is ported: its step
+    runs and carries the caches (held to JAX in
+    tests/test_torch_streaming.py)."""
     model = TModel(**CUT, causal=True)
     assert model.attention_window == 256
     encoder = getattr(model.layers, '2')
     assert encoder.window == 256 and encoder.causal
     x = torch.zeros(1, 3, 384)
     calls = [lambda: encoder.blocks[0].attn(x, kv=x),
-             lambda: tnn.TransformerEncoderLayer(384, 4, 1536, moe={'num_experts': 2}),
+             lambda: tnn.TransformerEncoderLayer(384, 4, 1536,
+                                                 moe={'num_experts': 2, 'mesh': object()}),
              lambda: tnn.TransformerEncoder(1, 384, 4, 1536, activation_sharding=object())]
     for call in calls:
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
