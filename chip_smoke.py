@@ -219,6 +219,26 @@ code and without the final line:
     3 steps of B=4 on the card against the CPU bf16 trainer
     (bf16_train_parity_<model>: losses within TRAIN_LOSS_RTOL, the first
     step's gradients within BF16_ULPS bf16 ulps of each one's max).
+27. builder (after families): the rest of the voice builder's training loop
+    on LSTMAcousticModel at full width (f32, TF32 off) from a seeded
+    epoch_0.npz, through ExperimentBuilder: adamw, sgd (momentum 0.9,
+    Nesterov) and lamb for 3 steps of B4 on the card against the CPU port
+    (losses within TRAIN_LOSS_RTOL, the 3 steps' parameter change within
+    OPT_PARAM_RTOL); --grad_accum_steps 2 at B16 against one B32 step of
+    the same 32 utterances (SGD; ACCUM_RTOL; 8 K1 with gates and 8 K2 a
+    micro-batch); --log_norms on the card against the CPU at B4
+    (NORMS_RTOL); the exact resume (--step_checkpoint_interval 1
+    --length_sort_window 2 --num_data_threads 4 --keep_checkpoints 1, an
+    interrupt in epoch 2, then --checkpoint_path latest) against an
+    uninterrupted run, after two uninterrupted runs show whether the card
+    is bit-reproducible; --config replaying the first loss; --find_lr
+    1e-5,1,12; --search_batch_size at SEARCH_LIMIT_GIB with a step at the
+    size found; --memory_report and --profile_dir in a fresh builder process
+    (K1 and K2 in the trace, 8 a step); --debug_nans; --compilation_cache_dir (two builder processes:
+    the libraries appear, the second runs no nvcc); metrics.pdf. Timed
+    beside them: ms an applied update with and without accumulation, ms a
+    step of each optimiser and of Adam, epoch seconds with 4 loader threads
+    and none, the step checkpoint's save seconds and --log_norms' cost.
 
 Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -239,7 +259,8 @@ device ms by the profiler and SDPA's time), and the bf16 Transformer's
 serving batch and train step with the parent's K5b in place of this
 tree's (kernel_parent_compare);
 --transformer-only runs phases 16 and 17 alone: copied into another tree's
-root, it gives that tree's end-to-end numbers.
+root, it gives that tree's end-to-end numbers; --families-only runs
+families_phase and --builder-only builder_phase alone.
 """
 import argparse
 import base64
@@ -6463,6 +6484,574 @@ def _families_phase(torch, root, smi):
     return launches
 
 
+# The builder phase's bars. OPT_PARAM_RTOL: the card's and the CPU's
+# parameter change over 3 steps, as the relative L2 distance over the whole
+# model. The gradients agree to 1.4e-6 of each tensor's largest
+# (train_parity); Adam's first update is about sign(g) for every |g| above
+# eps, so the coordinates whose gradient lies below that spread may step the
+# other way on the card, each by 2 lr: the L2 distance weighs them by their
+# number, not by the largest one. SGD's change is linear in the gradient.
+OPT_PARAM_RTOL = 1e-2
+# Accumulation (SGD, so the change is linear in the gradient): each
+# parameter within 2 f32 ulps of its value (the update is rounded into a
+# parameter some 1e3-1e4 times larger: on the H100 the change of
+# layers.8.w_hh_l0 read 1 ulp in 22 off with gradient norms equal to the
+# last digit) plus ACCUM_RTOL of its tensor's largest change, against one
+# step on the concatenated batch (f32 sums of 2 x 16 and of 32 items in
+# other orders).
+ACCUM_RTOL = 1e-4
+# --log_norms: the card's three norms against the CPU's, relative.
+NORMS_RTOL = 1e-4
+BUILDER_BATCH = 16
+BUILDER_OPTIMIZERS = (('adamw', '{}'), ('sgd', "{'momentum': 0.9, 'nesterov': True}"),
+                      ('lamb', '{}'))
+SEARCH_LIMIT_GIB = 8.0
+BUILDER_INTERRUPT_AT = 7    # epoch 1's 4 steps, epoch 2's first 2, then the interrupt
+
+BUILDER_RUN = r'''
+import json, os, sys
+from morgana_tpu_torch import _build
+from morgana_tpu_torch.models import rnn_spss
+from morgana_tpu_torch.ops import lstm
+rnn_spss.main(sys.argv[1:])
+print(json.dumps({'nvcc_runs': _build.nvcc_runs, 'build_dir': _build.BUILD_DIR,
+                  'libraries': sorted(f for f in os.listdir(_build.BUILD_DIR) if f.endswith('.so')),
+                  'k1': lstm.launches, 'k1_gates': lstm.gate_launches,
+                  'k2': lstm.bwd_launches}))
+'''
+
+
+def parity_corpus(root):
+    """The parity phases' corpus: 4 train utterances of 20-39 phones of 5-7
+    frames, written once under `root`."""
+    from morgana_tpu_torch.data.synthetic import generate_voice_data
+
+    data_root = os.path.join(root, 'parity_data')
+    if not os.path.isdir(data_root):
+        generate_voice_data(data_root, num_train=4, num_valid=0, num_test=0, seed=8,
+                            n_phones_range=(20, 40), dur_range=(5, 8))
+    return data_root
+
+
+def lstm_builder(data_root, base, name, ckpt, *flags, callbacks=None):
+    """An ExperimentBuilder of LSTMAcousticModel at full width on the card
+    (the command line's defaults and `flags`)."""
+    from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+
+    args = ExperimentBuilder.get_experiment_args(builder_argv(data_root, base, name, ckpt,
+                                                              *flags))
+    return ExperimentBuilder(LSTMAcousticModel, callbacks=callbacks, **args)
+
+
+def timed_step(torch, loop, features, lr):
+    """One train step, its loss fetched (a sync); returns (loss, ms)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    loss, _ = loop.train_step(features, lr)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    return loss, (time.perf_counter() - start) * 1e3
+
+
+def optimizer_update_ms(torch, loop, reps=20):
+    """The optimiser's update alone (the chain and p -= lr u over every
+    parameter, from the last step's gradients) by CUDA events."""
+    from morgana_tpu_torch.training import apply_updates
+
+    grads = [p.grad for p in loop.params.values()]
+    return cuda_ms(torch, lambda: apply_updates(loop.optimizer, 0., loop.params, loop.opt_state,
+                                                None, 1e-12, grads), reps)
+
+
+def param_change(exp, init):
+    return {n: (p.detach().cpu() - init[n]).double() for n, p in exp.model.named_parameters()}
+
+
+def builder_optimizer_case(torch, data_root, base, ckpt):
+    """Three steps of B4 for each optimiser (weight decay 0.01: decoupled for
+    adamw and lamb, in the gradient for sgd) on the card and on the CPU, and
+    Adam's on the card: losses, the parameter change, ms a step and the
+    update's ms alone (CUDA events, after the checks)."""
+    out = {}
+    for name, kwargs in (('adam', '{}'),) + BUILDER_OPTIMIZERS:
+        runs = {}
+        for device in ('cuda', 'cpu') if name != 'adam' else ('cuda',):
+            exp = lstm_builder(data_root, base, f'opt_{name}_{device}', ckpt, '--device', device,
+                               '--batch_size', '4', '--no-valid', '--optimizer', name,
+                               '--optimizer_kwargs', kwargs, '--weight_decay', '0.01')
+            exp.model.mode = 'train'
+            init = {n: p.detach().cpu().clone() for n, p in exp.model.named_parameters()}
+            losses, step_ms = [], []
+            for _ in range(3):
+                features = next(iter(exp.train_loader))
+                if device == 'cuda':
+                    loss, ms = timed_step(torch, exp.loop, features, exp.learning_rate)
+                    step_ms.append(ms)
+                else:
+                    loss = float(exp.loop.train_step(features, exp.learning_rate)[0])
+                losses.append(loss)
+            runs[device] = (losses, param_change(exp, init), step_ms)
+            if device == 'cuda':
+                update_ms = optimizer_update_ms(torch, exp.loop)
+        entry = {'gpu_losses': runs['cuda'][0], 'ms_per_step': runs['cuda'][2],
+                 'median_ms_after_first': float(np.median(runs['cuda'][2][1:])),
+                 'update_ms': update_ms}
+        if 'cpu' in runs:
+            (gpu_losses, gpu_delta, _), (cpu_losses, cpu_delta, _) = runs['cuda'], runs['cpu']
+            loss_rel = [abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses)]
+            diff = math.sqrt(sum(float(((gpu_delta[n] - d) ** 2).sum())
+                                 for n, d in cpu_delta.items()))
+            total = math.sqrt(sum(float((d ** 2).sum()) for d in cpu_delta.values()))
+            per_tensor = {n: float((gpu_delta[n] - d).norm() / max(float(d.norm()), 1e-30))
+                          for n, d in cpu_delta.items()}
+            worst = max(per_tensor, key=per_tensor.get)
+            lr = float(exp.learning_rate)
+            entry.update(cpu_losses=cpu_losses, loss_rel_err=loss_rel,
+                         param_change_rel_l2=diff / total, worst_tensor=worst,
+                         worst_tensor_rel_l2=per_tensor[worst],
+                         max_abs_change_diff_in_lr=max(
+                             float((gpu_delta[n] - d).abs().max()) for n, d in
+                             cpu_delta.items()) / lr)
+            if max(loss_rel) > TRAIN_LOSS_RTOL or diff / total > OPT_PARAM_RTOL:
+                raise AssertionError(f'builder optimizer {name}: card against CPU {entry}')
+        out[name] = entry
+    return out
+
+
+def lstm_counts():
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    return {'k1': lstm_ops.launches, 'k1_gates': lstm_ops.gate_launches,
+            'k2': lstm_ops.bwd_launches}
+
+
+def reset_lstm_counts():
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+    lstm_ops.launches = lstm_ops.gate_launches = lstm_ops.bwd_launches = 0
+
+
+def builder_accum_case(torch, data_root, base, ckpt):
+    """--grad_accum_steps 2 at B16 against one step of the same 32
+    utterances at B32 (SGD); the norms of both; then ms an applied update of
+    each, and --log_norms' cost on the B32 step: the steps with and without,
+    in turns, and the three norms alone (CUDA events)."""
+    from morgana_tpu_torch.training import global_norm
+
+    flags = ('--no-valid', '--optimizer', 'sgd', '--log_norms')
+    accum = lstm_builder(data_root, base, 'accum', ckpt, '--batch_size', str(BUILDER_BATCH),
+                         '--grad_accum_steps', '2', *flags)
+    whole = lstm_builder(data_root, base, 'accum_whole', ckpt, '--batch_size',
+                         str(2 * BUILDER_BATCH), *flags)
+    dataset = whole.train_loader.dataset
+    items = [dataset[int(i)] for i in whole.train_loader.iter_batch_indices()[0]]
+    micro = [dataset.collate_fn(items[:BUILDER_BATCH]), dataset.collate_fn(items[BUILDER_BATCH:])]
+    batch = dataset.collate_fn(items)
+    for exp in (accum, whole):
+        exp.model.mode = 'train'
+        exp.model.metrics.reset_state('train')
+    init = {n: p.detach().cpu().clone() for n, p in accum.model.named_parameters()}
+    lr = accum.learning_rate
+    per_micro = []
+    for features in micro:
+        reset_lstm_counts()
+        accum.loop.train_step(features, lr)
+        torch.cuda.synchronize()
+        per_micro.append(lstm_counts())
+    layers = 8
+    if any(c != {'k1': layers, 'k1_gates': layers, 'k2': layers} for c in per_micro) \
+            or not accum.loop.last_step_applied:
+        raise AssertionError(f'builder accumulation: launches {per_micro}')
+    whole.loop.train_step(batch, lr)
+    got, want = param_change(accum, init), param_change(whole, init)
+    final = {n: p.detach().cpu().numpy() for n, p in whole.model.named_parameters()}
+    rel = {}
+    for n, d in want.items():
+        ulps = torch.from_numpy(2 * np.spacing(np.abs(final[n]))).double()
+        excess = ((got[n] - d).abs() - ulps).clamp(min=0)
+        rel[n] = float(excess.max()) / max(float(d.abs().max()), 1e-30)
+    worst = max(rel, key=rel.get)
+    norms = {name: (accum.model.metrics['train'][name].result(),
+                    whole.model.metrics['train'][name].result())
+             for name in ('grad_norm', 'param_norm', 'update_norm')}
+    grad_norm_rel = abs(norms['grad_norm'][0] - norms['grad_norm'][1]) / norms['grad_norm'][1]
+
+    cycle_ms, step_ms, norms_on, norms_off = [], [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for features in micro:
+            accum.loop.train_step(features, lr)
+        torch.cuda.synchronize()
+        cycle_ms.append((time.perf_counter() - start) * 1e3)
+        step_ms.append(timed_step(torch, whole.loop, batch, lr)[1])
+    for _ in range(3):
+        for on, times in ((False, norms_off), (True, norms_on)):
+            whole.loop.log_norms = on
+            times.append(timed_step(torch, whole.loop, batch, lr)[1])
+    params = list(whole.loop.params.values())
+    grads = [p.grad for p in params]
+
+    def three_norms():
+        whole.model.metrics.accumulate('train', grad_norm=global_norm(grads),
+                                       param_norm=global_norm(params),
+                                       update_norm=lr * global_norm(grads))
+
+    norms_ms = cuda_ms(torch, three_norms, 20)
+    out = {'B': BUILDER_BATCH, 'T': int(batch['normalised_counters'].shape[1]),
+           'launches_per_micro_batch': per_micro, 'max_change_rel_past_2_ulps': rel[worst],
+           'worst_tensor': worst, 'accum_rtol': ACCUM_RTOL, 'norms_accum_vs_whole': norms,
+           'grad_norm_rel': grad_norm_rel, 'ms_per_applied_update_accum': cycle_ms,
+           'ms_per_applied_update_b32': step_ms, 'ms_b32_log_norms_on': norms_on,
+           'ms_b32_log_norms_off': norms_off,
+           'log_norms_overhead_ms': float(np.median(norms_on) - np.median(norms_off)),
+           'norms_alone_ms': norms_ms}
+    if rel[worst] > ACCUM_RTOL or grad_norm_rel > NORMS_RTOL:
+        raise AssertionError(f'builder accumulation disagrees with the B32 step: {out}')
+    return out
+
+
+def builder_norms_case(torch, data_root, base, ckpt):
+    """--log_norms for one epoch of B4 on the card and on the CPU: the
+    three norms in metrics.json, within NORMS_RTOL."""
+    metrics = {}
+    for device in ('cuda', 'cpu'):
+        exp = lstm_builder(data_root, base, f'norms_{device}', ckpt, '--device', device,
+                           '--batch_size', '4', '--no-valid', '--end_epoch', '1', '--log_norms')
+        exp.run_experiment()
+        with open(os.path.join(exp.experiment_dir, 'train', 'epoch_1', 'metrics.json')) as f:
+            metrics[device] = json.load(f)
+    names = ('grad_norm', 'param_norm', 'update_norm')
+    rel = {n: abs(metrics['cuda'][n] - metrics['cpu'][n]) / abs(metrics['cpu'][n]) for n in names}
+    out = {'gpu': {n: metrics['cuda'][n] for n in names},
+           'cpu': {n: metrics['cpu'][n] for n in names}, 'rel_err': rel, 'rtol': NORMS_RTOL}
+    if max(rel.values()) > NORMS_RTOL:
+        raise AssertionError(f'builder --log_norms: card against CPU {out}')
+    return out
+
+
+def interrupted(exp, at):
+    """Runs `exp` with a KeyboardInterrupt in place of its `at`-th train
+    step: the run saves its emergency checkpoint and re-raises."""
+    step, calls = exp.loop.train_step, []
+
+    def interrupting(features, lr, force_apply=False):
+        calls.append(1)
+        if len(calls) == at:
+            raise KeyboardInterrupt
+        return step(features, lr, force_apply=force_apply)
+
+    exp.loop.train_step = interrupting
+    try:
+        exp.run_experiment()
+    except KeyboardInterrupt:
+        return
+    raise AssertionError('builder resume: the interrupt did not reach the builder')
+
+
+def checkpoint_params(exp_dir, name):
+    with np.load(os.path.join(exp_dir, 'checkpoints', name)) as f:
+        return {k: f[k] for k in f.files}
+
+
+def params_spread(a, b):
+    """Each tensor's max |a - b| over its max |b|, the largest, and where."""
+    rel = {k: float(np.abs(a[k].astype(np.float64) - b[k]).max()) / max(
+        float(np.abs(b[k]).max()), 1e-30) for k in b}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def lstm_determinism(torch):
+    """Which of the LSTM step's kernels repeat bit for bit on the card: K1
+    with gates and K2 twice on the same inputs at the resume runs' shape."""
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    x, weights, seq_len, h0, c0 = layer_inputs(torch, torch.device('cuda'), BUILDER_BATCH, 1024,
+                                               True, 62)
+    rng = np.random.default_rng(63)
+    loss_weights = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()
+                    for s in ((BUILDER_BATCH, 1024, H), (BUILDER_BATCH, H), (BUILDER_BATCH, H))]
+    runs = [layer_grads(torch, lstm_ops.lstm_layer, x, weights, seq_len, h0, c0, loss_weights)
+            for _ in range(2)]
+    names = ('dx', 'dw_ih', 'dw_hh', 'db_ih', 'db_hh', 'dh0', 'dc0')
+    return {n: bool(torch.equal(a, b)) for n, a, b in zip(names, *runs)}
+
+
+def builder_resume_case(torch, data_root, base, ckpt, smi):
+    """Two uninterrupted runs (bit-reproducible or not), one stopped by an
+    interrupt in epoch 2 and finished with --checkpoint_path latest, all at
+    B16 for 2 epochs with step checkpoints, length-sorted windows and 4
+    loader threads; then the retention left, --config's first loss, and
+    epoch seconds with 4 loader threads and with none (and the loader's
+    epoch alone), in turns. Returns the numbers
+    and the K1/K2 launches of the uninterrupted runs."""
+    flags = ('--batch_size', str(BUILDER_BATCH), '--no-valid', '--end_epoch', '2',
+             '--step_checkpoint_interval', '1', '--length_sort_window', '2',
+             '--num_data_threads', '4', '--keep_checkpoints', '1')
+    save_s, exps = [], {}
+    reset_lstm_counts()
+    for name in ('resume_a', 'resume_b'):
+        exp = exps[name] = lstm_builder(data_root, base, name, ckpt, *flags)
+        save = exp._save_step_checkpoint
+
+        def timed_save(*args, save=save):
+            start = time.perf_counter()
+            save(*args)
+            save_s.append(time.perf_counter() - start)
+
+        exp._save_step_checkpoint = timed_save
+        exp.run_experiment()
+    torch.cuda.synchronize()
+    launches = lstm_counts()
+    steps = 2 * 2 * len(exps['resume_a'].train_loader)
+    if launches != {'k1': 8 * steps, 'k1_gates': 8 * steps, 'k2': 8 * steps}:
+        raise AssertionError(f'builder resume: launches {launches} in {steps} steps')
+    a = checkpoint_params(exps['resume_a'].experiment_dir, 'epoch_2.npz')
+    b = checkpoint_params(exps['resume_b'].experiment_dir, 'epoch_2.npz')
+    spread, spread_at = params_spread(a, b)
+    identical = spread == 0.0
+    interrupted(lstm_builder(data_root, base, 'resume_c', ckpt, *flags), BUILDER_INTERRUPT_AT)
+    resumed = lstm_builder(data_root, base, 'resume_c', 'latest', *flags)
+    position = [os.path.basename(resumed.checkpoint_path), resumed.start_epoch,
+                resumed._resume_batches_done, resumed.loop.step_count]
+    if position != ['step.npz', 2, 2, 6]:
+        raise AssertionError(f'builder resume: latest resolved to {position}')
+    resumed.run_experiment()
+    c = checkpoint_params(resumed.experiment_dir, 'epoch_2.npz')
+    resume_err, resume_at = params_spread(c, a)
+    left = sorted(f for f in os.listdir(os.path.join(resumed.experiment_dir, 'checkpoints'))
+                  if f.startswith('epoch_'))
+    out = {'runs_bit_identical': identical, 'run_to_run_spread': spread,
+           'spread_tensor': spread_at, 'resume_position': position,
+           'resume_vs_uninterrupted': resume_err, 'resume_worst_tensor': resume_at,
+           'epoch_files_left': left, 'step_checkpoint_save_s': save_s,
+           'step_checkpoint_mib': sum(os.path.getsize(os.path.join(
+               exps['resume_a'].experiment_dir, 'checkpoints', f)) for f in
+               ('step.npz', 'step.train.pkl')) / 2 ** 20,
+           'train_losses_a': exps['resume_a'].train_losses}
+    if not identical:
+        out['kernels_bit_identical'] = lstm_determinism(torch)
+    if left != ['epoch_2.npz', 'epoch_2.train.pkl', 'epoch_2_interrupted.npz',
+                'epoch_2_interrupted.train.pkl'] \
+            or (resume_err != 0.0 if identical else resume_err > spread):
+        raise AssertionError(f'builder resume: {out}')
+
+    replay = lstm_builder(data_root, base, 'replay', ckpt, '--config',
+                          os.path.join(exps['resume_a'].experiment_dir, 'config.json'),
+                          '--end_epoch', '1', '--step_checkpoint_interval', '0')
+    replay.run_experiment()
+    first = (replay.train_losses[1][0], exps['resume_a'].train_losses[1][0])
+    out['config_first_loss'] = first
+    if (first[0] != first[1]) if identical else abs(first[0] - first[1]) > spread * abs(first[1]):
+        raise AssertionError(f'builder --config: first loss {first}')
+
+    for threads in ('0', '4', '0', '4'):
+        exp = lstm_builder(data_root, base, f'threads_{threads}', ckpt, '--batch_size',
+                           str(BUILDER_BATCH), '--no-valid', '--end_epoch', '1',
+                           '--num_data_threads', threads)
+        exp.run_experiment()
+        with open(os.path.join(exp.experiment_dir, 'train', 'epoch_1', 'metrics.json')) as f:
+            out.setdefault('epoch_s_threads', {}).setdefault(threads, []).append(
+                json.load(f)['epoch_duration_s'])
+        # The loader alone: one epoch of batches, loaded and collated.
+        start = time.perf_counter()
+        for _ in exp.train_loader:
+            pass
+        out.setdefault('loader_epoch_s_threads', {}).setdefault(threads, []).append(
+            time.perf_counter() - start)
+    return out, launches
+
+
+def builder_find_lr_case(torch, data_root, base, ckpt):
+    """--find_lr 1e-5,1,12 at B16: lr_find.json, its steps_run, stop_reason
+    and suggestion."""
+    exp = lstm_builder(data_root, base, 'find_lr', ckpt, '--batch_size', str(BUILDER_BATCH),
+                       '--find_lr', '1e-5,1,12')
+    result = exp.run_experiment()
+    if not os.path.isfile(os.path.join(exp.experiment_dir, 'lr_find.json')):
+        raise AssertionError('builder --find_lr wrote no lr_find.json')
+    out = {k: result[k] for k in ('steps_run', 'stop_reason', 'suggestion')}
+    out['png'] = os.path.isfile(os.path.join(exp.experiment_dir, 'lr_find.png'))
+    return out
+
+
+def builder_search_case(torch, data_root, base, ckpt):
+    """--search_batch_size SEARCH_LIMIT_GIB from the B16 first batch: the
+    size found, a step there at or under the limit, and the next size up
+    with why it failed (memory, or K1/K2's batch limit)."""
+    from morgana_tpu_torch import memory
+
+    exp = lstm_builder(data_root, base, 'search', ckpt, '--batch_size', str(BUILDER_BATCH),
+                       '--search_batch_size', str(SEARCH_LIMIT_GIB))
+    best = exp.run_experiment()
+    with open(os.path.join(exp.experiment_dir, 'batch_size_search.txt')) as f:
+        text = f.read()
+    limit = int(SEARCH_LIMIT_GIB * 2 ** 30)
+    features = next(iter(exp.train_loader))
+    exp.model.mode = 'train'
+    peak = memory.measure_train_step(exp.loop, memory.batch_at(features, best))
+    next_line = [line for line in text.splitlines() if line.startswith('Next size')]
+    out = {'limit_gib': SEARCH_LIMIT_GIB, 'found': best, 'peak_at_found_mib': peak / 2 ** 20,
+           'next_size': next_line, 'T': int(features['normalised_counters'].shape[1]),
+           'probes': [line.strip() for line in text.splitlines() if line.startswith('  ')]}
+    if best is None or peak > limit or not next_line:
+        raise AssertionError(f'builder --search_batch_size: {out}')
+    return out
+
+
+def trace_census(events):
+    """The kernels of a chrome trace by kind, a name of each of K1 and K2,
+    and the cooperative launches (K1's and K2's runtime calls) whose kernel
+    record the tracer lost: for each, the train step whose host range holds
+    the call and the call's place among that step's cooperative launches."""
+    traced, names = {}, {}
+    kernels = set()
+    for e in events:
+        if e.get('cat') == 'kernel':
+            kind = kernel_kind(e['name'])
+            traced[kind] = traced.get(kind, 0) + 1
+            kernels.add(e.get('args', {}).get('correlation'))
+            if kind in ('k1', 'k2'):
+                names[kind] = e['name']
+    steps = sorted((e['ts'], e['ts'] + e.get('dur', 0), e['name']) for e in events
+                   if e.get('cat') == 'user_annotation'
+                   and str(e.get('name', '')).startswith('train step'))
+    launches = sorted((e['ts'], e.get('args', {}).get('correlation')) for e in events
+                      if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                      and 'LaunchCooperativeKernel' in str(e.get('name', '')))
+    lost, place = [], {}
+    for ts, correlation in launches:
+        step = next((name for start, end, name in steps if start <= ts <= end), None)
+        place[step] = place.get(step, -1) + 1
+        if correlation not in kernels:
+            lost.append({'step': step, 'cooperative_launch': place[step]})
+    return traced, names, len(launches), lost
+
+
+def builder_report_case(torch, data_root, base, ckpt, attempts=3):
+    """One epoch at B16 with validation, --memory_report and --profile_dir,
+    each in a fresh process as a user runs the builder: the report's peak,
+    K1 and K2 in the trace (8 of each a step, by the names the profiler
+    gives them, each counted by its wrapper), metrics.pdf or why it was not
+    written. In this script's own process, after its earlier phases, the
+    tracer has lost the kernel record of an epoch's first K1 (its launch
+    record there) in every trace of a run; a fresh process had never lost
+    one. A trace short of a kernel is still taken again, in a new process,
+    up to `attempts` in all; every short one is reported with the launches
+    it lost (`trace_census`)."""
+    from morgana_tpu_torch.viz import plotting
+
+    with open(os.path.join(data_root, 'train', 'train_file_id_list.scp')) as f:
+        steps = math.ceil(sum(1 for line in f if line.strip()) / BUILDER_BATCH)
+    short = []
+    for attempt in range(attempts):
+        name, profile_dir = f'report_{attempt}', os.path.join(base, f'profile_{attempt}')
+        counted = run_script(f'builder --profile_dir run {attempt}', BUILDER_RUN,
+                             *builder_argv(data_root, base, name, ckpt),
+                             '--batch_size', str(BUILDER_BATCH), '--end_epoch', '1',
+                             '--memory_report', '--profile_dir', profile_dir)
+        with open(os.path.join(profile_dir, 'train_epoch_1.pt.trace.json')) as f:
+            events = json.load(f)['traceEvents']
+        traced, names, cooperative, lost = trace_census(events)
+        trace = {'trace_k1': traced.get('k1', 0), 'trace_k2': traced.get('k2', 0),
+                 'trace_kernel_names': names, 'trace_cooperative_launches': cooperative,
+                 'trace_lost': lost, 'steps': steps,
+                 'launches': {k: counted[k] for k in ('k1', 'k1_gates', 'k2')}}
+        # The trace covers the first epoch's training, which ends before its
+        # validation: 8 K1 with gates and 8 K2 a step.
+        if counted['k1_gates'] != 8 * steps or counted['k2'] != 8 * steps:
+            raise AssertionError(f'builder --profile_dir: the wrappers counted {trace}')
+        if trace['trace_k1'] == trace['trace_k2'] == 8 * steps:
+            break
+        short.append(trace)
+    experiment_dir = os.path.join(base, name)
+    with open(os.path.join(experiment_dir, 'memory_report.txt')) as f:
+        report = [line.strip() for line in f]
+    wrote_pdf = os.path.isfile(os.path.join(experiment_dir, 'metrics.pdf'))
+    out = {'memory_report': [line for line in report if line.startswith(('peak:', 'parameters:',
+                                                                         'step_peak'))],
+           **trace, 'short_traces': short,
+           'trace_step_ranges': sum(1 for e in events
+                                    if str(e.get('name', '')).startswith('train step')),
+           'metrics_pdf': wrote_pdf if plotting.matplotlib_available()
+           else 'not written: matplotlib is not installed'}
+    if not any(line.startswith('peak:') for line in report) or trace['trace_k1'] != 8 * steps \
+            or trace['trace_k2'] != 8 * steps or wrote_pdf != plotting.matplotlib_available():
+        raise AssertionError(f'builder --memory_report/--profile_dir: {out}')
+    return out
+
+
+def builder_nans_case(torch, parity_root, base, ckpt):
+    """--debug_nans with a NaN written into the third LSTM layer's w_hh:
+    FloatingPointError naming that layer."""
+    exp = lstm_builder(parity_root, base, 'nans', ckpt, '--batch_size', '4', '--no-valid',
+                       '--end_epoch', '1', '--debug_nans')
+    with torch.no_grad():
+        dict(exp.model.named_parameters())['layers.5.w_hh_l0'][7, 11] = float('nan')
+    try:
+        exp.run_experiment()
+    except FloatingPointError as exc:
+        message = str(exc)
+    else:
+        message = ''
+    if 'module layers.5 (Recurrent)' not in message:
+        raise AssertionError(f'builder --debug_nans: {message!r}')
+    return {'error': message}
+
+
+def builder_cache_case(torch, parity_root, base, ckpt, root):
+    """--compilation_cache_dir: the builder (one epoch of B4) twice, each a
+    fresh process, in the directory compilation_cache left (a new one when
+    that phase did not run): K1's, K2's and MLPG's libraries are there after
+    the first, and the second runs no nvcc."""
+    cache = os.path.join(root, 'kernel_cache')
+    before = sorted(os.listdir(cache)) if os.path.isdir(cache) else []
+    runs = [run_script(f'builder compilation_cache run {i}', BUILDER_RUN,
+                       *builder_argv(parity_root, base, f'cache_{i}', ckpt),
+                       '--batch_size', '4', '--no-valid', '--end_epoch', '1',
+                       '--compilation_cache_dir', cache) for i in range(2)]
+    libraries = sorted({f.split('.')[0] for f in runs[0]['libraries']}
+                       & {'lstm_fwd', 'lstm_bwd', 'mlpg'})
+    out = {'files_before': before, 'runs': runs, 'libraries': libraries}
+    if len(libraries) != 3 or runs[1]['nvcc_runs'] or not runs[0]['k2'] or not runs[1]['k2']:
+        raise AssertionError(f'builder --compilation_cache_dir: {out}')
+    return out
+
+
+def builder_phase(torch, root, smi):
+    """The rest of the voice builder's training loop on the card (phase 27 of
+    the module docstring): builder_<case> lines, then the builder line.
+    Returns the K1 and K2 launches of its main path (the resume runs)."""
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+
+    data_root, _ = train_corpus(root)
+    parity_root = parity_corpus(root)
+    ckpt = seeded_checkpoint(torch, LSTMAcousticModel,
+                             os.path.join(root, 'builder_init', 'epoch_0.npz'), 61)
+    base = os.path.join(root, 'builder_experiments')
+    start = time.perf_counter()
+    cases = {}
+    for name, case in (
+            ('optimizers', lambda: builder_optimizer_case(torch, parity_root, base, ckpt)),
+            ('accumulation', lambda: builder_accum_case(torch, data_root, base, ckpt)),
+            ('log_norms', lambda: builder_norms_case(torch, parity_root, base, ckpt)),
+            ('resume', lambda: builder_resume_case(torch, data_root, base, ckpt, smi)),
+            ('find_lr', lambda: builder_find_lr_case(torch, data_root, base, ckpt)),
+            ('search', lambda: builder_search_case(torch, data_root, base, ckpt)),
+            ('report', lambda: builder_report_case(torch, data_root, base, ckpt)),
+            ('debug_nans', lambda: builder_nans_case(torch, parity_root, base, ckpt)),
+            ('compilation_cache', lambda: builder_cache_case(torch, parity_root, base, ckpt,
+                                                             root))):
+        case_start = time.perf_counter()
+        cases[name] = case()
+        if name == 'resume':
+            cases[name], launches = cases[name]
+        emit({'phase': f'builder_{name}', 'card': smi,
+              'seconds': time.perf_counter() - case_start, **cases[name]})
+    emit({'phase': 'builder', 'card': smi, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
+          'seconds': time.perf_counter() - start, 'launches': launches})
+    return launches
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description='Smoke test of the port on one NVIDIA GPU; '
                                      'with no arguments, every phase.')
@@ -6477,6 +7066,9 @@ def main(argv=None):
     parser.add_argument('--families-only', action='store_true',
                         help='only the phases of the multi-speaker, VAE, convolutional and '
                         'mixture-of-experts models (families_phase)')
+    parser.add_argument('--builder-only', action='store_true',
+                        help="only the phase of the voice builder's training loop "
+                        '(builder_phase)')
     args = parser.parse_args(argv)
     import torch
 
@@ -6502,12 +7094,13 @@ def main(argv=None):
     # Every kernel, and the LSTM kernels' step_split build, one nvcc each, all
     # started together.
     start = time.perf_counter()
-    only = args.kernel_parent or args.transformer_only or args.families_only
+    only = args.kernel_parent or args.transformer_only or args.families_only or args.builder_only
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         split_build = None if only else pool.submit(
             _build.build, ['lstm_fwd', 'lstm_bwd', 'lstm_fwd_bf16', 'lstm_bwd_bf16', 'gru_fwd_bf16',
                            'gru_bwd_bf16'], 'step_split')
-        paths = _build.build(None if not only or args.families_only else ['attn_fwd', 'attn_bwd'] + (
+        paths = _build.build(None if not only or args.families_only or args.builder_only
+                             else ['attn_fwd', 'attn_bwd'] + (
             ['attn_fwd_bf16', 'attn_bwd_bf16', 'rnn_dw_bf16', 'mlpg', 'lstm_fwd_bf16',
              'lstm_bwd_bf16', 'gru_fwd_bf16', 'gru_bwd_bf16']
             if args.kernel_parent else []))
@@ -6529,6 +7122,9 @@ def main(argv=None):
         elif args.families_only:
             with tempfile.TemporaryDirectory() as root:
                 families_phase(torch, root, smi)
+        elif args.builder_only:
+            with tempfile.TemporaryDirectory() as root:
+                builder_phase(torch, root, smi)
         else:
             with tempfile.TemporaryDirectory() as root:
                 transformer_serving_phase(torch, root)
@@ -6663,6 +7259,7 @@ def main(argv=None):
         bf16_train = bf16_training_phase(torch, root, smi)
         wide = bf16_wide_lstm_phase(torch, root, served, smi)
         families = families_phase(torch, root, smi)
+        builder = builder_phase(torch, root, smi)
     mlpg_launches = mlpg_ops.launches + export_launches['mlpg_solve']
     fused_launches = mlpg_ops.fused_launches + export_launches['mlpg']
     if not (serve_launches and generate_launches and test_launches and mlpg_launches
@@ -6682,7 +7279,8 @@ def main(argv=None):
             and bf16_train['k2c'] and bf16_train['k4c'] and bf16_train['k5b_bwd']
             and bf16_train['carry'] and bf16_train['k1c_cluster']
             and bf16_train['k1c_cluster_gates'] and bf16_train['k2c_cluster'] and wide['k1c']
-            and wide['k1c_gates'] and wide['k2c'] and all(families.values())):
+            and wide['k1c_gates'] and wide['k2c'] and all(families.values())
+            and builder['k1_gates'] and builder['k2']):
         raise AssertionError('a kernel of the main path was not launched')
 
     # launches: the main paths' runs, each counted from 0: serving,
@@ -6710,18 +7308,20 @@ def main(argv=None):
     # VAE models' K3 (serving, training, the VAE's latent samples) and K4,
     # their bf16 serving's K3c, the MoE Transformer's attention forward
     # (serving, training) and backward and its bf16 serving's K5b, and every
-    # family's MLPG but the multi-speaker model's.
+    # family's MLPG but the multi-speaker model's. builder_phase adds the K1
+    # (with gates) and K2 launches of its two uninterrupted resume runs.
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
         'launches': serve_launches + generate_launches + test_launches + train_launches['k1']
         + pipeline_launches['k1'] + stream_launches['k1'] + http_launches['k1']
-        + quantize_launches + export_launches['k1'],
+        + quantize_launches + export_launches['k1'] + builder['k1'],
         'max_abs_err': main_shape['max_abs_err_vs_plain'], 'ms': main_shape['kernel_ms'],
         'plain_ms': main_shape['plain_ms'], 'bound_ms': main_shape['bound_ms'],
         'bound_by': main_shape['bound_by'], 'library_ms': main_shape['library_ms']}, {
         'name': 'lstm_bwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_bwd.cu',
-        'replaces': 'morgana_tpu/ops/pallas_rnn.py:113', 'launches': train_launches['k2'],
+        'replaces': 'morgana_tpu/ops/pallas_rnn.py:113',
+        'launches': train_launches['k2'] + builder['k2'],
         'max_abs_err': train_shape['k2_max_abs_err'], 'ms': train_shape['kernel_ms'],
         'plain_ms': train_shape['plain_ms'], 'bound_ms': train_shape['bound_ms'],
         'bound_by': train_shape['bound_by'], 'library_ms': train_shape['library_ms']}, {

@@ -26,6 +26,9 @@ class BaseModel(nn.Module):
     metrics : morgana_tpu_torch.metrics.Handler
     step : int
         Global step kept by the experiment builder.
+    tensorboard : torch.utils.tensorboard.SummaryWriter or None
+        The experiment builder's writer (None without the ``tensorboard``
+        package or outside the builder).
     """
 
     def __init__(self):
@@ -34,6 +37,7 @@ class BaseModel(nn.Module):
         self.mode = ''
         self.metrics = metrics.Handler(loss=metrics.Mean())
         self.step = 0
+        self.tensorboard = None
 
     def finalise_init(self):
         r"""Called at the end of the experiment builder's ``__init__``, when the

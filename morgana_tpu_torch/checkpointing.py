@@ -18,17 +18,21 @@ import pickle
 import numpy as np
 
 __all__ = ['save_state_dict', 'load_state_dict', 'read_npz', 'training_state_path_for',
-           'save_training_state', 'load_training_state', 'AdamState', 'EmptyState']
+           'save_training_state', 'load_training_state', 'AdamState', 'EmptyState',
+           'TraceState']
 
 # optax's state classes, as plain named tuples with the same fields: the
 # unpickler builds these in their place.
 AdamState = collections.namedtuple('ScaleByAdamState', ['count', 'mu', 'nu'])
 EmptyState = collections.namedtuple('EmptyState', [])
+TraceState = collections.namedtuple('TraceState', ['trace'])
 
-_OPTAX_STATES = {'ScaleByAdamState': AdamState, 'EmptyState': EmptyState}
+_OPTAX_STATES = {'ScaleByAdamState': AdamState, 'EmptyState': EmptyState,
+                 'TraceState': TraceState}
 # Where optax defines them: a sidecar the port writes names these.
 _OPTAX_PATHS = {AdamState: ('optax._src.transform', 'ScaleByAdamState'),
-                EmptyState: ('optax._src.base', 'EmptyState')}
+                EmptyState: ('optax._src.base', 'EmptyState'),
+                TraceState: ('optax.transforms._accumulation', 'TraceState')}
 # What a sidecar's numpy arrays and scalars unpickle through, under numpy 1's
 # module names and numpy 2's.
 _NUMPY_GLOBALS = {(module, name) for prefix in ('numpy.core', 'numpy._core')
@@ -79,10 +83,11 @@ def training_state_path_for(checkpoint_path):
 
 
 class _SidecarPickler(pickle._Pickler):
-    """Pickles :data:`AdamState` and :data:`EmptyState` as optax's classes,
-    by module path (optax need not be importable), and everything else as
-    :mod:`pickle` does. It is the Python pickler, whose ``save_global`` can
-    be given other names; the C one looks each class up in its module."""
+    """Pickles :data:`AdamState`, :data:`EmptyState` and :data:`TraceState`
+    as optax's classes, by module path (optax need not be importable), and
+    everything else as :mod:`pickle` does. It is the Python pickler, whose
+    ``save_global`` can be given other names; the C one looks each class up
+    in its module."""
 
     def save_global(self, obj, name=None):
         path = _OPTAX_PATHS.get(obj)
@@ -98,9 +103,9 @@ def save_training_state(path, params, opt_state=None, ema_params=None, step=0, e
     """Writes the ``.train.pkl`` sidecar (``checkpointing.py:66``) that
     :func:`load_training_state` and the JAX package read: ``{'params',
     'opt_state', 'ema_params', 'step', 'extra'}``, with numpy arrays, the
-    optimiser state a tuple of :data:`AdamState` / :data:`EmptyState` (as
-    optax's ``chain`` keeps it). Written to a temporary file and renamed
-    into place. Returns the path."""
+    optimiser state a tuple of :data:`AdamState` / :data:`EmptyState` /
+    :data:`TraceState` (as optax's ``chain`` keeps it). Written to a
+    temporary file and renamed into place. Returns the path."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     state = {'params': params, 'opt_state': opt_state, 'ema_params': ema_params,
              'step': int(step), 'extra': extra}
@@ -112,8 +117,9 @@ def save_training_state(path, params, opt_state=None, ema_params=None, step=0, e
 
 
 class _SidecarUnpickler(pickle.Unpickler):
-    """Builds numpy arrays and optax's Adam and empty states (as
-    :data:`AdamState` / :data:`EmptyState`); any other class is refused."""
+    """Builds numpy arrays and optax's Adam, trace and empty states (as
+    :data:`AdamState` / :data:`TraceState` / :data:`EmptyState`); any other
+    class is refused."""
 
     def find_class(self, module, name):
         if module.startswith('optax.') and name in _OPTAX_STATES:
@@ -122,13 +128,15 @@ class _SidecarUnpickler(pickle.Unpickler):
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
             f'the training-state sidecar holds {module}.{name}, which the port does not '
-            f'restore (it maps optax Adam state: {sorted(_OPTAX_STATES)})')
+            f'restore (it maps the optax states {sorted(_OPTAX_STATES)})')
 
 
 def load_training_state(path):
     """The sidecar's dict: ``params``, ``opt_state`` (a tuple of
-    :data:`AdamState` / :data:`EmptyState`, or one of them), ``ema_params``
-    (``{name: array}`` or None), ``step`` and ``extra`` (with
-    ``lr_schedule``, a schedule's ``state_dict``)."""
+    :data:`AdamState` / :data:`TraceState` / :data:`EmptyState`, or one of
+    them), ``ema_params`` (``{name: array}`` or None), ``step`` and
+    ``extra`` (with ``lr_schedule``, a schedule's ``state_dict``; a step
+    checkpoint's also has ``epoch``, ``batches_done``, ``num_batches`` and
+    ``loader_lengths``)."""
     with open(path, 'rb') as f:
         return _SidecarUnpickler(f).load()

@@ -232,6 +232,9 @@ class InferenceEngine(object):
         ``'cpu'`` to run on the CPU.
     batch_size : int
         Utterances per padded batch.
+    num_data_threads : int
+        Threads that read a batch's items from disk (0 reads them inline;
+        ``serve.py:135``).
     analysis_kwargs : dict, optional
         Keyword arguments of the model's test analysis hooks in
         :meth:`generate` (e.g. ``sample_rate``).
@@ -268,7 +271,7 @@ class InferenceEngine(object):
     def __init__(self, model_class, checkpoint_path, data_root='.', normalisation_dir='train',
                  model_kwargs=None, device=None, batch_size=8, analysis_kwargs=None,
                  stream_configs=None, quantize=None, compilation_cache_dir=None,
-                 compute_dtype=None):
+                 compute_dtype=None, num_data_threads=0):
         if quantize not in (None, 'int8', 'int4'):
             raise ValueError(f"quantize must be None, 'int8' or 'int4', got {quantize!r}")
         if compute_dtype:
@@ -278,6 +281,7 @@ class InferenceEngine(object):
         self.device = resolve_device(device)
         self.data_root = data_root
         self.batch_size = int(batch_size)
+        self.num_data_threads = int(num_data_threads)
         self.analysis_kwargs = dict(analysis_kwargs or {})
         self.stream_configs = {tuple(int(v) for v in cfg)
                                for cfg in (stream_configs or [(64, 32, 16)])}
@@ -458,7 +462,8 @@ class InferenceEngine(object):
         finally:
             if tmp:
                 os.unlink(tmp)
-        return data.batch(dataset, batch_size=self.batch_size)
+        return data.batch(dataset, batch_size=self.batch_size,
+                          num_data_threads=self.num_data_threads)
 
     def _collect(self, model, features, results):
         unpadded = self._unpad(features, self._predict(model, features))
@@ -920,8 +925,9 @@ def main(argv=None):
     and prints the stats as one JSON line. ``--compilation_cache_dir`` is
     where the kernels are built and found (:func:`morgana_tpu_torch._build.set_build_dir`).
     ``--compute_dtype bfloat16`` serves in bf16; the first engine of a fleet
-    sets it for the process (``serve.py:1047``). ``--data_parallel`` and
-    ``--num_data_threads`` are not ported: each is an argparse error."""
+    sets it for the process (``serve.py:1047``). ``--num_data_threads`` reads
+    each batch's items on that many threads (``serve.py:948``).
+    ``--data_parallel`` is not ported: it is an argparse error."""
     parser = argparse.ArgumentParser(
         description='Serve a trained checkpoint with the PyTorch/CUDA port of morgana_tpu: '
                     'generate wavs, or answer HTTP requests.')
@@ -975,8 +981,9 @@ def main(argv=None):
     parser.add_argument('--compute_dtype', default=None, type=precision.compute_dtype_arg,
                         help="'bfloat16': serve with bf16 products and f32 sums ('float32', the "
                              'default, leaves the products in f32).')
-    for flag, nargs in (('--data_parallel', 0), ('--num_data_threads', 1)):
-        parser.add_argument(flag, nargs=nargs, action=_Unported, help='Not ported yet.')
+    parser.add_argument('--num_data_threads', type=int, default=0,
+                        help='Threads that read each batch\'s utterances (0 reads them inline).')
+    parser.add_argument('--data_parallel', nargs=0, action=_Unported, help='Not ported yet.')
     args = parser.parse_args(argv)
     if args.compilation_cache_dir:
         _build.set_build_dir(args.compilation_cache_dir)
@@ -1010,6 +1017,7 @@ def main(argv=None):
             analysis_kwargs=ast.literal_eval(args.analysis_kwargs) if analysis_kwargs is None
             else analysis_kwargs,
             stream_configs=stream_configs, quantize=spec.get('quantize', args.quantize),
+            num_data_threads=args.num_data_threads,
             # The compute dtype is the process's: the first engine sets it.
             compute_dtype=args.compute_dtype if first else None)
 

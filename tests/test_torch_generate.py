@@ -182,8 +182,9 @@ UNPORTED_FLAGS = [['--data_parallel'], ['--compute_dtype', 'bfloat16'],
 @pytest.mark.parametrize('flag', UNPORTED_FLAGS, ids=[f[0][2:] for f in UNPORTED_FLAGS])
 def test_serving_cli_refuses_the_flags_it_lacks(flag, capsys, monkeypatch, tmp_path):
     """Each flag the port lacks is an argparse error naming ROADMAP.md.
-    --compilation_cache_dir and --compute_dtype are ported now: neither is
-    refused (the command then stops at its missing --id_list);
+    --compilation_cache_dir, --compute_dtype and --num_data_threads are
+    ported now: none is refused (the command then stops at its missing
+    --id_list);
     --compilation_cache_dir names the directory where the kernels are built
     and found, and a compute dtype the port lacks (float16) is an argparse
     error naming ROADMAP.md."""
@@ -194,11 +195,11 @@ def test_serving_cli_refuses_the_flags_it_lacks(flag, capsys, monkeypatch, tmp_p
     with pytest.raises(SystemExit) as exc:
         tserve.main(['--model', 'm:C', '--checkpoint_path', 'c.npz', *flag])
     err = capsys.readouterr().err
-    if flag[0] in ('--compilation_cache_dir', '--compute_dtype'):
+    if flag[0] in ('--compilation_cache_dir', '--compute_dtype', '--num_data_threads'):
         assert exc.value.code == 2 and 'not ported' not in err and '--id_list' in err
         if flag[0] == '--compilation_cache_dir':
             assert _build.BUILD_DIR == flag[1] and os.path.isdir(flag[1])
-        else:
+        elif flag[0] == '--compute_dtype':
             with pytest.raises(SystemExit) as exc:
                 tserve.main(['--model', 'm:C', '--checkpoint_path', 'c.npz', flag[0], 'float16'])
             err = capsys.readouterr().err

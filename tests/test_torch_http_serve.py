@@ -730,8 +730,9 @@ UNPORTED = [['--data_parallel'], ['--compute_dtype', 'bfloat16'], ['--num_data_t
 @pytest.mark.parametrize('flag', UNPORTED, ids=[f[0][2:] for f in UNPORTED])
 def test_main_unported_flags_are_argparse_errors(flag, capsys, monkeypatch, tmp_path):
     """Each flag the port lacks is an argparse error naming ROADMAP.md.
-    --compilation_cache_dir and --compute_dtype are ported now: each is
-    accepted (the command then fails to import its model, m:C);
+    --compilation_cache_dir, --compute_dtype and --num_data_threads are
+    ported now: each is accepted (the command then fails to import its
+    model, m:C);
     --compilation_cache_dir names the directory where the kernels are built
     and found, and a compute dtype the port lacks (float16) is an argparse
     error naming ROADMAP.md."""
@@ -742,6 +743,10 @@ def test_main_unported_flags_are_argparse_errors(flag, capsys, monkeypatch, tmp_
         with pytest.raises(ModuleNotFoundError):
             tserve.main(argv + [flag[0], str(tmp_path / flag[1])])
         assert _build.BUILD_DIR == str(tmp_path / flag[1])
+        return
+    if flag[0] == '--num_data_threads':
+        with pytest.raises(ModuleNotFoundError):
+            tserve.main(argv + flag)
         return
     if flag[0] == '--compute_dtype':
         with pytest.raises(ModuleNotFoundError):

@@ -217,14 +217,15 @@ def _port_files():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """AST scan: no module of the port, and not chip_smoke.py, imports jax or
-    anything of morgana_tpu (the port keeps its own copies)."""
+    """AST scan: no module of the port, and not chip_smoke.py, imports jax,
+    optax or anything of morgana_tpu (the port keeps its own copies)."""
     files = _port_files()
     assert len(files) > 10
     assert {'world.py', 'torch_world.py', 'analysis.py'} <= {
         os.path.basename(p) for p in files if os.sep + 'vocoder' + os.sep in p}
     assert {'serve.py', 'http_serve.py', 'quantize.py', 'sampling.py', 'multispeaker_f0.py',
-            'vae_prosody.py', 'conv_spss.py'} <= {os.path.basename(p) for p in files}
+            'vae_prosody.py', 'conv_spss.py', 'memory.py', '_logging.py', 'plotting.py',
+            'loader.py'} <= {os.path.basename(p) for p in files}
     offenders = []
     for path in files:
         with open(path) as f:
@@ -238,6 +239,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 root = name.split('.')[0]
-                if root in ('jax', 'jaxlib', 'morgana_tpu'):
+                if root in ('jax', 'jaxlib', 'optax', 'morgana_tpu'):
                     offenders.append(f'{os.path.relpath(path, REPO)}: {name}')
     assert not offenders, offenders

@@ -157,7 +157,7 @@ def test_flags_and_settings_the_port_lacks_are_errors(trained):
     argv = _port_argv(trained['root'], str(trained['base'] / 'flags'), trained['ckpt'],
                       '--device', 'cpu')
     with pytest.raises(SystemExit):
-        TBuilder.get_experiment_args(argv + ['--grad_accum_steps', '2'])
+        TBuilder.get_experiment_args(argv + ['--data_parallel'])
     args = TBuilder.get_experiment_args(argv)
     with pytest.raises(TypeError, match='remat'):
         TBuilder(TModel, remat=True, **args)

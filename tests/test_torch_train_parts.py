@@ -160,8 +160,11 @@ def test_adam_and_ema_match_jax_over_five_steps(weight_decay, grad_clip_norm):
 
 
 def test_other_optimizers_are_not_ported():
-    with pytest.raises(NotImplementedError, match='adamw'):
-        tbuild_optimizer('adamw')
+    """Every optimizer of the JAX package is ported now (their parity is in
+    tests/test_torch_builder_optim.py); one that neither package has is a
+    ValueError."""
+    assert [tbuild_optimizer(name).chain for name in ('adamw', 'sgd', 'lamb')] == \
+        [('adam',), ('identity',), ('adam', 'trust')]
     with pytest.raises(ValueError):
         tbuild_optimizer('rmsprop')
 
