@@ -94,7 +94,10 @@ code and without the final line:
    every K1 and K2 launch the bf16 build.
 7. train_parity: the same trainer on the GPU and on the CPU (plain
    versions) from the same init and data, 3 steps of B=4 at full width:
-   per-step losses and the first step's gradients.
+   per-step losses and the first step's gradients. It, and the builder
+   phase's optimiser and --log_norms cases, run the host data path
+   (HOST_PATH) on both sides; every other builder run here takes the
+   card's defaults (the device cache and device-side normalisation).
 8. k3: kernel K3 (the GRU layer recurrence) against its plain version and
    against torch.nn.GRU (cuDNN, a yardstick the port never calls), at H=64
    (B=32 and B=16, T=1024) and H=128 (B=32, T=128), ragged seq_len, with
@@ -237,8 +240,32 @@ code and without the final line:
     (K1 and K2 in the trace, 8 a step); --debug_nans; --compilation_cache_dir (two builder processes:
     the libraries appear, the second runs no nvcc); metrics.pdf. Timed
     beside them: ms an applied update with and without accumulation, ms a
-    step of each optimiser and of Adam, epoch seconds with 4 loader threads
-    and none, the step checkpoint's save seconds and --log_norms' cost.
+    step of each optimiser and of Adam, the step checkpoint's save seconds
+    and --log_norms' cost.
+28. fast_path (last): the builder's device-side fast path on the card, on
+    a corpus of 8 B32 batches of one shape (60 phones of 5 frames an
+    utterance) and one valid batch: the GPU defaults (--device_cache and
+    --device_normalise on, --steps_per_dispatch 1 after a dispatch
+    round-trip probe under 5 ms) and the native batch reader in use; the
+    cache's batches bit for bit the collated ones on the card, and with
+    the device transform the raw and delta keys bit for bit and the
+    normalised ones within FAST_ULPS of the host path; an epoch of the
+    defaults (the main path); two epochs with validation at
+    --steps_per_dispatch 8 (CUDA graph replays) bit-identical in losses,
+    parameters and metrics to --steps_per_dispatch 1, for the full-width
+    LSTM (f32 and bf16: K1/K2's cooperative launches and K1c/K2c's cluster
+    launches captured) and DurationModel (K3/K4's clusters of two at H128);
+    in a fresh process (FAST_PATH_RUN) the profiler's kernels a replayed
+    step (8 K1 and 8 K2, in bf16 8 K1c and 8 K2c; 1 K3 and 1 K4, in bf16 1
+    K3c and 1 K4c) and ms a step, busy and idle of per-batch eager steps,
+    cache-assembled eager steps and graphs of 8 (the LSTM and Duration, in
+    f32 and bf16), graphs captured and capture seconds; --remat
+    gradients bit for bit those without it and the step's peak memory
+    lower (the LSTM, the Transformer); the bytes a batch moves on the link
+    (host path, device normalisation, bf16 wire, cache); LSTM epochs at
+    B16 with and without the prefetch at 0 and 4 loader threads, in turns.
+    The kernels' launch counters count a captured step once, not its
+    replays: the profiler counts a replayed step's kernels.
 
 Then a line {"kernels": [...]} with each kernel's numbers at its main
 path's shape, the nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -260,7 +287,8 @@ serving batch and train step with the parent's K5b in place of this
 tree's (kernel_parent_compare);
 --transformer-only runs phases 16 and 17 alone: copied into another tree's
 root, it gives that tree's end-to-end numbers; --families-only runs
-families_phase and --builder-only builder_phase alone.
+families_phase, --builder-only builder_phase and --fast-path-only
+fast_path_phase alone.
 """
 import argparse
 import base64
@@ -1896,7 +1924,7 @@ def transformer_bf16_parent_turns(torch, parent_fwd, seed=122):
             '--end_epoch', '1', '--compute_dtype', 'bfloat16', '--learning_rate',
             TRANSFORMER_LR))
         exp = ExperimentBuilder(TransformerAcousticModel, **args)
-        train_batch = next(iter(exp.train_loader))
+        train_batch = host_features(next(iter(exp.train_loader)))
         exp.model.mode = 'train'
         initial = {k: v.detach().clone() for k, v in exp.loop.params.items()}
 
@@ -2498,6 +2526,22 @@ def train_corpus(root):
     return data_root, time.perf_counter() - start
 
 
+#: The host data path, the CPU's defaults: the phases that hold the card's
+#: builder to the CPU's (train_parity, the optimiser and --log_norms cases)
+#: or measure the host path (fast_path) pass it; every other phase runs the
+#: card's defaults (the device cache and device-side normalisation).
+HOST_PATH = ('--no-device_cache', '--no-device_normalise')
+
+
+def host_features(features):
+    """A loader's batch as numpy (``data.host_features``): the phases that
+    time or hold steps on a host batch move it to the card in the step, as
+    before the loader's prefetch."""
+    from morgana_tpu_torch import data
+
+    return data.host_features(features)
+
+
 def builder_argv(data_root, experiments_base, name, ckpt, *flags):
     """The training command line of the main path: the JAX package's
     defaults, with the corpus, the init and the output named."""
@@ -2604,7 +2648,7 @@ def time_train_steps(torch, exp):
     """Five train steps on one full batch of `exp`'s loader, host clock
     around synchronised calls, then one profiled step. Returns the batch,
     the step times in ms and the profile."""
-    features = next(iter(exp.train_loader))
+    features = host_features(next(iter(exp.train_loader)))
     exp.model.mode = 'train'
     step_ms = []
     for _ in range(5):
@@ -2636,12 +2680,13 @@ def train_parity_phase(torch, root, model_class, phase='train_parity', seed=12, 
     for device in ('cuda', 'cpu'):
         args = ExperimentBuilder.get_experiment_args(builder_argv(
             data_root, os.path.join(root, f'{phase}_experiments'), device, ckpt,
-            '--device', device, '--batch_size', '4', '--no-valid', '--end_epoch', '3', *flags))
+            '--device', device, '--batch_size', '4', '--no-valid', '--end_epoch', '3',
+            *HOST_PATH, *flags))
         exp = ExperimentBuilder(model_class, **args)
         exp.model.mode = 'train'
         losses, grads, frames = [], None, []
         for _ in range(3):
-            features = next(iter(exp.train_loader))
+            features = host_features(next(iter(exp.train_loader)))
             # The padded length: frames, or phones for DurationModel.
             key = 'normalised_counters' if 'normalised_counters' in features else 'normalised_lab'
             frames.append(int(features[key].shape[1]))
@@ -4614,7 +4659,8 @@ def export_voice(torch, name, model_class, ckpt, root, items, spec, out_dir):
     export_s = time.perf_counter() - start
     batches, want = {}, {}
     for i, features in enumerate(engine._loader(f'export_{name}', id_list=id_list)):
-        batches.update({f'{i}__{k}': v for k, v in numeric_features(features).items()})
+        batches.update({f'{i}__{k}': v for k, v in
+                        numeric_features(host_features(features)).items()})
         want.update({f'{i}__{k}': v.cpu().numpy()
                      for k, v in engine.predict_batch(features).items()})
     np.savez(out_dir + '.batches.npz', **batches)
@@ -4710,8 +4756,9 @@ def compilation_cache_phase(torch, served, smi):
     """--compilation_cache_dir: the serving command line (generation of the
     2 shortest served utterances) twice, each a fresh process, pointed at a
     new directory. The first builds the kernels its path loads (K1, the
-    MLPG solve) and the vocoder's library there; the second finds them and
-    runs no compiler. Both launch the kernels and write the wavs."""
+    MLPG solve), the vocoder's library and the native batch reader's there;
+    the second finds them and runs no compiler. Both launch the kernels and
+    write the wavs."""
     from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
 
     root = served['root']
@@ -4731,7 +4778,7 @@ def compilation_cache_phase(torch, served, smi):
         wavs = os.listdir(os.path.join(root, f'cache_gen{i}', 'synth'))
         if len(wavs) != len(few) or runs[-1]['k1'] != 8 or runs[-1]['mlpg_solve'] != 1:
             raise AssertionError(f'compilation_cache run {i}: {runs[-1]}, wavs {wavs}')
-    if runs[0]['nvcc_runs'] != 2 or runs[0]['cxx_runs'] != 1 \
+    if runs[0]['nvcc_runs'] != 2 or runs[0]['cxx_runs'] != 2 \
             or runs[1]['nvcc_runs'] or runs[1]['cxx_runs']:
         raise AssertionError(f'compilation_cache: compilers run {runs}')
     emit({'phase': 'compilation_cache', 'card': smi, 'dir_files': sorted(os.listdir(cache)),
@@ -6250,7 +6297,7 @@ def vae_latent_case(torch, exp):
     finite. Returns the K3 launches."""
     from morgana_tpu_torch.ops import gru as gru_ops
 
-    features = next(iter(exp.valid_loader))
+    features = host_features(next(iter(exp.valid_loader)))
     outputs = exp.loop.predict_step(features)
     out_dir = os.path.join(exp.experiment_dir, 'latent_check')
     gru_ops.launches = 0
@@ -6578,13 +6625,13 @@ def builder_optimizer_case(torch, data_root, base, ckpt):
         runs = {}
         for device in ('cuda', 'cpu') if name != 'adam' else ('cuda',):
             exp = lstm_builder(data_root, base, f'opt_{name}_{device}', ckpt, '--device', device,
-                               '--batch_size', '4', '--no-valid', '--optimizer', name,
+                               *HOST_PATH, '--batch_size', '4', '--no-valid', '--optimizer', name,
                                '--optimizer_kwargs', kwargs, '--weight_decay', '0.01')
             exp.model.mode = 'train'
             init = {n: p.detach().cpu().clone() for n, p in exp.model.named_parameters()}
             losses, step_ms = [], []
             for _ in range(3):
-                features = next(iter(exp.train_loader))
+                features = host_features(next(iter(exp.train_loader)))
                 if device == 'cuda':
                     loss, ms = timed_step(torch, exp.loop, features, exp.learning_rate)
                     step_ms.append(ms)
@@ -6632,9 +6679,11 @@ def reset_lstm_counts():
 
 def builder_accum_case(torch, data_root, base, ckpt):
     """--grad_accum_steps 2 at B16 against one step of the same 32
-    utterances at B32 (SGD); the norms of both; then ms an applied update of
-    each, and --log_norms' cost on the B32 step: the steps with and without,
-    in turns, and the three norms alone (CUDA events)."""
+    utterances at B32 (SGD), each batch assembled as the card's default
+    path assembles it (the device cache's gather and device transform);
+    the norms of both; then ms an applied update of each, and --log_norms'
+    cost on the B32 step: the steps with and without, in turns, and the
+    three norms alone (CUDA events)."""
     from morgana_tpu_torch.training import global_norm
 
     flags = ('--no-valid', '--optimizer', 'sgd', '--log_norms')
@@ -6642,10 +6691,11 @@ def builder_accum_case(torch, data_root, base, ckpt):
                          '--grad_accum_steps', '2', *flags)
     whole = lstm_builder(data_root, base, 'accum_whole', ckpt, '--batch_size',
                          str(2 * BUILDER_BATCH), *flags)
-    dataset = whole.train_loader.dataset
-    items = [dataset[int(i)] for i in whole.train_loader.iter_batch_indices()[0]]
-    micro = [dataset.collate_fn(items[:BUILDER_BATCH]), dataset.collate_fn(items[BUILDER_BATCH:])]
-    batch = dataset.collate_fn(items)
+    cache, post = whole.train_loader.device_cache, whole.train_loader.device_transform
+    idxs = whole.train_loader.iter_batch_indices()[0]
+    micro = [cache.assemble(idxs[:BUILDER_BATCH], post=post),
+             cache.assemble(idxs[BUILDER_BATCH:], post=post)]
+    batch = cache.assemble(idxs, post=post)
     for exp in (accum, whole):
         exp.model.mode = 'train'
         exp.model.metrics.reset_state('train')
@@ -6716,7 +6766,8 @@ def builder_norms_case(torch, data_root, base, ckpt):
     metrics = {}
     for device in ('cuda', 'cpu'):
         exp = lstm_builder(data_root, base, f'norms_{device}', ckpt, '--device', device,
-                           '--batch_size', '4', '--no-valid', '--end_epoch', '1', '--log_norms')
+                           *HOST_PATH, '--batch_size', '4', '--no-valid', '--end_epoch', '1',
+                           '--log_norms')
         exp.run_experiment()
         with open(os.path.join(exp.experiment_dir, 'train', 'epoch_1', 'metrics.json')) as f:
             metrics[device] = json.load(f)
@@ -6781,10 +6832,10 @@ def builder_resume_case(torch, data_root, base, ckpt, smi):
     """Two uninterrupted runs (bit-reproducible or not), one stopped by an
     interrupt in epoch 2 and finished with --checkpoint_path latest, all at
     B16 for 2 epochs with step checkpoints, length-sorted windows and 4
-    loader threads; then the retention left, --config's first loss, and
-    epoch seconds with 4 loader threads and with none (and the loader's
-    epoch alone), in turns. Returns the numbers
-    and the K1/K2 launches of the uninterrupted runs."""
+    loader threads; then the retention left and --config's first loss (the
+    epoch seconds with 4 loader threads and with none are fast_path's
+    prefetch case, on the same corpus). Returns the numbers and the K1/K2
+    launches of the uninterrupted runs."""
     flags = ('--batch_size', str(BUILDER_BATCH), '--no-valid', '--end_epoch', '2',
              '--step_checkpoint_interval', '1', '--length_sort_window', '2',
              '--num_data_threads', '4', '--keep_checkpoints', '1')
@@ -6845,20 +6896,6 @@ def builder_resume_case(torch, data_root, base, ckpt, smi):
     if (first[0] != first[1]) if identical else abs(first[0] - first[1]) > spread * abs(first[1]):
         raise AssertionError(f'builder --config: first loss {first}')
 
-    for threads in ('0', '4', '0', '4'):
-        exp = lstm_builder(data_root, base, f'threads_{threads}', ckpt, '--batch_size',
-                           str(BUILDER_BATCH), '--no-valid', '--end_epoch', '1',
-                           '--num_data_threads', threads)
-        exp.run_experiment()
-        with open(os.path.join(exp.experiment_dir, 'train', 'epoch_1', 'metrics.json')) as f:
-            out.setdefault('epoch_s_threads', {}).setdefault(threads, []).append(
-                json.load(f)['epoch_duration_s'])
-        # The loader alone: one epoch of batches, loaded and collated.
-        start = time.perf_counter()
-        for _ in exp.train_loader:
-            pass
-        out.setdefault('loader_epoch_s_threads', {}).setdefault(threads, []).append(
-            time.perf_counter() - start)
     return out, launches
 
 
@@ -6887,7 +6924,7 @@ def builder_search_case(torch, data_root, base, ckpt):
     with open(os.path.join(exp.experiment_dir, 'batch_size_search.txt')) as f:
         text = f.read()
     limit = int(SEARCH_LIMIT_GIB * 2 ** 30)
-    features = next(iter(exp.train_loader))
+    features = host_features(next(iter(exp.train_loader)))
     exp.model.mode = 'train'
     peak = memory.measure_train_step(exp.loop, memory.batch_at(features, best))
     next_line = [line for line in text.splitlines() if line.startswith('Next size')]
@@ -7051,6 +7088,434 @@ def builder_phase(torch, root, smi):
     emit({'phase': 'builder', 'card': smi, 'model': 'LSTMAcousticModel 609-8xLSTM(512)-199',
           'seconds': time.perf_counter() - start, 'launches': launches})
     return launches
+# ------------------------------------------------------------ fast path
+
+FAST_PATH_SPD = 8           # --steps_per_dispatch of the fast_path phase's chains
+FAST_PATH_BATCHES = 8       # B32 train batches an epoch: each epoch one chain of 8
+FAST_PATH_PHONES = 60       # phones an utterance, 5 frames each: every batch of one shape
+FAST_ULPS = 2               # device-normalised keys against the host path's (JAX's claim)
+PREFETCH_THREADS = (0, 4)
+FAST_TIMING_KEYS = ('epoch_duration_s', 'ms_per_step', 'frames_per_sec')
+FAST_BF16_COUNTERS = {'k1c_cluster': 'bf16_cluster_launches',
+                      'k1c_cluster_gates': 'bf16_cluster_gate_launches',
+                      'k2c_cluster': 'bf16_cluster_bwd_launches'}
+
+FAST_PATH_RUN = r'''
+import itertools, json, sys, time
+import numpy as np
+import torch
+import chip_smoke as smoke
+from torch.profiler import ProfilerActivity, profile, schedule
+from morgana_tpu_torch import data
+from morgana_tpu_torch.models.duration_model import DurationModel
+from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+
+data_root, base, lstm_ckpt, dur_ckpt, spd = sys.argv[1:6]
+spd = int(spd)
+
+
+def traced(fn):
+    """One profiled call of fn after a traced warm-up call: wall ms, device
+    busy ms and the kernels by kind (chip_smoke.kernel_kind)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(smoke.PROFILE_MARGIN_S)
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+        time.sleep(smoke.PROFILE_MARGIN_S)
+        prof.step()
+    kinds, busy_us = {}, 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, 'is_user_annotation', False) or e.name.startswith('ProfilerStep'):
+            continue
+        kind = smoke.kernel_kind(e.name)
+        kinds[kind] = kinds.get(kind, 0) + 1
+        busy_us += e.self_device_time_total
+    return wall_ms, busy_us / 1e3, kinds
+
+
+def timed(fn, repeats=3):
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - start) * 1e3)
+    return out
+
+
+results = {}
+for label, model_class, ckpt, flags in (('lstm', LSTMAcousticModel, lstm_ckpt, []),
+                                        ('lstm_bf16', LSTMAcousticModel, lstm_ckpt,
+                                         ['--compute_dtype', 'bfloat16']),
+                                        ('duration', DurationModel, dur_ckpt, []),
+                                        ('duration_bf16', DurationModel, dur_ckpt,
+                                         ['--compute_dtype', 'bfloat16'])):
+    host = smoke.fast_builder(model_class, data_root, base, f'{label}_host', ckpt,
+                              *smoke.HOST_PATH, *flags)
+    fast = smoke.fast_builder(model_class, data_root, base, f'{label}_fast', ckpt, *flags)
+    for exp in (host, fast):
+        exp.model.mode = 'train'
+        exp.model.metrics.reset_state('train')
+    lr = fast.learning_rate
+    host_batches = list(itertools.islice(host.train_loader.data_loader, smoke.FAST_PATH_BATCHES))
+    cache, post = fast.train_loader.device_cache, fast.train_loader.device_transform
+    order = fast.train_loader.iter_batch_indices()[:smoke.FAST_PATH_BATCHES]
+    idx_mat = np.stack(order)
+    n = len(order)
+
+    def per_batch():
+        for features in host_batches:
+            host.loop.train_step(features, lr)
+
+    def cached():
+        for idxs in order:
+            fast.loop.train_step(cache.assemble(idxs, post=post), lr)
+
+    def graphs():
+        fast.loop.train_chain(cache, idx_mat, [lr] * n, post=post)
+
+    entry = {}
+    for mode, fn, loop in (('per_batch_eager', per_batch, host.loop),
+                           ('cache_eager', cached, fast.loop),
+                           (f'graphs_spd{spd}', graphs, fast.loop)):
+        fn()   # warm-up; graphs: the uncaptured step and the capture
+        ms = timed(fn)
+        wall, busy, kinds = traced(fn)
+        entry[mode] = {'ms_per_step': [m / n for m in ms],
+                       'profiled_ms_per_step': wall / n, 'busy_ms_per_step': busy / n,
+                       'idle_share': 1 - busy / wall,
+                       'kernels_per_step': {k: v / n for k, v in sorted(kinds.items())}}
+    graphs_state = fast.loop._graphs
+    entry['graphs_captured'] = graphs_state.captures
+    entry['capture_seconds'] = graphs_state.capture_seconds
+    entry['B'] = int(idx_mat.shape[1])
+    entry['padded_T'] = cache.padded_lengths(order[0])
+    results[label] = entry
+print(json.dumps(results))
+'''
+
+
+def fast_path_corpus(root):
+    """The fast_path phase's corpus: FAST_PATH_BATCHES batches of B32 of
+    training utterances and one of validation ones, every utterance
+    FAST_PATH_PHONES phones of 5 frames (300 frames), so that every batch has
+    one shape signature and an epoch is one chain."""
+    from morgana_tpu_torch.data.synthetic import generate_voice_data
+
+    data_root = os.path.join(root, 'fast_data')
+    if not os.path.isdir(data_root):
+        generate_voice_data(data_root, num_train=FAST_PATH_BATCHES * TRAIN_BATCH,
+                            num_valid=TRAIN_BATCH, num_test=0, seed=93,
+                            n_phones_range=(FAST_PATH_PHONES, FAST_PATH_PHONES + 1),
+                            dur_range=(5, 6))
+    return data_root
+
+
+def fast_builder(model_class, data_root, base, name, ckpt, *flags):
+    """An ExperimentBuilder on the card with the command line's defaults
+    (the card's: the device cache and device-side normalisation) and
+    `flags`."""
+    from morgana_tpu_torch.experiment_builder import ExperimentBuilder
+
+    args = ExperimentBuilder.get_experiment_args([
+        '--experiment_name', name, '--experiments_base', base, '--data_root', data_root,
+        '--train_id_list', 'train/train_file_id_list.scp',
+        '--valid_id_list', 'valid/valid_file_id_list.scp', '--checkpoint_path', ckpt, *flags])
+    return ExperimentBuilder(model_class, **args)
+
+
+def ulps(torch, got, want):
+    """The largest distance in float32 ulps between two float32 tensors (the
+    floats' bit patterns as ordered integers)."""
+    def ordered(t):
+        bits = t.float().contiguous().view(torch.int32).long()
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+    return int((ordered(got) - ordered(want)).abs().max()) if got.numel() else 0
+
+
+def fast_batches_case(torch, exp, host_exp, batches=2):
+    """The device path's batches against the host path's on the first
+    `batches` batches of an epoch: the cache's gather (no transform) bit for
+    bit against the collated items of its own dataset on the card; with the
+    device transform, raw and delta keys bit for bit and normalised keys
+    within FAST_ULPS of the host path's collated batch."""
+    from morgana_tpu_torch import data
+
+    cache, post = exp.train_loader.device_cache, exp.train_loader.device_transform
+    dataset, host_dataset = exp.train_loader.dataset, host_exp.train_loader.dataset
+    worst_ulps, keys, bit_keys = 0, set(), set()
+    for idxs in exp.train_loader.iter_batch_indices()[:batches]:
+        items = [int(i) for i in idxs]
+        gathered = cache.assemble(idxs)
+        collated = data.device_features(dataset.collate_fn([dataset[i] for i in items]),
+                                        exp.device)
+        for key, value in collated.items():
+            if key not in gathered or not torch.equal(gathered[key], value) \
+                    or gathered[key].dtype != value.dtype:
+                raise AssertionError(f'fast_path: the cache gathered {key} unlike collate')
+        normalised = cache.assemble(idxs, post=post)
+        host = data.device_features(host_dataset.collate_fn([host_dataset[i] for i in items]),
+                                    exp.device)
+        for key, want in host.items():
+            got = normalised.get(key)
+            if got is None or got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f'fast_path: device-normalised {key} missing or misshapen')
+            keys.add(key)
+            if key.startswith('normalised_'):
+                worst_ulps = max(worst_ulps, ulps(torch, got, want))
+            else:
+                bit_keys.add(key)
+                if not torch.equal(got, want):
+                    raise AssertionError(f'fast_path: device-side {key} differs from the host '
+                                         'path')
+    out = {'batches': batches, 'keys': sorted(keys), 'bitwise_keys': sorted(bit_keys),
+           'normalised_max_ulps': worst_ulps, 'ulps_bound': FAST_ULPS}
+    if worst_ulps > FAST_ULPS:
+        raise AssertionError(f'fast_path: device-normalised keys: {out}')
+    return out
+
+
+def wire_bytes_case(exp, host_exp):
+    """Bytes a B32 batch moves to the card: the host path's collated batch,
+    --device_normalise's (raw streams and lengths), the same on a bf16
+    wire, and the cache's index vector."""
+    import torch
+    from morgana_tpu_torch.data.device_normalise import make_device_transform
+
+    dataset, host_dataset = exp.train_loader.dataset, host_exp.train_loader.dataset
+    idxs = [int(i) for i in exp.train_loader.iter_batch_indices()[0]]
+
+    def numeric_bytes(batch, wire=None, keep=()):
+        total = 0
+        for key, value in batch.items():
+            if isinstance(value, np.ndarray) and value.dtype.kind in 'fiub':
+                lossy = wire is not None and value.dtype == np.float32 and value.ndim >= 3 \
+                    and key not in keep
+                total += value.size * 2 if lossy else value.nbytes
+        return total
+
+    raw = dataset.collate_fn([dataset[i] for i in idxs])
+    transform, _ = make_device_transform(dataset.data_sources, dataset.normalisers,
+                                         names=dataset.device_names, wire_dtype=torch.bfloat16)
+    return {'B': len(idxs), 'host_path': numeric_bytes(host_dataset.collate_fn(
+                [host_dataset[i] for i in idxs])),
+            'device_normalise': numeric_bytes(raw),
+            'device_normalise_bf16_wire': numeric_bytes(transform.pre_put(raw), 'bf16',
+                                                        transform.keep_f32),
+            'device_cache': len(idxs) * np.dtype(np.int64).itemsize}
+
+
+def chain_identity_case(torch, model_class, data_root, base, ckpt, label, *flags):
+    """Two epochs with validation at --steps_per_dispatch FAST_PATH_SPD (CUDA
+    graph replays) and at 1 (the eager per-batch loop), both on the device
+    cache: per-batch losses, the parameters and every metric of each
+    epoch's metrics.json bit for bit."""
+    runs = {}
+    for spd in (FAST_PATH_SPD, 1):
+        exp = fast_builder(model_class, data_root, base, f'{label}_spd{spd}', ckpt,
+                           '--device_cache', '--steps_per_dispatch', str(spd),
+                           '--end_epoch', '2', '--valid_output_interval', '100', *flags)
+        start = time.perf_counter()
+        exp.run_experiment()
+        metrics = {}
+        for split in ('train', 'valid'):
+            for epoch in (1, 2):
+                with open(os.path.join(exp.experiment_dir, split, f'epoch_{epoch}',
+                                       'metrics.json')) as f:
+                    metrics[split, epoch] = json.load(f)
+        graphs = exp.loop._graphs
+        runs[spd] = {'losses': exp.train_losses, 'metrics': metrics,
+                     'params': {k: v.detach().clone() for k, v in exp.model.named_parameters()},
+                     'seconds': time.perf_counter() - start,
+                     'captures': graphs.captures if graphs is not None else 0,
+                     'capture_seconds': graphs.capture_seconds if graphs is not None else 0.0}
+    chained, eager = runs[FAST_PATH_SPD], runs[1]
+    same_metrics = all({k: v for k, v in chained['metrics'][key].items()
+                        if k not in FAST_TIMING_KEYS}
+                       == {k: v for k, v in eager['metrics'][key].items()
+                           if k not in FAST_TIMING_KEYS} for key in eager['metrics'])
+    same_params = all(torch.equal(chained['params'][k], v) for k, v in eager['params'].items())
+    out = {'losses_identical': chained['losses'] == eager['losses'],
+           'params_identical': same_params, 'metrics_identical': same_metrics,
+           'train_losses': chained['losses'], 'graphs_captured': chained['captures'],
+           'capture_seconds': chained['capture_seconds'],
+           'run_seconds': {'spd8': chained['seconds'], 'spd1': eager['seconds']},
+           'ms_per_step': {f'spd{spd}': [runs[spd]['metrics']['train', e]['ms_per_step']
+                                         for e in (1, 2)] for spd in runs}}
+    if not (out['losses_identical'] and same_params and same_metrics):
+        raise AssertionError(f'fast_path {label}: graph replays differ from the eager loop: '
+                             f'{out}')
+    return out
+
+
+def remat_case(torch, exp, label):
+    """One train step's gradient with and without --remat (every layer or
+    block checkpointed) on the same batch and weights: bit for bit, and the
+    step's peak memory above what was allocated before it."""
+    from morgana_tpu_torch import data, nn
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    model = exp.model
+    model.mode = 'train'
+    batch = exp.loop._batch(data.host_features(next(iter(exp.train_loader))))
+    params = list(model.parameters())
+    grads, peaks, counts = {}, {}, {}
+    for remat in (False, True, False, True):
+        nn.set_default_remat(remat)
+        model.train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        launches = (lstm_ops.launches, lstm_ops.gate_launches)
+        with nn.collect_aux_losses():
+            loss, _ = model(batch)
+        got = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+        counts[remat] = (lstm_ops.launches - launches[0], lstm_ops.gate_launches - launches[1])
+        grads[remat] = [None if g is None else g.detach().clone() for g in got]
+        del got, loss
+    nn.set_default_remat(False)
+    model.metrics.reset_state('train')
+    same = all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(grads[False], grads[True]))
+    out = {'gradients_identical': same, 'peak_mib': {'remat': peaks[True], 'no_remat':
+                                                     peaks[False]},
+           'k1_launches_a_step': {'remat': counts[True], 'no_remat': counts[False]}}
+    if not same or peaks[True] >= peaks[False]:
+        raise AssertionError(f'fast_path remat {label}: {out}')
+    return out
+
+
+def prefetch_case(torch, data_root, base, ckpt):
+    """LSTM epochs at B16 on the host data path over the training phases'
+    corpus (64 utterances of about 200-1070 frames), the loader's batches
+    taken through the prefetch
+    (ToDeviceWrapper: pinned copies on a side stream, 2 batches ahead) or
+    without it (each batch copied in its step), at 0 and 4 loader threads,
+    in turns: epoch seconds."""
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+
+    out = {}
+    exps = {threads: fast_builder(LSTMAcousticModel, data_root, base, f'prefetch_{threads}', ckpt,
+                                  *HOST_PATH, '--batch_size', '16', '--num_data_threads',
+                                  str(threads)) for threads in PREFETCH_THREADS}
+    for _ in range(2):
+        for threads, exp in exps.items():
+            exp.model.mode = 'train'
+            for label, loader in (('prefetch', exp.train_loader),
+                                  ('no_prefetch', exp.train_loader.data_loader)):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                for features in loader:
+                    exp.loop.train_step(features, exp.learning_rate)
+                torch.cuda.synchronize()
+                out.setdefault(f'{label}_threads{threads}', []).append(time.perf_counter()
+                                                                        - start)
+    return out
+
+
+def fast_path_phase(torch, root, smi):
+    """The builder's device-side fast path on the card (the fast_path phase
+    of the module docstring). Returns the launches of its main-path runs
+    (every counter set to 0 just before them)."""
+    from morgana_tpu_torch import nn
+    from morgana_tpu_torch.data import native_io
+    from morgana_tpu_torch.experiment_builder import CHAIN_RTT_MS
+    from morgana_tpu_torch.models.duration_model import DurationModel
+    from morgana_tpu_torch.models.rnn_spss import LSTMAcousticModel
+    from morgana_tpu_torch.models.transformer_spss import TransformerAcousticModel
+    from morgana_tpu_torch.ops import gru as gru_ops
+    from morgana_tpu_torch.ops import lstm as lstm_ops
+
+    start = time.perf_counter()
+    data_root = fast_path_corpus(root)
+    base = os.path.join(root, 'fast_experiments')
+    lstm_ckpt = seeded_checkpoint(torch, LSTMAcousticModel,
+                                  os.path.join(root, 'fast_init', 'lstm', 'epoch_0.npz'), 91)
+    dur_ckpt = seeded_checkpoint(torch, DurationModel,
+                                 os.path.join(root, 'fast_init', 'duration', 'epoch_0.npz'), 92)
+    out = {'corpus_seconds': time.perf_counter() - start}
+
+    # The card's defaults, the probe, the native reader; then one epoch of
+    # the main path as a user runs it.
+    auto = fast_builder(LSTMAcousticModel, data_root, base, 'auto', lstm_ckpt, '--end_epoch', '1')
+    loader = auto.train_loader
+    out['auto'] = {'device_cache': auto.device_cache, 'device_normalise': auto.device_normalise,
+                   'steps_per_dispatch': auto.steps_per_dispatch,
+                   'dispatch_rtt_ms': auto.dispatch_rtt_ms, 'rtt_bound_ms': CHAIN_RTT_MS,
+                   'cache': loader.device_cache.describe() if loader.device_cache else None,
+                   'device_transform': loader.device_transform is not None,
+                   'native_reader': native_io.native_available(),
+                   'native_preload': loader.dataset.supports_native_preload}
+    if not (auto.device_cache and auto.device_normalise and auto.steps_per_dispatch == 1
+            and auto.dispatch_rtt_ms is not None and auto.dispatch_rtt_ms < CHAIN_RTT_MS
+            and loader.device_cache is not None and loader.device_transform is not None
+            and out['auto']['native_reader'] and out['auto']['native_preload']):
+        raise AssertionError(f'fast_path: the card\'s defaults: {out["auto"]}')
+    host = fast_builder(LSTMAcousticModel, data_root, base, 'host', lstm_ckpt, *HOST_PATH)
+    out['batches'] = fast_batches_case(torch, auto, host)
+    out['wire_bytes_a_batch'] = wire_bytes_case(auto, host)
+    reset_lstm_counts()
+    gru_ops.launches = gru_ops.bwd_launches = 0
+    auto.run_experiment()
+
+    # Graph replays against the eager loop, LSTM then Duration.
+    out['chain_lstm'] = chain_identity_case(torch, LSTMAcousticModel, data_root, base,
+                                            lstm_ckpt, 'chain_lstm')
+    out['chain_duration'] = chain_identity_case(torch, DurationModel, data_root, base, dur_ckpt,
+                                                'chain_duration')
+    launches = dict(lstm_counts(), k3=gru_ops.launches, k4=gru_ops.bwd_launches)
+    # The bf16 LSTM's cluster launches (K1c, K2c) captured as such; counted
+    # apart, on the bf16 kernels' rows.
+    before = {key: getattr(lstm_ops, name) for key, name in FAST_BF16_COUNTERS.items()}
+    out['chain_lstm_bf16'] = chain_identity_case(torch, LSTMAcousticModel, data_root, base,
+                                                 lstm_ckpt, 'chain_lstm_bf16', '--compute_dtype',
+                                                 'bfloat16')
+    launches.update({key: getattr(lstm_ops, name) - before[key]
+                     for key, name in FAST_BF16_COUNTERS.items()})
+    nn.set_default_compute_dtype(None)   # a builder sets the process's; f32 from here
+
+    # The profiler's census of a replayed step, and the step times of the
+    # three routes, in a fresh process.
+    timing = run_script('fast_path timing', FAST_PATH_RUN, data_root,
+                        os.path.join(root, 'fast_timing'), lstm_ckpt, dur_ckpt,
+                        str(FAST_PATH_SPD), timeout=900)
+    out['timing'] = timing
+    graphs = f'graphs_spd{FAST_PATH_SPD}'
+    census = {label: timing[label][graphs]['kernels_per_step'] for label in timing}
+    want = {'lstm': {'k1': 8, 'k2': 8}, 'lstm_bf16': {'k1c': 8, 'k2c': 8},
+            'duration': {'k3': 1, 'k4': 1}, 'duration_bf16': {'k3c': 1, 'k4c': 1}}
+    out['replayed_step_kernels'] = {label: {k: census[label].get(k, 0) for k in kinds}
+                                    for label, kinds in want.items()}
+    if out['replayed_step_kernels'] != want:
+        raise AssertionError(f'fast_path: kernels of a replayed step {census}, expected {want}')
+
+    # --remat: the LSTM's and the Transformer's gradients and peaks.
+    out['remat_lstm'] = remat_case(torch, host, 'lstm')
+    tf_ckpt = seeded_checkpoint(torch, TransformerAcousticModel,
+                                os.path.join(root, 'fast_init', 'transformer', 'epoch_0.npz'), 94)
+    out['remat_transformer'] = remat_case(torch, fast_builder(
+        TransformerAcousticModel, data_root, base, 'remat_transformer', tf_ckpt, *HOST_PATH,
+        '--learning_rate', TRANSFORMER_LR), 'transformer')
+    out['prefetch_epoch_s'] = prefetch_case(torch, train_corpus(root)[0], base, lstm_ckpt)
+    emit({'phase': 'fast_path', 'card': smi, 'seconds': time.perf_counter() - start,
+          'launches': launches, **out})
+    if not all(launches[k] for k in ('k1_gates', 'k2', 'k3', 'k4', 'k1c_cluster_gates',
+                                     'k2c_cluster')):
+        raise AssertionError(f'fast_path: a kernel of the main path was not launched: {launches}')
+    return launches
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description='Smoke test of the port on one NVIDIA GPU; '
@@ -7069,6 +7534,9 @@ def main(argv=None):
     parser.add_argument('--builder-only', action='store_true',
                         help="only the phase of the voice builder's training loop "
                         '(builder_phase)')
+    parser.add_argument('--fast-path-only', action='store_true',
+                        help="only the phase of the builder's device-side fast path "
+                        '(fast_path_phase)')
     args = parser.parse_args(argv)
     import torch
 
@@ -7094,13 +7562,14 @@ def main(argv=None):
     # Every kernel, and the LSTM kernels' step_split build, one nvcc each, all
     # started together.
     start = time.perf_counter()
-    only = args.kernel_parent or args.transformer_only or args.families_only or args.builder_only
+    only = (args.kernel_parent or args.transformer_only or args.families_only or args.builder_only
+            or args.fast_path_only)
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         split_build = None if only else pool.submit(
             _build.build, ['lstm_fwd', 'lstm_bwd', 'lstm_fwd_bf16', 'lstm_bwd_bf16', 'gru_fwd_bf16',
                            'gru_bwd_bf16'], 'step_split')
         paths = _build.build(None if not only or args.families_only or args.builder_only
-                             else ['attn_fwd', 'attn_bwd'] + (
+                             or args.fast_path_only else ['attn_fwd', 'attn_bwd'] + (
             ['attn_fwd_bf16', 'attn_bwd_bf16', 'rnn_dw_bf16', 'mlpg', 'lstm_fwd_bf16',
              'lstm_bwd_bf16', 'gru_fwd_bf16', 'gru_bwd_bf16']
             if args.kernel_parent else []))
@@ -7125,6 +7594,9 @@ def main(argv=None):
         elif args.builder_only:
             with tempfile.TemporaryDirectory() as root:
                 builder_phase(torch, root, smi)
+        elif args.fast_path_only:
+            with tempfile.TemporaryDirectory() as root:
+                fast_path_phase(torch, root, smi)
         else:
             with tempfile.TemporaryDirectory() as root:
                 transformer_serving_phase(torch, root)
@@ -7260,6 +7732,9 @@ def main(argv=None):
         wide = bf16_wide_lstm_phase(torch, root, served, smi)
         families = families_phase(torch, root, smi)
         builder = builder_phase(torch, root, smi)
+        fast = fast_path_phase(torch, root, smi)
+        for key in FAST_BF16_COUNTERS:
+            bf16_train[key] += fast[key]
     mlpg_launches = mlpg_ops.launches + export_launches['mlpg_solve']
     fused_launches = mlpg_ops.fused_launches + export_launches['mlpg']
     if not (serve_launches and generate_launches and test_launches and mlpg_launches
@@ -7280,7 +7755,8 @@ def main(argv=None):
             and bf16_train['carry'] and bf16_train['k1c_cluster']
             and bf16_train['k1c_cluster_gates'] and bf16_train['k2c_cluster'] and wide['k1c']
             and wide['k1c_gates'] and wide['k2c'] and all(families.values())
-            and builder['k1_gates'] and builder['k2']):
+            and builder['k1_gates'] and builder['k2'] and fast['k1_gates'] and fast['k2']
+            and fast['k3'] and fast['k4']):
         raise AssertionError('a kernel of the main path was not launched')
 
     # launches: the main paths' runs, each counted from 0: serving,
@@ -7309,19 +7785,22 @@ def main(argv=None):
     # their bf16 serving's K3c, the MoE Transformer's attention forward
     # (serving, training) and backward and its bf16 serving's K5b, and every
     # family's MLPG but the multi-speaker model's. builder_phase adds the K1
-    # (with gates) and K2 launches of its two uninterrupted resume runs.
+    # (with gates) and K2 launches of its two uninterrupted resume runs, and
+    # fast_path_phase those of its epoch of the defaults and its chained and
+    # eager runs (LSTM and Duration; a captured step counts once, its
+    # replays none).
     emit({'kernels': [{
         'name': 'lstm_fwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_fwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:77',
         'launches': serve_launches + generate_launches + test_launches + train_launches['k1']
         + pipeline_launches['k1'] + stream_launches['k1'] + http_launches['k1']
-        + quantize_launches + export_launches['k1'] + builder['k1'],
+        + quantize_launches + export_launches['k1'] + builder['k1'] + fast['k1'],
         'max_abs_err': main_shape['max_abs_err_vs_plain'], 'ms': main_shape['kernel_ms'],
         'plain_ms': main_shape['plain_ms'], 'bound_ms': main_shape['bound_ms'],
         'bound_by': main_shape['bound_by'], 'library_ms': main_shape['library_ms']}, {
         'name': 'lstm_bwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/lstm_bwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_rnn.py:113',
-        'launches': train_launches['k2'] + builder['k2'],
+        'launches': train_launches['k2'] + builder['k2'] + fast['k2'],
         'max_abs_err': train_shape['k2_max_abs_err'], 'ms': train_shape['kernel_ms'],
         'plain_ms': train_shape['plain_ms'], 'bound_ms': train_shape['bound_ms'],
         'bound_by': train_shape['bound_by'], 'library_ms': train_shape['library_ms']}, {
@@ -7342,13 +7821,14 @@ def main(argv=None):
         'replaces': 'morgana_tpu/ops/pallas_gru.py:35',
         'launches': f0_serve_launches + f0_train_launches['k3'] + duration_launches['k3']
         + pipeline_launches['k3'] + stream_launches['k3'] + http_launches['k3']
-        + export_launches['k3'] + families['k3'],
+        + export_launches['k3'] + families['k3'] + fast['k3'],
         'max_abs_err': gru_fwd_shape['max_abs_err_vs_plain'], 'ms': gru_fwd_shape['kernel_ms'],
         'plain_ms': gru_fwd_shape['plain_ms'], 'bound_ms': gru_fwd_shape['bound_ms'],
         'bound_by': gru_fwd_shape['bound_by'], 'library_ms': gru_fwd_shape['library_ms']}, {
         'name': 'gru_bwd', 'route': 'cuda', 'source': 'morgana_tpu_torch/csrc/gru_bwd.cu',
         'replaces': 'morgana_tpu/ops/pallas_gru.py:59',
-        'launches': f0_train_launches['k4'] + duration_launches['k4'] + families['k4'],
+        'launches': f0_train_launches['k4'] + duration_launches['k4'] + families['k4']
+        + fast['k4'],
         'max_abs_err': gru_bwd_shape['k4_max_abs_err'], 'ms': gru_bwd_shape['kernel_ms'],
         'plain_ms': gru_bwd_shape['plain_ms'], 'bound_ms': gru_bwd_shape['bound_ms'],
         'bound_by': gru_bwd_shape['bound_by'], 'library_ms': gru_bwd_shape['library_ms'],

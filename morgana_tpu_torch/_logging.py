@@ -127,6 +127,11 @@ class ProgressBar:
         finally:
             self.close()
 
+    def advance(self, n):
+        """Moves the bar ``n`` batches on (a chain of steps)."""
+        if self._bar is not None:
+            self._bar.update(n)
+
     def close(self):
         if self._bar is not None:
             self._bar.close()
@@ -141,8 +146,10 @@ class ProgressBar:
         if self._bar is not None:
             self._bar.set_description(text)
 
-    def maybe_print(self, mode, epoch, metrics_fn):
+    def maybe_print(self, mode, epoch, metrics_fn, count=1):
+        """Prints when the ``count`` batches just done (a chain's, or one)
+        pass a multiple of the print interval."""
         before = self._calls
-        self._calls += 1
+        self._calls += count
         if self._calls // self._every > before // self._every:
             self.print(mode, epoch, **metrics_fn())

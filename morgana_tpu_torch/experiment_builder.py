@@ -27,10 +27,22 @@ operands rounded to bf16 and sums in f32, forward and backward (on the GPU
 K1c with its gate trace and K2c, K3c and K4c, K5b and its backward, and the
 bf16 weight-gradient carry); the parameters, the optimiser state, the EMA
 and the checkpoints stay f32. The flags are the JAX package's but for
-:data:`UNPORTED_FLAGS` (parallelism and the device-side fast path), each an
-argparse error. ``--device`` defaults to ``cuda`` and raises
+:data:`UNPORTED_FLAGS` (parallelism), each an argparse error. ``--device``
+defaults to ``cuda`` and raises
 :class:`~morgana_tpu_torch.device.DeviceError` without a GPU; ``--device
 cpu`` runs the kernels' plain versions on the CPU.
+
+The device-side fast path (``experiment_builder.py:1140-1390``): batches
+reach the device through a prefetching loader (pinned memory, copies on a
+side stream); ``--device_normalise`` computes the normalised and delta keys
+there; ``--device_cache`` keeps the corpus on the device and assembles every
+batch there by gather; ``--steps_per_dispatch N`` runs up to N consecutive
+same-shape steps as CUDA graph replays (a plain loop on the CPU), bit for bit
+the per-batch steps; ``--remat`` recomputes each recurrent layer and
+Transformer block in the backward pass. On a GPU, ``--device_normalise`` and
+``--device_cache`` are on unless turned off, as the JAX builder turns them on
+for an accelerator; ``--steps_per_dispatch`` goes to 16 only when a dispatch
+round trip measures 5 ms or more (a local card measures far less).
 """
 import argparse
 import ast
@@ -72,13 +84,6 @@ UNPORTED_FLAGS = {
     'shard_map_step': (('--shard_map_step',), False, 'Queue 1 item 10'),
     'multihost': (('--multihost',), False, 'Queue 1 item 10'),
     'orbax_dir': (('--orbax_dir',), None, 'Queue 1 item 10'),
-    'device_cache': (('--device_cache', '--no-device_cache'), None, 'Queue 1 item 8'),
-    'device_cache_gb': (('--device_cache_gb',), 4.0, 'Queue 1 item 8'),
-    'device_normalise': (('--device_normalise', '--no-device_normalise'), None,
-                         'Queue 1 item 8'),
-    'steps_per_dispatch': (('--steps_per_dispatch',), None, 'Queue 1 item 8'),
-    'remat': (('--remat',), False, 'Queue 1 item 8'),
-    'transfer_dtype': (('--transfer_dtype',), None, 'Queue 1 item 5'),
 }
 _UNPORTED_OPTIONS = {option: (dest, where) for dest, (options, _, where) in UNPORTED_FLAGS.items()
                      for option in options}
@@ -86,6 +91,16 @@ _UNPORTED_OPTIONS = {option: (dest, where) for dest, (options, _, where) in UNPO
 
 #: Seconds of device idle at each end of a --profile_dir trace.
 PROFILE_MARGIN_S = 0.02
+#: The dispatch round trip from which the automatic --steps_per_dispatch is
+#: 16 (``experiment_builder.py:1180``).
+CHAIN_RTT_MS = 5.0
+AUTO_STEPS_PER_DISPATCH = 16
+
+
+def _transfer_dtype(value):
+    """``--transfer_dtype``: the name of a dtype the port's wire takes."""
+    data.loader.transfer_dtype_arg(value)
+    return value
 
 
 def add_boolean_arg(parser, name, help):
@@ -339,6 +354,48 @@ class ExperimentBuilder(object):
                             help="Product compute dtype: 'float32' (default) or 'bfloat16' "
                                  '(bf16 operands with f32 sums, state, parameters and '
                                  'optimiser); another dtype is an error.')
+        parser.add_argument('--remat', dest='remat', action='store_true', default=False,
+                            help='Rematerialise each recurrent layer and Transformer block in '
+                                 'the backward pass (torch.utils.checkpoint): less activation '
+                                 'memory a layer, a second forward pass; allows longer '
+                                 'sequences.')
+        parser.add_argument('--transfer_dtype', dest='transfer_dtype', type=_transfer_dtype,
+                            default=None,
+                            help="Wire dtype of float32 sequence features on the host-to-device "
+                                 "copy: 'bfloat16' (or 'float16') halves a batch's bytes; "
+                                 'per-utterance features stay float32. Without --device_cache '
+                                 'only.')
+        parser.add_argument('--device_normalise', dest='device_normalise',
+                            action=argparse.BooleanOptionalAction, default=None,
+                            help='Compute feature normalisation and the delta windows on the '
+                                 'device, after the copy, instead of on the host: only raw '
+                                 'streams cross the link, and the keys are rebuilt there (raw '
+                                 'and delta keys bit-identical, normalised ones within 2 ulps). '
+                                 'Speaker-dependent normalisers keep the host path. Default: '
+                                 'on for a GPU, off on the CPU; --no-device_normalise turns it '
+                                 'off.')
+        parser.add_argument('--device_cache', dest='device_cache',
+                            action=argparse.BooleanOptionalAction, default=None,
+                            help='Keep the whole corpus in device memory (an arena a stream) '
+                                 'and assemble every batch there by gather: after the one-time '
+                                 'upload only (B,) index vectors cross the link. A corpus over '
+                                 '--device_cache_gb falls back to the streaming loader, with a '
+                                 'warning. Composes with --device_normalise (only raw streams '
+                                 'are cached). Default: on for a GPU, off on the CPU; '
+                                 '--no-device_cache turns it off.')
+        parser.add_argument('--device_cache_gb', dest='device_cache_gb', type=float, default=4.0,
+                            help='Device-memory budget of --device_cache in GiB, shared by the '
+                                 'splits (default 4.0).')
+        parser.add_argument('--steps_per_dispatch', dest='steps_per_dispatch', type=int,
+                            default=None,
+                            help='If > 1, run up to N consecutive same-shape training (and '
+                                 'validation) batches as one dispatch: on the GPU each step is a '
+                                 'replay of a CUDA graph captured once a shape, the batches '
+                                 'assembled from the device cache inside it (a plain loop on the '
+                                 'CPU). Implies --device_cache; per-step numerics (noise, LR '
+                                 'schedule, EMA, metrics) are the per-batch loop\'s, bit for '
+                                 'bit. Default: with the device cache, 16 when a startup probe '
+                                 'measures a dispatch round trip of 5 ms or more, else 1.')
         parser.add_argument('--debug_nans', dest='debug_nans', action='store_true',
                             default=False,
                             help='Diagnosis: raise FloatingPointError at the first module whose '
@@ -454,11 +511,22 @@ class ExperimentBuilder(object):
             _build.set_build_dir(settings['compilation_cache_dir'])
         self.device = resolve_device(settings['device'])
         self.compute_dtype = settings['compute_dtype']
-        # A process global, read at each call, as the JAX builder sets it.
+        # Process globals, read at each call, as the JAX builder sets them.
         nn.set_default_compute_dtype(self.compute_dtype)
+        nn.set_default_remat(settings['remat'])
+        self.transfer_dtype = settings['transfer_dtype']
+        self.device_normalise = settings['device_normalise']
+        self.device_cache = settings['device_cache']
+        self.device_cache_gb = float(settings['device_cache_gb'] or 0.)
+        spd = settings['steps_per_dispatch']
+        self.steps_per_dispatch = None if spd is None else max(1, int(spd))
+        self._device_cache_bytes_used = 0
+        self._chain_fallback_logged = False
+        self.dispatch_rtt_ms = None
 
         self.experiment_dir = os.path.join(self.experiments_base, self.experiment_name)
         self.logger = _logging.create_logger(self.experiment_dir)
+        self._resolve_fast_path_defaults()
         self._lr_schedule = lr_schedules.init_lr_schedule(self.lr_schedule_name,
                                                           **self.lr_schedule_kwargs)
         self.resolve_latest_checkpoints()
@@ -534,6 +602,56 @@ class ExperimentBuilder(object):
             return None
         return SummaryWriter(self.experiment_dir)
 
+    def _dispatch_rtt_ms(self, rounds=5):
+        """The median round trip (ms) of a one-element launch and its
+        readback on the builder's device (``experiment_builder.py:1118``),
+        timed ``rounds`` times after a warm-up: the per-batch host overhead a
+        dispatch costs on this link. The operand feeds back into itself."""
+        x = torch.zeros((), device=self.device)
+        x = x + 1
+        float(x)
+        times = []
+        for _ in range(rounds):
+            start = time.perf_counter()
+            x = x + 1
+            float(x)
+            times.append(time.perf_counter() - start)
+        return float(np.median(times) * 1e3)
+
+    def _resolve_fast_path_defaults(self):
+        """The automatic defaults of the fast path (``experiment_builder.py:1140``):
+        on a CUDA device ``--device_normalise`` and ``--device_cache`` unless
+        turned off, and ``--steps_per_dispatch`` 16 when the cache is on and
+        the dispatch round trip is 5 ms or more, else 1; on the CPU all three
+        stay off. An explicit ``--steps_per_dispatch N > 1`` implies the
+        cache. One log line names what was turned on automatically and the
+        probe's reading."""
+        on_accel = self.device.type == 'cuda'
+        auto = []
+        if self.device_normalise is None:
+            self.device_normalise = on_accel
+            if on_accel:
+                auto.append('--device_normalise')
+        explicit_chain = self.steps_per_dispatch is not None and self.steps_per_dispatch > 1
+        if self.device_cache is None:
+            self.device_cache = bool(explicit_chain or on_accel)
+            if self.device_cache and not explicit_chain:
+                auto.append('--device_cache')
+        if self.steps_per_dispatch is None:
+            self.steps_per_dispatch = 1
+            if self.device_cache and on_accel:
+                self.dispatch_rtt_ms = self._dispatch_rtt_ms()
+                if self.dispatch_rtt_ms >= CHAIN_RTT_MS:
+                    self.steps_per_dispatch = AUTO_STEPS_PER_DISPATCH
+                    auto.append(f'--steps_per_dispatch {AUTO_STEPS_PER_DISPATCH} (dispatch round '
+                                f'trip {self.dispatch_rtt_ms:.3f} ms)')
+                else:
+                    self.logger.info('Dispatch round trip %.3f ms (under %.1f ms): per-batch '
+                                     'dispatch, no chaining', self.dispatch_rtt_ms, CHAIN_RTT_MS)
+        if auto:
+            self.logger.info('GPU defaults: %s turned on (turn off with --no-device_cache / '
+                             '--no-device_normalise / --steps_per_dispatch 1)', ', '.join(auto))
+
     def resolve_setting_conflicts(self):
         r"""Checks the settings (``experiment_builder.py:1194``)."""
         if not (self.train or self.valid or self.test):
@@ -548,7 +666,14 @@ class ExperimentBuilder(object):
                         'checkpoints would overwrite it. Increase --start_epoch.')
             if self.lr_schedule_name == 'plateau' and not self.valid:
                 raise ValueError("The 'plateau' learning rate schedule needs --valid.")
-        else:
+        if self.steps_per_dispatch > 1:
+            if not self.device_cache:
+                raise ValueError('--steps_per_dispatch > 1 requires --device_cache (a chain '
+                                 'assembles its batches on the device).')
+            if self.settings['debug_nans'] and self.device.type == 'cuda':
+                raise ValueError('--debug_nans reads the device at every module, which a '
+                                 'captured CUDA graph cannot; use --steps_per_dispatch 1.')
+        if not self.train:
             if not self.checkpoint_path:
                 raise ValueError('Validation or testing without training needs '
                                  '--checkpoint_path.')
@@ -728,13 +853,45 @@ class ExperimentBuilder(object):
                     self.length_sort_window, step_epoch)
 
     def load_data(self, data_sources, data_dir, id_list, normalisers=None, name='', shuffle=True):
-        r"""The dataset and batching loader of one split (``experiment_builder.py:1233``)."""
+        r"""The dataset and the device loader of one split
+        (``experiment_builder.py:1233-1318``): with ``--device_normalise`` the
+        device transform, with ``--device_cache`` the corpus on the device
+        (its budget shared by the splits; a corpus over what is left of it
+        falls back to the streaming loader, with a warning)."""
         self.logger.info('Loading %s data using %s from %s/%s',
                          name, id_list, self.data_root, data_dir)
-        dataset = data.FilesDataset(data_sources, data_dir, id_list, normalisers, self.data_root)
-        return data.DataLoader(dataset, batch_size=self.batch_size, shuffle=shuffle,
-                               num_data_threads=self.num_data_threads, seed=self.seed,
-                               length_sort_window=self.length_sort_window if shuffle else 0)
+        dataset = data.FilesDataset(data_sources, data_dir, id_list, normalisers, self.data_root,
+                                    device_normalise=self.device_normalise)
+        device_transform = None
+        if dataset.device_names:
+            from morgana_tpu_torch.data.device_normalise import make_device_transform
+            device_transform, engaged = make_device_transform(
+                data_sources, normalisers, names=dataset.device_names,
+                wire_dtype=data.loader.transfer_dtype_arg(self.transfer_dtype))
+            self.logger.info('%s: device-side normalisation for %s (raw streams only on the '
+                             'host-to-device link)', name, sorted(engaged))
+        device_cache = None
+        if self.device_cache:
+            from morgana_tpu_torch.data.device_cache import CacheOverBudget, DeviceCorpusCache
+            budget = int(self.device_cache_gb * 2 ** 30) or None
+            remaining = None if budget is None else max(budget - self._device_cache_bytes_used, 0)
+            try:
+                device_cache = DeviceCorpusCache(dataset, max_bytes=remaining, device=self.device)
+                self._device_cache_bytes_used += device_cache.bytes
+                self.logger.info('%s: device cache built — %s; a batch crosses the link as index '
+                                 'vectors only (%.3f/%s GiB of the budget used by the splits)',
+                                 name, device_cache.describe(),
+                                 self._device_cache_bytes_used / 2 ** 30,
+                                 f'{self.device_cache_gb:g}')
+            except CacheOverBudget as exc:
+                self.logger.warning('%s: --device_cache falls back to the streaming loader (%s)',
+                                    name, exc)
+        return data.batch(dataset, batch_size=self.batch_size, shuffle=shuffle,
+                          num_data_threads=self.num_data_threads, device=self.device,
+                          seed=self.seed,
+                          length_sort_window=self.length_sort_window if shuffle else 0,
+                          transfer_dtype=self.transfer_dtype, device_transform=device_transform,
+                          device_cache=device_cache)
 
     # ----------------------------------------------------------------- train
 
@@ -767,15 +924,32 @@ class ExperimentBuilder(object):
                 self._resume_loader_lengths = None
             data_loader.set_skip_batches(skip)
         epoch_start = time.perf_counter()
-        losses, frames = self._train_batches(data_loader, lr_schedule, gen_output, out_dir,
-                                             skip, num_batches)
+        # --steps_per_dispatch: consecutive same-shape batches of the cached
+        # corpus as chains (experiment_builder.py:1370-1390); an epoch whose
+        # analysis needs each batch's outputs takes the per-batch loop.
+        use_chain = (self.steps_per_dispatch > 1
+                     and getattr(data_loader, 'device_cache', None) is not None
+                     and not gen_output)
+        if self.steps_per_dispatch > 1 and not use_chain and not self._chain_fallback_logged:
+            self._chain_fallback_logged = True
+            self.logger.info('--steps_per_dispatch: per-batch loop this epoch (%s)',
+                             'its analysis needs every batch\'s outputs' if gen_output
+                             else 'the device cache fell back to the streaming loader')
+        if use_chain:
+            losses, frames = self._chained_train_batches(data_loader, lr_schedule, skip,
+                                                         num_batches)
+        else:
+            losses, frames = self._train_batches(data_loader, lr_schedule, gen_output, out_dir,
+                                                 skip, num_batches)
         if gen_output:
             self.model.analysis_for_train_epoch(out_dir=out_dir, **self.analysis_kwargs)
 
-        # One host transfer for the epoch's losses, which also waits for the
-        # device to finish the epoch before the clock is read.
+        # One host transfer for the epoch's losses (a chain's come as a
+        # vector), which also waits for the device to finish the epoch
+        # before the clock is read; then the device's frame counts.
         batch_losses = [] if not losses else \
-            torch.stack(losses).double().cpu().numpy().tolist()
+            torch.cat([loss.reshape(-1) for loss in losses]).double().cpu().numpy().tolist()
+        frames = sum(float(f) if isinstance(f, (int, float)) else float(f.sum()) for f in frames)
         duration = time.perf_counter() - epoch_start
         self.train_losses[self.epoch] = batch_losses
         if out_dir:
@@ -802,14 +976,17 @@ class ExperimentBuilder(object):
 
     def _train_batches(self, data_loader, lr_schedule, gen_output, out_dir, skip, num_batches):
         """One train step per batch (``experiment_builder.py:1426``). Returns
-        the per-batch device losses and the number of frames trained on."""
+        the per-batch device losses and the frames trained on (host numbers,
+        or device tensors read at the epoch's end)."""
         losses = []
-        frames = 0.
+        frames = []
         pbar = _logging.ProgressBar(num_batches - skip, print_interval=self.log_interval)
         for i, features in zip(pbar, data_loader):
             self.model.step = (self.epoch - 1) * num_batches + skip + i + 1
             if 'n_frames' in features:
-                frames += float(np.sum(features['n_frames']))
+                host = getattr(features, 'host', features)
+                frames.append(float(np.sum(host['n_frames'])) if host is not None
+                              else features['n_frames'])
             lr = lr_schedule.lr if lr_schedule is not None else self.learning_rate
             report = self.memory_report and not self._memory_report_written
             if report and self.device.type == 'cuda':
@@ -842,15 +1019,96 @@ class ExperimentBuilder(object):
                     and (skip + i + 1) % self.step_checkpoint_interval == 0):
                 self._save_step_checkpoint(skip + i + 1, num_batches, lr_schedule)
             if gen_output:
-                self.model.analysis_for_train_batch(features, output_features, out_dir=out_dir,
+                self.model.analysis_for_train_batch(data.host_features(features),
+                                                    output_features, out_dir=out_dir,
                                                     **self.analysis_kwargs)
         return losses, frames
+
+    def _chain_groups(self, loader, cache):
+        """The epoch's batches as ``(idx_mat, lengths)`` groups of at most
+        ``steps_per_dispatch`` consecutive batches of one shape signature
+        (``experiment_builder.py:1480``); the batches, their order and their
+        step numbers are the per-batch loop's."""
+        cur, cur_sig, cur_lengths = [], None, None
+        for idxs in loader.iter_known_batch_indices(cache.item_lengths):
+            lengths = cache.padded_lengths(idxs)
+            sig = cache.batch_signature(idxs, lengths=lengths)
+            if cur and (sig != cur_sig or len(cur) >= self.steps_per_dispatch):
+                yield np.stack(cur), cur_lengths
+                cur = []
+            cur_sig, cur_lengths = sig, lengths
+            cur.append(np.asarray(idxs))
+        if cur:
+            yield np.stack(cur), cur_lengths
+
+    def _chained_train_batches(self, data_loader, lr_schedule, skip, num_batches):
+        """The ``--steps_per_dispatch`` train loop (``experiment_builder.py:1515``):
+        each group one :meth:`~morgana_tpu_torch.training.TrainLoop.train_chain`,
+        its steps' learning rates computed first (a batch-level schedule
+        steps on applied updates), its losses and metric partials merged in
+        step order; the last batch closes an open accumulation cycle, and a
+        step checkpoint lands at the first group end at or past each
+        interval."""
+        cache = data_loader.device_cache
+        loader = data_loader.data_loader
+        post = data_loader.device_transform
+        n_frames = cache.host_stacked('n_frames')
+        losses, frames = [], []
+        done = 0
+        pbar = _logging.ProgressBar(num_batches - skip, print_interval=self.log_interval)
+        try:
+            for idx_mat, lengths in self._chain_groups(loader, cache):
+                n = len(idx_mat)
+                epoch_last = skip + done + n == num_batches
+                flags, _ = self.loop.chain_apply_schedule(n, idx_mat.shape[1],
+                                                          force_apply_last=epoch_last)
+                lrs = []
+                for applied in flags:
+                    lrs.append(lr_schedule.lr if lr_schedule is not None else self.learning_rate)
+                    if applied and lr_schedule is not None and \
+                            self.lr_schedule_name in lr_schedules.BATCH_LR_SCHEDULES:
+                        lr_schedule.step()
+                report = self.memory_report and not self._memory_report_written
+                if report and self.device.type == 'cuda':
+                    torch.cuda.reset_peak_memory_stats(self.device)
+                batch_losses, staged = self.loop.train_chain(
+                    cache, idx_mat, lrs, post=post, force_apply_last=epoch_last, lengths=lengths)
+                if staged is not None:
+                    self.model.metrics.apply_staged(staged, steps=n)
+                self._accumulate_losses(self.model.mode, batch_losses)
+                losses.append(batch_losses)
+                done += n
+                self.model.step = (self.epoch - 1) * num_batches + skip + done
+                if n_frames is not None:
+                    frames.append(float(n_frames[idx_mat.reshape(-1)].sum()))
+                if report:
+                    self._write_memory_report(cache.assemble(idx_mat[0], post=post,
+                                                             lengths=lengths))
+                pbar.advance(n)
+                pbar.maybe_print('train', self.epoch, lambda b=batch_losses: dict(
+                    batch_loss=utils.format_float_tensor(b[-1]),
+                    **self.model.metrics.results_as_str_dict('train')), count=n)
+                if (self.step_checkpoint_interval and self.loop.last_step_applied
+                        and (skip + done) // self.step_checkpoint_interval
+                        > (skip + done - n) // self.step_checkpoint_interval):
+                    self._save_step_checkpoint(skip + done, num_batches, lr_schedule)
+        finally:
+            pbar.close()
+        return losses, frames
+
+    def _accumulate_losses(self, collection, losses):
+        """A chain's ``(n,)`` losses into the ``loss`` metric as n steps, each
+        its own row: the same merges as n per-batch accumulations."""
+        self.model.metrics.apply_staged(
+            [(collection, 'loss', {'sum': losses, 'count': torch.ones_like(losses)})],
+            steps=len(losses))
 
     def _write_memory_report(self, features):
         """``memory_report.txt`` after the first train step
         (``experiment_builder.py:1612``): the loop's state bytes, the step's
         measured peak above them (on the GPU) and the allocator's counters."""
         self._memory_report_written = True
+        features = data.host_features(features)
         program = {f'{k}_bytes': v for k, v in memory.state_bytes(self.loop).items()}
         if self.device.type == 'cuda':
             peak = torch.cuda.max_memory_allocated(self.device)
@@ -980,6 +1238,25 @@ class ExperimentBuilder(object):
             os.makedirs(out_dir, exist_ok=True)
 
         num_batches = len(data_loader)
+        if (self.steps_per_dispatch > 1 and getattr(data_loader, 'device_cache', None) is not None
+                and not gen_output):
+            losses = self._chained_valid_batches(data_loader, use_ema, num_batches)
+        else:
+            losses = self._valid_batches(data_loader, model, use_ema, gen_output, out_dir,
+                                         num_batches)
+        if gen_output:
+            model.analysis_for_valid_epoch(out_dir=out_dir, **self.analysis_kwargs)
+        if out_dir:
+            file_io.save_json(self.model.metrics.results_as_json_dict('valid'),
+                              os.path.join(out_dir, 'metrics.json'))
+        self._log_metrics_to_tensorboard('valid')
+        model.mode = self.model.mode = ''
+        if not losses:
+            return 0.0
+        return float(torch.cat([loss.reshape(-1) for loss in losses]).double().mean().cpu())
+
+    def _valid_batches(self, data_loader, model, use_ema, gen_output, out_dir, num_batches):
+        """One eval step per batch (``experiment_builder.py:1845``)."""
         pbar = _logging.ProgressBar(num_batches, print_interval=self.log_interval)
         losses = []
         for i, features in zip(pbar, data_loader):
@@ -991,18 +1268,37 @@ class ExperimentBuilder(object):
                 batch_loss=utils.format_float_tensor(batch_loss),
                 **self.model.metrics.results_as_str_dict('valid')))
             if gen_output:
-                model.analysis_for_valid_batch(features, output_features, out_dir=out_dir,
-                                               **self.analysis_kwargs)
-        if gen_output:
-            model.analysis_for_valid_epoch(out_dir=out_dir, **self.analysis_kwargs)
-        if out_dir:
-            file_io.save_json(self.model.metrics.results_as_json_dict('valid'),
-                              os.path.join(out_dir, 'metrics.json'))
-        self._log_metrics_to_tensorboard('valid')
-        model.mode = self.model.mode = ''
-        if not losses:
-            return 0.0
-        return float(torch.stack(losses).double().mean().cpu())
+                model.analysis_for_valid_batch(data.host_features(features), output_features,
+                                               out_dir=out_dir, **self.analysis_kwargs)
+        return losses
+
+    def _chained_valid_batches(self, data_loader, use_ema, num_batches):
+        """The ``--steps_per_dispatch`` validation loop (``experiment_builder.py:1869``):
+        each group one :meth:`~morgana_tpu_torch.training.TrainLoop.eval_chain`."""
+        cache = data_loader.device_cache
+        loader = data_loader.data_loader
+        post = data_loader.device_transform
+        losses = []
+        done = 0
+        pbar = _logging.ProgressBar(num_batches, print_interval=self.log_interval)
+        try:
+            for idx_mat, lengths in self._chain_groups(loader, cache):
+                n = len(idx_mat)
+                self.model.step = (self.epoch - 1) * num_batches + done + n
+                batch_losses, staged = self.loop.eval_chain(cache, idx_mat, post=post,
+                                                            use_ema=use_ema, lengths=lengths)
+                if staged is not None:
+                    self.model.metrics.apply_staged(staged, steps=n)
+                self._accumulate_losses('valid', batch_losses)
+                losses.append(batch_losses)
+                done += n
+                pbar.advance(n)
+                pbar.maybe_print('valid', self.epoch, lambda b=batch_losses: dict(
+                    batch_loss=utils.format_float_tensor(b[-1]),
+                    **self.model.metrics.results_as_str_dict('valid')), count=n)
+        finally:
+            pbar.close()
+        return losses
 
     def run_valid(self, gen_output):
         r"""Validation of the current epoch (``experiment_builder.py:1915``)."""
@@ -1030,8 +1326,8 @@ class ExperimentBuilder(object):
         for i, features in zip(pbar, data_loader):
             self.model.step = (self.epoch - 1) * num_batches + i + 1
             output_features = self.loop.predict_step(features, use_ema=use_ema)
-            model.analysis_for_test_batch(features, output_features, out_dir=out_dir,
-                                          **self.analysis_kwargs)
+            model.analysis_for_test_batch(data.host_features(features), output_features,
+                                          out_dir=out_dir, **self.analysis_kwargs)
         model.analysis_for_test_epoch(out_dir=out_dir, **self.analysis_kwargs)
         if out_dir:
             file_io.save_json(self.model.metrics.results_as_json_dict('test'),
@@ -1054,7 +1350,13 @@ class ExperimentBuilder(object):
         writes ``batch_size_search.txt``. Each probe is one full train step
         at learning rate 0 on the first batch's rows, repeated to size."""
         limit_bytes = int(self.search_batch_size * 2 ** 30)
-        probe_batch = next(iter(self.train_loader))
+        # The device caches' arenas are resident through every probe, so the
+        # measured peak (the allocator's) already holds them: the search
+        # leaves room for them (experiment_builder.py:1986-1996) by measuring.
+        caches = [getattr(getattr(self, f'{split}_loader', None), 'device_cache', None)
+                  for split in ('train', 'valid', 'test')]
+        cache_bytes = sum(cache.bytes for cache in caches if cache is not None)
+        probe_batch = data.host_features(next(iter(self.train_loader)))
         self.model.mode = 'train'
         self.model.metrics.reset_state('train')
         try:
@@ -1069,6 +1371,9 @@ class ExperimentBuilder(object):
                  f'{torch.cuda.get_device_name(self.device)}', '',
                  f"Probed at the first batch's padded length (max_len={max_len}); longer "
                  'batches take more: leave headroom.', '']
+        if cache_bytes:
+            lines += [f'Each measured peak includes the device cache: {cache_bytes} bytes '
+                      'resident.', '']
         if best is None:
             lines.append(f'No batch size fits: even batch {min(probes) if probes else 1} '
                          'exceeds the limit.')

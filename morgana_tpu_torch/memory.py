@@ -34,6 +34,8 @@ class MemoryAnalysisUnavailable(RuntimeError):
 
 
 def _numeric(features):
+    from morgana_tpu_torch.data import host_features
+    features = host_features(features)
     return {key: value for key, value in features.items()
             if isinstance(value, np.ndarray) and value.dtype.kind in 'fiub'}
 
@@ -58,10 +60,10 @@ def batch_at(features, batch_size):
     """A collated batch of ``batch_size`` rows with :func:`batch_shapes_at`'s
     shapes: the rows of ``features`` repeated in turn (names and other host
     values left out)."""
-    shapes = batch_shapes_at(features, batch_size)
-    rows = next(iter(_numeric(features).values())).shape[0]
+    numeric = _numeric(features)
+    rows = next(iter(numeric.values())).shape[0]
     take = np.arange(batch_size) % rows
-    return {key: np.ascontiguousarray(features[key][take]) for key in shapes}
+    return {key: np.ascontiguousarray(value[take]) for key, value in numeric.items()}
 
 
 def find_max_batch_size(peak_bytes_fn, limit_bytes, start=1, max_batch=4096, granularity=1):

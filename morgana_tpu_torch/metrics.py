@@ -9,6 +9,11 @@ host transfer for all that are pending, the next time a result is read. So a
 train step causes no host round trip, as the JAX package's staging does
 (``metrics.py:133-250``).
 
+A chain of steps (``--steps_per_dispatch`` on the GPU, CUDA graph replays)
+writes each step's partials into a row of tensors stacked over the chain;
+:meth:`Handler.apply_staged` takes them with ``steps=N`` and merges the rows
+in step order, the same as N separate accumulations.
+
 The classes are those that the port's models register and their bases; the
 JAX package's other metrics come with the model that first registers them.
 """
@@ -16,6 +21,7 @@ from collections.abc import Iterable
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from morgana_tpu_torch import utils
 from morgana_tpu_torch.ops.masking import sequence_mask
@@ -128,7 +134,9 @@ class Handler(StatefulMetric):
         self.collections = {'all': metrics, 'train': {}, 'valid': {}, 'test': {}}
         self.metrics = self.collections['all']
         self.add_metrics(('train', 'valid'), **metrics)
-        # Accumulated partials awaiting their host merge: [(collection, name, partials)].
+        # Accumulated partials awaiting their host merge:
+        # [(collection, name, partials, row)], ``row`` None or the row of
+        # stacked partials to merge.
         self._pending = []
 
     def __getitem__(self, name):
@@ -166,8 +174,17 @@ class Handler(StatefulMetric):
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        values = _to_host([partials for _, _, partials in pending])
-        for (collection, name, _), value in zip(pending, values):
+        # Stacked partials shared by several rows go to the host once.
+        trees, index = [], {}
+        for _, _, partials, _ in pending:
+            if id(partials) not in index:
+                index[id(partials)] = len(trees)
+                trees.append(partials)
+        values = _to_host(trees)
+        for collection, name, partials, row in pending:
+            value = values[index[id(partials)]]
+            if row is not None:
+                value = tree_map(lambda x: x[row] if isinstance(x, np.ndarray) else x, value)
             metric = self.collections[collection][name]
             metric.hidden = metric._hidden
             metric.merge(value)
@@ -186,7 +203,33 @@ class Handler(StatefulMetric):
             metric = self.collections[collection][metric_name]
             with torch.no_grad():
                 partials = metric.partials(*inputs, **kwinputs)
-            self._pending.append((collection, metric_name, partials))
+            self._pending.append((collection, metric_name, partials, None))
+
+    def staged(self, since):
+        """The partials accumulated since the pending list held ``since``
+        entries, taken out of it as ``[(collection, name, partials)]``: a
+        captured step's partials, which it writes into stacked rows."""
+        taken = self._pending[since:]
+        del self._pending[since:]
+        return [(collection, name, partials) for collection, name, partials, _ in taken]
+
+    def apply_staged(self, staged, steps=None):
+        """Merges staged partials at the next read (``metrics.py:160-175``).
+        ``staged`` is ``[(collection, name, partials)]``; with ``steps=N``
+        every tensor of the partials is stacked over a leading axis of N
+        steps, and the rows merge in step order: the same as N separate
+        :meth:`accumulate` calls. ``staged`` may also be a list of N such
+        lists, one a step, for a chain whose steps staged different metrics
+        (the row of step ``i`` is then row ``i`` of its own list's
+        tensors)."""
+        if steps is None:
+            self._pending.extend((c, n, p, None) for c, n, p in staged)
+            return
+        per_step = staged if staged and isinstance(staged[0], list) else [staged] * steps
+        if len(per_step) != steps:
+            raise ValueError(f'apply_staged: {len(per_step)} lists of partials for {steps} steps')
+        for row, entries in enumerate(per_step):
+            self._pending.extend((c, n, p, row) for c, n, p in entries)
 
     def result(self, collection='all', *args):
         self.flush()
@@ -223,8 +266,9 @@ class Mean(StatefulMetric):
     def partials(self, tensor, seq_len=None):
         tensor = _tensor(tensor)
         if seq_len is None:
+            # A fill, not a copy from the host: a captured step takes it.
             return {'sum': torch.sum(tensor),
-                    'count': torch.tensor(float(tensor.numel()), device=tensor.device)}
+                    'count': torch.full((), float(tensor.numel()), device=tensor.device)}
         mask = sequence_mask(seq_len, max_len=tensor.shape[1], dtype=tensor.dtype)
         return {'sum': torch.sum(tensor * mask), 'count': torch.sum(mask)}
 

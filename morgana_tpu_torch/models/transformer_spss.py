@@ -40,7 +40,7 @@ class TransformerAcousticModel(LSTMAcousticModel):
     makes every ``moe_every``-th block's FFN a
     :class:`~morgana_tpu_torch.nn.MoEFeedForward` with ``moe_capacity_factor``
     and ``moe_aux_weight``, on one device. Pipeline, expert and sequence
-    parallelism and ``remat`` are not ported yet and raise;
+    parallelism are not ported yet and raise (``remat`` is);
     ``pipeline_microbatches`` only matters with them."""
 
     def __init__(self, input_dim=600 + 9, output_dims=None, dropout_prob=0.,

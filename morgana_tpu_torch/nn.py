@@ -17,6 +17,15 @@ float32. It is a process global, read at each call, as the JAX package
 reads its own while it traces. A 'pallas' ``Recurrent`` ignores it (f32, or
 its storage type), as the JAX package's Pallas kernels do; a layer's own
 ``compute_dtype`` overrides it.
+
+Rematerialisation (``--remat``, ``nn.py:83``): :func:`set_default_remat`
+(or a layer's own ``remat``) checkpoints each layer of a ``Recurrent`` and
+each block of a ``TransformerEncoder`` with
+``torch.utils.checkpoint(use_reentrant=False)``: their activations are not
+kept for the backward pass but recomputed in it, with the same noise (the
+state of the step's generator is saved at the block's forward and restored
+for its recomputation) and, for an LSTM layer on the GPU, kernel K1 writing
+its gate trace in the recomputation only.
 """
 import contextlib
 import math
@@ -40,11 +49,73 @@ __all__ = ['Linear', 'Sigmoid', 'Dropout', 'LayerNorm', 'GELU', 'Conv1d', 'Modul
            'Recurrent', 'GRU', 'MultiHeadAttention', 'MoEFeedForward', 'TransformerEncoderLayer',
            'TransformerEncoder', 'SequentialWithRecurrent', 'load_jax_params', 'state_dict',
            'ema_update', 'set_default_compute_dtype', 'default_compute_dtype', 'aux_loss',
-           'collected_aux_loss', 'collect_aux_losses']
+           'collected_aux_loss', 'collect_aux_losses', 'set_default_remat', 'default_remat']
 
 _NOT_PORTED = 'is not ported yet (ROADMAP.md)'
 
 _DEFAULT_COMPUTE_DTYPE = None
+_DEFAULT_REMAT = False
+
+
+def set_default_remat(enabled):
+    """Sets the process's rematerialisation default (``nn.py:83``), which a
+    layer's ``remat=None`` reads at each call."""
+    global _DEFAULT_REMAT
+    _DEFAULT_REMAT = bool(enabled)
+
+
+def default_remat():
+    return _DEFAULT_REMAT
+
+
+def _noise_generators(module):
+    """The generators ``module``'s noise is drawn from in this call: those
+    of its modules that draw (dropout and attention dropout in training)."""
+    if module is None:
+        return []
+    found = {}
+    for m in module.modules():
+        generator = getattr(m, 'generator', None)
+        draws = m.training and (getattr(m, 'p', 0.0) or getattr(m, 'dropout_p', 0.0))
+        if generator is not None and draws:
+            found[id(generator)] = generator
+    return list(found.values())
+
+
+def _checkpointed(module, fn, *args):
+    """``fn(*args)`` checkpointed (non-reentrant): recomputed in the
+    backward pass. The noise generators of ``module`` (None: ``fn`` draws
+    no noise) are restored to their
+    state at the forward for the recomputation (``torch.utils.checkpoint``
+    keeps only the global generators' states), and an LSTM kernel skips its
+    gate trace in the forward (the recomputation writes it; the checkpoint
+    then matches saved tensors by position, ``determinism_check='none'``)."""
+    generators = _noise_generators(module)
+    saved = []
+
+    @contextlib.contextmanager
+    def forward():
+        if generators and torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise NotImplementedError('remat of a block that draws noise inside a captured CUDA '
+                                      'graph: run --remat with --steps_per_dispatch 1')
+        saved[:] = [g.get_state() for g in generators]
+        with lstm_ops.skip_gate_trace():
+            yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in generators]
+        for g, state in zip(generators, saved):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(generators, now):
+                g.set_state(state)
+
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             context_fn=lambda: (forward(), recompute()),
+                                             determinism_check='none')
 
 
 def set_default_compute_dtype(dtype):
@@ -307,7 +378,8 @@ class Recurrent(nn.Module):
     """
 
     def __init__(self, mode, input_size, hidden_size, num_layers=1, dropout=0.0,
-                 backend='scan', bidirectional=False, compute_dtype=None, generator=None):
+                 backend='scan', bidirectional=False, compute_dtype=None, generator=None,
+                 remat=None):
         super().__init__()
         precision.as_compute_dtype(compute_dtype)   # raises on a dtype the port lacks
         mode = mode.lower()
@@ -322,6 +394,7 @@ class Recurrent(nn.Module):
         self.mode = mode
         self.backend = backend
         self.compute_dtype = compute_dtype
+        self.remat = remat
         self.num_layers = num_layers
         self.dropout = Dropout(dropout) if dropout else None  # between layers
         gates = (4 if mode == 'lstm' else 3) * hidden_size
@@ -354,6 +427,7 @@ class Recurrent(nn.Module):
             compute = precision.as_compute_dtype(self.compute_dtype)
         else:
             compute = _DEFAULT_COMPUTE_DTYPE
+        remat = self.remat if self.remat is not None else _DEFAULT_REMAT
         x = inputs
         new_hidden = []
         for i in range(self.num_layers):
@@ -363,11 +437,17 @@ class Recurrent(nn.Module):
                 h0, c0 = (None, None) if hidden[i] is None else hidden[i]
                 store = lstm_ops.STORE_DTYPE if self.backend == 'pallas' \
                     and not parametrize.is_parametrized(self) else None
-                x, state = lstm_ops.lstm_layer(x, *weights, seq_len=seq_len, h0=h0, c0=c0,
+
+                def layer(x, *w, h0=h0, c0=c0, store=store):
+                    return lstm_ops.lstm_layer(x, *w, seq_len=seq_len, h0=h0, c0=c0,
                                                store_dtype=store, compute_dtype=compute)
             else:
-                x, state = gru_layer(x, *weights, seq_len=seq_len, h0=hidden[i],
-                                     compute_dtype=compute)
+                def layer(x, *w, h0=hidden[i]):
+                    return gru_layer(x, *w, seq_len=seq_len, h0=h0, compute_dtype=compute)
+            # With remat each layer is checkpointed (nn.py:720-760); the
+            # dropout between layers stays outside.
+            x, state = (_checkpointed(None, layer, x, *weights) if remat
+                        else layer(x, *weights))
             new_hidden.append(state)
             if self.dropout is not None and i < self.num_layers - 1:
                 x = self.dropout(x)
@@ -610,7 +690,8 @@ class TransformerEncoder(nn.Module):
     through per-block KV caches (:meth:`init_stream_state`, :meth:`step`).
     With ``moe`` (the :class:`MoEFeedForward` keyword dict) every
     ``moe_every``-th block's FFN is a mixture of experts (``nn.py:1343``).
-    ``remat`` and ``activation_sharding`` are not ported yet."""
+    ``remat`` (None: the process default) checkpoints each block
+    (``nn.py:1353-1370``); ``activation_sharding`` is not ported yet."""
 
     accepts_seq_len = True
 
@@ -620,14 +701,13 @@ class TransformerEncoder(nn.Module):
         super().__init__()
         if window is not None and not causal:
             raise ValueError('window (sliding-window attention) requires causal=True')
-        if remat:
-            raise NotImplementedError(f'remat (rematerialised blocks) {_NOT_PORTED}')
         if activation_sharding is not None:
             raise NotImplementedError(f'activation_sharding (sequence parallelism) {_NOT_PORTED}')
         self.d_model = d_model
         self.add_positions = add_positions
         self.causal = causal
         self.window = window
+        self.remat = remat
         self.blocks = ModuleList([
             TransformerEncoderLayer(
                 d_model, num_heads, d_ff, dropout=dropout, attention_backend=attention_backend,
@@ -639,8 +719,14 @@ class TransformerEncoder(nn.Module):
         if self.add_positions:
             x = x + attention_ops.sinusoidal_positions(x.shape[1], self.d_model, dtype=x.dtype,
                                                        device=x.device)
+        remat = self.remat if self.remat is not None else _DEFAULT_REMAT
         for block in self.blocks:
-            x = block(x, seq_len=seq_len, causal=self.causal, window=self.window)
+            if remat:
+                x = _checkpointed(block, lambda t, b=block: b(t, seq_len=seq_len,
+                                                              causal=self.causal,
+                                                              window=self.window), x)
+            else:
+                x = block(x, seq_len=seq_len, causal=self.causal, window=self.window)
         return self.norm(x)
 
     def init_stream_state(self, batch, dtype=torch.float32, device=None):

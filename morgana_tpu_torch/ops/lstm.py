@@ -58,8 +58,10 @@ Outputs past ``seq_len`` are zeroed and the final ``(h, c)`` is gathered at
 ``seq_len - 1`` (``h0``/``c0`` for empty rows), which is exactly the state a
 recurrence stopped at ``seq_len`` would hold (``pallas_rnn.py:298-347``).
 """
+import contextlib
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -472,8 +474,11 @@ class _Recurrence(torch.autograd.Function):
         if plain:
             y, c_all, g_all, hn, cn = lstm_recurrence_reference(xg.to(store), w_s, h0, c0, bf16)
         else:
+            gates = not getattr(_SKIP_GATES, 'on', False)
             y, c_all, g_all, hn, cn = lstm_recurrence(xg.to(store), w_s, h0, c0,
-                                                      with_gates=True, compute_bf16=bf16)
+                                                      with_gates=gates, compute_bf16=bf16)
+            if g_all is None:
+                g_all = xg.new_empty((0,))
         ctx.plain, ctx.bf16 = plain, bf16
         ctx.save_for_backward(w_s, h0, c0, y, c_all, g_all)
         return y, c_all, hn, cn
@@ -500,6 +505,22 @@ class _Recurrence(torch.autograd.Function):
                                  dxg.reshape(time * batch, 4 * hidden).float())
         # dh0 and dc0 pass through the storage type (pallas_rnn.py:272-273).
         return dxg.float(), dw_hh, dh0.to(store).float(), dc0.to(store).float(), None, None, None
+
+
+_SKIP_GATES = threading.local()
+
+
+@contextlib.contextmanager
+def skip_gate_trace():
+    """The first forward of a checkpointed layer (``nn`` remat): K1 runs
+    without its gate trace, which the recomputation in the backward pass
+    writes; what the forward saves in its place is never read."""
+    before = getattr(_SKIP_GATES, 'on', False)
+    _SKIP_GATES.on = True
+    try:
+        yield
+    finally:
+        _SKIP_GATES.on = before
 
 
 def _needs_grad(*tensors):

@@ -445,7 +445,9 @@ class InferenceEngine(object):
     def _loader(self, data_dir, id_list=None, file_ids=None, sources=None):
         """Batches of ``data_dir``'s utterances named by ``id_list`` (a file
         under ``data_root``) or else by ``file_ids``, read by ``sources``
-        (default: the model's test data sources). The ids go to a
+        (default: the model's test data sources), moved to the engine's
+        device ahead of their use by the prefetching loader
+        (``serve.py:376``). The ids go to a
         temporary id-list (never into data_root, which may be read-only);
         the dataset reads it in its constructor."""
         tmp = None
@@ -463,10 +465,12 @@ class InferenceEngine(object):
             if tmp:
                 os.unlink(tmp)
         return data.batch(dataset, batch_size=self.batch_size,
-                          num_data_threads=self.num_data_threads)
+                          num_data_threads=self.num_data_threads, device=self.device)
 
     def _collect(self, model, features, results):
-        unpadded = self._unpad(features, self._predict(model, features))
+        outputs = self._predict(model, features)
+        features = data.host_features(features)
+        unpadded = self._unpad(features, outputs)
         for b, name in enumerate(features['name']):
             results[name] = {k: v[b] for k, v in unpadded.items()}
 
@@ -535,6 +539,7 @@ class InferenceEngine(object):
             self._synchronize()
             marks.append(time.perf_counter())
             outputs = {key: to_numpy(value) for key, value in outputs.items()}
+            features = data.host_features(features)
             marks.append(time.perf_counter())
             self.model.analysis_for_test_batch(features, outputs, out_dir, **self.analysis_kwargs)
             marks.append(time.perf_counter())
@@ -575,7 +580,7 @@ class InferenceEngine(object):
 
     def stream_id(self, file_id, data_dir='test', chunk_frames=64, context=32, lookahead=16):
         """Streams one utterance of ``data_dir`` by id; see :meth:`stream_item`."""
-        features = next(iter(self._loader(data_dir, file_ids=[file_id])))
+        features = data.host_features(next(iter(self._loader(data_dir, file_ids=[file_id]))))
         return self._stream_session(chunk_frames, context, lookahead).stream(features)
 
     def stream_item_audio(self, item, chunk_frames=64, context=32, lookahead=16,

@@ -1,7 +1,9 @@
 """The builder's training machinery on the card: gradient accumulation of an
 LSTM model through K1 and K2 against one step on the concatenated batch,
-LAMB's trust-ratio update on the card against the CPU, and the batch-size
-search's measured peak against its limit. Every test is marked ``cuda`` and
+LAMB's trust-ratio update on the card against the CPU, the batch-size
+search's measured peak against its limit, and chains of steps captured in
+CUDA graphs and replayed against the eager steps (a longer or wider chain
+than those before making the chain buffers anew). Every test is marked ``cuda`` and
 skips without a GPU. The file imports neither JAX nor the JAX package::
 
     python -m pytest --noconftest tests/test_torch_builder_cuda.py -m cuda -q
@@ -121,3 +123,70 @@ def test_the_measured_peak_probe_stays_under_its_limit(cuda_device, corpus):
     assert memory.measure_train_step(loop, memory.batch_at(features, best)) <= limit
     above = min(b for b in probes if b > best)
     assert probes[above] > limit
+
+
+@pytest.mark.parametrize('dropout', [0.0, 0.3])
+def test_a_captured_chain_replays_the_eager_steps(cuda_device, corpus, dropout):
+    """train_chain on the device cache (the first step of the shape
+    uncaptured, the second captured into a CUDA graph, the rest replays,
+    with dropout drawing from the step generator) against the eager
+    train_step on the same cached batches: per-step losses, the parameters
+    and the metric results bit for bit; one graph captured."""
+    from morgana_tpu_torch.data.device_cache import DeviceCorpusCache
+
+    loops = []
+    for _ in range(2):
+        loop = _loop(corpus, cuda_device, seed=4)
+        for module in loop.model.modules():
+            if isinstance(module, nn.Dropout):
+                module.p = dropout
+        loops.append(loop)
+    dataset = data.FilesDataset(loops[0].model.train_data_sources(), 'train',
+                                'train/train_file_id_list.scp', loops[0].model.normalisers,
+                                corpus)
+    cache = DeviceCorpusCache(dataset, device=cuda_device)
+    order = np.array([[0, 1, 2, 3], [4, 5, 6, 7], [3, 2, 1, 0], [7, 6, 5, 4]])
+    lengths = cache.padded_lengths(order.reshape(-1))
+    lrs = [0.1, 0.05, 0.1, 0.02]
+    chained, staged = loops[0].train_chain(cache, order, lrs, lengths=lengths)
+    loops[0].model.metrics.apply_staged(staged, steps=len(order))
+    eager = [loops[1].train_step(cache.assemble(idxs, lengths=lengths), lr)[0]
+             for idxs, lr in zip(order, lrs)]
+    assert loops[0]._graphs.captures == 1
+    assert torch.equal(chained, torch.stack(eager))
+    for a, b in zip(loops[0].model.parameters(), loops[1].model.parameters()):
+        assert torch.equal(a, b)
+    assert loops[0].model.metrics.results_as_json_dict('train') == \
+        loops[1].model.metrics.results_as_json_dict('train')
+
+
+def test_a_longer_or_wider_chain_makes_the_chain_buffers_anew(cuda_device, corpus):
+    """Chains of 2 steps of B4, then 70 of B4 (longer than any before), then
+    3 of B8 (wider): each longer or wider chain makes the loop's chain
+    buffers anew and captures its steps again (three graphs in all); every
+    step's loss and the parameters bit for bit the eager train_step's on
+    the same cached batches."""
+    from morgana_tpu_torch.data.device_cache import DeviceCorpusCache
+
+    loops = [_loop(corpus, cuda_device, seed=5) for _ in range(2)]
+    dataset = data.FilesDataset(loops[0].model.train_data_sources(), 'train',
+                                'train/train_file_id_list.scp', loops[0].model.normalisers,
+                                corpus)
+    cache = DeviceCorpusCache(dataset, device=cuda_device)
+    rng = np.random.default_rng(0)
+    chains = [np.stack([rng.permutation(8)[:batch] for _ in range(n)])
+              for n, batch in ((2, 4), (70, 4), (3, 8))]
+    lengths = cache.padded_lengths(np.arange(8))
+    chained, eager = [], []
+    for order in chains:
+        lrs = [0.01] * len(order)
+        losses, staged = loops[0].train_chain(cache, order, lrs, lengths=lengths)
+        loops[0].model.metrics.apply_staged(staged, steps=len(order))
+        chained.append(losses)
+        eager += [loops[1].train_step(cache.assemble(idxs, lengths=lengths), lr)[0]
+                  for idxs, lr in zip(order, lrs)]
+    graphs = loops[0]._graphs
+    assert (graphs.captures, graphs.rows, graphs.max_batch) == (3, 70, 8)
+    assert torch.equal(torch.cat(chained), torch.stack(eager))
+    for a, b in zip(loops[0].model.parameters(), loops[1].model.parameters()):
+        assert torch.equal(a, b)

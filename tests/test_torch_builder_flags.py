@@ -43,14 +43,22 @@ try:
 finally:
     sys.path.pop(0)
 
-#: The JAX builder's option strings the port does not have yet.
+#: The JAX builder's option strings the port does not have yet (ROADMAP.md
+#: Queue 1 item 10, parallelism).
 MISSING = {'--data_parallel', '--fsdp', '--tensor_parallel', '--shard_map_step', '--multihost',
-           '--orbax_dir', '--device_cache', '--no-device_cache', '--device_cache_gb',
-           '--device_normalise', '--no-device_normalise', '--steps_per_dispatch', '--remat',
-           '--transfer_dtype'}
+           '--orbax_dir'}
 # An argument for each that takes one.
-MISSING_VALUES = {'--tensor_parallel': '2', '--orbax_dir': 'ob', '--device_cache_gb': '1',
-                  '--steps_per_dispatch': '4', '--transfer_dtype': 'bfloat16'}
+MISSING_VALUES = {'--tensor_parallel': '2', '--orbax_dir': 'ob'}
+#: The fast-path options the port took over, each with its arguments and the
+#: settings it gives, as the JAX builder's parser gives them.
+FAST_PATH = {'--device_cache': ([], {'device_cache': True}),
+             '--no-device_cache': ([], {'device_cache': False}),
+             '--device_cache_gb': (['1'], {'device_cache_gb': 1.0}),
+             '--device_normalise': ([], {'device_normalise': True}),
+             '--no-device_normalise': ([], {'device_normalise': False}),
+             '--steps_per_dispatch': (['4'], {'steps_per_dispatch': 4}),
+             '--remat': ([], {'remat': True}),
+             '--transfer_dtype': (['bfloat16'], {'transfer_dtype': 'bfloat16'})}
 
 
 @pytest.fixture(scope='module')
@@ -125,6 +133,25 @@ def test_the_port_has_every_jax_option_but_the_listed_ones():
     assert port_options - jax_options == set()
 
 
+@pytest.mark.parametrize('option', sorted(FAST_PATH))
+def test_a_fast_path_option_parses_as_the_jax_builders(option):
+    """Each option the port took over gives the setting the JAX builder's
+    parser gives, and the JAX defaults without it (None: automatic)."""
+    value, want = FAST_PATH[option]
+    argv = ['--experiment_name', 'x', option, *value]
+    jparser = argparse.ArgumentParser()
+    JBuilder.add_args(jparser)
+    jargs = vars(jparser.parse_args(argv))
+    args = TBuilder.get_experiment_args(argv)
+    for key, setting in want.items():
+        assert args[key] == jargs[key] == setting, key
+    defaults = TBuilder.get_experiment_args(['--experiment_name', 'x'])
+    jdefaults = vars(jparser.parse_args(['--experiment_name', 'x']))
+    for key in ('device_cache', 'device_cache_gb', 'device_normalise', 'steps_per_dispatch',
+                'remat', 'transfer_dtype'):
+        assert defaults[key] == jdefaults[key], key
+
+
 @pytest.mark.parametrize('option', sorted(MISSING))
 def test_a_missing_option_is_an_argparse_error_naming_the_roadmap(option, capsys):
     value = [MISSING_VALUES[option]] if option in MISSING_VALUES else []
@@ -152,8 +179,8 @@ def test_config_replays_a_jax_config(runs, capsys):
 
 
 @pytest.mark.parametrize('key,value,default', [
-    ('data_parallel', True, False), ('steps_per_dispatch', 4, None),
-    ('transfer_dtype', 'bfloat16', None), ('remat', True, False)])
+    ('data_parallel', True, False), ('tensor_parallel', 2, 1),
+    ('orbax_dir', 'ob', None), ('fsdp', True, False)])
 def test_a_config_key_of_a_missing_flag_not_at_its_default_is_an_error(runs, tmp_path, capsys,
                                                                        key, value, default):
     """Such a key set away from the JAX default is the flag's argparse

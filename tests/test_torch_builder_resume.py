@@ -113,7 +113,7 @@ def runs(short_voice_data, tmp_path_factory):
     _interrupted(_jax(root, base, 'jax', init))
     _port(root, base, 'jax', 'latest').run_experiment()
     _jax(root, base, 'port_for_jax', 'latest').run_experiment()
-    return {'root': root, 'base': base, 'position': position,
+    return {'root': root, 'base': base, 'init': init, 'position': position,
             **{name: str(base / name) for name in ('whole', 'port', 'jax', 'port_for_jax',
                                                    'interrupted')}}
 
@@ -196,3 +196,27 @@ def test_latest_without_checkpoints_starts_afresh(runs, tmp_path):
     exp = _port(runs['root'], tmp_path, 'fresh', 'latest', ema_checkpoint_path='latest')
     assert exp.checkpoint_path is None and exp.ema_checkpoint_path is None
     assert exp.start_epoch == 1 and exp.loop.step_count == 0
+
+
+@pytest.mark.parametrize('steps_per_dispatch', [1, 2], ids=['per_batch', 'chained'])
+def test_a_resume_over_the_device_cache_is_bit_exact(runs, tmp_path, steps_per_dispatch):
+    """The accelerator's defaults on the CPU (``--device_cache
+    --device_normalise``; chained: ``--steps_per_dispatch 2`` as well): a run
+    interrupted in epoch 2 and finished with ``--checkpoint_path latest``
+    (the mid-epoch skip over the cache's batches) ends on the uninterrupted
+    run's parameters and EMA bit for bit, and both record the item lengths
+    that the host path's run recorded (the length-sorted orders are the
+    host path's)."""
+    cached = dict(device_cache=True, device_normalise=True, steps_per_dispatch=steps_per_dispatch)
+    root, init = runs['root'], runs['init']
+    _port(root, tmp_path, 'whole', init, **cached).run_experiment()
+    _interrupted(_port(root, tmp_path, 'cut', init, **cached))
+    _port(root, tmp_path, 'cut', 'latest', **cached).run_experiment()
+    for name in ('epoch_2.npz', 'epoch_2_ema.npz'):
+        want, got = _params(str(tmp_path / 'whole'), name), _params(str(tmp_path / 'cut'), name)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f'{name} {k}')
+    lengths = [tckpt.load_training_state(os.path.join(run, 'checkpoints', 'step.train.pkl'))
+               ['extra']['loader_lengths'] for run in (runs['whole'], str(tmp_path / 'whole'))]
+    assert lengths[0] == lengths[1]

@@ -347,9 +347,9 @@ print(json.dumps({'cxx_runs': _build.cxx_runs, 'nvcc_runs': _build.nvcc_runs,
 def test_compilation_cache_dir_is_where_libraries_are_built_and_found(voice_data, checkpoints,
                                                                        tmp_path):
     """The serving command line with --compilation_cache_dir: the first
-    process builds the vocoder's native library (on the CPU, the one
-    compiled library of the path) into that directory, a second process
-    finds it there and runs no compiler."""
+    process builds the vocoder's native library and the native batch
+    reader's (on the CPU, the two compiled libraries of the path) into that
+    directory, a second process finds them there and runs no compiler."""
     cache = tmp_path / 'cache'
     argv = ['--model', 'morgana_tpu_torch.models.f0_test_model:F0Model', '--checkpoint_path',
             checkpoints['f0'], '--data_root', voice_data['data_root'], '--device', 'cpu',
@@ -362,6 +362,7 @@ def test_compilation_cache_dir_is_where_libraries_are_built_and_found(voice_data
         assert proc.returncode == 0, proc.stderr
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         assert os.listdir(tmp_path / f'gen{i}' / 'synth')
-    assert [r['cxx_runs'] for r in runs] == [1, 0] and [r['nvcc_runs'] for r in runs] == [0, 0]
+    assert [r['cxx_runs'] for r in runs] == [2, 0] and [r['nvcc_runs'] for r in runs] == [0, 0]
     assert runs[0]['build_dir'] == str(cache)
-    assert [f for f in os.listdir(cache) if f.startswith('world_synth') and f.endswith('.so')]
+    for library in ('world_synth', 'batch_io'):
+        assert [f for f in os.listdir(cache) if f.startswith(library) and f.endswith('.so')]

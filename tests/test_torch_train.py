@@ -159,8 +159,8 @@ def test_flags_and_settings_the_port_lacks_are_errors(trained):
     with pytest.raises(SystemExit):
         TBuilder.get_experiment_args(argv + ['--data_parallel'])
     args = TBuilder.get_experiment_args(argv)
-    with pytest.raises(TypeError, match='remat'):
-        TBuilder(TModel, remat=True, **args)
+    with pytest.raises(TypeError, match='data_parallel'):
+        TBuilder(TModel, data_parallel=True, **args)
     # --test is ported: with --test_id_list it builds the test loader.
     exp = TBuilder(TModel, **dict(args, test=True, test_id_list='test/test_file_id_list.scp'))
     assert len(exp.test_loader) == 1

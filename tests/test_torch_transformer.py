@@ -184,8 +184,29 @@ def test_checkpoints_cross_in_both_directions(trained, full_width, tmp_path):
                                     {'remat': True}],
                          ids=['pipeline', 'moe', 'expert_parallel', 'sequence_parallel', 'remat'])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        TModel(**CUT, **kwargs)
+    """The parallel options raise NotImplementedError naming ROADMAP.md;
+    ``remat`` is ported: every block of the encoder is checkpointed, and a
+    train step's loss and gradients equal those without it."""
+    if 'remat' not in kwargs:
+        with pytest.raises(NotImplementedError, match='not ported yet'):
+            TModel(**CUT, **kwargs)
+        return
+    rng = np.random.default_rng(4)
+    batch = {'normalised_lab': torch.from_numpy(rng.normal(size=(2, 5, 600)).astype(np.float32)),
+             'dur': torch.tensor([[3, 4, 2, 1, 0], [2, 2, 2, 2, 2]]),
+             'normalised_counters': torch.from_numpy(
+                 rng.normal(size=(2, 10, 9)).astype(np.float32)),
+             'n_frames': torch.tensor([10, 10])}
+    grads = []
+    for remat in (None, True):
+        torch.manual_seed(0)
+        model = TModel(**CUT, **dict(kwargs, remat=remat))
+        x = model.stream_inputs(batch)
+        y = model.layers(x, seq_len=batch['n_frames'])
+        grads.append(torch.autograd.grad(y.square().sum(), list(model.parameters())))
+    assert [m.remat for m in model.modules() if isinstance(m, tnn.TransformerEncoder)] == [True]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_unported_paths_raise():
